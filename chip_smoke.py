@@ -1,0 +1,533 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (littlegan_tpu_torch) on one NVIDIA GPU, end to end.
+
+    python3 chip_smoke.py        # from the repository root, one CUDA card
+
+Phases, each of which fails the run on any error:
+
+  (a) print the card's name and power limit, build the CUDA kernels from
+      ``littlegan_tpu_torch/csrc`` with nvcc and print the build time;
+  (b) hold every kernel against its plain PyTorch version on the card at the
+      serve path's shapes (batch 8, 128x128 model), in float32 and bfloat16,
+      with the tolerances stated in ``TOL``; time the kernel, the plain
+      version and, where one exists, a PyTorch library call;
+  (c) build an InferenceEngine at the full default width (128x128,
+      conv_filter [384, 256, 128, 64, 32], bf16, s2d on, both kernels on,
+      seeded random weights, batch 8), start ``serve()`` on an ephemeral
+      port, answer HTTP requests to /generate, /adjust, /discriminate and
+      /metrics, check the kernels' launch counts per engine call, and compare
+      the engine's outputs with the same weights run through the plain
+      versions on the card.
+
+The last two lines of standard output are the card's ``nvidia-smi`` name
+and power limit, then ``{"ok": true, "device": {...}}``; the line before them
+is the kernels' JSON record. Without a CUDA device, or outside the
+repository, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core and
+# float32 (non-tensor) FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# |kernel - plain| <= atol + rtol*|plain|, per dtype. float32: the JAX
+# package's forward tolerance (tests/test_pallas.py), sums in another order.
+# bfloat16: one rounding step of 2^-8 relative can land either side, so a
+# few ulps. Stats (f32 in both dtypes): s2 to rtol 1e-4; s1 to 1e-4 of
+# sum|y|, since s1 may cancel to near 0.
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+STATS_RTOL = 1e-4
+# engine (both kernels) vs the same weights through the plain versions, bf16
+ENGINE_TOL = {"image_max": 0.1, "image_mean": 5e-3, "prob_max": 0.02}
+
+BATCH = 8
+# K1's seven calls on one /adjust (encoder blocks 2-4, decoder blocks 1-4;
+# decoder block4 is in s2d form); /generate makes the last four,
+# /discriminate the first three
+K1_SHAPES = [
+    (8, 32, 32, 128), (8, 16, 16, 256), (8, 8, 8, 384),
+    (8, 16, 16, 256), (8, 32, 32, 128), (8, 64, 64, 64), (8, 64, 64, 128),
+]
+K3_SHAPE = ((8, 64, 64, 12), 64)  # s2d encoder input -> conv_filter[3]
+EXPECTED_LAUNCHES = {  # per engine call
+    "generate": {"fused_instance_norm_lrelu": 4, "conv3x3_same_stats": 0, "norm_lrelu_from_stats": 0},
+    "adjust": {"fused_instance_norm_lrelu": 7, "conv3x3_same_stats": 1, "norm_lrelu_from_stats": 1},
+    "discriminate": {"fused_instance_norm_lrelu": 3, "conv3x3_same_stats": 1, "norm_lrelu_from_stats": 1},
+}
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def require(ok, what) -> None:
+    """A check that stays under ``python -O`` (unlike assert)."""
+    if not ok:
+        raise AssertionError(what)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph,
+    replayed after a warm-up, timed by CUDA events. The graph leaves out the
+    host's launch overhead, which :func:`eager_ms` keeps."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def eager_ms(fn, reps: int = 50) -> float:
+    """Time of one call launched from Python, back to back, by CUDA events:
+    the larger of the device time and the host's launch time."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _within(got, want, atol, rtol) -> bool:
+    return bool(((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all())
+
+
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def check_kernels():
+    """Phase (b): every kernel against its plain version, timed. Returns the
+    per-kernel records (without launches) and raises on a miss."""
+    import torch
+    import torch.nn.functional as F
+
+    from littlegan_tpu_torch.ops.cuda.boundary_conv import conv3x3_same_stats, conv3x3_same_stats_plain
+    from littlegan_tpu_torch.ops.cuda.norm_lrelu import (
+        fused_instance_norm_lrelu, fused_instance_norm_lrelu_plain,
+        norm_lrelu_from_stats, norm_lrelu_from_stats_plain,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gamma = torch.tensor([1.3], device=dev)
+    beta = torch.tensor([-0.2], device=dev)
+    failures = []
+    records = {}
+
+    def rec(name, dtype, shape, err, fn, plain_ms, lib_ms, bnd):
+        ms, em = time_ms(fn), eager_ms(fn)
+        r = records.setdefault(name, {"shapes": []})
+        r["shapes"].append({
+            "shape": list(shape), "dtype": dtype, "max_abs_err": err, "ms": ms, "eager_ms": em,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+        })
+        log(f"  {name} {dtype} {tuple(shape)}: max_abs_err {err:.3g}  kernel {ms:.4f} ms "
+            f"(launched from Python {em:.4f} ms)  "
+            f"plain {plain_ms:.4f} ms  library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        atol, rtol = TOL[dtype_name]
+        item = torch.tensor([], dtype=dt).element_size()
+        log(f"K1 fused_instance_norm_lrelu, {dtype_name} (no single PyTorch call computes it: library_ms null)")
+        for shape in K1_SHAPES:
+            x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).to(dt)
+            got = fused_instance_norm_lrelu(x, gamma, beta, 0.3)
+            want = fused_instance_norm_lrelu_plain(x, gamma, beta, 0.3)
+            torch.cuda.synchronize()
+            if not _within(got, want, atol, rtol):
+                failures.append(f"K1 {dtype_name} {shape}: max_abs_err {_max_err(got, want):.3g}")
+            pms = time_ms(lambda: fused_instance_norm_lrelu_plain(x, gamma, beta, 0.3))
+            n_el = x.numel()
+            rec("fused_instance_norm_lrelu", dtype_name, shape, _max_err(got, want),
+                lambda: fused_instance_norm_lrelu(x, gamma, beta, 0.3), pms, None,
+                bound(2 * n_el * item + 8, 7 * n_el, dtype_name))
+
+        log(f"K1 norm_lrelu_from_stats (stats-in apply), {dtype_name}")
+        shape = K3_SHAPE[0][:3] + (K3_SHAPE[1],)
+        y = (torch.randn(shape, device=dev, generator=gen) + 0.3).to(dt)
+        yf = y.float()
+        s1, s2 = yf.sum((1, 2, 3)), yf.square().sum((1, 2, 3))
+        got = norm_lrelu_from_stats(y, s1, s2, gamma, beta, 0.3)
+        want = norm_lrelu_from_stats_plain(y, s1, s2, gamma, beta, 0.3)
+        torch.cuda.synchronize()
+        if not _within(got, want, atol, rtol):
+            failures.append(f"K1 from_stats {dtype_name} {shape}: max_abs_err {_max_err(got, want):.3g}")
+        pms = time_ms(lambda: norm_lrelu_from_stats_plain(y, s1, s2, gamma, beta, 0.3))
+        rec("norm_lrelu_from_stats", dtype_name, shape, _max_err(got, want),
+            lambda: norm_lrelu_from_stats(y, s1, s2, gamma, beta, 0.3), pms, None,
+            bound(2 * y.numel() * item + 8 * BATCH + 8, 4 * y.numel(), dtype_name))
+
+        log(f"K3 conv3x3_same_stats, {dtype_name} (library: F.conv2d + the two sums)")
+        xshape, cout = K3_SHAPE
+        x = torch.randn(xshape, device=dev, generator=gen).to(dt)
+        w = (torch.randn((3, 3, xshape[3], cout), device=dev, generator=gen) * 0.2).to(dt)
+        b = (torch.randn((cout,), device=dev, generator=gen) * 0.1).to(dt)
+        y, s1, s2 = conv3x3_same_stats(x, w, b)
+        py, ps1, ps2 = conv3x3_same_stats_plain(x, w, b)
+        torch.cuda.synchronize()
+        scale = py.float().abs().sum((1, 2, 3))
+        if not _within(y, py, atol, rtol):
+            failures.append(f"K3 y {dtype_name}: max_abs_err {_max_err(y, py):.3g}")
+        if not bool(((s1 - ps1).abs() <= STATS_RTOL * scale).all()):
+            failures.append(f"K3 s1 {dtype_name}: {s1.tolist()} vs {ps1.tolist()}")
+        if not bool(((s2 - ps2).abs() <= STATS_RTOL * ps2.abs()).all()):
+            failures.append(f"K3 s2 {dtype_name}: {s2.tolist()} vs {ps2.tolist()}")
+        xt = x.permute(0, 3, 1, 2)
+        wt = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def library():
+            out = F.conv2d(xt, wt, b, padding=1)
+            return out, out.float().sum((1, 2, 3)), out.float().square().sum((1, 2, 3))
+
+        pms = time_ms(lambda: conv3x3_same_stats_plain(x, w, b))
+        lms = time_ms(library)
+        n_out = xshape[0] * xshape[1] * xshape[2] * cout
+        nbytes = (x.numel() + w.numel() + b.numel() + n_out) * item + 2 * 4 * xshape[0]
+        flops = 2 * n_out * 9 * xshape[3] + 3 * n_out
+        rec("conv3x3_same_stats", dtype_name, xshape + (cout,), _max_err(y, py),
+            lambda: conv3x3_same_stats(x, w, b), pms, lms,
+            bound(nbytes, flops, dtype_name))
+    if failures:
+        raise AssertionError("kernel/plain mismatch:\n  " + "\n  ".join(failures))
+    return records
+
+
+def _counters():
+    from littlegan_tpu_torch.ops.cuda.boundary_conv import conv3x3_same_stats
+    from littlegan_tpu_torch.ops.cuda.norm_lrelu import fused_instance_norm_lrelu, norm_lrelu_from_stats
+
+    return {
+        "fused_instance_norm_lrelu": fused_instance_norm_lrelu.launches,
+        "conv3x3_same_stats": conv3x3_same_stats.launches,
+        "norm_lrelu_from_stats": norm_lrelu_from_stats.launches,
+    }
+
+
+def _http(url: str, payload=None):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data, {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        body = r.read()
+        return r.status, body
+
+
+def _png_b64(img_u8) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img_u8).save(buf, "PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def full_config():
+    """The served configuration: the defaults (128x128, conv_filter
+    [384, 256, 128, 64, 32], bf16, s2d on) with both kernels on, seeded
+    fresh weights, batch 8."""
+    from littlegan_tpu_torch.config import Config
+
+    cfg = Config(use_pallas=True, use_pallas_boundary=True, restore=False, seed=0, batch_size=BATCH,
+                 exp_name="chip_smoke")
+    require((cfg.image_dim, cfg.conv_filter, cfg.compute_dtype, cfg.use_s2d) == (
+        128, [384, 256, 128, 64, 32], "bfloat16", True), "the defaults are no longer the full-width model")
+    return cfg
+
+
+def check_serving(cfg, device=None):
+    """Phase (c): an engine for ``cfg`` behind serve(), driven over HTTP.
+    Returns each kernel's launches in the served run; raises on any miss."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.models import LittleGAN
+    from littlegan_tpu_torch.serving import InferenceEngine, serve
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    engine = InferenceEngine(cfg, batch_size=BATCH, device=device)  # device=None: the card
+    log(f"engine on {engine.device} in {time.time() - t0:.1f} s "
+        f"({sum(p.numel() for p in engine.model.parameters())} parameters)")
+
+    calls = {"generate": 0, "adjust": 0, "discriminate": 0}
+    for name in calls:  # count engine calls (one per batched device call)
+        real = getattr(engine, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        setattr(engine, name, counted)
+
+    started = threading.Event()
+    box = {}
+
+    def on_start(server):
+        box["server"] = server
+        started.set()
+
+    thread = threading.Thread(
+        target=serve, args=(cfg,),
+        kwargs=dict(host="127.0.0.1", port=0, batch_size=BATCH, max_wait_ms=2.0, engine=engine,
+                    on_start=on_start),
+        daemon=True, name="chip-smoke-serve",
+    )
+    thread.start()
+    if not started.wait(120):
+        raise RuntimeError("serve() did not start")
+    server = box["server"]
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(0)
+    soft = lambda bits: np.where(bits, 0.98, -0.94).astype(np.float32)  # noqa: E731
+    images_u8 = rng.integers(0, 256, size=(3, cfg.image_dim, cfg.image_dim, 3), dtype=np.uint8)
+    lat = {"generate": [], "adjust": [], "discriminate": []}
+    deltas = {}
+    try:
+        status, body = _http(url + "/healthz")
+        require(status == 200 and json.loads(body)["status"] == "ok", body)
+        # warm-up request per endpoint (cuDNN picks its algorithms), outside the count
+        _http(url + "/generate", {"cond": [soft(rng.random(cfg.cond_dim) < 0.5).tolist()], "seed": 0})
+        _http(url + "/adjust", {"image_b64": _png_b64(images_u8[0]), "cond": [[0.98] * cfg.cond_dim]})
+        _http(url + "/discriminate", {"image_b64": _png_b64(images_u8[0])})
+        for c in calls:
+            calls[c] = 0
+        counters = _counters()
+        for c in counters.values():
+            c.reset()
+        requests = (
+            [("generate", {"cond": [soft(rng.random(cfg.cond_dim) < 0.5).tolist()], "seed": i}, 1) for i in range(3)]
+            + [("generate", {"cond": soft(rng.random((BATCH, cfg.cond_dim)) < 0.5).tolist(), "seed": 9}, BATCH)]
+            + [("adjust", {"image_b64": _png_b64(images_u8[i]), "cond": [soft(rng.random(cfg.cond_dim) < 0.5).tolist()]}, 1)
+               for i in range(3)]
+            + [("discriminate", {"image_b64": _png_b64(images_u8[i])}, 1) for i in range(3)]
+        )
+        for endpoint, payload, rows in requests:
+            before = {k: c.value for k, c in counters.items()}
+            calls_before = calls[endpoint]
+            t = time.perf_counter()
+            status, body = _http(f"{url}/{endpoint}", payload)
+            lat[endpoint].append((time.perf_counter() - t) * 1e3)
+            out = json.loads(body)
+            require(status == 200, (endpoint, status, out))
+            if endpoint == "discriminate":
+                pr, dc = np.asarray(out["pr"]), np.asarray(out["cond"])
+                require(pr.shape == (1, 1) and dc.shape == (1, cfg.cond_dim), (pr.shape, dc.shape))
+                require(np.isfinite(pr).all() and np.isfinite(dc).all() and (0 <= pr).all() and (pr <= 1).all(),
+                        (pr, dc))
+            else:
+                require(len(out["images"]) == rows, (endpoint, len(out["images"])))
+            n_calls = calls[endpoint] - calls_before
+            for k, c in counters.items():
+                d = c.value - before[k]
+                want = EXPECTED_LAUNCHES[endpoint][k] * n_calls
+                if d != want:
+                    raise AssertionError(f"{endpoint}: {k} launched {d} times in {n_calls} engine calls, want {want}")
+                deltas[k] = deltas.get(k, 0) + d
+        launches = {k: c.value for k, c in counters.items()}
+        status, body = _http(url + "/metrics")
+        text = body.decode()
+        require(status == 200 and 'littlegan_requests_total{endpoint="adjust",code="200"}' in text, text[:500])
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise RuntimeError("serve() did not drain")
+    require(launches == deltas, (launches, deltas))
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the served path: {missing}")
+    for ep, ms in lat.items():
+        log(f"  /{ep}: {len(ms)} requests, client latency ms: " + ", ".join(f"{v:.2f}" for v in ms))
+    log(f"served-run launches: {launches}; engine calls {calls}")
+
+    # the same weights through the plain versions, on the card
+    plain_cfg = cfg.replace(use_pallas=False, use_pallas_boundary=False)
+    plain = LittleGAN(plain_cfg)
+    plain.load_state_dict(engine.model.state_dict())
+    plain = plain.to(engine.device).eval()
+    noise = rng.normal(size=(BATCH, cfg.noise_dim)).astype(np.float32)
+    cond = soft(rng.random((BATCH, cfg.cond_dim)) < 0.5)
+    images = (images_u8[rng.integers(0, 3, BATCH)] / 127.5 - 1.0).astype(np.float32)
+    dev = engine.device
+    with torch.inference_mode():
+        want_g = plain.generator(torch.from_numpy(noise).to(dev), torch.from_numpy(cond).to(dev)).float().cpu().numpy()
+        want_a = plain.adjuster(torch.from_numpy(images).to(dev), torch.from_numpy(cond).to(dev)).float().cpu().numpy()
+        wp, wc = plain.discriminator(torch.from_numpy(images).to(dev))
+    got_g = engine.generate(cond, noise)
+    got_a = engine.adjust(images, cond)
+    got_d = engine.discriminate(images)
+    errs = {
+        "generate": (np.abs(got_g - want_g).max(), np.abs(got_g - want_g).mean()),
+        "adjust": (np.abs(got_a - want_a).max(), np.abs(got_a - want_a).mean()),
+        "discriminate": (max(np.abs(got_d["pr"] - wp.cpu().numpy()).max(),
+                             np.abs(got_d["cond"] - wc.cpu().numpy()).max()), None),
+    }
+    for name, out in (("generate", got_g), ("adjust", got_a)):
+        require(out.shape == (BATCH, cfg.image_dim, cfg.image_dim, cfg.image_channel), (name, out.shape))
+        require(np.isfinite(out).all() and np.abs(out).max() <= 1.0, f"{name}: values outside [-1, 1]")
+    log("engine (kernels) vs plain versions, bf16, same weights: " + ", ".join(
+        f"{k} max {v[0]:.4g}" + ("" if v[1] is None else f" mean {v[1]:.4g}") for k, v in errs.items()))
+    bad = [k for k in ("generate", "adjust")
+           if errs[k][0] > ENGINE_TOL["image_max"] or errs[k][1] > ENGINE_TOL["image_mean"]]
+    if errs["discriminate"][0] > ENGINE_TOL["prob_max"]:
+        bad.append("discriminate")
+    if bad:
+        raise AssertionError(f"engine disagrees with the plain versions on {bad} (tolerance {ENGINE_TOL})")
+    log("engine call time, batch 8:")
+    time_engine(engine, noise, cond, images)
+    return launches
+
+
+def time_engine(engine, noise, cond, images):
+    """Per endpoint: host wall ms of one batch-8 engine call (inputs copied
+    in, outputs copied out, synchronous) and the device's busy ms in it: the
+    sum of the device-side events (kernels, copies) torch.profiler records.
+    A CPU op's own device time repeats its kernels' and is left out. The gap
+    between the two is the device's idle time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = {
+        "generate": lambda: engine.generate(cond, noise),
+        "adjust": lambda: engine.adjust(images, cond),
+        "discriminate": lambda: engine.discriminate(images),
+    }
+    for name, fn in calls.items():
+        for _ in range(3):
+            fn()
+        t = time.perf_counter()
+        for _ in range(20):
+            fn()
+        wall = (time.perf_counter() - t) * 1e3 / 20
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+        device = [
+            e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity Buffer")
+        ]
+        busy = sum(e.self_device_time_total for e in device) / 5 / 1e3
+        kernels = sum(e.count for e in device) / 5
+        log(f"  engine.{name}: {wall:.3f} ms per call (host wall); device busy {busy:.3f} ms "
+            f"({kernels:.0f} device ops); idle share {1 - busy / wall:.1%}")
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+        for e in top:
+            log(f"    {e.self_device_time_total / 5 / 1e3:.4f} ms  x{e.count / 5:g}  {e.key[:90]}")
+
+
+def summarize(records, launches):
+    """One JSON record per kernel: the bf16 (served dtype) numbers summed over
+    the shapes one /adjust call gives it; per-shape numbers under "shapes"."""
+    meta = {
+        "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
+                                      "littlegan_tpu/ops/pallas/norm_lrelu.py:108"),
+        "norm_lrelu_from_stats": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
+                                  "littlegan_tpu/ops/norm.py:59"),
+        "conv3x3_same_stats": ("littlegan_tpu_torch/csrc/boundary_conv.cu",
+                               "littlegan_tpu/ops/pallas/boundary_conv.py:118"),
+    }
+    out = []
+    for name, (source, replaces) in meta.items():
+        shapes = [s for s in records[name]["shapes"] if s["dtype"] == "bfloat16"]
+        tot = lambda k: sum(s[k] for s in shapes)  # noqa: E731
+        lib = None if shapes[0]["library_ms"] is None else tot("library_ms")
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+            "bound_by": shapes[0]["bound_by"], "library_ms": lib,
+            "shapes": records[name]["shapes"],
+        })
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from littlegan_tpu_torch.ops.cuda import _build
+
+    smi = nvidia_smi_line()
+    log(f"card: {smi}")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.time()
+    so = _build.build()
+    _build.lib()
+    log(f"kernels built and loaded in {time.time() - t0:.1f} s: {so}")
+    with open(so + ".log") as f:
+        for line in f:
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                log("  " + line.rstrip())
+
+    records = check_kernels()
+    launches = check_serving(full_config())
+    log(json.dumps({"kernels": summarize(records, launches)}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
