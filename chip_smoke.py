@@ -7,9 +7,15 @@ Phases, each of which fails the run on any error:
 
   (a) print the card's name and power limit, build the CUDA kernels from
       ``littlegan_tpu_torch/csrc`` with nvcc and print the build time;
-  (b) hold every kernel against its plain PyTorch version on the card at the
-      serve path's shapes (batch 8, 128x128 model), in float32 and bfloat16,
-      with the tolerances stated in ``TOL``; time the kernel, the plain
+  (b) hold every kernel against its plain PyTorch version on the card, in
+      float32 and bfloat16, with the tolerances stated in ``TOL``,
+      ``BWD_TOL``, ``GRAD_SUM_RTOL`` and ``CONV_BWD_REL``: the forward
+      kernels at the serve path's shapes (batch 8, 128x128 model), the
+      backward kernels at the train step's (batch 32 and the adjuster's 64
+      rows): K2 (the fused norm + LeakyReLU backward), the stats-in norm's
+      backward and the boundary conv's backward (its stats fold kernel plus
+      PyTorch's conv gradients, against autograd through its plain
+      version); time the kernel, the kernel launched from Python, the plain
       version and, where one exists, a PyTorch library call;
   (c) build an InferenceEngine at the full default width (128x128,
       conv_filter [384, 256, 128, 64, 32], bf16, s2d on, both kernels on,
@@ -17,7 +23,15 @@ Phases, each of which fails the run on any error:
       port, answer HTTP requests to /generate, /adjust, /discriminate and
       /metrics, check the kernels' launch counts per engine call, and compare
       the engine's outputs with the same weights run through the plain
-      versions on the card.
+      versions on the card;
+  (d) trains the full-width model (128x128, batch 32, bf16, s2d, adjuster,
+      partition schedule, clipping, both kernel flags on) through
+      ``Trainer`` on the synthetic dataset for 12 steps in a temporary
+      result directory: checks the losses, the kernels' launches per step,
+      the train image and the epoch checkpoint, and that the checkpoint
+      restores in a new ``Trainer``; then one step's losses and gradients
+      with the kernels against the same step through the plain versions,
+      and the step's host and device times with the kernels on and off.
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -57,6 +71,45 @@ K1_SHAPES = [
     (8, 16, 16, 256), (8, 32, 32, 128), (8, 64, 64, 64), (8, 64, 64, 128),
 ]
 K3_SHAPE = ((8, 64, 64, 12), 64)  # s2d encoder input -> conv_filter[3]
+# |kernel - plain| <= atol + rtol*|plain| for the backward's dx, per dtype
+# (f32: tests/test_pallas.py's grad tolerance); the batch sums (dgamma,
+# dbeta, the stats' cotangents) to GRAD_SUM_RTOL of the largest value of
+# their kind; the boundary conv's (dx, dw, db) by relative norm error
+BWD_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-2)}
+GRAD_SUM_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# where the normalised value z lies this close to LeakyReLU's kink, rounding
+# decides its slope (1 or alpha) differently in the kernel and in the plain
+# version: such elements are left out of the dx checks, and counted
+KINK = 1e-5
+CONV_BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+# one train step with the kernels vs the same step through the plain
+# versions, bf16, same weights and draws: the losses to loss_rtol; each
+# group's gradient to a relative norm error of grad_rel, or of floor_x
+# times bf16's own error on that step (the plain bf16 step against the
+# plain float32 one), whichever is larger: the gradient of the adjuster's
+# head comes at the end of the longest backward chain
+TRAIN_TOL = {"loss_rtol": 2e-2, "grad_rel": 5e-2, "floor_x": 3.0}
+TRAIN_BATCH = 32
+TRAIN_STEPS = 12  # crosses the partition batches 5 and 10 and the adjuster gate (batch_no > 10)
+# K2's launches in one train step, by shape: D's encoder blocks 2-4 at batch
+# 32 go backward three times (D on the real batch and on fake for the disc
+# loss, D on fake again for the gen loss), G's decoder once; at the
+# adjuster's 64 rows D's blocks 2-4 and the decoder once each (adj loss)
+K2_STEP = [
+    ((32, 32, 32, 128), 4), ((32, 16, 16, 256), 4), ((32, 8, 8, 384), 3), ((32, 64, 64, 64), 1),
+    ((32, 64, 64, 128), 1), ((64, 32, 32, 128), 2), ((64, 16, 16, 256), 2), ((64, 8, 8, 384), 1),
+    ((64, 64, 64, 64), 1), ((64, 64, 64, 128), 1),
+]
+# encoder block1's backward (the stats-in norm's, then the boundary conv's)
+# in one step: D on the real batch and on fake, D on fake again, the
+# adjuster's D; x shapes, y has 64 channels
+BLOCK1_STEP = [((32, 64, 64, 12), 3), ((64, 64, 64, 12), 1)]
+EXPECTED_TRAIN_LAUNCHES = {  # per train step
+    "fused_instance_norm_lrelu": 20, "norm_lrelu_from_stats": 4, "conv3x3_same_stats": 4,
+    "fused_instance_norm_lrelu_bwd": sum(c for _, c in K2_STEP),
+    "norm_lrelu_from_stats_bwd": sum(c for _, c in BLOCK1_STEP),
+    "conv3x3_bwd_fold": sum(c for _, c in BLOCK1_STEP),
+}
 EXPECTED_LAUNCHES = {  # per engine call
     "generate": {"fused_instance_norm_lrelu": 4, "conv3x3_same_stats": 0, "norm_lrelu_from_stats": 0},
     "adjust": {"fused_instance_norm_lrelu": 7, "conv3x3_same_stats": 1, "norm_lrelu_from_stats": 1},
@@ -241,15 +294,170 @@ def check_kernels():
     return records
 
 
-def _counters():
-    from littlegan_tpu_torch.ops.cuda.boundary_conv import conv3x3_same_stats
-    from littlegan_tpu_torch.ops.cuda.norm_lrelu import fused_instance_norm_lrelu, norm_lrelu_from_stats
+def _rel_err(got, want) -> float:
+    """||got - want|| / ||want||, in f32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
-    return {
-        "fused_instance_norm_lrelu": fused_instance_norm_lrelu.launches,
-        "conv3x3_same_stats": conv3x3_same_stats.launches,
-        "norm_lrelu_from_stats": norm_lrelu_from_stats.launches,
+
+def check_backward_kernels():
+    """Phase (b), backward: K2, the stats-in norm's backward and the
+    boundary conv's backward against their plain versions at the train
+    step's shapes, timed. Returns the per-kernel records (each shape with
+    its launches per step) and raises on a miss."""
+    import torch
+
+    from littlegan_tpu_torch.ops.cuda import boundary_conv as bc
+    from littlegan_tpu_torch.ops.cuda import norm_lrelu as nl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gamma = torch.tensor([1.3], device=dev)
+    beta = torch.tensor([-0.2], device=dev)
+    failures = []
+    records = {}
+
+    def rec(name, dtype, shape, count, err, fn, plain_ms, lib_ms, bnd, **extra):
+        ms, em = time_ms(fn), eager_ms(fn)
+        r = records.setdefault(name, {"shapes": []})
+        r["shapes"].append({
+            "shape": list(shape), "dtype": dtype, "per_step": count, "max_abs_err": err, "ms": ms, "eager_ms": em,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1], **extra,
+        })
+        log(f"  {name} {dtype} {tuple(shape)} x{count}/step: max_abs_err {err:.3g}  kernel {ms:.4f} ms "
+            f"(launched from Python {em:.4f} ms)  plain {plain_ms:.4f} ms  "
+            f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound {bnd[0]:.4f} ms ({bnd[1]})"
+            + "".join(f"  {k} {v:.4f}" for k, v in extra.items()))
+
+    kinks = {}  # elements left out of the dx checks, by kernel, dtype and shape
+
+    def sums_ok(got, want, rtol):
+        return bool(((got - want).abs() <= rtol * want.abs().max().clamp_min(1e-30)).all())
+
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        atol, rtol = BWD_TOL[dtype_name]
+        srtol = GRAD_SUM_RTOL[dtype_name]
+        item = torch.tensor([], dtype=dt).element_size()
+        log(f"K2 fused_instance_norm_lrelu_bwd, {dtype_name} (no single PyTorch call computes it: library_ms null)")
+        for shape, count in K2_STEP:
+            x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).to(dt)
+            dy = torch.randn(shape, device=dev, generator=gen).to(dt)
+            _, stats = nl._fused_forward(x, gamma, beta, 0.3, 1e-3)
+            got = nl.fused_instance_norm_lrelu_bwd(x, dy, gamma, beta, 0.3, 1e-3, stats)
+            want = nl.fused_instance_norm_lrelu_bwd_plain(x, dy, gamma, beta, 0.3)
+            xf = x.float()
+            mean = xf.mean((1, 2, 3), keepdim=True)
+            nrm = (xf - mean) / (xf.var((1, 2, 3), unbiased=False, keepdim=True).sqrt() + 1e-3)
+            away = (nrm * gamma + beta).abs() > KINK
+            torch.cuda.synchronize()
+            if not _within(got[0][away], want[0][away], atol, rtol):
+                failures.append(f"K2 dx {dtype_name} {shape}: max_abs_err {_max_err(got[0][away], want[0][away]):.3g}")
+            kinks[("K2", dtype_name, shape)] = int((~away).sum())
+            if shape == K2_STEP[0][0]:  # without the forward's partials: the stats pass runs first, same result
+                again = nl.fused_instance_norm_lrelu_bwd(x, dy, gamma, beta, 0.3, 1e-3)
+                if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                    failures.append(f"K2 {dtype_name} {shape}: the stats-less call differs from the stats-in one")
+            # dgamma = sum(dz * n), dbeta = sum(dz) over the batch: held to
+            # srtol of the sums of their terms' magnitudes (they may cancel)
+            scales = {1: float((dy.float() * nrm).abs().sum()), 2: float(dy.float().abs().sum())}
+            for i, nm in ((1, "dgamma"), (2, "dbeta")):
+                if not float((got[i] - want[i]).abs()) <= srtol * scales[i]:
+                    failures.append(f"K2 {nm} {dtype_name} {shape}: {float(got[i])} vs {float(want[i])}")
+            del xf, mean, nrm
+            pms = time_ms(lambda: nl.fused_instance_norm_lrelu_bwd_plain(x, dy, gamma, beta, 0.3))
+            n_el = x.numel()
+            rec("fused_instance_norm_lrelu_bwd", dtype_name, shape, count, _max_err(got[0][away], want[0][away]),
+                lambda: nl.fused_instance_norm_lrelu_bwd(x, dy, gamma, beta, 0.3, 1e-3, stats), pms, None,
+                bound(3 * n_el * item + 4 * stats.numel() + 16, 14 * n_el, dtype_name))
+
+        log(f"K1' norm_lrelu_from_stats_bwd, {dtype_name} (no single PyTorch call computes it: library_ms null)")
+        for xshape, count in BLOCK1_STEP:
+            shape = xshape[:3] + (64,)
+            y = (torch.randn(shape, device=dev, generator=gen) + 0.3).to(dt)
+            dout = torch.randn(shape, device=dev, generator=gen).to(dt)
+            yf = y.float()
+            s1, s2 = yf.sum((1, 2, 3)), yf.square().sum((1, 2, 3))
+            got = nl.norm_lrelu_from_stats_bwd(y, s1, s2, gamma, beta, dout, 0.3)
+            want = nl.norm_lrelu_from_stats_bwd_plain(y, s1, s2, gamma, beta, dout, 0.3)
+            mean = (s1 / yf[0].numel()).reshape(-1, 1, 1, 1)
+            std = (s2 / yf[0].numel()).reshape(-1, 1, 1, 1) - mean.square()
+            away = (((yf - mean) / (std.clamp_min(0).sqrt() + 1e-3)) * gamma + beta).abs() > KINK
+            torch.cuda.synchronize()
+            kinks[("K1' bwd", dtype_name, shape)] = int((~away).sum())
+            if not _within(got[0][away], want[0][away], atol, rtol):
+                failures.append(f"K1' bwd dy {dtype_name} {shape}: max_abs_err "
+                                f"{_max_err(got[0][away], want[0][away]):.3g}")
+            for i, nm in ((1, "ds1"), (2, "ds2")):
+                if not sums_ok(got[i], want[i], srtol):
+                    failures.append(f"K1' bwd {nm} {dtype_name} {shape}: max_abs_err {_max_err(got[i], want[i]):.3g}")
+            if not float((got[4] - want[4]).abs()) <= srtol * float(dout.float().abs().sum()):
+                failures.append(f"K1' bwd dbeta {dtype_name} {shape}: {float(got[4])} vs {float(want[4])}")
+            if not float((got[3] - want[3]).abs()) <= srtol * float(dout.float().abs().sum()) * 4:
+                failures.append(f"K1' bwd dgamma {dtype_name} {shape}: {float(got[3])} vs {float(want[3])}")
+            pms = time_ms(lambda: nl.norm_lrelu_from_stats_bwd_plain(y, s1, s2, gamma, beta, dout, 0.3))
+            rec("norm_lrelu_from_stats_bwd", dtype_name, shape, count, _max_err(got[0][away], want[0][away]),
+                lambda: nl.norm_lrelu_from_stats_bwd(y, s1, s2, gamma, beta, dout, 0.3), pms, None,
+                bound(3 * y.numel() * item + 16 * shape[0] + 16, 12 * y.numel(), dtype_name))
+
+        log(f"K3 backward (stats fold kernel + PyTorch conv gradients), {dtype_name}; "
+            "library: one aten.convolution_backward returning dx, dw, db")
+        for xshape, count in BLOCK1_STEP:
+            x = torch.randn(xshape, device=dev, generator=gen).to(dt)
+            w = (torch.randn((3, 3, 12, 64), device=dev, generator=gen) * 0.2).to(dt)
+            b = torch.randn((64,), device=dev, generator=gen) * 0.1
+            yshape = xshape[:3] + (64,)
+            gy = torch.randn(yshape, device=dev, generator=gen).to(dt)
+            gs1 = torch.randn((xshape[0],), device=dev, generator=gen) * 1e-3
+            gs2 = torch.randn((xshape[0],), device=dev, generator=gen) * 1e-4
+            ins = [t.clone().requires_grad_() for t in (x, w, b)]
+            outs = bc.BoundaryConvS2D.apply(*ins)
+            torch.autograd.backward(outs, (gy, gs1, gs2))
+            pins = [t.clone().requires_grad_() for t in (x, w, b)]
+            pouts = bc.conv3x3_same_stats_plain(*pins)
+            torch.autograd.backward(pouts, (gy, gs1, gs2))
+            torch.cuda.synchronize()
+            errs = {nm: _rel_err(a.grad, p.grad) for nm, a, p in zip(("dx", "dw", "db"), ins, pins)}
+            bad = {k: v for k, v in errs.items() if v > CONV_BWD_REL[dtype_name]}
+            if bad or ins[2].grad.dtype != torch.float32:
+                failures.append(f"K3 bwd {dtype_name} {xshape}: relative norm errors {errs}, db {ins[2].grad.dtype}")
+            y = outs[0].detach()
+            fold = lambda: bc.conv3x3_bwd_fold(y, gy, gs1, gs2)  # noqa: E731
+            fy, fdb = fold()
+            py, pdb = bc.conv3x3_bwd_fold_plain(y, gy, gs1, gs2)
+            torch.cuda.synchronize()
+            if not _within(fy, py, atol, rtol) or not sums_ok(fdb, pdb, srtol):
+                failures.append(f"K3 bwd fold {dtype_name} {xshape}: max_abs_err {_max_err(fy, py):.3g}, "
+                                f"db {_max_err(fdb, pdb):.3g}")
+            pms = time_ms(lambda: bc.conv3x3_bwd_fold_plain(y, gy, gs1, gs2))
+            wc = w.permute(3, 2, 0, 1)
+            lms = time_ms(lambda: torch.ops.aten.convolution_backward(
+                gy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wc, [64], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [True, True, True]))
+            whole = time_ms(lambda: bc.boundary_conv_s2d_bwd(x, w, y, gy, gs1, gs2))
+            rec("conv3x3_bwd_fold", dtype_name, xshape, count, _max_err(fy, py), fold, pms, lms,
+                bound(3 * y.numel() * item + 8 * xshape[0] + 4 * 64, 4 * y.numel(), dtype_name),
+                backward_ms=whole, **{f"rel_err_{k}": v for k, v in errs.items()})
+    log(f"elements within {KINK} of LeakyReLU's kink, left out of the dx checks: "
+        + ", ".join(f"{k[0]} {k[1]} {k[2]}: {v}" for k, v in kinks.items() if v))
+    if failures:
+        raise AssertionError("backward kernel/plain mismatch:\n  " + "\n  ".join(failures))
+    return records
+
+
+def _counters(names=("fused_instance_norm_lrelu", "conv3x3_same_stats", "norm_lrelu_from_stats")):
+    from littlegan_tpu_torch.ops.cuda import boundary_conv as bc
+    from littlegan_tpu_torch.ops.cuda import norm_lrelu as nl
+
+    fns = {
+        "fused_instance_norm_lrelu": nl.fused_instance_norm_lrelu,
+        "norm_lrelu_from_stats": nl.norm_lrelu_from_stats,
+        "conv3x3_same_stats": bc.conv3x3_same_stats,
+        "fused_instance_norm_lrelu_bwd": nl.fused_instance_norm_lrelu_bwd,
+        "norm_lrelu_from_stats_bwd": nl.norm_lrelu_from_stats_bwd,
+        "conv3x3_bwd_fold": bc.conv3x3_bwd_fold,
     }
+    return {k: fns[k].launches for k in names}
 
 
 def _http(url: str, payload=None):
@@ -470,9 +678,190 @@ def time_engine(engine, noise, cond, images):
             log(f"    {e.self_device_time_total / 5 / 1e3:.4f} ms  x{e.count / 5:g}  {e.key[:90]}")
 
 
-def summarize(records, launches):
-    """One JSON record per kernel: the bf16 (served dtype) numbers summed over
-    the shapes one /adjust call gives it; per-shape numbers under "shapes"."""
+def train_config(root):
+    """The trained configuration: the defaults (128x128, conv_filter
+    [384, 256, 128, 64, 32], bf16, s2d, train_adj, use_partition, use_clip)
+    with both kernels on, batch 32, one epoch of TRAIN_STEPS steps, one
+    train image at the last step, no fixture predict, in ``root``."""
+    from littlegan_tpu_torch.config import Config
+
+    cfg = Config(use_pallas=True, use_pallas_boundary=True, seed=0, batch_size=TRAIN_BATCH, epoch=1,
+                 freq_gen=TRAIN_STEPS, freq_test=0, debug=True, exp_name="chip_smoke_train",
+                 all_result_dir=os.path.join(root, "result"), test_data_dir=os.path.join(root, "test-data"))
+    require((cfg.image_dim, cfg.conv_filter, cfg.compute_dtype, cfg.use_s2d, cfg.train_adj, cfg.use_partition,
+             cfg.use_clip) == (128, [384, 256, 128, 64, 32], "bfloat16", True, True, True, True),
+            "the defaults are no longer the full-width training configuration")
+    return cfg
+
+
+def check_training():
+    """Phase (d): TRAIN_STEPS steps of ``Trainer.train`` at full width on the
+    synthetic dataset, in a temporary directory. Returns (each kernel's
+    launches in that run, the comparison and timing record); raises on any
+    miss."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.training.trainer import Trainer
+    from littlegan_tpu_torch.utils.tensorboard import read_scalars
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        cfg = train_config(root)
+        data = SyntheticDataset(cfg, num_items=2 * TRAIN_STEPS * cfg.batch_size)
+        t0 = time.time()
+        trainer = Trainer(cfg, data)  # device=None: the card
+        log(f"trainer on {trainer.device} in {time.time() - t0:.1f} s")
+        counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+        for c in counters.values():
+            c.reset()
+        t0 = time.time()
+        trainer.train()
+        torch.cuda.synchronize()
+        log(f"trained {TRAIN_STEPS} steps in {time.time() - t0:.1f} s (first steps include cuDNN's warm-up)")
+        launches = {k: c.value for k, c in counters.items()}
+        want = {k: v * TRAIN_STEPS for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+        require(launches == want, f"train-run launches {launches}, want {want}")
+        log(f"train-run launches: {launches} ({TRAIN_STEPS} steps)")
+
+        scalars = read_scalars(os.path.join(cfg.result_dir, "log"))
+        counts = {k: len(v) for k, v in scalars.items()}
+        require(counts == {"loss/gen": TRAIN_STEPS, "loss/disc": TRAIN_STEPS, "loss/adj": TRAIN_STEPS - 10},
+                f"logged losses {counts}")
+        vals = [v for series in scalars.values() for _, v in series]
+        require(all(np.isfinite(vals)), f"non-finite losses: {scalars}")
+        log("losses per step: " + "; ".join(
+            f"{k} " + ", ".join(f"{v:.4f}" for _, v in series) for k, series in sorted(scalars.items())))
+        image = os.path.join(cfg.result_dir, "train", "gen", f"1-{TRAIN_STEPS}.jpg")
+        ckpt = os.path.join(cfg.result_dir, "checkpoint", "ckpt-1.npz")
+        require(os.path.isfile(image) and os.path.isfile(ckpt), (image, ckpt, os.listdir(os.path.dirname(image))))
+
+        again = Trainer(cfg, data)
+        require((again.global_epoch, again.global_step) == (2, TRAIN_STEPS),
+                (again.global_epoch, again.global_step))
+        live = dict(trainer.state.model.named_parameters())
+        same = all(torch.equal(p, live[n]) for n, p in again.state.model.named_parameters())
+        opts = all(getattr(again.state, o).count == getattr(trainer.state, o).count for o in ("opt_g", "opt_d", "opt_a"))
+        require(same and opts, "the epoch checkpoint did not restore the trained state")
+        log(f"epoch checkpoint {os.path.getsize(ckpt) / 1e6:.1f} MB restores into a new Trainer")
+        del again
+        record = compare_plain_step(trainer)
+        record.update(time_train_step(trainer))
+    return launches, record
+
+
+def compare_plain_step(trainer):
+    """One step's losses and gradients with the kernels against the same
+    weights and draws through the plain versions, on the card, bf16."""
+    import torch
+
+    from littlegan_tpu_torch.training.state import A_KEYS, D_KEYS, G_KEYS, create_train_state, subtree
+    from littlegan_tpu_torch.training.step import LOSS_KEYS, compute_grads
+
+    cfg = trainer.cfg
+    it = trainer.dataset.epoch_iterator(1)
+    b1, b2 = trainer._put(next(it)), trainer._put(next(it))
+    draws = trainer.draws(10_000)
+    batch_no = 12
+    grads, aux = compute_grads(trainer.state, b1, b2, draws, batch_no, cfg)
+    plain_cfg = cfg.replace(use_pallas=False, use_pallas_boundary=False)
+    plain_model = type(trainer.state.model)(plain_cfg).to(trainer.device)
+    plain_model.load_state_dict(trainer.state.model.state_dict())
+    plain_state = create_train_state(plain_cfg, trainer.device, plain_model)
+    pgrads, paux = compute_grads(plain_state, b1, b2, draws, batch_no, plain_cfg)
+    f32_cfg = plain_cfg.replace(compute_dtype="float32")
+    f32_model = type(trainer.state.model)(f32_cfg).to(trainer.device)
+    f32_model.load_state_dict(trainer.state.model.state_dict())
+    fgrads, _ = compute_grads(create_train_state(f32_cfg, trainer.device, f32_model), b1, b2, draws, batch_no,
+                              f32_cfg)
+    torch.cuda.synchronize()
+    losses = {k: (float(aux[k]), float(paux[k])) for k in LOSS_KEYS}
+    rel, floor = {}, {}
+    for group, keys in (("G", G_KEYS), ("D", D_KEYS), ("A", A_KEYS)):
+        names = list(subtree(trainer.state.model, keys))
+        flat = lambda g: torch.cat([g[n].float().flatten() for n in names])  # noqa: E731
+        rel[group] = _rel_err(flat(grads), flat(pgrads))
+        floor[group] = _rel_err(flat(pgrads), flat(fgrads))
+    log("train step, kernels vs plain versions, bf16, same weights and draws: losses "
+        + ", ".join(f"{k} {a:.5f} vs {b:.5f}" for k, (a, b) in losses.items())
+        + "; gradient relative norm error " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        + "; plain bf16 vs plain f32 " + ", ".join(f"{k} {v:.3g}" for k, v in floor.items()))
+    bad = [k for k, (a, b) in losses.items() if abs(a - b) > TRAIN_TOL["loss_rtol"] * abs(b)]
+    bad += [k for k, v in rel.items() if not v <= max(TRAIN_TOL["grad_rel"], TRAIN_TOL["floor_x"] * floor[k])]
+    if bad:
+        raise AssertionError(f"train step disagrees with the plain versions on {bad} (tolerance {TRAIN_TOL})")
+    return {"losses_kernels_vs_plain": losses, "grad_rel_err": rel, "grad_rel_err_bf16_vs_f32": floor}
+
+
+def time_train_step(trainer, reps: int = 10):
+    """Host wall ms of one train step (two batches already on the card,
+    synchronous), the device's busy ms in it (sum of device-side events in
+    torch.profiler, as time_engine) and images/s counted as the trainer
+    counts them (2 x batch per step); with both kernel flags on (the
+    trainer's state) and off (a copy of it through the plain versions),
+    measured on, off, on, off in this one run."""
+    from littlegan_tpu_torch.training.state import create_train_state
+    from littlegan_tpu_torch.training.step import make_train_step
+
+    cfg = trainer.cfg
+    it = trainer.dataset.epoch_iterator(2)
+    b1, b2 = trainer._put(next(it)), trainer._put(next(it))
+    plain_cfg = cfg.replace(use_pallas=False, use_pallas_boundary=False)
+    plain_model = type(trainer.state.model)(plain_cfg).to(trainer.device)
+    plain_model.load_state_dict(trainer.state.model.state_dict())
+    plain_state = create_train_state(plain_cfg, trainer.device, plain_model)
+    runs = {
+        "kernels": (trainer.state, trainer._train_step),
+        "plain": (plain_state, make_train_step(plain_cfg, plain_state)),
+    }
+    out = {}
+    for rnd in range(2):
+        for name, (state, step_fn) in runs.items():
+            step = lambda i: step_fn(state, b1, b2, trainer.draws(20_000 + i), 11 + i % 5)  # noqa: E731
+            r = _time_steps(step, reps, cfg.batch_size, top=12 if rnd == 0 and name == "kernels" else 0)
+            log(f"train step, batch {cfg.batch_size}, {name} (round {rnd + 1}): {r['step_ms']:.3f} ms per step "
+                f"(host wall, mean of {reps}); device busy {r['device_busy_ms']:.3f} ms ({r['device_ops']:.0f} "
+                f"device ops); idle share {r['idle_share']:.1%}; {r['images_per_s']:.1f} images/s")
+            out.setdefault(name, []).append(r)
+    return {"step": out}
+
+
+def _time_steps(step, reps, batch, top=0):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        step(i)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(reps):
+        step(i)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / reps
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n_prof):
+            step(i)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity Buffer")]
+    busy = sum(e.self_device_time_total for e in device) / n_prof / 1e3
+    ops = sum(e.count for e in device) / n_prof
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"    {e.self_device_time_total / n_prof / 1e3:.4f} ms  x{e.count / n_prof:g}  {e.key[:90]}")
+    return {"step_ms": wall, "device_busy_ms": busy, "device_ops": ops, "idle_share": 1 - busy / wall,
+            "images_per_s": 2 * batch / (wall / 1e3)}
+
+
+def summarize(records, serve_launches, train_launches):
+    """One JSON record per kernel, bf16 (the working dtype): the serve
+    path's kernels summed over the shapes one /adjust call gives them, the
+    backward kernels over the launches of one train step; per-shape numbers
+    under "shapes". "launches" counts both paths' runs, split in
+    "launches_by_path"."""
     meta = {
         "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
                                       "littlegan_tpu/ops/pallas/norm_lrelu.py:108"),
@@ -480,15 +869,23 @@ def summarize(records, launches):
                                   "littlegan_tpu/ops/norm.py:59"),
         "conv3x3_same_stats": ("littlegan_tpu_torch/csrc/boundary_conv.cu",
                                "littlegan_tpu/ops/pallas/boundary_conv.py:118"),
+        "fused_instance_norm_lrelu_bwd": ("littlegan_tpu_torch/csrc/norm_lrelu_bwd.cu",
+                                          "littlegan_tpu/ops/pallas/norm_lrelu.py:195"),
+        "norm_lrelu_from_stats_bwd": ("littlegan_tpu_torch/csrc/norm_lrelu_bwd.cu",
+                                      "littlegan_tpu/ops/norm.py:59"),
+        "conv3x3_bwd_fold": ("littlegan_tpu_torch/csrc/boundary_conv_bwd.cu",
+                             "littlegan_tpu/ops/pallas/boundary_conv.py:179"),
     }
     out = []
     for name, (source, replaces) in meta.items():
         shapes = [s for s in records[name]["shapes"] if s["dtype"] == "bfloat16"]
-        tot = lambda k: sum(s[k] for s in shapes)  # noqa: E731
+        per = lambda s: s.get("per_step", 1)  # noqa: E731
+        tot = lambda k: sum(s[k] * per(s) for s in shapes)  # noqa: E731
         lib = None if shapes[0]["library_ms"] is None else tot("library_ms")
+        by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0)}
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
             "bound_by": shapes[0]["bound_by"], "library_ms": lib,
@@ -520,8 +917,11 @@ def main() -> int:
                 log("  " + line.rstrip())
 
     records = check_kernels()
-    launches = check_serving(full_config())
-    log(json.dumps({"kernels": summarize(records, launches)}))
+    records.update(check_backward_kernels())
+    serve_launches = check_serving(full_config())
+    train_launches, train = check_training()
+    log("train record: " + json.dumps(train))
+    log(json.dumps({"kernels": summarize(records, serve_launches, train_launches)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

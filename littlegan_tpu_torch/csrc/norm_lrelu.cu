@@ -27,7 +27,9 @@
 // chunk set at these sizes (at most a few MB per call) mostly stays in the
 // 50 MB L2 between the two launches. lg_norm_lrelu_apply is pass 2 alone,
 // fed with per-sample sums from another kernel (the boundary conv's fused
-// stats, boundary_conv.cu).
+// stats, boundary_conv.cu); lg_norm_stats is pass 1 alone. The backward
+// (norm_lrelu_bwd.cu) reduces the same partials in the same order, so it
+// sees the forward's mean and std bit for bit.
 //
 // C interface for ctypes: pointers and the stream are void*, every function
 // returns cudaGetLastError() as an int.
@@ -217,6 +219,23 @@ int lg_norm_lrelu(int dtype, const void* x, void* y, float* psum, float* psq, co
     launch_fused<float>(x, y, psum, psq, gamma, beta, n, m, chunk, chunks, alpha, eps, s);
   else if (dtype == 1)
     launch_fused<__nv_bfloat16>(x, y, psum, psq, gamma, beta, n, m, chunk, chunks, alpha, eps, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 1 alone: the (n, chunks) f32 partials of sum(x) and sum(x^2) that
+// lg_norm_lrelu leaves in psum/psq, for a backward given only x.
+int lg_norm_stats(int dtype, const void* x, float* psum, float* psq, int64_t n, int64_t m,
+                  int64_t chunk, int chunks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(chunks, static_cast<unsigned>(n));
+  if (dtype == 0)
+    stats_kernel<float><<<grid, kThreads, 0, s>>>(static_cast<const float*>(x), psum, psq, m, chunk,
+                                                  can_vectorize(x, x, m, chunk));
+  else if (dtype == 1)
+    stats_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(x), psum,
+                                                          psq, m, chunk, can_vectorize(x, x, m, chunk));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

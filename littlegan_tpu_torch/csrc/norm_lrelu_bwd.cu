@@ -1,0 +1,334 @@
+// Fused instance norm + LeakyReLU backward for Hopper (sm_90a).
+//
+// Replaces the Pallas kernel littlegan_tpu/ops/pallas/norm_lrelu.py
+// (_bwd_kernel / _bwd_pallas), the analytic VJP of the forward in
+// norm_lrelu.cu. Per sample n of an NHWC tensor with M = H*W*C elements,
+// from the forward's stats (mean, std, d = std + eps):
+//
+//     nrm = (x - mean)/d,  z = (x - mean)*gamma/d + beta
+//     dz  = dy * (z >= 0 ? 1 : alpha),  dn = gamma*dz
+//     dx  = (dn - mean(dn))/d - nrm * mean(dn*nrm)/max(std, 1e-20)
+//     dgamma = sum(dz*nrm), dbeta = sum(dz)     (over the whole batch)
+//
+// What bounds it on the H100: bytes. A few operations per element, so the
+// least time is reading x and dy once and writing dx once over 3.35 TB/s.
+// The TPU kernel ran one sample per sequential grid step and carried dgamma
+// and dbeta from step to step in SMEM; here blocks run in no order, so the
+// work is split into (sample x chunk) blocks, as in the forward:
+//
+//   pass 1 (sums_kernel): each block reduces its sample's forward partials
+//       (the (n, parts) f32 sum(x), sum(x^2) the forward left behind, in the
+//       forward's fixed order, so mean and std are the forward's bit for
+//       bit: no pass over x for the moments), then writes the f32 partials
+//       sum(dz) and sum(dz*nrm) of its chunk;
+//   pass 2 (apply_kernel): each block reduces its sample's partials of both
+//       kinds in a fixed order, writes its chunk of dx with 16-byte stores,
+//       and block (0, 0) also reduces all samples' partials, in a fixed
+//       order, to dgamma and dbeta.
+//
+// No float atomics: every result is deterministic. Pass 2 rereads x and dy;
+// at the largest train shape (64 MiB per bf16 tensor) they do not stay in
+// the 50 MB L2, so the kernel moves about 5/3 of its bound's bytes.
+//
+// The stats-in form (lg_norm_lrelu_from_stats_bwd) is the backward of
+// lg_norm_lrelu_apply, whose mean and std come from per-sample sums s1, s2
+// (the boundary conv's fused stats) and not from x. It runs the same two
+// passes with parts = 1, writes dx = dn/d (the direct path) and, per
+// sample, the cotangents of s1 and s2:
+//
+//     dstd = -sum(dn*nrm)/d,  dvar = var > 0 ? dstd/(2 std) : 0
+//     ds1  = (-sum(dn)/d - 2*mean*dvar)/M,  ds2 = dvar/M
+//
+// C interface for ctypes: pointers and the stream are void*, every function
+// returns cudaGetLastError() as an int.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+template <typename T>
+__host__ __device__ constexpr int vec_elems() { return 16 / sizeof(T); }
+
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, o);
+    b += __shfl_down_sync(0xffffffffu, b, o);
+  }
+}
+
+// Lane-strided sums of `parts` partials at ps/pq, then a shuffle tree: the
+// order of norm_lrelu.cu's apply_kernel. Call from all 32 lanes of warp 0;
+// lane 0 holds the result.
+__device__ __forceinline__ void reduce_parts(const float* ps, const float* pq, int parts, float& s,
+                                             float& q) {
+  s = 0.f;
+  q = 0.f;
+  for (int p = threadIdx.x; p < parts; p += 32) {
+    s += ps[p];
+    q += pq[p];
+  }
+  warp_sum2(s, q);
+}
+
+// The forward's per-sample constants, as apply_kernel computes them.
+struct Moments {
+  float mean, var, std, d, inv;  // inv = gamma / d
+};
+
+__device__ __forceinline__ Moments moments(float s, float q, float fm, float gamma, float eps) {
+  Moments r;
+  r.mean = s / fm;
+  r.var = q / fm - r.mean * r.mean;
+  r.std = sqrtf(fmaxf(r.var, 0.f));
+  r.d = r.std + eps;
+  r.inv = gamma / r.d;
+  return r;
+}
+
+struct Chunk {
+  int64_t begin, end;
+};
+
+__device__ __forceinline__ Chunk chunk_of(int64_t m, int64_t chunk) {
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * chunk;
+  const int64_t end = begin + chunk < m ? begin + chunk : m;
+  return {begin, end};
+}
+
+// Per element: z's sign picks the LeakyReLU slope for dy; nrm as above.
+struct Elem {
+  float dz, nrm;
+};
+
+__device__ __forceinline__ Elem elem(float v, float g, float mean, float inv, float rd, float beta,
+                                     float alpha) {
+  const float z = (v - mean) * inv + beta;
+  return {z >= 0.f ? g : alpha * g, (v - mean) * rd};
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sums_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ fsum,
+                const float* __restrict__ fsq, int fparts, const float* __restrict__ gamma,
+                const float* __restrict__ beta, float* __restrict__ bsum, float* __restrict__ bsq,
+                int64_t m, int64_t chunk, float alpha, float eps, int vec_ok) {
+  const int64_t n = blockIdx.y;
+  __shared__ float stat[3];  // mean, gamma/d, 1/d
+  if (threadIdx.x < 32) {
+    float s, q;
+    reduce_parts(fsum + n * fparts, fsq + n * fparts, fparts, s, q);
+    if (threadIdx.x == 0) {
+      const Moments mo = moments(s, q, static_cast<float>(m), gamma[0], eps);
+      stat[0] = mo.mean;
+      stat[1] = mo.inv;
+      stat[2] = 1.f / mo.d;
+    }
+  }
+  __syncthreads();
+  const float mean = stat[0], inv = stat[1], rd = stat[2], b = beta[0];
+  const Chunk c = chunk_of(m, chunk);
+  const T* xs = x + n * m;
+  const T* gs = dy + n * m;
+  float sdz = 0.f, sdzn = 0.f;
+  if (vec_ok) {
+    constexpr int V = vec_elems<T>();
+    const uint4* xv = reinterpret_cast<const uint4*>(xs);
+    const uint4* gv = reinterpret_cast<const uint4*>(gs);
+    for (int64_t i = c.begin / V + threadIdx.x; i < c.end / V; i += kThreads) {
+      const uint4 rx = __ldg(xv + i), rg = __ldg(gv + i);
+      const T* ex = reinterpret_cast<const T*>(&rx);
+      const T* eg = reinterpret_cast<const T*>(&rg);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const Elem e = elem(to_f32(ex[k]), to_f32(eg[k]), mean, inv, rd, b, alpha);
+        sdz += e.dz;
+        sdzn += e.dz * e.nrm;
+      }
+    }
+  } else {
+    for (int64_t i = c.begin + threadIdx.x; i < c.end; i += kThreads) {
+      const Elem e = elem(to_f32(xs[i]), to_f32(gs[i]), mean, inv, rd, b, alpha);
+      sdz += e.dz;
+      sdzn += e.dz * e.nrm;
+    }
+  }
+  __shared__ float ws[kThreads / 32], wq[kThreads / 32];
+  warp_sum2(sdz, sdzn);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    ws[warp] = sdz;
+    wq[warp] = sdzn;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float ts = 0.f, tq = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      ts += ws[w];
+      tq += wq[w];
+    }
+    bsum[n * gridDim.x + blockIdx.x] = ts;
+    bsq[n * gridDim.x + blockIdx.x] = tq;
+  }
+}
+
+// kFromStats = false: dx of the fused op. true: dx = dn/d and ds1/ds2.
+template <typename T, bool kFromStats>
+__global__ void __launch_bounds__(kThreads)
+    apply_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+                 const float* __restrict__ fsum, const float* __restrict__ fsq, int fparts,
+                 const float* __restrict__ bsum, const float* __restrict__ bsq,
+                 const float* __restrict__ gamma, const float* __restrict__ beta,
+                 float* __restrict__ dgamma, float* __restrict__ dbeta, float* __restrict__ ds1,
+                 float* __restrict__ ds2, int64_t nsamples, int64_t m, int64_t chunk, float alpha,
+                 float eps, int vec_ok) {
+  const int64_t n = blockIdx.y;
+  const int chunks = gridDim.x;
+  const float g = gamma[0];
+  const float fm = static_cast<float>(m);
+  __shared__ float stat[5];  // mean, gamma/d, 1/d, mean(dn), mean(dn*nrm)/max(std, 1e-20)
+  if (threadIdx.x < 32) {
+    float s, q, sdz, sdzn;
+    reduce_parts(fsum + n * fparts, fsq + n * fparts, fparts, s, q);
+    reduce_parts(bsum + n * chunks, bsq + n * chunks, chunks, sdz, sdzn);
+    if (threadIdx.x == 0) {
+      const Moments mo = moments(s, q, fm, g, eps);
+      stat[0] = mo.mean;
+      stat[1] = mo.inv;
+      stat[2] = 1.f / mo.d;
+      stat[3] = g * sdz / fm;
+      stat[4] = g * sdzn / fm / fmaxf(mo.std, 1e-20f);
+      if (kFromStats && blockIdx.x == 0) {
+        const float dstd = -g * sdzn / mo.d;
+        const float dvar = mo.var > 0.f ? dstd * 0.5f / mo.std : 0.f;
+        ds1[n] = (-g * sdz / mo.d - 2.f * mo.mean * dvar) / fm;
+        ds2[n] = dvar / fm;
+      }
+    }
+  }
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x >= 32 && threadIdx.x < 64) {
+    // warp 1 of block (0, 0): the batch totals, in a fixed order
+    float s = 0.f, q = 0.f;
+    const int total = static_cast<int>(nsamples) * chunks;
+    for (int p = threadIdx.x - 32; p < total; p += 32) {
+      s += bsum[p];
+      q += bsq[p];
+    }
+    warp_sum2(s, q);
+    if (threadIdx.x == 32) {
+      dbeta[0] = s;
+      dgamma[0] = q;
+    }
+  }
+  __syncthreads();
+  const float mean = stat[0], inv = stat[1], rd = stat[2], mdn = stat[3], cn = stat[4];
+  const float b = beta[0];
+  const Chunk c = chunk_of(m, chunk);
+  const T* xs = x + n * m;
+  const T* gs = dy + n * m;
+  T* os = dx + n * m;
+  auto grad = [&](float v, float gv) -> float {
+    const Elem e = elem(v, gv, mean, inv, rd, b, alpha);
+    const float dn = g * e.dz;
+    return kFromStats ? dn * rd : (dn - mdn) * rd - e.nrm * cn;
+  };
+  if (vec_ok) {
+    constexpr int V = vec_elems<T>();
+    const uint4* xv = reinterpret_cast<const uint4*>(xs);
+    const uint4* gv = reinterpret_cast<const uint4*>(gs);
+    uint4* ov = reinterpret_cast<uint4*>(os);
+    for (int64_t i = c.begin / V + threadIdx.x; i < c.end / V; i += kThreads) {
+      const uint4 rx = __ldg(xv + i), rg = __ldg(gv + i);
+      const T* ex = reinterpret_cast<const T*>(&rx);
+      const T* eg = reinterpret_cast<const T*>(&rg);
+      uint4 out;
+      T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int k = 0; k < V; ++k) o[k] = from_f32<T>(grad(to_f32(ex[k]), to_f32(eg[k])));
+      ov[i] = out;
+    }
+  } else {
+    for (int64_t i = c.begin + threadIdx.x; i < c.end; i += kThreads)
+      os[i] = from_f32<T>(grad(to_f32(xs[i]), to_f32(gs[i])));
+  }
+}
+
+int can_vectorize(const void* a, const void* b, const void* c, int64_t m, int64_t chunk) {
+  const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return al(a) && al(b) && al(c) && (m % 8 == 0) && (chunk % 8 == 0);
+}
+
+template <typename T, bool kFromStats>
+void launch(const void* x, const void* dy, void* dx, const float* fsum, const float* fsq,
+            int fparts, float* bsum, float* bsq, const float* gamma, const float* beta,
+            float* dgamma, float* dbeta, float* ds1, float* ds2, int64_t n, int64_t m,
+            int64_t chunk, int chunks, float alpha, float eps, cudaStream_t stream) {
+  const dim3 grid(chunks, static_cast<unsigned>(n));
+  const int vec_ok = can_vectorize(x, dy, dx, m, chunk);
+  sums_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const T*>(dy),
+                                                fsum, fsq, fparts, gamma, beta, bsum, bsq, m, chunk,
+                                                alpha, eps, vec_ok);
+  apply_kernel<T, kFromStats><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), fsum, fsq, fparts,
+      bsum, bsq, gamma, beta, dgamma, dbeta, ds1, ds2, n, m, chunk, alpha, eps, vec_ok);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Backward of lg_norm_lrelu. dtype: 0 = float32, 1 = bfloat16 (x, dy, dx).
+// fsum/fsq: the forward's (n, fparts) partials; bsum/bsq: (n, chunks) f32
+// scratch; dgamma/dbeta: one f32 each. Chunking as in the forward.
+int lg_norm_lrelu_bwd(int dtype, const void* x, const void* dy, void* dx, const float* fsum,
+                      const float* fsq, int fparts, float* bsum, float* bsq, const float* gamma,
+                      const float* beta, float* dgamma, float* dbeta, int64_t n, int64_t m,
+                      int64_t chunk, int chunks, float alpha, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    launch<float, false>(x, dy, dx, fsum, fsq, fparts, bsum, bsq, gamma, beta, dgamma, dbeta,
+                         nullptr, nullptr, n, m, chunk, chunks, alpha, eps, s);
+  else if (dtype == 1)
+    launch<__nv_bfloat16, false>(x, dy, dx, fsum, fsq, fparts, bsum, bsq, gamma, beta, dgamma,
+                                 dbeta, nullptr, nullptr, n, m, chunk, chunks, alpha, eps, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Backward of lg_norm_lrelu_apply: y the forward's input, dout its output's
+// cotangent; writes dy (direct path), ds1/ds2 (n,) f32, dgamma, dbeta.
+int lg_norm_lrelu_from_stats_bwd(int dtype, const void* y, const void* dout, void* dy,
+                                 const float* s1, const float* s2, float* bsum, float* bsq,
+                                 const float* gamma, const float* beta, float* dgamma,
+                                 float* dbeta, float* ds1, float* ds2, int64_t n, int64_t m,
+                                 int64_t chunk, int chunks, float alpha, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    launch<float, true>(y, dout, dy, s1, s2, 1, bsum, bsq, gamma, beta, dgamma, dbeta, ds1, ds2, n,
+                        m, chunk, chunks, alpha, eps, s);
+  else if (dtype == 1)
+    launch<__nv_bfloat16, true>(y, dout, dy, s1, s2, 1, bsum, bsq, gamma, beta, dgamma, dbeta, ds1,
+                                ds2, n, m, chunk, chunks, alpha, eps, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

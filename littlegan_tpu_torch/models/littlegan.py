@@ -20,8 +20,11 @@ All compute is NHWC in ``cfg.compute_dtype``; instance-norm stats are f32.
 With ``cfg.use_pallas`` every encoder/decoder block epilogue runs the fused
 norm + LeakyReLU CUDA kernel; with ``cfg.use_pallas_boundary`` encoder
 block1 (s2d form) runs the boundary conv kernel with fused stats, then the
-stats-in norm kernel. On CPU tensors both take their plain versions.
-Dropout is the reference's inert one (no dropout at inference).
+stats-in norm kernel. Both go through their autograd Functions
+(``FusedNormLReLU``, ``BoundaryConvS2D``, ``NormLReLUFromStats``), whose
+backwards are kernels too, so the gradient reaches every parameter. On CPU
+tensors they take their plain versions. Dropout is the reference's inert
+one: the JAX train step passes no dropout key either.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.ops import s2d
 from littlegan_tpu_torch.ops.conv import conv2d, deconv2d, dense, leaky_relu
 from littlegan_tpu_torch.ops.cuda import boundary_conv
-from littlegan_tpu_torch.ops.cuda.norm_lrelu import fused_instance_norm_lrelu, norm_lrelu_from_stats
+from littlegan_tpu_torch.ops.cuda.norm_lrelu import FusedNormLReLU, NormLReLUFromStats
 from littlegan_tpu_torch.ops.norm import instance_norm
 
 
@@ -83,7 +86,7 @@ def _norm_lrelu(x: torch.Tensor, norm: Norm, cfg: Config) -> torch.Tensor:
     """InstanceNorm -> LeakyReLU block epilogue: the fused kernel when
     ``cfg.use_pallas``, plain ops otherwise."""
     if cfg.use_pallas and x.dim() == 4:
-        return fused_instance_norm_lrelu(x.contiguous(), norm.gamma, norm.beta, cfg.leaky_alpha)
+        return FusedNormLReLU.apply(x.contiguous(), norm.gamma, norm.beta, cfg.leaky_alpha)
     return leaky_relu(instance_norm(x, norm.gamma, norm.beta), cfg.leaky_alpha)
 
 
@@ -110,10 +113,10 @@ class Encoder(nn.Module):
             if i == 1 and s2d_active(cfg):
                 kern = s2d.s2d_conv1_kernel(blk.conv.kernel)
                 if cfg.use_pallas_boundary and boundary_conv.supports(x.shape):
-                    y, s1, s2 = boundary_conv.conv3x3_same_stats(
+                    y, s1, s2 = boundary_conv.BoundaryConvS2D.apply(
                         x.contiguous(), kern.to(x.dtype), blk.conv.bias
                     )
-                    x = norm_lrelu_from_stats(y, s1, s2, blk.norm.gamma, blk.norm.beta, cfg.leaky_alpha)
+                    x = NormLReLUFromStats.apply(y, s1, s2, blk.norm.gamma, blk.norm.beta, cfg.leaky_alpha)
                 else:
                     x = _norm_lrelu(conv2d(x, kern, blk.conv.bias, stride=1), blk.norm, cfg)
             else:

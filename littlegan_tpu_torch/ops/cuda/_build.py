@@ -26,7 +26,7 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("norm_lrelu.cu", "boundary_conv.cu")
+SOURCES = ("norm_lrelu.cu", "norm_lrelu_bwd.cu", "boundary_conv.cu", "boundary_conv_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,9 +39,17 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "lg_norm_lrelu": (_I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _P),
     "lg_norm_lrelu_apply": (_I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _P),
+    "lg_norm_stats": (_I, _P, _P, _P, _I64, _I64, _I64, _I, _P),
+    "lg_norm_lrelu_bwd": (
+        _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _P,
+    ),
+    "lg_norm_lrelu_from_stats_bwd": (
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _P,
+    ),
     "lg_conv3x3_same_stats": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lg_conv3x3_tiles": (_I, _I, _I),
     "lg_conv3x3_smem_bytes": (_I, _I, _I),
+    "lg_conv3x3_bwd_fold": (_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -15,22 +15,33 @@ shared memory as f32, accumulates with a plain FMA loop, writes y with
 16-byte stores and one f32 stats partial; a second launch reduces the
 partials per sample in a fixed order.
 
-A CPU tensor takes the plain PyTorch version below; a CUDA tensor launches
-the kernel or raises. The wrapper counts its launches in ``.launches``.
+:class:`BoundaryConvS2D` is the autograd Function the model calls, the
+counterpart of the JAX package's custom VJP ``boundary_conv_s2d``. Its
+backward folds the stats' cotangents into the output cotangent and sums it
+for the bias in one kernel (``conv3x3_bwd_fold``, ``csrc/boundary_conv_bwd.cu``),
+then takes dx and dw with PyTorch's convolution backward, as the JAX
+package leaves those two to XLA.
+
+A CPU tensor takes the plain PyTorch versions below; a CUDA tensor launches
+the kernels or raises, and a raw wrapper asked for a result autograd would
+have to differentiate raises. Each wrapper counts its launches in
+``.launches``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from littlegan_tpu_torch.ops.cuda import _build
+from littlegan_tpu_torch.ops.cuda.norm_lrelu import refuse_grad
 
 _MAX_CIN = 16
 _COUTS = (8, 16, 32, 64, 128)  # Cout/8 channel groups must divide 256 threads
 _MAX_SMEM = 227 * 1024
+_FOLD_BLOCK_PIXELS = 512  # pixels per block of the fold kernel
 
 
 def supports(x_shape) -> bool:
@@ -60,6 +71,7 @@ def conv3x3_same_stats(
     squares of each sample's (H, W, Cout) output, bias included."""
     if x.device.type == "cpu":
         return conv3x3_same_stats_plain(x, w, b)
+    refuse_grad("conv3x3_same_stats", "BoundaryConvS2D", x, w, b)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_same_stats: expected a CPU or CUDA tensor, got {x.device}")
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3) or w.shape[2] != x.shape[3]:
@@ -97,4 +109,99 @@ def conv3x3_same_stats(
     return y, stats[0], stats[1]
 
 
+def conv3x3_bwd_fold_plain(
+    y: torch.Tensor, gy: torch.Tensor, gs1: torch.Tensor, gs2: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gy', db): ``gy' = gy + gs1 + 2 y gs2`` per sample in f32, returned
+    in y's dtype, and its f32 sum over (N, H, W) (``boundary_conv.py:183-190``)."""
+    g = gy.float() + gs1.float()[:, None, None, None] + 2.0 * y.float() * gs2.float()[:, None, None, None]
+    return g.to(y.dtype), g.sum((0, 1, 2))
+
+
+def conv3x3_bwd_fold(
+    y: torch.Tensor, gy: torch.Tensor, gs1: torch.Tensor, gs2: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stats-cotangent fold of the boundary conv's backward: y the
+    forward's (cast) output, gy its cotangent, gs1/gs2 the (N,) f32
+    cotangents of the sums. Returns (gy' in y's dtype, db f32 (Cout,))."""
+    if y.device.type == "cpu":
+        return conv3x3_bwd_fold_plain(y, gy, gs1, gs2)
+    what = "conv3x3_bwd_fold"
+    refuse_grad(what, "BoundaryConvS2D", y, gy, gs1, gs2)
+    if y.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CPU or CUDA tensor, got {y.device}")
+    if y.dim() != 4 or not y.is_contiguous():
+        raise ValueError(f"{what}: y must be a contiguous NHWC tensor, got {tuple(y.shape)}")
+    if gy.shape != y.shape or gy.dtype != y.dtype or gy.device != y.device or not gy.is_contiguous():
+        raise ValueError(f"{what}: gy must be contiguous {y.dtype} {tuple(y.shape)} on {y.device}")
+    if y.data_ptr() % 16 or gy.data_ptr() % 16:
+        raise ValueError(f"{what}: y and gy must be 16-byte aligned (the kernel moves 16-byte vectors)")
+    n, h, wd, cout = y.shape
+    for name, t in (("gs1", gs1), ("gs2", gs2)):
+        if t.shape != (n,) or t.dtype != torch.float32 or t.device != y.device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous f32 ({n},) on {y.device}")
+    code = _build.dtype_code(y)
+    vec = 16 // y.element_size()
+    if cout % vec or 256 % (cout // vec) or cout > 256:
+        raise ValueError(f"{what}: takes Cout a multiple of {vec} with Cout/{vec} dividing 256, got {cout}")
+    pixels = n * h * wd
+    blocks = -(-pixels // _FOLD_BLOCK_PIXELS)
+    out = torch.empty_like(y)
+    part = torch.empty((blocks, cout), dtype=torch.float32, device=y.device)
+    db = torch.empty((cout,), dtype=torch.float32, device=y.device)
+    err = _build.lib().lg_conv3x3_bwd_fold(
+        code, y.data_ptr(), gy.data_ptr(), gs1.data_ptr(), gs2.data_ptr(), out.data_ptr(), part.data_ptr(),
+        db.data_ptr(), pixels, h * wd, cout, _FOLD_BLOCK_PIXELS, blocks, _build.stream_ptr(y.device),
+    )
+    _build.check(err, what)
+    conv3x3_bwd_fold.launches.add()
+    return out, db
+
+
+def conv3x3_input_weight_grads(
+    x: torch.Tensor, w: torch.Tensor, gy: torch.Tensor, need_dx: bool = True
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """(dx NHWC or None when not ``need_dx``, dw HWIO) of the 3x3 stride-1
+    SAME conv for the output cotangent gy, by PyTorch's convolution backward
+    (the JAX package's are XLA convolutions, ``boundary_conv.py:191-206``)."""
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        gy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), None,
+        [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [need_dx, True, False],
+    )
+    return (dx.permute(0, 2, 3, 1) if need_dx else None), dw.permute(2, 3, 1, 0)
+
+
 conv3x3_same_stats.launches = _build.LaunchCounter()
+conv3x3_bwd_fold.launches = _build.LaunchCounter()
+
+
+def boundary_conv_s2d_bwd(
+    x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, gy: torch.Tensor, gs1: torch.Tensor, gs2: torch.Tensor,
+    need_dx: bool = True,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """(dx or None, dw, db f32) of ``conv3x3_same_stats`` from the forward's
+    x, w and (cast) y and the cotangents of (y, s1, s2): the fold kernel,
+    then PyTorch's convolution backward on the folded cotangent in x's dtype."""
+    gyp, db = conv3x3_bwd_fold(y, gy.to(y.dtype).contiguous(), gs1.float().contiguous(), gs2.float().contiguous())
+    dx, dw = conv3x3_input_weight_grads(x, w.to(x.dtype), gyp, need_dx)
+    return dx, dw, db
+
+
+class BoundaryConvS2D(torch.autograd.Function):
+    """``conv3x3_same_stats`` -> (y, s1, s2) with the JAX custom VJP's
+    backward: the stats' cotangents folded into y's, db in the bias's own
+    dtype (f32 even when x and w are bf16), dx and dw in x's and w's."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        y, s1, s2 = conv3x3_same_stats(x, w, b)
+        ctx.save_for_backward(x, w, y)
+        ctx.b_dtype = b.dtype
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, gy, gs1, gs2):
+        x, w, y = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        dx, dw, db = boundary_conv_s2d_bwd(x, w, y, gy, gs1, gs2, need_dx)
+        return (dx.to(x.dtype) if need_dx else None), dw.to(w.dtype), db.to(ctx.b_dtype)

@@ -1,27 +1,37 @@
-"""Fused instance norm + LeakyReLU: the CUDA kernel's wrapper and its plain version.
+"""Fused instance norm + LeakyReLU: the CUDA kernels' wrappers, their plain versions and autograd.
 
-Replaces ``littlegan_tpu/ops/pallas/norm_lrelu.py::fused_instance_norm_lrelu``
-(the forward, ``_fwd_kernel`` / ``_fwd_pallas``). It closes every encoder and
-decoder block: ``leaky_relu(instance_norm(x, gamma, beta), alpha)`` per sample
-over all of (H, W, C), with f32 one-pass stats and scalar gamma, beta.
+Replaces ``littlegan_tpu/ops/pallas/norm_lrelu.py::fused_instance_norm_lrelu``:
+the forward (``_fwd_kernel`` / ``_fwd_pallas``) and its custom VJP's backward
+(``_bwd_kernel`` / ``_bwd_pallas``). It closes every encoder and decoder
+block: ``leaky_relu(instance_norm(x, gamma, beta), alpha)`` per sample over
+all of (H, W, C), with f32 one-pass stats and scalar gamma, beta.
 
 What bounds it on the H100 is bytes: a few operations per element, so the
-least time is one read of x and one write of y at 3.35 TB/s. The design
-(``csrc/norm_lrelu.cu``) splits each sample over many blocks so that a
-batch of 8 fills the card: a stats launch writes per-chunk f32 partials, an
-apply launch reduces them in a fixed order (deterministic, no atomics) and
-writes y with 16-byte stores. ``norm_lrelu_from_stats`` is the apply launch
-alone, for stats that a conv epilogue already produced (encoder block1,
-``boundary_conv.py``).
+least time is one read of x and one write of y forward, and a read of x and
+dy and a write of dx backward, at 3.35 TB/s. The design
+(``csrc/norm_lrelu.cu``, ``csrc/norm_lrelu_bwd.cu``) splits each sample over
+many blocks so that a small batch fills the card: a stats launch writes
+per-chunk f32 partials, an apply launch reduces them in a fixed order
+(deterministic, no atomics) and writes y with 16-byte stores. The backward
+reuses the forward's partials (so it never rereads x for the moments), writes
+per-chunk partials of sum(dz) and sum(dz * n), and reduces those per sample
+for dx and over the batch for dgamma and dbeta. ``norm_lrelu_from_stats`` is
+the apply launch alone, for stats that a conv epilogue already produced
+(encoder block1, ``boundary_conv.py``); its backward also returns the stats'
+cotangents.
 
-A CPU tensor takes the plain PyTorch version below; a CUDA tensor launches
-the kernel or raises. Each wrapper counts its launches in ``.launches``.
+:class:`FusedNormLReLU` and :class:`NormLReLUFromStats` are the autograd
+Functions the model calls. A CPU tensor takes the plain PyTorch versions
+below, forward and backward; a CUDA tensor launches the kernels or raises.
+A raw wrapper asked for a result that autograd would have to differentiate
+raises instead of returning it detached. Each wrapper counts its launches in
+``.launches``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -52,6 +62,67 @@ def norm_lrelu_from_stats_plain(
     return leaky_relu(instance_norm_from_stats(y, s1, s2, gamma, beta, eps), alpha)
 
 
+def _per_sample(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    return t.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def fused_instance_norm_lrelu_bwd_plain(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    alpha: float = 0.3,
+    eps: float = 1e-3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dgamma, dbeta): the analytic VJP of ``_bwd_kernel``
+    (``littlegan_tpu/ops/pallas/norm_lrelu.py:138-150``), in f32; dx in x's
+    dtype, dgamma and dbeta f32 of shape (1,), summed over the batch."""
+    red = tuple(range(1, x.ndim))
+    xf = x.float()
+    g, b = gamma.float().reshape(()), beta.float().reshape(())
+    mean = xf.mean(red, keepdim=True)
+    std = (xf.square().mean(red, keepdim=True) - mean.square()).clamp_min(0.0).sqrt()
+    d = std + eps
+    nrm = (xf - mean) / d
+    dz = dy.float() * torch.where(nrm * g + b >= 0, 1.0, alpha)
+    dn = dz * g
+    dx = (dn - dn.mean(red, keepdim=True)) / d - nrm * (dn * nrm).mean(red, keepdim=True) / std.clamp_min(1e-20)
+    return dx.to(x.dtype), (dz * nrm).sum().reshape(1), dz.sum().reshape(1)
+
+
+def norm_lrelu_from_stats_bwd_plain(
+    y: torch.Tensor,
+    s1: torch.Tensor,
+    s2: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    dout: torch.Tensor,
+    alpha: float = 0.3,
+    eps: float = 1e-3,
+) -> Tuple[torch.Tensor, ...]:
+    """(dy, ds1, ds2, dgamma, dbeta), the VJP of ``norm_lrelu_from_stats``.
+    mean = s1/M and var = s2/M - mean^2 depend on the sums, not on y, so dy
+    is the direct path dn/d, and the sums get
+    ``ds1 = (-sum(dn)/d - 2 mean dvar)/M``, ``ds2 = dvar/M`` with
+    ``dvar = -sum(dn n)/(2 d std)`` (0 where the variance clamps)."""
+    red = tuple(range(1, y.ndim))
+    m = float(y[0].numel())
+    g, b = gamma.float().reshape(()), beta.float().reshape(())
+    mean = s1.float() / m
+    var = s2.float() / m - mean.square()
+    std = var.clamp_min(0.0).sqrt()
+    d = std + eps
+    nrm = (y.float() - _per_sample(mean, y.ndim)) / _per_sample(d, y.ndim)
+    dz = dout.float() * torch.where(nrm * g + b >= 0, 1.0, alpha)
+    dn = dz * g
+    dy = dn / _per_sample(d, y.ndim)
+    dstd = -(dn * nrm).sum(red) / d
+    dvar = torch.where(var > 0, dstd * 0.5 / std.clamp_min(1e-20), 0.0)
+    ds1 = (-dn.sum(red) / d - 2.0 * mean * dvar) / m
+    ds2 = dvar / m
+    return dy.to(y.dtype), ds1, ds2, (dz * nrm).sum().reshape(1), dz.sum().reshape(1)
+
+
 def _sms(device: torch.device) -> int:
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _sm_count:
@@ -68,6 +139,17 @@ def chunking(n: int, m: int, sms: int) -> Tuple[int, int]:
     return chunk, math.ceil(m / chunk)
 
 
+def refuse_grad(what: str, function: str, *tensors: Optional[torch.Tensor]) -> None:
+    """A kernel's output is a fresh tensor autograd cannot see: when grad
+    mode is on and an input requires grad, raise instead of returning it
+    detached (a silent stop of the gradient)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the kernel's result would be detached from "
+            f"autograd; call it through {function}.apply"
+        )
+
+
 def _check_inputs(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: expected a CPU or CUDA tensor, got {x.device}")
@@ -80,17 +162,27 @@ def _check_inputs(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, what
             raise ValueError(f"{what}: {name} must be one value on {x.device}")
 
 
+def _check_like(x: torch.Tensor, t: torch.Tensor, name: str, what: str) -> None:
+    if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device or not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _check_sums(n: int, device, what: str, **sums: torch.Tensor) -> None:
+    for name, s in sums.items():
+        if s.shape != (n,) or s.dtype != torch.float32 or s.device != device or not s.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous f32 ({n},) on {device}")
+
+
 def _scalar(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(1).to(torch.float32).contiguous()
 
 
-def fused_instance_norm_lrelu(
-    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, alpha: float = 0.3, eps: float = 1e-3
-) -> torch.Tensor:
-    """leaky_relu(instance_norm(x, gamma, beta), alpha). x: (N, H, W, C)
-    float32 or bfloat16; gamma, beta: shape (1,). Output in x's dtype."""
+def _fused_forward(x, gamma, beta, alpha, eps) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(y, stats): on the card stats are the (2, N, chunks) f32 partials of
+    sum(x) and sum(x^2) the backward reuses; None on the CPU."""
     if x.device.type == "cpu":
-        return fused_instance_norm_lrelu_plain(x, gamma, beta, alpha, eps)
+        return fused_instance_norm_lrelu_plain(x, gamma, beta, alpha, eps), None
+    refuse_grad("fused_instance_norm_lrelu", "FusedNormLReLU", x, gamma, beta)
     _check_inputs(x, gamma, beta, "fused_instance_norm_lrelu")
     code = _build.dtype_code(x)
     n, m = x.shape[0], x[0].numel()
@@ -104,7 +196,59 @@ def fused_instance_norm_lrelu(
     )
     _build.check(err, "fused_instance_norm_lrelu")
     fused_instance_norm_lrelu.launches.add()
-    return y
+    return y, part
+
+
+def fused_instance_norm_lrelu(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, alpha: float = 0.3, eps: float = 1e-3
+) -> torch.Tensor:
+    """leaky_relu(instance_norm(x, gamma, beta), alpha). x: (N, H, W, C)
+    float32 or bfloat16; gamma, beta: shape (1,). Output in x's dtype."""
+    return _fused_forward(x, gamma, beta, alpha, eps)[0]
+
+
+def fused_instance_norm_lrelu_bwd(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    alpha: float = 0.3,
+    eps: float = 1e-3,
+    stats: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dgamma, dbeta) of ``fused_instance_norm_lrelu`` for the output
+    cotangent dy (x's shape and dtype). ``stats``: the forward's partials;
+    without them the card makes them first with the forward's stats pass.
+    dgamma and dbeta are f32 (1,), summed over the batch."""
+    if x.device.type == "cpu":
+        return fused_instance_norm_lrelu_bwd_plain(x, dy, gamma, beta, alpha, eps)
+    what = "fused_instance_norm_lrelu_bwd"
+    refuse_grad(what, "FusedNormLReLU", x, dy, gamma, beta)
+    _check_inputs(x, gamma, beta, what)
+    _check_like(x, dy, "dy", what)
+    code = _build.dtype_code(x)
+    n, m = x.shape[0], x[0].numel()
+    chunk, chunks = chunking(n, m, _sms(x.device))
+    lib, stream = _build.lib(), _build.stream_ptr(x.device)
+    if stats is None:
+        stats = torch.empty((2, n, chunks), dtype=torch.float32, device=x.device)
+        err = lib.lg_norm_stats(code, x.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), n, m, chunk,
+                                chunks, stream)
+        _build.check(err, what)
+    elif stats.shape != (2, n, chunks) or stats.dtype != torch.float32 or not stats.is_contiguous():
+        raise ValueError(f"{what}: stats must be the forward's contiguous f32 (2, {n}, {chunks}) partials")
+    dx = torch.empty_like(x)
+    part = torch.empty((2, n, chunks), dtype=torch.float32, device=x.device)
+    dgb = torch.empty((2,), dtype=torch.float32, device=x.device)
+    g, b = _scalar(gamma), _scalar(beta)
+    err = lib.lg_norm_lrelu_bwd(
+        code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), chunks,
+        part[0].data_ptr(), part[1].data_ptr(), g.data_ptr(), b.data_ptr(), dgb[0].data_ptr(),
+        dgb[1].data_ptr(), n, m, chunk, chunks, alpha, eps, stream,
+    )
+    _build.check(err, what)
+    fused_instance_norm_lrelu_bwd.launches.add()
+    return dx, dgb[0:1], dgb[1:2]
 
 
 def norm_lrelu_from_stats(
@@ -120,11 +264,10 @@ def norm_lrelu_from_stats(
     s2 = sum(y^2), each f32 of shape (N,)."""
     if y.device.type == "cpu":
         return norm_lrelu_from_stats_plain(y, s1, s2, gamma, beta, alpha, eps)
+    refuse_grad("norm_lrelu_from_stats", "NormLReLUFromStats", y, s1, s2, gamma, beta)
     _check_inputs(y, gamma, beta, "norm_lrelu_from_stats")
     n, m = y.shape[0], y[0].numel()
-    for name, s in (("s1", s1), ("s2", s2)):
-        if s.shape != (n,) or s.dtype != torch.float32 or s.device != y.device or not s.is_contiguous():
-            raise ValueError(f"norm_lrelu_from_stats: {name} must be contiguous f32 ({n},) on {y.device}")
+    _check_sums(n, y.device, "norm_lrelu_from_stats", s1=s1, s2=s2)
     code = _build.dtype_code(y)
     chunk, chunks = chunking(n, m, _sms(y.device))
     out = torch.empty_like(y)
@@ -138,5 +281,85 @@ def norm_lrelu_from_stats(
     return out
 
 
+def norm_lrelu_from_stats_bwd(
+    y: torch.Tensor,
+    s1: torch.Tensor,
+    s2: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    dout: torch.Tensor,
+    alpha: float = 0.3,
+    eps: float = 1e-3,
+) -> Tuple[torch.Tensor, ...]:
+    """(dy, ds1, ds2, dgamma, dbeta) of ``norm_lrelu_from_stats`` for the
+    output cotangent dout; dy in y's dtype, the rest f32."""
+    if y.device.type == "cpu":
+        return norm_lrelu_from_stats_bwd_plain(y, s1, s2, gamma, beta, dout, alpha, eps)
+    what = "norm_lrelu_from_stats_bwd"
+    refuse_grad(what, "NormLReLUFromStats", y, s1, s2, gamma, beta, dout)
+    _check_inputs(y, gamma, beta, what)
+    _check_like(y, dout, "dout", what)
+    n, m = y.shape[0], y[0].numel()
+    _check_sums(n, y.device, what, s1=s1, s2=s2)
+    code = _build.dtype_code(y)
+    chunk, chunks = chunking(n, m, _sms(y.device))
+    dy = torch.empty_like(y)
+    part = torch.empty((2, n, chunks), dtype=torch.float32, device=y.device)
+    ds = torch.empty((2, n), dtype=torch.float32, device=y.device)
+    dgb = torch.empty((2,), dtype=torch.float32, device=y.device)
+    g, b = _scalar(gamma), _scalar(beta)
+    err = _build.lib().lg_norm_lrelu_from_stats_bwd(
+        code, y.data_ptr(), dout.data_ptr(), dy.data_ptr(), s1.data_ptr(), s2.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), g.data_ptr(), b.data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(),
+        ds[0].data_ptr(), ds[1].data_ptr(), n, m, chunk, chunks, alpha, eps, _build.stream_ptr(y.device),
+    )
+    _build.check(err, what)
+    norm_lrelu_from_stats_bwd.launches.add()
+    return dy, ds[0], ds[1], dgb[0:1], dgb[1:2]
+
+
 fused_instance_norm_lrelu.launches = _build.LaunchCounter()
+fused_instance_norm_lrelu_bwd.launches = _build.LaunchCounter()
 norm_lrelu_from_stats.launches = _build.LaunchCounter()
+norm_lrelu_from_stats_bwd.launches = _build.LaunchCounter()
+
+
+class FusedNormLReLU(torch.autograd.Function):
+    """``fused_instance_norm_lrelu`` with ``fused_instance_norm_lrelu_bwd``
+    as its backward (the Pallas op's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, alpha: float = 0.3, eps: float = 1e-3):
+        y, stats = _fused_forward(x, gamma, beta, alpha, eps)
+        ctx.save_for_backward(x, gamma, beta, stats)
+        ctx.alpha, ctx.eps = alpha, eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, stats = ctx.saved_tensors
+        dx, dg, db = fused_instance_norm_lrelu_bwd(
+            x, dy.to(x.dtype).contiguous(), gamma, beta, ctx.alpha, ctx.eps, stats
+        )
+        return dx, dg.to(gamma.dtype).reshape(gamma.shape), db.to(beta.dtype).reshape(beta.shape), None, None
+
+
+class NormLReLUFromStats(torch.autograd.Function):
+    """``norm_lrelu_from_stats`` with ``norm_lrelu_from_stats_bwd`` as its
+    backward; the sums' cotangents flow on to the conv that made them."""
+
+    @staticmethod
+    def forward(ctx, y, s1, s2, gamma, beta, alpha: float = 0.3, eps: float = 1e-3):
+        out = norm_lrelu_from_stats(y, s1, s2, gamma, beta, alpha, eps)
+        ctx.save_for_backward(y, s1, s2, gamma, beta)
+        ctx.alpha, ctx.eps = alpha, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, s1, s2, gamma, beta = ctx.saved_tensors
+        dy, ds1, ds2, dg, db = norm_lrelu_from_stats_bwd(
+            y, s1, s2, gamma, beta, dout.to(y.dtype).contiguous(), ctx.alpha, ctx.eps
+        )
+        return (dy, ds1.to(s1.dtype), ds2.to(s2.dtype), dg.to(gamma.dtype).reshape(gamma.shape),
+                db.to(beta.dtype).reshape(beta.shape), None, None)

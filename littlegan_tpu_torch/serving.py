@@ -39,20 +39,8 @@ from littlegan_tpu_torch.compat.jax_params import params_from_jax
 from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.models import LittleGAN, init_params
 from littlegan_tpu_torch.training.checkpoint import eval_params, make_checkpointer
+from littlegan_tpu_torch.utils.device import resolve_device
 from littlegan_tpu_torch.utils.image import data_rescale, inverse_rescale
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else the current CUDA device; raises when no
-    device is given and there is no CUDA device (never a silent CPU run)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: littlegan_tpu_torch runs on the GPU; pass device='cpu' "
-            "to run on the CPU instead"
-        )
-    return torch.device("cuda", torch.cuda.current_device())
 
 
 class InferenceEngine:

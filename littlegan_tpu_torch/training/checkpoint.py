@@ -1,38 +1,144 @@
-"""Read the JAX package's npz checkpoints (read-only).
+"""npz checkpoints in the JAX package's format, read and written.
 
 The JAX package writes one ``ckpt-<tag>.npz`` per checkpoint
 (``littlegan_tpu/training/checkpoint.py``), tags being epoch numbers,
-``interrupt`` or ``model``:
+``interrupt`` or ``model``, and a ``status.json`` beside them:
 
 - a weights-only export (``model/ckpt-model.npz``) holds the parameter
   keys bare: ``encoder/block1/conv/kernel``, ...;
-- a train checkpoint holds the whole train state: ``.params/...``, the three
-  optimizer states, and ``.ema/...`` when the run kept an EMA of the
-  generator's parts.
+- a train checkpoint holds the whole train state under the flat keys of its
+  pytree: ``.params/<key>``, ``.opt_g/.count/<key>`` (int32 scalars),
+  ``.opt_g/.mu/<key>`` and ``.opt_g/.nu/<key>`` (in the moment dtype; a
+  bfloat16 array is stored as raw 2-byte void, as numpy saves JAX's), the
+  same for ``.opt_d`` and ``.opt_a``, and ``.ema/<key>`` when the run keeps
+  an EMA of the generator's parts.
 
-:func:`eval_params` turns either into the parameters inference serves,
-with the ``.ema/*`` arrays over the live ones, as the JAX package's
-``training/state.py::eval_params`` does. Nothing here creates or writes a
-file. Only the npz backend is read.
+:class:`Checkpointer` writes a port :class:`TrainState` under those keys and
+layouts, so a checkpoint of either package restores in the other. A save
+writes a temporary file in the same directory, fsyncs it and renames it
+over the tag; ``status.json`` is written the same way.
+:func:`eval_params` turns either kind into the parameters inference serves,
+with the ``.ema/*`` arrays over the live ones. Only the npz backend exists.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
-from typing import Dict, Optional, Tuple
+import tempfile
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+from littlegan_tpu_torch.compat.jax_params import jax_key
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host array as the JAX package stores it: bfloat16 as 2-byte void."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def from_numpy(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of :func:`to_numpy`, cast to ``dtype``."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16).to(dtype)
+    return torch.from_numpy(np.array(arr)).to(dtype)
+
+
+def _write_status(directory: str, status: Dict[str, Any]) -> None:
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".status.tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(status, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(directory, "status.json"))
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def flatten_state(state) -> Dict[str, np.ndarray]:
+    """A port TrainState under the JAX package's flat keys."""
+    flat = {f".params/{jax_key(n)}": to_numpy(p) for n, p in state.model.named_parameters()}
+    for name in ("opt_g", "opt_d", "opt_a"):
+        opt = getattr(state, name)
+        for k in opt.mu:
+            key = jax_key(k)
+            flat[f".{name}/.count/{key}"] = np.asarray(opt.count[k], np.int32)
+            flat[f".{name}/.mu/{key}"] = to_numpy(opt.mu[k])
+            flat[f".{name}/.nu/{key}"] = to_numpy(opt.nu[k])
+    if state.ema is not None:
+        for k, e in state.ema.items():
+            flat[f".ema/{jax_key(k)}"] = to_numpy(e)
+    return flat
+
+
+def _take(flat: Dict[str, np.ndarray], key: str, like: torch.Tensor) -> torch.Tensor:
+    if key not in flat:
+        raise KeyError(f"checkpoint missing leaf: {key}")
+    arr = flat[key]
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"checkpoint leaf {key} shape {arr.shape} != expected {tuple(like.shape)}")
+    return from_numpy(arr, like.dtype)
+
+
+@torch.no_grad()
+def load_state(state, flat: Dict[str, np.ndarray]):
+    """Copy a flat train checkpoint into ``state`` in place (each tensor
+    keeps its device and dtype) and return it. A missing key raises
+    KeyError, a misshapen one ValueError; extra keys are ignored."""
+    for n, p in state.model.named_parameters():
+        p.copy_(_take(flat, f".params/{jax_key(n)}", p))
+    for name in ("opt_g", "opt_d", "opt_a"):
+        opt = getattr(state, name)
+        for k in opt.mu:
+            key = jax_key(k)
+            count = f".{name}/.count/{key}"
+            if count not in flat:
+                raise KeyError(f"checkpoint missing leaf: {count}")
+            opt.count[k] = int(np.asarray(flat[count]))
+            opt.mu[k].copy_(_take(flat, f".{name}/.mu/{key}", opt.mu[k]))
+            opt.nu[k].copy_(_take(flat, f".{name}/.nu/{key}", opt.nu[k]))
+    if state.ema is not None:
+        for k, e in state.ema.items():
+            e.copy_(_take(flat, f".ema/{jax_key(k)}", e))
+    return state
 
 
 class Checkpointer:
-    """Tag-based checkpoints in one directory, read-only."""
+    """Tag-based checkpoints in one directory."""
 
     def __init__(self, directory: str):
         self.directory = directory
 
     def _path(self, tag: str) -> str:
         return os.path.join(self.directory, f"ckpt-{tag}.npz")
+
+    def save(self, tag: str, state, status: Optional[Dict[str, Any]] = None) -> str:
+        """Write a TrainState atomically under ``tag``, then ``status`` to
+        ``status.json``."""
+        os.makedirs(self.directory, exist_ok=True)
+        flat = flatten_state(state)
+        fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, **flat)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self._path(tag))
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        if status is not None:
+            _write_status(self.directory, status)
+        return self._path(tag)
 
     def latest_tag(self) -> Optional[str]:
         """Numerically-latest epoch tag; a non-numeric tag ('interrupt',
@@ -72,10 +178,46 @@ class Checkpointer:
         with np.load(self._path(tag)) as z:
             return {k: z[k] for k in z.files}
 
+    def restore(self, tag: str, state):
+        return load_state(state, self.restore_flat(tag))
+
+    def restore_latest(self, state) -> Tuple[Optional[Any], Dict[str, Any]]:
+        """(``state`` filled from the latest checkpoint, or None; the status).
+        A status that lags an epoch checkpoint (a kill between the rename
+        and the status write) is moved on to that epoch, batch 0."""
+        tag = self.latest_tag()
+        if tag is None:
+            return None, {}
+        state = self.restore(tag, state)
+        status_path = os.path.join(self.directory, "status.json")
+        status: Dict[str, Any] = {}
+        if os.path.isfile(status_path):
+            with open(status_path) as f:
+                status = json.load(f)
+        if tag.isdigit() and int(status.get("epoch", 1)) <= int(tag):
+            print(
+                f"WARNING: status.json lags checkpoint {tag} (crash between "
+                f"checkpoint rename and status write); resuming at epoch "
+                f"{int(tag) + 1} with the stale global_step {status.get('step', 0)}"
+            )
+            status = {**status, "epoch": int(tag) + 1, "batch": 0}
+        return state, status
+
+    def epoch_tags(self) -> list:
+        """Numeric (epoch) tags, ascending."""
+        names = os.listdir(self.directory) if os.path.isdir(self.directory) else []
+        return sorted(int(m.group(1)) for m in (re.match(r"ckpt-(\d+)\.npz$", fn) for fn in names) if m)
+
+    def delete(self, tag) -> None:
+        try:
+            os.remove(self._path(str(tag)))
+        except FileNotFoundError:
+            pass
+
 
 def make_checkpointer(cfg, directory: str) -> Checkpointer:
     if getattr(cfg, "extra", {}).get("checkpoint_backend") == "orbax":
-        raise NotImplementedError("the port reads npz checkpoints only, not orbax ones")
+        raise NotImplementedError("the port reads and writes npz checkpoints only, not orbax ones")
     return Checkpointer(directory)
 
 

@@ -1,0 +1,148 @@
+"""Masked Adam with TF-v1 semantics, the port of littlegan_tpu/training/optimizer.py.
+
+The reference runs three ``tf.compat.v1.train.AdamOptimizer``s and, under
+the partition schedule, updates only some of a model's weights per step;
+the others keep their Adam slots untouched. :func:`masked_adam_update`
+takes a per-leaf 0/1 mask:
+
+- a masked-off leaf keeps its moments, its count and its value;
+- an active leaf takes the v1 update ``lr_t = lr * sqrt(1 - b2^t) /
+  (1 - b1^t)``, ``p -= lr_t * m / (sqrt(v) + eps)`` (eps outside the sqrt).
+
+The count is per leaf by default; ``tick_all=True`` (``Config.adam_tf_parity``)
+advances every leaf's count on every call, v1's shared beta powers.
+
+How this differs in form from the JAX function, not in result:
+
+- Leaves are dicts ``name -> tensor`` (the model's parameter names), and the
+  update happens IN PLACE under ``torch.no_grad()``: parameters, ``mu`` and
+  ``nu`` are the same tensors afterwards. The function also returns them.
+- ``batch_no`` is known on the host, so each mask is a Python number and the
+  where-select of the JAX function is made on the host: a masked-off leaf is
+  not touched at all, so a non-finite gradient there cannot reach its
+  moments or value (the reason JAX selects rather than multiplies).
+- Counts are Python ints on the host; ``b1**t``, ``b2**t`` and ``lr_t`` are
+  evaluated in float32 with numpy, as JAX evaluates them in float32.
+- Active leaves are updated with PyTorch's multi-tensor (``_foreach``) ops,
+  a handful of launches for all of them; moments stored in bfloat16 are
+  upcast to float32 for the math and rounded back on store. Parameters are
+  float32, as the model keeps them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+def lr_scale_fn(
+    kind: str, warmup_steps: int = 0, decay_steps: int = 0, min_ratio: float = 0.0
+) -> Optional[Callable[[np.float32], np.float32]]:
+    """``t -> scale`` over the float32 apply count t >= 1, or None for the
+    constant-1 schedule (the update then skips the multiply, as in JAX):
+    linear warmup ``min(t / warmup, 1)``, then over ``decay_steps`` applies a
+    linear, cosine or exponential decay to ``min_ratio``, held after."""
+    kinds = ("constant", "linear", "cosine", "exponential")
+    if kind not in kinds:
+        raise ValueError(f"lr_schedule must be one of {kinds}, got {kind!r}")
+    decaying = kind != "constant" and decay_steps > 0
+    if kind != "constant" and decay_steps <= 0 and warmup_steps <= 0:
+        raise ValueError(
+            f"lr_schedule={kind!r} does nothing without lr_decay_steps or "
+            "lr_warmup_steps — set a horizon or use 'constant'"
+        )
+    if kind == "exponential" and decaying and min_ratio <= 0.0:
+        raise ValueError("exponential lr_schedule needs lr_min_ratio > 0 (its decay floor)")
+    if not 0.0 <= min_ratio <= 1.0:
+        raise ValueError(f"lr_min_ratio must be in [0, 1], got {min_ratio}")
+    if kind == "constant" and warmup_steps <= 0:
+        return None
+    f32 = np.float32
+
+    def fn(t):
+        t = f32(t)
+        scale = np.minimum(t / f32(warmup_steps), f32(1.0)) if warmup_steps > 0 else f32(1.0)
+        if decaying:
+            p = np.clip((t - f32(warmup_steps)) / f32(decay_steps), f32(0.0), f32(1.0))
+            r = f32(min_ratio)
+            if kind == "linear":
+                base = f32(1.0) - (f32(1.0) - r) * p
+            elif kind == "cosine":
+                base = r + (f32(1.0) - r) * f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * p))
+            else:
+                base = r ** p
+            scale = scale * base
+        return f32(scale)
+
+    return fn
+
+
+def lr_scale_from_config(cfg):
+    return lr_scale_fn(cfg.lr_schedule, cfg.lr_warmup_steps, cfg.lr_decay_steps, cfg.lr_min_ratio)
+
+
+class AdamState(NamedTuple):
+    count: Dict[str, int]  # per-leaf apply counts (int32 in a checkpoint)
+    mu: Dict[str, torch.Tensor]  # first moments
+    nu: Dict[str, torch.Tensor]  # second moments
+
+
+def adam_init(params: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32) -> AdamState:
+    """Zero moments in ``dtype`` (``Config.moment_dtype``: their storage
+    only, the math is float32) and zero counts."""
+    return AdamState(
+        count={k: 0 for k in params},
+        mu={k: torch.zeros_like(p, dtype=dtype) for k, p in params.items()},
+        nu={k: torch.zeros_like(p, dtype=dtype) for k, p in params.items()},
+    )
+
+
+def adam_lr_t(lr: float, b1: float, b2: float, count: int, lr_scale=None) -> float:
+    """The v1 bias-corrected step size at apply count ``count``, in float32."""
+    f32 = np.float32
+    t = f32(max(count, 1))
+    lr_t = f32(lr) * np.sqrt(f32(1.0) - f32(b2) ** t) / (f32(1.0) - f32(b1) ** t)
+    if lr_scale is not None:
+        lr_t = f32(lr_t * lr_scale(t))
+    return float(f32(lr_t))
+
+
+@torch.no_grad()
+def masked_adam_update(
+    grads: Dict[str, torch.Tensor],
+    state: AdamState,
+    params: Dict[str, torch.Tensor],
+    mask: Dict[str, float],
+    lr: float,
+    b1: float,
+    b2: float,
+    eps: float = 1e-8,
+    tick_all: bool = False,
+    lr_scale=None,
+):
+    """One masked Adam step, in place. ``mask``: a 0./1. per leaf. Returns
+    (params, state), the same objects updated."""
+    active = [k for k in params if float(mask[k]) > 0.5]
+    for k in params:
+        if tick_all or k in active:
+            state.count[k] += 1
+    if not active:
+        return params, state
+    g = [grads[k].float() for k in active]
+    m = [state.mu[k].float() for k in active]
+    v = [state.nu[k].float() for k in active]
+    torch._foreach_mul_(m, b1)
+    torch._foreach_add_(m, g, alpha=1.0 - b1)
+    torch._foreach_mul_(v, b2)
+    torch._foreach_addcmul_(v, g, g, value=1.0 - b2)
+    denom = torch._foreach_sqrt(v)
+    torch._foreach_add_(denom, eps)
+    steps = [-adam_lr_t(lr, b1, b2, state.count[k], lr_scale) for k in active]
+    torch._foreach_addcdiv_([params[k] for k in active], m, denom, steps)
+    for k, mk, vk in zip(active, m, v):
+        if state.mu[k].dtype != torch.float32:  # bf16 storage: round back
+            state.mu[k].copy_(mk)
+            state.nu[k].copy_(vk)
+    return params, state

@@ -1,0 +1,354 @@
+"""Trainer: the host loop around the train step, the port of the host-fed
+path of littlegan_tpu/training/trainer.py.
+
+- result tree and provenance (``config.json``, ``code.tar``);
+- the pinned eval fixture (noise, cond, image) in
+  ``test_data_<env>.npz`` with the reference's reuse contract;
+- the epoch loop: two batches per step from the dataset's (seed, epoch)
+  order, per-step TensorBoard scalars (flushed every 16 steps in one copy
+  from the card), train-sample grids every ``freq_gen`` batches, the
+  fixture ``predict`` every ``freq_test``, the "Time usage ... images/s"
+  line (2 x batch images per step), a checkpoint per epoch;
+- restore of the latest checkpoint at start; SIGINT sets a flag and the
+  loop saves an ``interrupt`` checkpoint at the next step boundary with the
+  batch it reached, then exits 1; a restart resumes at that batch.
+
+Each step's draws come from a ``torch.Generator`` on the card seeded from
+``(cfg.seed, global_step)``, so a resumed run draws what the uninterrupted
+one would have. The fixture's noise (and its image, without a dataset)
+come from numpy seeded from ``cfg.seed``: other numbers than the JAX
+package's ``jax.random`` streams.
+
+It runs on the card unless ``device="cpu"`` is given; without a card and
+without that argument it raises. Not ported yet, and refused with
+``NotImplementedError``: the device-resident dataset and K steps per
+dispatch (``device_data``, ``steps_per_dispatch > 1``, ROADMAP A6), the
+step options of ``step.check_supported`` (ROADMAP A5), meshes and sharded
+state (ROADMAP A13) and the profiler window (``profile_steps``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import sys
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from littlegan_tpu_torch.config import Config
+from littlegan_tpu_torch.models.littlegan import LittleGAN
+from littlegan_tpu_torch.ops.losses import mean_squared_error
+from littlegan_tpu_torch.training.checkpoint import make_checkpointer
+from littlegan_tpu_torch.training.state import TrainState, create_train_state, eval_params
+from littlegan_tpu_torch.training.step import LOSS_KEYS, check_supported, draw_step, make_train_step
+from littlegan_tpu_torch.utils.device import resolve_device
+from littlegan_tpu_torch.utils.image import ensure_pm1, inverse_rescale, save_image, soft, to_grid
+from littlegan_tpu_torch.utils.provenance import init_result_dirs, snapshot_run
+from littlegan_tpu_torch.utils.tensorboard import SummaryWriter
+
+FLUSH_EVERY = 16  # steps whose losses stay on the card before one copy to the host
+
+
+def check_trainer_supported(cfg: Config) -> None:
+    """Refuse the trainer options the port does not have yet."""
+    check_supported(cfg)
+    for on, what, item in (
+        (cfg.device_data, "device_data (the GPU-resident dataset)", "A6"),
+        (cfg.steps_per_dispatch > 1, f"steps_per_dispatch={cfg.steps_per_dispatch}", "A6"),
+        (cfg.mesh_shape is not None or tuple(cfg.mesh_axes) != ("data",), "a device mesh", "A13"),
+        (cfg.shard_opt_state or cfg.shard_dense, "sharded train state", "A13"),
+        (cfg.profile_steps > 0, "profile_steps", "A8"),
+    ):
+        if on:
+            raise NotImplementedError(f"{what} is not ported to littlegan_tpu_torch yet (ROADMAP {item})")
+
+
+def _pairwise(it):
+    """Two batches per step; a trailing odd batch is dropped."""
+    while True:
+        try:
+            b1 = next(it)
+            b2 = next(it)
+        except StopIteration:
+            return
+        yield b1, b2
+
+
+def d_score_stats(cond, real_pr, real_c, fake_pr, fake_c) -> Dict:
+    """The predict-mode D-score payload: rounded percentage score lists and
+    MSE against the softened targets."""
+    arr = lambda t: np.asarray(t.float().cpu() if isinstance(t, torch.Tensor) else t, np.float32)  # noqa: E731
+    save: Dict = {"real_cond": arr(cond), "real_pr": arr(real_pr), "real_c": arr(real_c),
+                  "fake_pr": arr(fake_pr), "fake_c": arr(fake_c)}
+    mse = lambda t, p: float(mean_squared_error(t, torch.from_numpy(p)).mean())  # noqa: E731
+    save["real_pr_mse"] = mse(soft(1.0), save["real_pr"])
+    save["real_c_mse"] = mse(save["real_cond"], save["real_c"])
+    save["fake_pr_mse"] = mse(soft(0.0), save["fake_pr"])
+    save["fake_c_mse"] = mse(save["real_cond"], save["fake_c"])
+    for key in ("real_cond", "real_pr", "real_c", "fake_c", "fake_pr"):
+        save[key] = np.round(save[key] * 100).astype(int).tolist()
+    return save
+
+
+def step_seed(seed: int, global_step: int) -> int:
+    """The seed of step ``global_step``'s draws."""
+    return int(np.random.SeedSequence([seed, global_step]).generate_state(1)[0])
+
+
+class Trainer:
+    def __init__(self, cfg: Config, dataset=None, device=None):
+        check_trainer_supported(cfg)
+        self.cfg = cfg
+        self.dataset = dataset
+        self.device = resolve_device(device)
+        init_result_dirs(cfg)
+        snapshot_run(cfg)
+        self.state: TrainState = create_train_state(cfg, self.device)
+        self.global_epoch = 1
+        self.global_step = 0
+        self._resume_batch = 0  # mid-epoch resume point (interrupt checkpoints only)
+        self._cur_batch_no = 0  # batches completed in the current epoch
+        self.checkpointer = make_checkpointer(cfg, os.path.join(cfg.result_dir, "checkpoint"))
+        if cfg.restore:
+            restored, status = self.checkpointer.restore_latest(self.state)
+            if restored is not None:
+                print("Restored checkpoint", self.checkpointer.latest_tag())
+                self.global_epoch = int(status.get("epoch", 1))
+                self.global_step = int(status.get("step", 0))
+                self._resume_batch = int(status.get("batch", 0))
+        self._writer: Optional[SummaryWriter] = None
+        self._metrics_buffer = []
+        self._flushing = False
+        self._interrupt_requested = False
+        self._nonfinite_warned = False
+        self._in_train = False
+        self._init_fixture()
+        self._train_step = make_train_step(cfg, self.state)
+        self._generator = torch.Generator(device=self.device)
+
+    # ---------------------------------------------------------- fixture ----
+
+    def _init_fixture(self) -> None:
+        """The pinned (noise, cond, image) eval triplet, reused from
+        ``test_data_<env>.npz`` when ``cfg.reuse`` and the file exists,
+        else made anew and written there atomically."""
+        cfg = self.cfg
+        npz = os.path.join(cfg.test_data_dir, f"test_data_{cfg.env}.npz")
+        reuse = cfg.reuse and os.path.isfile(npz)
+        if reuse:
+            data = np.load(npz)
+            noise, cond, image = (data[k].astype(np.float32) for k in ("n", "c", "i"))
+        else:
+            rng = np.random.default_rng((cfg.seed, 1))
+            if self.dataset is not None:
+                image, cond = next(self.dataset.epoch_iterator(0))
+                image = ensure_pm1(image)
+            else:
+                image = rng.uniform(-1, 1, (cfg.batch_size, *cfg.image_shape)).astype(np.float32)
+                bits = np.random.default_rng(cfg.seed).random((cfg.batch_size, cfg.cond_dim)) < 0.5
+                cond = soft(np.where(bits, -1.0, 1.0)).astype(np.float32)
+            noise = rng.standard_normal((cond.shape[0], cfg.noise_dim)).astype(np.float32)
+        self.test_noise, self.test_cond, self.test_image = noise, cond, image
+        if not reuse:
+            os.makedirs(cfg.test_data_dir, exist_ok=True)
+            tmp = npz + ".tmp"
+            with open(tmp, "wb") as f:
+                np.savez_compressed(f, n=noise, c=cond, i=image)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, npz)
+
+    # ------------------------------------------------------------- train ----
+
+    def _put(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        img, cond = batch
+        return (torch.from_numpy(np.ascontiguousarray(img)).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(cond, np.float32)).to(self.device))
+
+    def draws(self, global_step: int):
+        """The draws of step ``global_step``."""
+        self._generator.manual_seed(step_seed(self.cfg.seed, global_step))
+        return draw_step(self._generator, self.cfg, self.cfg.batch_size, self.device)
+
+    @property
+    def writer(self) -> SummaryWriter:
+        if self._writer is None:
+            self._writer = SummaryWriter(os.path.join(self.cfg.result_dir, "log"))
+        return self._writer
+
+    def _request_interrupt(self, signum=None, frame=None):
+        """SIGINT handler: set a flag only; the loop checkpoints at its next
+        step boundary. A second Ctrl-C aborts at once, without a checkpoint."""
+        if self._interrupt_requested:
+            signal.signal(signal.SIGINT, signal.default_int_handler)
+            raise KeyboardInterrupt
+        self._interrupt_requested = True
+        os.write(2, b"\nSIGINT: checkpointing at the next step boundary "
+                    b"(Ctrl-C again to abort without a checkpoint)\n")
+
+    def _save_interrupt(self):
+        self._flush_buffered()
+        self.writer.flush()
+        self.checkpointer.save(
+            "interrupt", self.state,
+            {"epoch": self.global_epoch, "step": self.global_step, "batch": self._cur_batch_no},
+        )
+        print("\nCheckpoint has been saved (interrupt)")
+        sys.exit(1)
+
+    def _save_epoch_checkpoint(self, epoch: int) -> None:
+        cfg = self.cfg
+        if cfg.ckpt_every > 1 and epoch % cfg.ckpt_every != 0 and epoch != cfg.epoch:
+            return
+        self.checkpointer.save(str(epoch), self.state, {"epoch": epoch + 1, "step": self.global_step})
+        if cfg.keep_checkpoints > 0 and not self._nonfinite_warned:
+            for tag in self.checkpointer.epoch_tags()[: -cfg.keep_checkpoints]:
+                self.checkpointer.delete(tag)
+
+    def train(self) -> None:
+        """Train from the restored epoch to ``cfg.epoch``."""
+        cfg = self.cfg
+        if self.dataset is None:
+            raise ValueError("train mode needs a dataset")
+        self._interrupt_requested = False
+        self._in_train = True
+        main = threading.current_thread() is threading.main_thread()
+        prev_handler = signal.signal(signal.SIGINT, self._request_interrupt) if main else None
+        self._metrics_buffer = []
+        first_epoch = self.global_epoch
+        try:
+            for epoch in range(self.global_epoch, cfg.epoch + 1):
+                self.global_epoch = epoch
+                print(f"Experiment: {cfg.exp_name} Epoch: {epoch} starting...")
+                start = time.time()
+                resume_b = self._resume_batch if epoch == first_epoch else 0
+                if resume_b:
+                    print(f"mid-epoch resume: continuing epoch {epoch} at batch {resume_b + 1} "
+                          f"(skipping {resume_b} already-trained batches)")
+                pairs = _pairwise(self.dataset.epoch_iterator(epoch, start_batch=2 * resume_b))
+                batch_no = resume_b
+                self._cur_batch_no = batch_no
+                images_done = 0
+                for b1, b2 in pairs:
+                    batch_no += 1
+                    self._cur_batch_no = batch_no
+                    self.global_step += 1
+                    out = self._train_step(
+                        self.state, self._put(b1), self._put(b2), self.draws(self.global_step), batch_no
+                    )
+                    self._metrics_buffer.append((self.global_step, batch_no, out.metrics))
+                    images_done += 2 * cfg.batch_size
+                    if len(self._metrics_buffer) >= FLUSH_EVERY:
+                        self._flush_buffered()
+                    if cfg.freq_gen > 0 and batch_no % cfg.freq_gen == 0:
+                        self._save_train_images(out, epoch, batch_no)
+                    if cfg.freq_test > 0 and batch_no % cfg.freq_test == 0:
+                        name = f"{epoch}-{batch_no}"
+                        self.predict(
+                            self.test_noise, self.test_cond, self.test_image,
+                            os.path.join(cfg.result_dir, "test", "gen", f"{name}.jpg"),
+                            os.path.join(cfg.result_dir, "test", "disc", f"{name}.json"),
+                            os.path.join(cfg.result_dir, "test", "adj", f"{name}.jpg"),
+                        )
+                    if self._interrupt_requested:
+                        self._save_interrupt()
+                self._flush_buffered()
+                elapsed = time.time() - start
+                rate = images_done / elapsed if elapsed > 0 else 0.0
+                print(f"Time usage: {elapsed:.1f}s  ({rate:.1f} images/s)")
+                self._save_epoch_checkpoint(epoch)
+                if self._interrupt_requested:
+                    self._save_interrupt()
+        finally:
+            self._in_train = False
+            if main:
+                signal.signal(signal.SIGINT, prev_handler)
+            if self._writer is not None:
+                self._writer.flush()
+
+    def _save_train_images(self, out, epoch: int, batch_no: int) -> None:
+        base = os.path.join(self.cfg.result_dir, "train")
+        save_image(out.fake_image.float().cpu().numpy(), os.path.join(base, "gen", f"{epoch}-{batch_no}.jpg"))
+        if self.cfg.train_adj:
+            save_image(out.adj_image.float().cpu().numpy(), os.path.join(base, "adj", f"{epoch}-{batch_no}.jpg"))
+
+    def _flush_buffered(self) -> None:
+        """Write the buffered losses to TensorBoard (one copy from the card)
+        and print the last; reentrancy-safe. With ``halt_on_nonfinite`` a
+        diverged run stops here."""
+        if self._flushing or not self._metrics_buffer:
+            return
+        self._flushing = True
+        try:
+            buf = self._metrics_buffer
+            host = torch.stack([torch.stack([m[k] for k in LOSS_KEYS]) for _, _, m in buf]).cpu().tolist()
+            for (step, batch_no, _), (g, d, a) in zip(buf, host):
+                pairs = [("loss/gen", g), ("loss/disc", d)]
+                if self.cfg.train_adj and batch_no > 10:  # no adj loss in the warm-up window
+                    pairs.append(("loss/adj", a))
+                self.writer.scalars(pairs, step)
+                if not self._nonfinite_warned and not all(np.isfinite(v) for v in (g, d, a)):
+                    self._nonfinite_warned = True
+                    print(f"WARNING: non-finite loss at step {step} (G={g} D={d} A={a}) — training has "
+                          f"diverged; recover by restoring a checkpoint from BEFORE step {step} "
+                          "(checkpoint pruning is now disabled so those epochs stay on disk).")
+            print(f"  step {buf[-1][0]}: LossG {host[-1][0]:.4f} LossD {host[-1][1]:.4f} LossA {host[-1][2]:.4f}")
+            self._metrics_buffer.clear()
+        finally:
+            self._flushing = False
+        if self.cfg.halt_on_nonfinite and self._nonfinite_warned:
+            self.writer.flush()
+            raise RuntimeError("halting: non-finite loss (halt_on_nonfinite=true); restore "
+                               "a pre-divergence epoch checkpoint to recover")
+
+    # ----------------------------------------------------------- predict ----
+
+    def eval_model(self) -> LittleGAN:
+        """The model inference uses: the live one, or a copy with the EMA of
+        G's parts when the run keeps one."""
+        if self.state.ema is None:
+            return self.state.model
+        model = LittleGAN(self.cfg).to(self.device)
+        model.load_state_dict(eval_params(self.state))
+        return model
+
+    def predict(
+        self, noise, cond, image, gen_image_save_path: Optional[str] = None,
+        json_save_path: Optional[str] = None, adj_image_save_path: Optional[str] = None,
+    ):
+        """G on the fixture, D's scores of the real and generated images,
+        the adjuster on both; writes the grids and the score JSON. Returns
+        (gen image, scores, adjusted real, adjusted generated) as numpy."""
+        cfg = self.cfg
+        model = self.eval_model()
+        t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(self.device)  # noqa: E731
+        with torch.inference_mode():
+            start = time.time()
+            gen = model.generator(t(noise), t(cond)).float()
+            gen_np = gen.cpu().numpy()
+            print(f"Generate Time {time.time() - start:.4f}s")
+            if gen_image_save_path:
+                save_image(gen_np, gen_image_save_path)
+            real_pr, real_c = model.discriminator(t(image))
+            fake_pr, fake_c = model.discriminator(gen)
+            save = d_score_stats(cond, real_pr, real_c, fake_pr, fake_c)
+            if json_save_path:
+                with open(json_save_path, "w") as f:
+                    json.dump(save, f)
+            adj_real = adj_fake = None
+            if cfg.train_adj:
+                adj_real = model.adjuster(t(image), t(cond)).float().cpu().numpy()
+                adj_fake = model.adjuster(gen, t(cond)).float().cpu().numpy()
+                if adj_image_save_path:
+                    save_image(np.concatenate([adj_real, adj_fake]), adj_image_save_path)
+        if cfg.tb_images and self._in_train:
+            grid = lambda b: to_grid(inverse_rescale(np.asarray(b)).astype(np.uint8))  # noqa: E731
+            self.writer.image("test/gen", grid(gen_np), self.global_step)
+            if adj_real is not None:
+                self.writer.image("test/adj", grid(np.concatenate([adj_real, adj_fake])), self.global_step)
+        return gen_np, save, adj_real, adj_fake

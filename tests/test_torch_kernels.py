@@ -3,7 +3,9 @@
 On a CPU tensor each wrapper runs its plain PyTorch version; the Pallas
 kernels run in interpret mode, as tests/test_pallas.py runs them. The CUDA
 kernels themselves are held against these plain versions on the card by
-``chip_smoke.py``. Tolerances, f32: y 1e-5; stats rtol 1e-4."""
+``chip_smoke.py``. Tolerances, f32: y 1e-5; stats rtol 1e-4; the norm
+backwards rtol 2e-4 / atol 2e-5 and the boundary conv's rtol 1e-4 / atol
+1e-5, as tests/test_pallas.py:42 and :138 hold the Pallas kernels."""
 
 import math
 
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from littlegan_tpu.ops.conv import leaky_relu as jleaky_relu
@@ -21,6 +24,8 @@ from littlegan_tpu_torch.ops.cuda import boundary_conv as tbc
 from littlegan_tpu_torch.ops.cuda import norm_lrelu as tnl
 
 Y_TOL = dict(rtol=1e-5, atol=1e-5)
+NORM_GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
+CONV_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def _gb():
@@ -99,6 +104,133 @@ def test_norm_chunking_covers_each_sample(n, m):
     assert chunks <= max(1, math.ceil(m / 2048))
 
 
+@pytest.mark.parametrize("shape", [(2, 4, 4, 8), (3, 8, 8, 3), (2, 16, 16, 16)])
+def test_fused_norm_lrelu_grads_match_pallas(shape):
+    """FusedNormLReLU's backward (K2's plain version on the CPU) against
+    jax.grad through the Pallas custom VJP (``_bwd_kernel``, interpret mode)."""
+    rng = np.random.default_rng(sum(shape) + 7)
+    x = (rng.normal(size=shape) * 2.0 + 0.5).astype(np.float32)
+    gout = rng.normal(size=shape).astype(np.float32)
+    g, b = _gb()
+
+    def f(x, g, b):
+        return jnp.sum(jfused(x, g, b, 0.3) * gout)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    xt, gt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, g, b))
+    (tnl.FusedNormLReLU.apply(xt, gt, bt, 0.3) * torch.from_numpy(gout)).sum().backward()
+    for got, w in zip((xt.grad, gt.grad, bt.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **NORM_GRAD_TOL)
+    dx, dg, db = tnl.fused_instance_norm_lrelu_bwd(torch.from_numpy(x), torch.from_numpy(gout), *(
+        torch.from_numpy(a) for a in (g, b)), 0.3)
+    assert dx.dtype == torch.float32 and dg.shape == db.shape == (1,)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want[0]), **NORM_GRAD_TOL)
+
+
+def test_norm_lrelu_from_stats_grads_match_jax():
+    """The K1' backward against jax.grad of instance_norm_from_stats +
+    leaky_relu with respect to y, s1, s2, gamma and beta (XLA in JAX)."""
+    rng = np.random.default_rng(5)
+    y = (rng.normal(size=(3, 8, 8, 16)) * 1.5 + 0.3).astype(np.float32)
+    s1, s2 = y.sum((1, 2, 3)), (y * y).sum((1, 2, 3))
+    gout = rng.normal(size=y.shape).astype(np.float32)
+    g, b = _gb()
+
+    def f(y, s1, s2, g, b):
+        return jnp.sum(jleaky_relu(jnorm_from_stats(y, s1, s2, g, b), 0.3) * gout)
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(a) for a in (y, s1, s2, g, b)))
+    ins = [torch.from_numpy(a).requires_grad_() for a in (y, s1, s2, g, b)]
+    (tnl.NormLReLUFromStats.apply(*ins, 0.3) * torch.from_numpy(gout)).sum().backward()
+    for name, t, w in zip(("y", "s1", "s2", "gamma", "beta"), ins, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=2e-4, atol=2e-5 * max(1.0, float(np.abs(w).max())),
+                                   err_msg=name)
+
+
+def _boundary_inputs(seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, 8, 8, 12)).astype(dtype)
+    w = (rng.normal(size=(3, 3, 12, 16)) * 0.3).astype(dtype)
+    b = (rng.normal(size=(16,)) * 0.1).astype(np.float32)
+    gout = rng.normal(size=(2, 8, 8, 16)).astype(np.float32)
+    return x, w, b, gout
+
+
+def test_boundary_conv_grads_match_jax():
+    """BoundaryConvS2D's (x, w, b) grads, stats cotangents included, against
+    the JAX custom VJP ``boundary_conv_s2d`` (tests/test_pallas.py:110)."""
+    x, w, b, gout = _boundary_inputs(1)
+
+    def f(x, w, b):
+        y, s1, s2 = jbc.boundary_conv_s2d(x, w, b, True)
+        return jnp.sum(y * gout) + jnp.sum(s1 * 0.7) + jnp.sum(s2 * 0.01)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    ins = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    y, s1, s2 = tbc.BoundaryConvS2D.apply(*ins)
+    ((y * torch.from_numpy(gout)).sum() + (s1 * 0.7).sum() + (s2 * 0.01).sum()).backward()
+    for name, t, wv in zip(("x", "w", "b"), ins, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(wv), **CONV_GRAD_TOL, err_msg=name)
+
+
+def test_boundary_conv_bf16_bias_grad_keeps_its_dtype():
+    """Under bf16 compute x and w arrive bf16 and the bias f32: the bias
+    cotangent stays f32 (tests/test_pallas.py:194-214), dx and dw bf16, and
+    the fold and sums run in f32 from the cast y."""
+    x, w, b, gout = _boundary_inputs(2)
+    xt = torch.from_numpy(x).bfloat16().requires_grad_()
+    wt = torch.from_numpy(w).bfloat16().requires_grad_()
+    bt = torch.from_numpy(b).requires_grad_()
+    y, s1, s2 = tbc.BoundaryConvS2D.apply(xt, wt, bt)
+    ((y.float() * torch.from_numpy(gout)).sum() + (s2 * 0.01).sum()).backward()
+    assert xt.grad.dtype == wt.grad.dtype == torch.bfloat16 and bt.grad.dtype == torch.float32
+    # y's cotangent reaches the Function in y's dtype (bf16), then folds in f32
+    gy = torch.from_numpy(gout).bfloat16().float() + 0.02 * y.detach().float()
+    np.testing.assert_allclose(bt.grad.numpy(), gy.sum((0, 1, 2)).numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_conv3x3_bwd_fold_plain_matches_jax_fold():
+    rng = np.random.default_rng(4)
+    y = rng.normal(size=(3, 4, 4, 8)).astype(np.float32)
+    gy = rng.normal(size=y.shape).astype(np.float32)
+    gs1, gs2 = rng.normal(size=3).astype(np.float32), rng.normal(size=3).astype(np.float32)
+    want = gy + gs1[:, None, None, None] + 2.0 * y * gs2[:, None, None, None]
+    got, db = tbc.conv3x3_bwd_fold(*(torch.from_numpy(a) for a in (y, gy, gs1, gs2)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(db.numpy(), want.sum((0, 1, 2)), rtol=1e-5, atol=1e-5)
+
+
+def _meta_wrapper_calls(x, one, n):
+    sums = (torch.zeros(n, device="meta"), torch.zeros(n, device="meta"))
+    w, b = torch.zeros(3, 3, 12, 64, device="meta"), torch.zeros(64, device="meta")
+    return {
+        "fused_instance_norm_lrelu": lambda: tnl.fused_instance_norm_lrelu(x, one, one),
+        "fused_instance_norm_lrelu_bwd": lambda: tnl.fused_instance_norm_lrelu_bwd(x, x, one, one),
+        "norm_lrelu_from_stats": lambda: tnl.norm_lrelu_from_stats(x, *sums, one, one),
+        "norm_lrelu_from_stats_bwd": lambda: tnl.norm_lrelu_from_stats_bwd(x, *sums, one, one, x),
+        "conv3x3_same_stats": lambda: tbc.conv3x3_same_stats(x, w, b),
+        "conv3x3_bwd_fold": lambda: tbc.conv3x3_bwd_fold(x, x, *sums),
+    }
+
+
+@pytest.mark.parametrize(
+    "wrapper",
+    ["fused_instance_norm_lrelu", "fused_instance_norm_lrelu_bwd", "norm_lrelu_from_stats",
+     "norm_lrelu_from_stats_bwd", "conv3x3_same_stats", "conv3x3_bwd_fold"],
+)
+def test_raw_wrappers_refuse_a_gradient_outside_their_function(wrapper):
+    """On a non-CPU tensor that requires grad, with grad mode on, a raw
+    wrapper raises rather than hand back a result detached from autograd;
+    under no_grad it goes on to its device checks."""
+    x = torch.zeros(2, 8, 8, 12, device="meta", requires_grad=True)
+    one = torch.ones(1, device="meta")
+    with pytest.raises(RuntimeError, match="detached from autograd"):
+        _meta_wrapper_calls(x, one, 2)[wrapper]()
+    with torch.no_grad(), pytest.raises(ValueError):
+        _meta_wrapper_calls(x, one, 2)[wrapper]()
+
+
 def test_wrappers_raise_on_other_devices():
     """A tensor on neither the CPU nor a CUDA card gets an error, never the
     plain version: only a CPU tensor takes it."""
@@ -113,7 +245,8 @@ def test_wrappers_raise_on_other_devices():
 
 
 def test_launch_counters_start_at_zero_and_reset():
-    for fn in (tnl.fused_instance_norm_lrelu, tnl.norm_lrelu_from_stats, tbc.conv3x3_same_stats):
+    for fn in (tnl.fused_instance_norm_lrelu, tnl.norm_lrelu_from_stats, tbc.conv3x3_same_stats,
+               tnl.fused_instance_norm_lrelu_bwd, tnl.norm_lrelu_from_stats_bwd, tbc.conv3x3_bwd_fold):
         before = fn.launches.value
         fn.launches.add()
         assert fn.launches.value == before + 1
