@@ -6,17 +6,21 @@
 Phases, each of which fails the run on any error:
 
   (a) print the card's name and power limit, build the CUDA kernels from
-      ``littlegan_tpu_torch/csrc`` with nvcc and print the build time;
+      ``littlegan_tpu_torch/csrc`` with nvcc, print the build time and each
+      kernel's registers and spills, and require tensor-core (HMMA)
+      instructions in the bf16 boundary conv kernel's SASS;
   (b) hold every kernel against its plain PyTorch version on the card, in
       float32 and bfloat16, with the tolerances stated in ``TOL``,
       ``BWD_TOL``, ``GRAD_SUM_RTOL`` and ``CONV_BWD_REL``: the forward
-      kernels at the serve path's shapes (batch 8, 128x128 model), the
+      kernels at the serve path's shapes (batch 8, 128x128 model), K1 and
+      K3 forward also at the train step's (``K1_STEP``, ``K3_STEP``), the
       backward kernels at the train step's (batch 32 and the adjuster's 64
       rows): K2 (the fused norm + LeakyReLU backward), the stats-in norm's
       backward and the boundary conv's backward (its stats fold kernel plus
       PyTorch's conv gradients, against autograd through its plain
       version); time the kernel, the kernel launched from Python, the plain
-      version and, where one exists, a PyTorch library call;
+      version and, where one exists, a PyTorch library call; and time the
+      norm backward's two routes against each other at the train shapes;
   (c) build an InferenceEngine at the full default width (128x128,
       conv_filter [384, 256, 128, 64, 32], bf16, s2d on, both kernels on,
       seeded random weights, batch 8), start ``serve()`` on an ephemeral
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +76,22 @@ K1_SHAPES = [
     (8, 16, 16, 256), (8, 32, 32, 128), (8, 64, 64, 64), (8, 64, 64, 128),
 ]
 K3_SHAPE = ((8, 64, 64, 12), 64)  # s2d encoder input -> conv_filter[3]
+# K1's forward launches in one train step, by shape: G's decoder (blocks
+# 1-4) and D's encoder blocks 2-4 on the real batch and on fake at 32 rows;
+# the adjuster's encoder and decoder and D on its output at 64 rows
+K1_STEP = [
+    ((32, 32, 32, 128), 3), ((32, 16, 16, 256), 3), ((32, 8, 8, 384), 2), ((32, 64, 64, 64), 1),
+    ((32, 64, 64, 128), 1), ((64, 32, 32, 128), 3), ((64, 16, 16, 256), 3), ((64, 8, 8, 384), 2),
+    ((64, 64, 64, 64), 1), ((64, 64, 64, 128), 1),
+]
+# K3's forward launches in one train step: encoder block1 of D on the real
+# batch and on fake (32 rows), of the adjuster and of D on its output (64);
+# x shapes, y has 64 channels
+K3_STEP = [((32, 64, 64, 12), 2), ((64, 64, 64, 12), 2)]
+# K3 shapes no path runs, held against the plain version all the same: rows
+# too wide for the bf16 kernel's two staging buffers (it keeps one), and an
+# input width that is not a multiple of 4 channels (plain loads, no cp.async)
+K3_OFF_PATH = [((2, 16, 640, 12), 64), ((2, 16, 64, 3), 32)]
 # |kernel - plain| <= atol + rtol*|plain| for the backward's dx, per dtype
 # (f32: tests/test_pallas.py's grad tolerance); the batch sums (dgamma,
 # dbeta, the stats' cotangents) to GRAD_SUM_RTOL of the largest value of
@@ -105,7 +126,8 @@ K2_STEP = [
 # adjuster's D; x shapes, y has 64 channels
 BLOCK1_STEP = [((32, 64, 64, 12), 3), ((64, 64, 64, 12), 1)]
 EXPECTED_TRAIN_LAUNCHES = {  # per train step
-    "fused_instance_norm_lrelu": 20, "norm_lrelu_from_stats": 4, "conv3x3_same_stats": 4,
+    "fused_instance_norm_lrelu": sum(c for _, c in K1_STEP), "norm_lrelu_from_stats": 4,
+    "conv3x3_same_stats": sum(c for _, c in K3_STEP),
     "fused_instance_norm_lrelu_bwd": sum(c for _, c in K2_STEP),
     "norm_lrelu_from_stats_bwd": sum(c for _, c in BLOCK1_STEP),
     "conv3x3_bwd_fold": sum(c for _, c in BLOCK1_STEP),
@@ -199,7 +221,9 @@ def check_kernels():
     import torch
     import torch.nn.functional as F
 
-    from littlegan_tpu_torch.ops.cuda.boundary_conv import conv3x3_same_stats, conv3x3_same_stats_plain
+    from littlegan_tpu_torch.ops.cuda.boundary_conv import (
+        conv3x3_same_stats, conv3x3_same_stats_plain, kernel_route,
+    )
     from littlegan_tpu_torch.ops.cuda.norm_lrelu import (
         fused_instance_norm_lrelu, fused_instance_norm_lrelu_plain,
         norm_lrelu_from_stats, norm_lrelu_from_stats_plain,
@@ -214,24 +238,26 @@ def check_kernels():
     failures = []
     records = {}
 
-    def rec(name, dtype, shape, err, fn, plain_ms, lib_ms, bnd):
+    def rec(name, dtype, shape, err, fn, plain_ms, lib_ms, bnd, per_step=None, **extra):
         ms, em = time_ms(fn), eager_ms(fn)
         r = records.setdefault(name, {"shapes": []})
+        path = {} if per_step is None else {"per_step": per_step}
         r["shapes"].append({
-            "shape": list(shape), "dtype": dtype, "max_abs_err": err, "ms": ms, "eager_ms": em,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "shape": list(shape), "dtype": dtype, **path, "max_abs_err": err, "ms": ms, "eager_ms": em,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1], **extra,
         })
-        log(f"  {name} {dtype} {tuple(shape)}: max_abs_err {err:.3g}  kernel {ms:.4f} ms "
-            f"(launched from Python {em:.4f} ms)  "
+        log(f"  {name} {dtype} {tuple(shape)}{'' if per_step is None else f' x{per_step}/step'}: "
+            f"max_abs_err {err:.3g}  kernel {ms:.4f} ms (launched from Python {em:.4f} ms)  "
             f"plain {plain_ms:.4f} ms  library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})" + "".join(f"  {k} {v}" for k, v in extra.items()))
 
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
         atol, rtol = TOL[dtype_name]
         item = torch.tensor([], dtype=dt).element_size()
-        log(f"K1 fused_instance_norm_lrelu, {dtype_name} (no single PyTorch call computes it: library_ms null)")
-        for shape in K1_SHAPES:
+        log(f"K1 fused_instance_norm_lrelu, {dtype_name}, serve shapes then train-step shapes "
+            "(no single PyTorch call computes it: library_ms null)")
+        for shape, per_step in [(s, None) for s in K1_SHAPES] + K1_STEP:
             x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).to(dt)
             got = fused_instance_norm_lrelu(x, gamma, beta, 0.3)
             want = fused_instance_norm_lrelu_plain(x, gamma, beta, 0.3)
@@ -242,7 +268,8 @@ def check_kernels():
             n_el = x.numel()
             rec("fused_instance_norm_lrelu", dtype_name, shape, _max_err(got, want),
                 lambda: fused_instance_norm_lrelu(x, gamma, beta, 0.3), pms, None,
-                bound(2 * n_el * item + 8, 7 * n_el, dtype_name))
+                bound(2 * n_el * item + 8, 7 * n_el, dtype_name), per_step)
+            del x, got, want
 
         log(f"K1 norm_lrelu_from_stats (stats-in apply), {dtype_name}")
         shape = K3_SHAPE[0][:3] + (K3_SHAPE[1],)
@@ -259,39 +286,87 @@ def check_kernels():
             lambda: norm_lrelu_from_stats(y, s1, s2, gamma, beta, 0.3), pms, None,
             bound(2 * y.numel() * item + 8 * BATCH + 8, 4 * y.numel(), dtype_name))
 
-        log(f"K3 conv3x3_same_stats, {dtype_name} (library: F.conv2d + the two sums)")
-        xshape, cout = K3_SHAPE
-        x = torch.randn(xshape, device=dev, generator=gen).to(dt)
-        w = (torch.randn((3, 3, xshape[3], cout), device=dev, generator=gen) * 0.2).to(dt)
-        b = (torch.randn((cout,), device=dev, generator=gen) * 0.1).to(dt)
-        y, s1, s2 = conv3x3_same_stats(x, w, b)
-        py, ps1, ps2 = conv3x3_same_stats_plain(x, w, b)
-        torch.cuda.synchronize()
-        scale = py.float().abs().sum((1, 2, 3))
-        if not _within(y, py, atol, rtol):
-            failures.append(f"K3 y {dtype_name}: max_abs_err {_max_err(y, py):.3g}")
-        if not bool(((s1 - ps1).abs() <= STATS_RTOL * scale).all()):
-            failures.append(f"K3 s1 {dtype_name}: {s1.tolist()} vs {ps1.tolist()}")
-        if not bool(((s2 - ps2).abs() <= STATS_RTOL * ps2.abs()).all()):
-            failures.append(f"K3 s2 {dtype_name}: {s2.tolist()} vs {ps2.tolist()}")
-        xt = x.permute(0, 3, 1, 2)
-        wt = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        log(f"K3 conv3x3_same_stats, {dtype_name}, serve shape then train-step shapes "
+            "(library: F.conv2d + the two sums), then, checked only, two shapes off the main path: "
+            "rows too wide for two staging buffers, and Cin 3")
 
-        def library():
-            out = F.conv2d(xt, wt, b, padding=1)
-            return out, out.float().sum((1, 2, 3)), out.float().square().sum((1, 2, 3))
+        def k3_check(xshape, cout):
+            x = torch.randn(xshape, device=dev, generator=gen).to(dt)
+            w = (torch.randn((3, 3, xshape[3], cout), device=dev, generator=gen) * 0.2).to(dt)
+            b = (torch.randn((cout,), device=dev, generator=gen) * 0.1).to(dt)
+            y, s1, s2 = conv3x3_same_stats(x, w, b)
+            py, ps1, ps2 = conv3x3_same_stats_plain(x, w, b)
+            torch.cuda.synchronize()
+            scale = py.float().abs().sum((1, 2, 3))
+            if not _within(y, py, atol, rtol):
+                failures.append(f"K3 y {dtype_name} {xshape}: max_abs_err {_max_err(y, py):.3g}")
+            if not bool(((s1 - ps1).abs() <= STATS_RTOL * scale).all()):
+                failures.append(f"K3 s1 {dtype_name} {xshape}: {s1.tolist()} vs {ps1.tolist()}")
+            if not bool(((s2 - ps2).abs() <= STATS_RTOL * ps2.abs()).all()):
+                failures.append(f"K3 s2 {dtype_name} {xshape}: {s2.tolist()} vs {ps2.tolist()}")
+            return x, w, b, _max_err(y, py)
 
-        pms = time_ms(lambda: conv3x3_same_stats_plain(x, w, b))
-        lms = time_ms(library)
-        n_out = xshape[0] * xshape[1] * xshape[2] * cout
-        nbytes = (x.numel() + w.numel() + b.numel() + n_out) * item + 2 * 4 * xshape[0]
-        flops = 2 * n_out * 9 * xshape[3] + 3 * n_out
-        rec("conv3x3_same_stats", dtype_name, xshape + (cout,), _max_err(y, py),
-            lambda: conv3x3_same_stats(x, w, b), pms, lms,
-            bound(nbytes, flops, dtype_name))
+        cout = K3_SHAPE[1]
+        for xshape, per_step in [(K3_SHAPE[0], None)] + K3_STEP:
+            x, w, b, err = k3_check(xshape, cout)
+            xt = x.permute(0, 3, 1, 2)
+            wt = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+            def library():
+                out = F.conv2d(xt, wt, b, padding=1)
+                return out, out.float().sum((1, 2, 3)), out.float().square().sum((1, 2, 3))
+
+            pms = time_ms(lambda: conv3x3_same_stats_plain(x, w, b))
+            lms = time_ms(library)
+            n_out = xshape[0] * xshape[1] * xshape[2] * cout
+            nbytes = (x.numel() + w.numel() + b.numel() + n_out) * item + 2 * 4 * xshape[0]
+            flops = 2 * n_out * 9 * xshape[3] + 3 * n_out
+            rec("conv3x3_same_stats", dtype_name, xshape + (cout,), err,
+                lambda: conv3x3_same_stats(x, w, b), pms, lms,
+                bound(nbytes, flops, dtype_name), per_step, kernel_route=kernel_route(x.dtype))
+            del x, xt
+        for xshape, cout in K3_OFF_PATH:
+            log(f"  conv3x3_same_stats {dtype_name} {xshape} -> {cout}: max_abs_err {k3_check(xshape, cout)[3]:.3g}")
     if failures:
         raise AssertionError("kernel/plain mismatch:\n  " + "\n  ".join(failures))
     return records
+
+
+def _kernel_name(mangled: str) -> str:
+    """The kernel's own name and template arguments out of its mangled
+    name: the <length><name> part that ends in "kernel"."""
+    for m in re.finditer(r"(?<=\d)[A-Za-z_]", mangled):
+        i = m.start()
+        digits = re.search(r"\d+$", mangled[:i]).group()
+        for k in range(len(digits)):
+            name = mangled[i:i + int(digits[k:])]
+            if name.endswith("kernel"):
+                args = re.match(r"I(\w*?)E", mangled[i + len(name):])
+                return name + (f"<{args.group(1)}>" if args else "")
+    return mangled
+
+
+def check_tensor_cores(so: str) -> dict:
+    """K3's bf16 route must run on the tensor cores: ``cuobjdump -sass`` of
+    the built library has to show HMMA instructions in every instance of
+    its kernel. Returns {kernel: HMMA count}; raises if there are none."""
+    from littlegan_tpu_torch.ops.cuda import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                          timeout=300, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = 0
+        elif current is not None and re.search(r"\bHMMA\b", line):
+            counts[current] += 1
+    mma = {k: v for k, v in counts.items() if "conv3x3_mma_kernel" in k}
+    log(f"K3 bf16 route, HMMA instructions in the SASS per kernel instance: {mma}")
+    require(mma and all(v > 0 for v in mma.values()), f"K3's bf16 kernel has no tensor-core instructions: {mma}")
+    return mma
 
 
 def _rel_err(got, want) -> float:
@@ -443,6 +518,63 @@ def check_backward_kernels():
     if failures:
         raise AssertionError("backward kernel/plain mismatch:\n  " + "\n  ".join(failures))
     return records
+
+
+# shared memory per block of the backward's cluster route, timed by
+# compare_bwd_routes (0: the two-pass route)
+BWD_SMEM = (0, 16 << 10, 32 << 10, 64 << 10, 128 << 10)
+
+
+def compare_bwd_routes():
+    """K2 and K1' bwd, bf16, at every train-step shape: the two-pass route
+    against the cluster route (taken at every shape) keeping a fixed 16 to
+    128 KB of x and dy per block in shared memory (``BWD_SMEM``), timed in
+    this one run in turns, forward through ``BWD_SMEM`` and back; then the
+    default plan (which picks the route and the share itself). Returns one
+    record per shape, with the per-step totals logged."""
+    import torch
+
+    from littlegan_tpu_torch.ops.cuda import norm_lrelu as nl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    gamma = torch.tensor([1.3], device=dev)
+    beta = torch.tensor([-0.2], device=dev)
+    cases = [("fused_instance_norm_lrelu_bwd", s, c) for s, c in K2_STEP]
+    cases += [("norm_lrelu_from_stats_bwd", x[:3] + (64,), c) for x, c in BLOCK1_STEP]
+    label = lambda b: "two passes" if b == 0 else f"cluster {b >> 10} KB"  # noqa: E731
+    log("backward routes, bf16, in turns in this run (default: the cluster route where the batch's x and dy "
+        "outgrow L2, keeping the share its rule picks, else two passes):")
+    out = []
+    for name, shape, count in cases:
+        x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).bfloat16()
+        dy = torch.randn(shape, device=dev, generator=gen).bfloat16()
+        if name == "fused_instance_norm_lrelu_bwd":
+            _, stats = nl._fused_forward(x, gamma, beta, 0.3, 1e-3)
+            fn = lambda plan: nl.fused_instance_norm_lrelu_bwd(x, dy, gamma, beta, 0.3, 1e-3, stats, plan)  # noqa: E731
+        else:
+            xf = x.float()
+            s1, s2 = xf.sum((1, 2, 3)), xf.square().sum((1, 2, 3))
+            fn = lambda plan: nl.norm_lrelu_from_stats_bwd(x, s1, s2, gamma, beta, dy, 0.3, 1e-3, plan)  # noqa: E731
+        n, m, sms = shape[0], x[0].numel(), nl._sms(dev)
+        plans = {label(b): nl.bwd_plan(n, m, 2, sms, smem=b, two_pass_bytes=0) for b in BWD_SMEM}
+        plans["default"] = nl.bwd_plan(n, m, 2, sms)
+        times = {}
+        for k in list(plans)[:-1] + list(plans)[-2::-1] + ["default"]:
+            times.setdefault(k, []).append(time_ms(lambda: fn(plans[k])))
+        bnd = bound(3 * x.numel() * 2, 14 * x.numel(), "bfloat16")[0]
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        log(f"  {name} {shape} x{count}/step, bound {bnd:.4f} ms, default plan {tuple(plans['default'])}: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+        out.append({"name": name, "shape": list(shape), "per_step": count, "bound_ms": bnd, "ms": ms,
+                    "runs_ms": times, "plan": plans["default"]._asdict()})
+        del x, dy
+    for name in ("fused_instance_norm_lrelu_bwd", "norm_lrelu_from_stats_bwd"):
+        rows = [r for r in out if r["name"] == name]
+        tot = {k: sum(r["ms"][k] * r["per_step"] for r in rows) for k in rows[0]["ms"]}
+        log(f"  {name} per train step (bound {sum(r['bound_ms'] * r['per_step'] for r in rows):.4f} ms): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in tot.items()))
+    return out
 
 
 def _counters(names=("fused_instance_norm_lrelu", "conv3x3_same_stats", "norm_lrelu_from_stats")):
@@ -857,11 +989,12 @@ def _time_steps(step, reps, batch, top=0):
 
 
 def summarize(records, serve_launches, train_launches):
-    """One JSON record per kernel, bf16 (the working dtype): the serve
-    path's kernels summed over the shapes one /adjust call gives them, the
-    backward kernels over the launches of one train step; per-shape numbers
-    under "shapes". "launches" counts both paths' runs, split in
-    "launches_by_path"."""
+    """One JSON record per kernel, bf16 (the working dtype): summed over the
+    launches of one train step where phase (b) timed the train shapes, else
+    over the shapes one /adjust call gives it ("per" says which; a kernel
+    timed on both paths adds the /adjust sums as "serve_ms",
+    "serve_plain_ms", "serve_bound_ms"); per-shape numbers under "shapes".
+    "launches" counts both paths' runs, split in "launches_by_path"."""
     meta = {
         "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
                                       "littlegan_tpu/ops/pallas/norm_lrelu.py:108"),
@@ -878,19 +1011,31 @@ def summarize(records, serve_launches, train_launches):
     }
     out = []
     for name, (source, replaces) in meta.items():
-        shapes = [s for s in records[name]["shapes"] if s["dtype"] == "bfloat16"]
-        per = lambda s: s.get("per_step", 1)  # noqa: E731
-        tot = lambda k: sum(s[k] * per(s) for s in shapes)  # noqa: E731
-        lib = None if shapes[0]["library_ms"] is None else tot("library_ms")
+        bf16 = [s for s in records[name]["shapes"] if s["dtype"] == "bfloat16"]
+        train = [s for s in bf16 if "per_step" in s]
+        serve = [s for s in bf16 if "per_step" not in s]
+
+        def tot(k, shapes):
+            return sum(s[k] * s.get("per_step", 1) for s in shapes)
+
+        shapes = train or serve
+        lib = None if shapes[0]["library_ms"] is None else tot("library_ms", shapes)
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0)}
-        out.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(s["max_abs_err"] for s in shapes),
-            "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+            "max_abs_err": max(s["max_abs_err"] for s in bf16),
+            "ms": tot("ms", shapes), "plain_ms": tot("plain_ms", shapes), "bound_ms": tot("bound_ms", shapes),
             "bound_by": shapes[0]["bound_by"], "library_ms": lib,
-            "shapes": records[name]["shapes"],
-        })
+            "per": "train step" if train else "/adjust call",
+        }
+        if train and serve:
+            entry.update({f"serve_{k}": tot(k, serve) for k in ("ms", "plain_ms", "bound_ms")})
+        routes = {s["dtype"]: s["kernel_route"] for s in records[name]["shapes"] if "kernel_route" in s}
+        if routes:
+            entry["kernel_route"] = routes
+        entry["shapes"] = records[name]["shapes"]
+        out.append(entry)
     return out
 
 
@@ -911,13 +1056,18 @@ def main() -> int:
     so = _build.build()
     _build.lib()
     log(f"kernels built and loaded in {time.time() - t0:.1f} s: {so}")
-    with open(so + ".log") as f:
+    with open(so + ".log") as f:  # each kernel's registers, shared memory and spills
         for line in f:
-            if "registers" in line or "spill" in line or line.startswith("=="):
-                log("  " + line.rstrip())
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                log(f"  {_kernel_name(entry.group(1))}")
+            elif "registers" in line or "spill" in line or line.startswith("=="):
+                log("    " + line.strip())
+    check_tensor_cores(so)
 
     records = check_kernels()
     records.update(check_backward_kernels())
+    log("backward routes: " + json.dumps(compare_bwd_routes()))
     serve_launches = check_serving(full_config())
     train_launches, train = check_training()
     log("train record: " + json.dumps(train))

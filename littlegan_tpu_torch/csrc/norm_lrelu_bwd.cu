@@ -12,28 +12,54 @@
 //
 // What bounds it on the H100: bytes. A few operations per element, so the
 // least time is reading x and dy once and writing dx once over 3.35 TB/s.
-// The TPU kernel ran one sample per sequential grid step and carried dgamma
-// and dbeta from step to step in SMEM; here blocks run in no order, so the
-// work is split into (sample x chunk) blocks, as in the forward:
+// The TPU kernel ran one sample per sequential grid step, held it in VMEM
+// for both of its passes and carried dgamma and dbeta from step to step in
+// SMEM. Here every sample needs two passes over x and dy (the sums of dz
+// and dz*nrm first, then dx from them), and blocks run in no order. Two
+// routes, picked per shape by the wrapper (bwd_plan in
+// ops/cuda/norm_lrelu.py):
 //
+// cluster (cluster_kernel), for a batch whose x and dy outgrow L2 (the
+// large train shapes): one thread block cluster per sample, of up to 16
+// blocks, so that the second pass finds x and dy on the chip:
+//   - each block copies the first `kept` elements of its chunk of x and dy
+//     into shared memory with cp.async while warp 0 reduces the forward's
+//     partials (the (n, fparts) f32 sum(x), sum(x^2) the forward left
+//     behind, in the forward's fixed order, so mean and std are the
+//     forward's bit for bit);
+//   - each block sums dz and dz*nrm over its chunk, the kept part from
+//     shared memory and the rest straight from device memory; after a
+//     cluster barrier every block adds the cluster's block partials in rank
+//     order through distributed shared memory, so all of them hold the
+//     same sample sums;
+//   - each block writes its chunk of dx with 16-byte stores, from shared
+//     memory and, for the rest, from x and dy read again a few
+//     microseconds after pass 1 read them, from L2. The wrapper picks
+//     `kept` so that the rest of all blocks in flight fits L2: keeping less
+//     puts more blocks in flight, keeping more spills less.
+//   x and dy come from device memory once. A second launch (one warp) adds
+//   the per-sample sums in a fixed order to dgamma and dbeta.
+//
+// two passes (sums_kernel, apply_kernel), for the rest (a batch whose x
+// and dy fit L2 finds them there in pass 2), split into (sample x chunk)
+// blocks as in the forward:
 //   pass 1 (sums_kernel): each block reduces its sample's forward partials
-//       (the (n, parts) f32 sum(x), sum(x^2) the forward left behind, in the
-//       forward's fixed order, so mean and std are the forward's bit for
-//       bit: no pass over x for the moments), then writes the f32 partials
-//       sum(dz) and sum(dz*nrm) of its chunk;
+//       as above, then writes the f32 partials sum(dz) and sum(dz*nrm) of
+//       its chunk;
 //   pass 2 (apply_kernel): each block reduces its sample's partials of both
 //       kinds in a fixed order, writes its chunk of dx with 16-byte stores,
 //       and block (0, 0) also reduces all samples' partials, in a fixed
 //       order, to dgamma and dbeta.
+//   Pass 2 rereads x and dy. On a batch that outgrows L2 it would reread
+//   them from device memory, 5/3 of the bound's bytes (2.1x the bound at
+//   the largest train shapes): those take the cluster route.
 //
-// No float atomics: every result is deterministic. Pass 2 rereads x and dy;
-// at the largest train shape (64 MiB per bf16 tensor) they do not stay in
-// the 50 MB L2, so the kernel moves about 5/3 of its bound's bytes.
+// No float atomics on either route: every result is deterministic.
 //
 // The stats-in form (lg_norm_lrelu_from_stats_bwd) is the backward of
 // lg_norm_lrelu_apply, whose mean and std come from per-sample sums s1, s2
-// (the boundary conv's fused stats) and not from x. It runs the same two
-// passes with parts = 1, writes dx = dn/d (the direct path) and, per
+// (the boundary conv's fused stats) and not from x. It runs the same
+// routes with fparts = 1, writes dx = dn/d (the direct path) and, per
 // sample, the cotangents of s1 and s2:
 //
 //     dstd = -sum(dn*nrm)/d,  dvar = var > 0 ? dstd/(2 std) : 0
@@ -42,9 +68,12 @@
 // C interface for ctypes: pointers and the stream are void*, every function
 // returns cudaGetLastError() as an int.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -269,16 +298,202 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// The cluster route: grid (chunks, n) in clusters of `chunks` blocks, one
+// cluster per sample. Block `rank` owns elements [rank*chunk, +chunk) of
+// its sample; it copies the first `kept` of them (x and dy) into shared
+// memory and reads the rest from device memory in pass 1 and again, from
+// L2, in pass 2. x, dy, dx 16-byte aligned; m, chunk and kept multiples
+// of 8. ssum/ssq: (n,) the per-sample sum(dz), sum(dz*nrm).
+template <typename T, bool kFromStats>
+__global__ void __launch_bounds__(kThreads)
+    cluster_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+                   const float* __restrict__ fsum, const float* __restrict__ fsq, int fparts,
+                   const float* __restrict__ gamma, const float* __restrict__ beta,
+                   float* __restrict__ ssum, float* __restrict__ ssq, float* __restrict__ ds1,
+                   float* __restrict__ ds2, int64_t m, int64_t chunk, int64_t kept, float alpha,
+                   float eps) {
+  constexpr int V = vec_elems<T>();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int64_t n = blockIdx.y;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);  // [kept] of x, then [kept] of dy
+  T* gs = xs + kept;
+  __shared__ float stat[7];  // mean, gamma/d, 1/d, std, var, d, mean(dn)
+  __shared__ float cn_s;     // mean(dn*nrm)/max(std, 1e-20)
+  __shared__ float part[2];  // this block's sum(dz), sum(dz*nrm), read by the cluster
+  __shared__ float ws[kThreads / 32], wq[kThreads / 32];
+
+  const int64_t begin = rank * chunk;
+  const int64_t end = begin + chunk < m ? begin + chunk : m;
+  const int nvec = begin < end ? static_cast<int>((end - begin) / V) : 0;
+  const int kvec = nvec < kept / V ? nvec : static_cast<int>(kept / V);
+  const uint4* xg = reinterpret_cast<const uint4*>(x + n * m + begin);
+  const uint4* gg = reinterpret_cast<const uint4*>(dy + n * m + begin);
+  for (int i = threadIdx.x; i < kvec; i += kThreads) {
+    cp_async16(xs + i * V, xg + i);
+    cp_async16(gs + i * V, gg + i);
+  }
+  const float g = gamma[0], b = beta[0], fm = static_cast<float>(m);
+  if (threadIdx.x < 32) {
+    float s, q;
+    reduce_parts(fsum + n * fparts, fsq + n * fparts, fparts, s, q);
+    if (threadIdx.x == 0) {
+      const Moments mo = moments(s, q, fm, g, eps);
+      stat[0] = mo.mean;
+      stat[1] = mo.inv;
+      stat[2] = 1.f / mo.d;
+      stat[3] = mo.std;
+      stat[4] = mo.var;
+      stat[5] = mo.d;
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const float mean = stat[0], inv = stat[1], rd = stat[2];
+  float sdz = 0.f, sdzn = 0.f;
+  auto sums = [&](const uint4 rx, const uint4 rg) {  // by value: one 16-byte load each
+    const T* ex = reinterpret_cast<const T*>(&rx);
+    const T* eg = reinterpret_cast<const T*>(&rg);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const Elem el = elem(to_f32(ex[e]), to_f32(eg[e]), mean, inv, rd, b, alpha);
+      sdz += el.dz;
+      sdzn += el.dz * el.nrm;
+    }
+  };
+  // pass 1: the kept part from shared memory, the rest from device memory
+  for (int i = threadIdx.x; i < kvec; i += kThreads)
+    sums(*reinterpret_cast<const uint4*>(xs + i * V), *reinterpret_cast<const uint4*>(gs + i * V));
+  for (int i = kvec + threadIdx.x; i < nvec; i += kThreads) sums(__ldg(xg + i), __ldg(gg + i));
+  warp_sum2(sdz, sdzn);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    ws[warp] = sdz;
+    wq[warp] = sdzn;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float ts = 0.f, tq = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      ts += ws[w];
+      tq += wq[w];
+    }
+    part[0] = ts;
+    part[1] = tq;
+  }
+  cluster.sync();
+  if (threadIdx.x == 0) {
+    // the sample's sums: the cluster's block partials in rank order, the
+    // same in every block
+    float s = 0.f, q = 0.f;
+    for (int r = 0; r < ranks; ++r) {
+      const float* p = cluster.map_shared_rank(part, r);
+      s += p[0];
+      q += p[1];
+    }
+    stat[6] = g * s / fm;
+    cn_s = g * q / fm / fmaxf(stat[3], 1e-20f);
+    if (rank == 0) {
+      ssum[n] = s;
+      ssq[n] = q;
+      if (kFromStats) {
+        const float d = stat[5], sd = stat[3], var = stat[4];
+        const float dstd = -g * q / d;
+        const float dvar = var > 0.f ? dstd * 0.5f / sd : 0.f;
+        ds1[n] = (-g * s / d - 2.f * stat[0] * dvar) / fm;
+        ds2[n] = dvar / fm;
+      }
+    }
+  }
+  cluster.sync();  // the sums are in; no block reads another's partials after this
+  const float mdn = stat[6], cn = cn_s;
+  uint4* og = reinterpret_cast<uint4*>(dx + n * m + begin);
+  auto grad = [&](const uint4 rx, const uint4 rg) -> uint4 {
+    const T* ex = reinterpret_cast<const T*>(&rx);
+    const T* eg = reinterpret_cast<const T*>(&rg);
+    uint4 out;
+    T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const Elem el = elem(to_f32(ex[e]), to_f32(eg[e]), mean, inv, rd, b, alpha);
+      const float dn = g * el.dz;
+      o[e] = from_f32<T>(kFromStats ? dn * rd : (dn - mdn) * rd - el.nrm * cn);
+    }
+    return out;
+  };
+  // pass 2: dx, the kept part from shared memory, the rest again from L2
+  for (int i = threadIdx.x; i < kvec; i += kThreads)
+    og[i] = grad(*reinterpret_cast<const uint4*>(xs + i * V), *reinterpret_cast<const uint4*>(gs + i * V));
+  for (int i = kvec + threadIdx.x; i < nvec; i += kThreads) og[i] = grad(__ldg(xg + i), __ldg(gg + i));
+}
+
+// dgamma, dbeta: the per-sample sums in a fixed order (one warp).
+__global__ void totals_kernel(const float* __restrict__ ssum, const float* __restrict__ ssq,
+                              int64_t n, float* __restrict__ dgamma, float* __restrict__ dbeta) {
+  float s = 0.f, q = 0.f;
+  for (int64_t p = threadIdx.x; p < n; p += 32) {
+    s += ssum[p];
+    q += ssq[p];
+  }
+  warp_sum2(s, q);
+  if (threadIdx.x == 0) {
+    dbeta[0] = s;
+    dgamma[0] = q;
+  }
+}
+
+template <typename T, bool kFromStats>
+cudaError_t launch_cluster(const void* x, const void* dy, void* dx, const float* fsum,
+                           const float* fsq, int fparts, float* ssum, float* ssq,
+                           const float* gamma, const float* beta, float* dgamma, float* dbeta,
+                           float* ds1, float* ds2, int64_t n, int64_t m, int64_t chunk, int chunks,
+                           int64_t kept, float alpha, float eps, cudaStream_t stream) {
+  const auto kernel = cluster_kernel<T, kFromStats>;
+  const int smem = static_cast<int>(2 * kept * sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && chunks > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(chunks, static_cast<unsigned>(n));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = chunks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(dy),
+                         static_cast<T*>(dx), fsum, fsq, fparts, gamma, beta, ssum, ssq, ds1, ds2, m,
+                         chunk, kept, alpha, eps);
+  if (e != cudaSuccess) return e;
+  totals_kernel<<<1, 32, 0, stream>>>(ssum, ssq, n, dgamma, dbeta);
+  return cudaGetLastError();
+}
+
 int can_vectorize(const void* a, const void* b, const void* c, int64_t m, int64_t chunk) {
   const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   return al(a) && al(b) && al(c) && (m % 8 == 0) && (chunk % 8 == 0);
 }
 
 template <typename T, bool kFromStats>
-void launch(const void* x, const void* dy, void* dx, const float* fsum, const float* fsq,
-            int fparts, float* bsum, float* bsq, const float* gamma, const float* beta,
-            float* dgamma, float* dbeta, float* ds1, float* ds2, int64_t n, int64_t m,
-            int64_t chunk, int chunks, float alpha, float eps, cudaStream_t stream) {
+cudaError_t launch_two_pass(const void* x, const void* dy, void* dx, const float* fsum,
+                            const float* fsq, int fparts, float* bsum, float* bsq,
+                            const float* gamma, const float* beta, float* dgamma, float* dbeta,
+                            float* ds1, float* ds2, int64_t n, int64_t m, int64_t chunk, int chunks,
+                            float alpha, float eps, cudaStream_t stream) {
   const dim3 grid(chunks, static_cast<unsigned>(n));
   const int vec_ok = can_vectorize(x, dy, dx, m, chunk);
   sums_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const T*>(dy),
@@ -287,6 +502,27 @@ void launch(const void* x, const void* dy, void* dx, const float* fsum, const fl
   apply_kernel<T, kFromStats><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), fsum, fsq, fparts,
       bsum, bsq, gamma, beta, dgamma, dbeta, ds1, ds2, n, m, chunk, alpha, eps, vec_ok);
+  return cudaGetLastError();
+}
+
+// kept > 0: the cluster route (chunks <= 16 blocks per sample, each
+// keeping `kept` elements of x and of dy in shared memory); else the
+// two-pass route.
+template <typename T, bool kFromStats>
+cudaError_t launch(const void* x, const void* dy, void* dx, const float* fsum, const float* fsq,
+                   int fparts, float* bsum, float* bsq, const float* gamma, const float* beta,
+                   float* dgamma, float* dbeta, float* ds1, float* ds2, int64_t n, int64_t m,
+                   int64_t chunk, int chunks, int64_t kept, float alpha, float eps,
+                   cudaStream_t stream) {
+  if (kept > 0) {
+    if (!can_vectorize(x, dy, dx, m, chunk) || kept % 8 || chunks > 16) return cudaErrorInvalidValue;
+    return launch_cluster<T, kFromStats>(x, dy, dx, fsum, fsq, fparts, bsum, bsq, gamma, beta,
+                                         dgamma, dbeta, ds1, ds2, n, m, chunk, chunks, kept, alpha,
+                                         eps, stream);
+  }
+  return launch_two_pass<T, kFromStats>(x, dy, dx, fsum, fsq, fparts, bsum, bsq, gamma, beta,
+                                        dgamma, dbeta, ds1, ds2, n, m, chunk, chunks, alpha, eps,
+                                        stream);
 }
 
 }  // namespace
@@ -295,40 +531,47 @@ extern "C" {
 
 // Backward of lg_norm_lrelu. dtype: 0 = float32, 1 = bfloat16 (x, dy, dx).
 // fsum/fsq: the forward's (n, fparts) partials; bsum/bsq: (n, chunks) f32
-// scratch; dgamma/dbeta: one f32 each. Chunking as in the forward.
+// scratch; dgamma/dbeta: one f32 each. Each sample in `chunks` blocks of
+// `chunk` elements (a multiple of 8). kept > 0: the cluster route, those
+// blocks one cluster (chunks <= 16), each keeping `kept` elements of x and
+// of dy in shared memory; kept = 0: the two-pass route.
 int lg_norm_lrelu_bwd(int dtype, const void* x, const void* dy, void* dx, const float* fsum,
                       const float* fsq, int fparts, float* bsum, float* bsq, const float* gamma,
                       const float* beta, float* dgamma, float* dbeta, int64_t n, int64_t m,
-                      int64_t chunk, int chunks, float alpha, float eps, void* stream) {
+                      int64_t chunk, int chunks, int64_t kept, float alpha, float eps,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch<float, false>(x, dy, dx, fsum, fsq, fparts, bsum, bsq, gamma, beta, dgamma, dbeta,
-                         nullptr, nullptr, n, m, chunk, chunks, alpha, eps, s);
-  else if (dtype == 1)
-    launch<__nv_bfloat16, false>(x, dy, dx, fsum, fsq, fparts, bsum, bsq, gamma, beta, dgamma,
-                                 dbeta, nullptr, nullptr, n, m, chunk, chunks, alpha, eps, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch<float, false>(x, dy, dx, fsum, fsq, fparts, bsum, bsq, gamma,
+                                                 beta, dgamma, dbeta, nullptr, nullptr, n, m, chunk,
+                                                 chunks, kept, alpha, eps, s));
+  if (dtype == 1)
+    return static_cast<int>(launch<__nv_bfloat16, false>(x, dy, dx, fsum, fsq, fparts, bsum, bsq,
+                                                         gamma, beta, dgamma, dbeta, nullptr,
+                                                         nullptr, n, m, chunk, chunks, kept, alpha,
+                                                         eps, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Backward of lg_norm_lrelu_apply: y the forward's input, dout its output's
 // cotangent; writes dy (direct path), ds1/ds2 (n,) f32, dgamma, dbeta.
+// Routes and chunks as in lg_norm_lrelu_bwd.
 int lg_norm_lrelu_from_stats_bwd(int dtype, const void* y, const void* dout, void* dy,
                                  const float* s1, const float* s2, float* bsum, float* bsq,
                                  const float* gamma, const float* beta, float* dgamma,
                                  float* dbeta, float* ds1, float* ds2, int64_t n, int64_t m,
-                                 int64_t chunk, int chunks, float alpha, float eps, void* stream) {
+                                 int64_t chunk, int chunks, int64_t kept, float alpha, float eps,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch<float, true>(y, dout, dy, s1, s2, 1, bsum, bsq, gamma, beta, dgamma, dbeta, ds1, ds2, n,
-                        m, chunk, chunks, alpha, eps, s);
-  else if (dtype == 1)
-    launch<__nv_bfloat16, true>(y, dout, dy, s1, s2, 1, bsum, bsq, gamma, beta, dgamma, dbeta, ds1,
-                                ds2, n, m, chunk, chunks, alpha, eps, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch<float, true>(y, dout, dy, s1, s2, 1, bsum, bsq, gamma, beta,
+                                                dgamma, dbeta, ds1, ds2, n, m, chunk, chunks, kept,
+                                                alpha, eps, s));
+  if (dtype == 1)
+    return static_cast<int>(launch<__nv_bfloat16, true>(y, dout, dy, s1, s2, 1, bsum, bsq, gamma,
+                                                        beta, dgamma, dbeta, ds1, ds2, n, m, chunk,
+                                                        chunks, kept, alpha, eps, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

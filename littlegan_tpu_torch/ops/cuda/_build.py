@@ -41,14 +41,14 @@ _SIGNATURES = {
     "lg_norm_lrelu_apply": (_I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _P),
     "lg_norm_stats": (_I, _P, _P, _P, _I64, _I64, _I64, _I, _P),
     "lg_norm_lrelu_bwd": (
-        _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _P,
+        _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64, _F, _F, _P,
     ),
     "lg_norm_lrelu_from_stats_bwd": (
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64, _F, _F, _P,
     ),
     "lg_conv3x3_same_stats": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "lg_conv3x3_tiles": (_I, _I, _I),
-    "lg_conv3x3_smem_bytes": (_I, _I, _I),
+    "lg_conv3x3_partials": (_I, _I, _I, _I),
+    "lg_conv3x3_smem_bytes": (_I, _I, _I, _I),
     "lg_conv3x3_bwd_fold": (_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
 }
 

@@ -7,13 +7,15 @@ sum(y) and sum(y^2) taken from the f32 accumulator before the cast to the
 output dtype. The instance norm after it reads those instead of making a
 stats pass over y (``norm_lrelu.py::norm_lrelu_from_stats``).
 
-What bounds it on the H100 is bytes: at the serve shape (8, 64, 64, 12) ->
-64 channels it moves about 5 MB for 0.45 GFLOP. The design
-(``csrc/boundary_conv.cu``): a block owns 128 output pixels x all 64
-output channels, stages its input rows with a zero halo and the weights in
-shared memory as f32, accumulates with a plain FMA loop, writes y with
-16-byte stores and one f32 stats partial; a second launch reduces the
-partials per sample in a fixed order.
+What bounds it on the H100 is bytes: at the train shape (64, 64, 64, 12) ->
+64 channels in bf16 it moves 40 MB (y is 5/6 of it) for 3.6 GFLOP. The
+design (``csrc/boundary_conv.cu``), routed by dtype (:func:`kernel_route`):
+bf16 runs an implicit GEMM on the tensor cores (``mma.sync`` m16n8k16, K =
+9 taps x Cin padded to 16 in shared memory, a persistent grid over tiles of
+128 output pixels, y staged in shared memory and written as 16-byte
+vectors); f32 keeps a plain FMA loop, since TF32 would miss its 1e-5
+tolerance. Each block writes one f32 stats partial per tile and a second
+launch reduces the partials per sample in a fixed order.
 
 :class:`BoundaryConvS2D` is the autograd Function the model calls, the
 counterpart of the JAX package's custom VJP ``boundary_conv_s2d``. Its
@@ -50,6 +52,12 @@ def supports(x_shape) -> bool:
     channels and 8-aligned spatial dims."""
     _, h, w, c = x_shape
     return c <= _MAX_CIN and h % 8 == 0 and w % 8 == 0
+
+
+def kernel_route(dtype: torch.dtype) -> str:
+    """Which kernel of ``csrc/boundary_conv.cu`` a CUDA tensor of this dtype
+    launches: "mma" (bf16, tensor cores) or "fma" (f32, CUDA cores)."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
 
 
 def conv3x3_same_stats_plain(
@@ -89,15 +97,15 @@ def conv3x3_same_stats(
         raise ValueError("conv3x3_same_stats: x, w and b must be on one device")
     if not x.is_contiguous():
         raise ValueError("conv3x3_same_stats: x must be contiguous (NHWC)")
-    lib = _build.lib()
-    if lib.lg_conv3x3_smem_bytes(wd, cin, cout) > _MAX_SMEM:
-        raise ValueError(f"conv3x3_same_stats: width {wd} needs more shared memory than a block has")
     code = _build.dtype_code(x)
+    lib = _build.lib()
+    if lib.lg_conv3x3_smem_bytes(code, wd, cin, cout) > _MAX_SMEM:
+        raise ValueError(f"conv3x3_same_stats: width {wd} needs more shared memory than a block has")
     wc = w.to(x.dtype).contiguous()
     bc = b.to(x.dtype).contiguous()
-    tiles = lib.lg_conv3x3_tiles(h, wd, cout)
+    parts = lib.lg_conv3x3_partials(code, h, wd, cout)
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, n, tiles), dtype=torch.float32, device=x.device)
+    part = torch.empty((2, n, parts), dtype=torch.float32, device=x.device)
     stats = torch.empty((2, n), dtype=torch.float32, device=x.device)
     err = lib.lg_conv3x3_same_stats(
         code, x.data_ptr(), wc.data_ptr(), bc.data_ptr(), y.data_ptr(),

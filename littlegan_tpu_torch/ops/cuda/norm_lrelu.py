@@ -15,10 +15,15 @@ per-chunk f32 partials, an apply launch reduces them in a fixed order
 (deterministic, no atomics) and writes y with 16-byte stores. The backward
 reuses the forward's partials (so it never rereads x for the moments), writes
 per-chunk partials of sum(dz) and sum(dz * n), and reduces those per sample
-for dx and over the batch for dgamma and dbeta. ``norm_lrelu_from_stats`` is
-the apply launch alone, for stats that a conv epilogue already produced
-(encoder block1, ``boundary_conv.py``); its backward also returns the stats'
-cotangents.
+for dx and over the batch for dgamma and dbeta. That is the two-pass
+route; for a batch whose x and dy outgrow L2 (the large train shapes) the
+backward instead gives each sample one thread block cluster: its blocks
+read their shares of x and dy once, keep what their shared memory holds,
+reread the rest from L2 while it is still there, and share their sums
+through distributed shared memory (:func:`bwd_plan`).
+``norm_lrelu_from_stats`` is the apply launch alone, for stats that a conv
+epilogue already produced (encoder block1, ``boundary_conv.py``); its
+backward also returns the stats' cotangents.
 
 :class:`FusedNormLReLU` and :class:`NormLReLUFromStats` are the autograd
 Functions the model calls. A CPU tensor takes the plain PyTorch versions
@@ -31,7 +36,7 @@ raises instead of returning it detached. Each wrapper counts its launches in
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,6 +46,24 @@ from littlegan_tpu_torch.ops.norm import instance_norm, instance_norm_from_stats
 
 _MIN_CHUNK = 2048  # elements per block at the least: 8 vectors of 8 bf16 per thread
 _BLOCKS_PER_SM = 4  # aim for this many blocks per SM over the whole batch
+# The backward's cluster route: a thread block cluster per sample, of at
+# most _MAX_CLUSTER blocks (the H100's largest cluster), as many as give
+# each block about _BWD_SHARE bytes of the sample's x and dy. Each block
+# keeps part of its share in shared memory and reads the rest again from
+# L2: as little as keeps the rest of all blocks in flight within
+# _BWD_L2_BYTES, at least a quarter of the share, at most _BWD_SMEM_MAX
+# (more blocks in flight against fewer L2 misses: PERF.md, PR 3). Blocks
+# in flight: SMs x at most _BWD_BLOCKS_PER_SM (256 threads at about 40
+# registers) or what _SMEM_PER_SM holds. A batch whose x and dy take at
+# most _BWD_TWO_PASS_BYTES stays on the two-pass route, whose second pass
+# finds them in L2.
+_BWD_TWO_PASS_BYTES = 24 << 20
+_BWD_SHARE = 64 << 10
+_BWD_SMEM_MAX = 128 << 10
+_BWD_L2_BYTES = 32 << 20
+_BWD_BLOCKS_PER_SM = 6
+_SMEM_PER_SM = 227 << 10
+_MAX_CLUSTER = 16
 _sm_count = {}
 
 
@@ -139,6 +162,64 @@ def chunking(n: int, m: int, sms: int) -> Tuple[int, int]:
     return chunk, math.ceil(m / chunk)
 
 
+class BwdPlan(NamedTuple):
+    """How the backward kernels split a batch: each sample in ``chunks``
+    blocks of ``chunk`` elements. ``kept`` > 0, the cluster route: those
+    blocks form one thread block cluster, each block keeping the first
+    ``kept`` elements of its share of x and dy in shared memory. Else the
+    two-pass route over (sample x chunk) blocks."""
+
+    chunk: int
+    chunks: int
+    kept: int = 0
+
+    @property
+    def one_pass(self) -> bool:
+        """Whether x and dy are read from device memory once (the cluster
+        route; what it does not keep it rereads from L2)."""
+        return self.kept > 0
+
+
+def bwd_plan(
+    n: int, m: int, itemsize: int, sms: int, smem: Optional[int] = None,
+    two_pass_bytes: int = _BWD_TWO_PASS_BYTES,
+) -> BwdPlan:
+    """The backward's plan for n samples of m elements of ``itemsize``
+    bytes. The cluster route where m is a multiple of 8 and the batch's x
+    and dy take more than ``two_pass_bytes``: blocks per sample a power of
+    two, enough for about ``_BWD_SHARE`` bytes of x and dy per block and two
+    blocks per SM over the batch, at most ``_MAX_CLUSTER``; each keeps
+    ``smem`` bytes of its share if given, else what the rule above picks.
+    Else, or with ``smem`` 0, two passes, chunked as the forward
+    (:func:`chunking`). The wrappers take the defaults; the arguments are
+    for measuring the routes against each other (``chip_smoke.py``)."""
+    if m % 8 or smem == 0 or 2 * n * m * itemsize <= two_pass_bytes:
+        return BwdPlan(*chunking(n, m, sms))
+    want = max(-(-2 * m * itemsize // _BWD_SHARE), -(-2 * sms // n))
+    blocks = min(_MAX_CLUSTER, 1 << (want - 1).bit_length())
+    chunk = 8 * -(-m // (8 * blocks))
+    if smem is not None:
+        return BwdPlan(chunk, blocks, min(chunk, 8 * max(1, smem // (16 * itemsize))))
+
+    def rest_in_l2(kept: int) -> int:
+        per_sm = min(_BWD_BLOCKS_PER_SM, _SMEM_PER_SM // (2 * kept * itemsize + 1024))
+        return min(n * blocks, sms * per_sm) * (chunk - kept) * 2 * itemsize
+
+    kept = min(chunk, 8 * (_BWD_SMEM_MAX // (16 * itemsize)))
+    while kept % 16 == 0 and 4 * (kept // 2) >= chunk and rest_in_l2(kept // 2) <= _BWD_L2_BYTES:
+        kept //= 2
+    return BwdPlan(chunk, blocks, kept)
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _check_plan(plan: BwdPlan, m: int, what: str) -> None:
+    if plan.chunk % 8 or plan.chunks * plan.chunk < m or plan.kept % 8 or plan.kept > plan.chunk:
+        raise ValueError(f"{what}: {plan} does not cover a sample of {m} elements in whole vectors")
+
+
 def refuse_grad(what: str, function: str, *tensors: Optional[torch.Tensor]) -> None:
     """A kernel's output is a fresh tensor autograd cannot see: when grad
     mode is on and an input requires grad, raise instead of returning it
@@ -215,10 +296,12 @@ def fused_instance_norm_lrelu_bwd(
     alpha: float = 0.3,
     eps: float = 1e-3,
     stats: Optional[torch.Tensor] = None,
+    plan: Optional[BwdPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dgamma, dbeta) of ``fused_instance_norm_lrelu`` for the output
     cotangent dy (x's shape and dtype). ``stats``: the forward's partials;
     without them the card makes them first with the forward's stats pass.
+    ``plan``: the kernel's split of the batch (default :func:`bwd_plan`'s).
     dgamma and dbeta are f32 (1,), summed over the batch."""
     if x.device.type == "cpu":
         return fused_instance_norm_lrelu_bwd_plain(x, dy, gamma, beta, alpha, eps)
@@ -228,23 +311,27 @@ def fused_instance_norm_lrelu_bwd(
     _check_like(x, dy, "dy", what)
     code = _build.dtype_code(x)
     n, m = x.shape[0], x[0].numel()
-    chunk, chunks = chunking(n, m, _sms(x.device))
+    sms = _sms(x.device)
+    fchunk, fchunks = chunking(n, m, sms)  # the forward's split of the stats partials
     lib, stream = _build.lib(), _build.stream_ptr(x.device)
     if stats is None:
-        stats = torch.empty((2, n, chunks), dtype=torch.float32, device=x.device)
-        err = lib.lg_norm_stats(code, x.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), n, m, chunk,
-                                chunks, stream)
+        stats = torch.empty((2, n, fchunks), dtype=torch.float32, device=x.device)
+        err = lib.lg_norm_stats(code, x.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), n, m, fchunk,
+                                fchunks, stream)
         _build.check(err, what)
-    elif stats.shape != (2, n, chunks) or stats.dtype != torch.float32 or not stats.is_contiguous():
-        raise ValueError(f"{what}: stats must be the forward's contiguous f32 (2, {n}, {chunks}) partials")
+    elif stats.shape != (2, n, fchunks) or stats.dtype != torch.float32 or not stats.is_contiguous():
+        raise ValueError(f"{what}: stats must be the forward's contiguous f32 (2, {n}, {fchunks}) partials")
     dx = torch.empty_like(x)
-    part = torch.empty((2, n, chunks), dtype=torch.float32, device=x.device)
+    if plan is None:
+        plan = bwd_plan(n, m, x.element_size(), sms) if _aligned(x, dy, dx) else BwdPlan(fchunk, fchunks)
+    _check_plan(plan, m, what)
+    part = torch.empty((2, n, plan.chunks), dtype=torch.float32, device=x.device)
     dgb = torch.empty((2,), dtype=torch.float32, device=x.device)
     g, b = _scalar(gamma), _scalar(beta)
     err = lib.lg_norm_lrelu_bwd(
-        code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), chunks,
+        code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), fchunks,
         part[0].data_ptr(), part[1].data_ptr(), g.data_ptr(), b.data_ptr(), dgb[0].data_ptr(),
-        dgb[1].data_ptr(), n, m, chunk, chunks, alpha, eps, stream,
+        dgb[1].data_ptr(), n, m, *plan, alpha, eps, stream,
     )
     _build.check(err, what)
     fused_instance_norm_lrelu_bwd.launches.add()
@@ -290,9 +377,11 @@ def norm_lrelu_from_stats_bwd(
     dout: torch.Tensor,
     alpha: float = 0.3,
     eps: float = 1e-3,
+    plan: Optional[BwdPlan] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """(dy, ds1, ds2, dgamma, dbeta) of ``norm_lrelu_from_stats`` for the
-    output cotangent dout; dy in y's dtype, the rest f32."""
+    output cotangent dout; dy in y's dtype, the rest f32. ``plan`` as in
+    :func:`fused_instance_norm_lrelu_bwd`."""
     if y.device.type == "cpu":
         return norm_lrelu_from_stats_bwd_plain(y, s1, s2, gamma, beta, dout, alpha, eps)
     what = "norm_lrelu_from_stats_bwd"
@@ -302,16 +391,19 @@ def norm_lrelu_from_stats_bwd(
     n, m = y.shape[0], y[0].numel()
     _check_sums(n, y.device, what, s1=s1, s2=s2)
     code = _build.dtype_code(y)
-    chunk, chunks = chunking(n, m, _sms(y.device))
+    sms = _sms(y.device)
     dy = torch.empty_like(y)
-    part = torch.empty((2, n, chunks), dtype=torch.float32, device=y.device)
+    if plan is None:
+        plan = bwd_plan(n, m, y.element_size(), sms) if _aligned(y, dout, dy) else BwdPlan(*chunking(n, m, sms))
+    _check_plan(plan, m, what)
+    part = torch.empty((2, n, plan.chunks), dtype=torch.float32, device=y.device)
     ds = torch.empty((2, n), dtype=torch.float32, device=y.device)
     dgb = torch.empty((2,), dtype=torch.float32, device=y.device)
     g, b = _scalar(gamma), _scalar(beta)
     err = _build.lib().lg_norm_lrelu_from_stats_bwd(
         code, y.data_ptr(), dout.data_ptr(), dy.data_ptr(), s1.data_ptr(), s2.data_ptr(), part[0].data_ptr(),
         part[1].data_ptr(), g.data_ptr(), b.data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(),
-        ds[0].data_ptr(), ds[1].data_ptr(), n, m, chunk, chunks, alpha, eps, _build.stream_ptr(y.device),
+        ds[0].data_ptr(), ds[1].data_ptr(), n, m, *plan, alpha, eps, _build.stream_ptr(y.device),
     )
     _build.check(err, what)
     norm_lrelu_from_stats_bwd.launches.add()
