@@ -12,15 +12,19 @@ Phases, each of which fails the run on any error:
   (b) hold every kernel against its plain PyTorch version on the card, in
       float32 and bfloat16, with the tolerances stated in ``TOL``,
       ``BWD_TOL``, ``GRAD_SUM_RTOL`` and ``CONV_BWD_REL``: the forward
-      kernels at the serve path's shapes (batch 8, 128x128 model), K1 and
-      K3 forward also at the train step's (``K1_STEP``, ``K3_STEP``), the
-      backward kernels at the train step's (batch 32 and the adjuster's 64
-      rows): K2 (the fused norm + LeakyReLU backward), the stats-in norm's
-      backward and the boundary conv's backward (its stats fold kernel plus
-      PyTorch's conv gradients, against autograd through its plain
-      version); time the kernel, the kernel launched from Python, the plain
-      version and, where one exists, a PyTorch library call; and time the
-      norm backward's two routes against each other at the train shapes;
+      kernels at the serve path's shapes (batch 8, 128x128 model), K1, K1'
+      and K3 forward also at the train step's (``K1_STEP``, ``K3_STEP``),
+      K1 also with a mean 30 times its std (two-pass moments) and its
+      (mean, std) output, and on its routes off the main path
+      (``K1_OFF_PATH``); the backward kernels at the train step's (batch 32
+      and the adjuster's 64 rows): K2 (the fused norm + LeakyReLU
+      backward), the stats-in norm's backward and the boundary conv's
+      backward (its stats fold kernel plus PyTorch's conv gradients,
+      against autograd through its plain version); time the kernel, the
+      kernel launched from Python, the plain version and, where one exists,
+      a PyTorch library call; and time K1's routes (two launches, clusters
+      of 2 to 16 blocks) and the norm backward's two routes against each
+      other, each in one run;
   (c) build an InferenceEngine at the full default width (128x128,
       conv_filter [384, 256, 128, 64, 32], bf16, s2d on, both kernels on,
       seeded random weights, batch 8), start ``serve()`` on an ephemeral
@@ -76,6 +80,13 @@ K1_SHAPES = [
     (8, 16, 16, 256), (8, 32, 32, 128), (8, 64, 64, 64), (8, 64, 64, 128),
 ]
 K3_SHAPE = ((8, 64, 64, 12), 64)  # s2d encoder input -> conv_filter[3]
+# K1 on routes no path of the model runs, held against the plain version
+# all the same: a sample too large for one cluster's shared memory (two
+# launches), and one of 75 elements (scalar loads on the cluster route)
+K1_OFF_PATH = [(2, 256, 256, 64), (3, 5, 5, 3)]
+# K1 with a mean 30 times its std at a whole-sample train shape: the
+# two-pass moments the Pallas op takes there, against the plain version's
+K1_OFFSET = ((32, 32, 32, 128), 30.0)
 # K1's forward launches in one train step, by shape: G's decoder (blocks
 # 1-4) and D's encoder blocks 2-4 on the real batch and on fake at 32 rows;
 # the adjuster's encoder and decoder and D on its output at 64 rows
@@ -221,6 +232,7 @@ def check_kernels():
     import torch
     import torch.nn.functional as F
 
+    from littlegan_tpu_torch.ops.cuda import norm_lrelu as nl
     from littlegan_tpu_torch.ops.cuda.boundary_conv import (
         conv3x3_same_stats, conv3x3_same_stats_plain, kernel_route,
     )
@@ -238,6 +250,23 @@ def check_kernels():
     failures = []
     records = {}
 
+    def k1_check(x, what):
+        """K1 (y and its (mean, std)) against the plain version; appends a
+        failure naming ``what`` and returns y's max error. The moments, f32
+        sums in another order: the mean to 1e-6 of |mean| + std, the std to
+        rtol 1e-5."""
+        atol, rtol = TOL[str(x.dtype).split(".")[1]]
+        got, stats = nl._fused_forward(x, gamma, beta, 0.3, 1e-3)
+        want = fused_instance_norm_lrelu_plain(x, gamma, beta, 0.3)
+        mo = nl.instance_norm_moments_plain(x)
+        torch.cuda.synchronize()
+        if not _within(got, want, atol, rtol):
+            failures.append(f"{what}: max_abs_err {_max_err(got, want):.3g}")
+        if not (bool(((stats[0] - mo[0]).abs() <= 1e-6 * (mo[0].abs() + mo[1])).all())
+                and bool(((stats[1] - mo[1]).abs() <= 1e-5 * mo[1]).all())):
+            failures.append(f"{what}: (mean, std) {stats[:, :4].tolist()} vs {mo[:, :4].tolist()}")
+        return _max_err(got, want)
+
     def rec(name, dtype, shape, err, fn, plain_ms, lib_ms, bnd, per_step=None, **extra):
         ms, em = time_ms(fn), eager_ms(fn)
         r = records.setdefault(name, {"shapes": []})
@@ -249,7 +278,8 @@ def check_kernels():
         log(f"  {name} {dtype} {tuple(shape)}{'' if per_step is None else f' x{per_step}/step'}: "
             f"max_abs_err {err:.3g}  kernel {ms:.4f} ms (launched from Python {em:.4f} ms)  "
             f"plain {plain_ms:.4f} ms  library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})" + "".join(f"  {k} {v}" for k, v in extra.items()))
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})" + "".join(f"  {k} {tuple(v.values()) if isinstance(v, dict) else v}"
+                                                        for k, v in extra.items()))
 
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
@@ -259,32 +289,43 @@ def check_kernels():
             "(no single PyTorch call computes it: library_ms null)")
         for shape, per_step in [(s, None) for s in K1_SHAPES] + K1_STEP:
             x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).to(dt)
-            got = fused_instance_norm_lrelu(x, gamma, beta, 0.3)
-            want = fused_instance_norm_lrelu_plain(x, gamma, beta, 0.3)
+            err = k1_check(x, f"K1 {dtype_name} {shape}")
+            pms = time_ms(lambda: fused_instance_norm_lrelu_plain(x, gamma, beta, 0.3))
+            plan = nl.fwd_plan(shape[0], x[0].numel(), item, nl._sms(dev), nl.holds_whole_sample(shape))
+            rec("fused_instance_norm_lrelu", dtype_name, shape, err,
+                lambda: fused_instance_norm_lrelu(x, gamma, beta, 0.3), pms, None,
+                bound(2 * x.numel() * item + 8 * shape[0] + 8, 7 * x.numel(), dtype_name), per_step,
+                plan=plan._asdict())
+            del x
+        if dtype_name == "float32":
+            shape, offset = K1_OFFSET
+            x = torch.randn(shape, device=dev, generator=gen) + offset
+            log(f"  K1 float32 {shape}, mean {offset} times the std: max_abs_err "
+                f"{k1_check(x, f'K1 float32 {shape} offset {offset}'):.3g}")
+        for shape in K1_OFF_PATH:
+            x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).to(dt)
+            plan = nl.fwd_plan(shape[0], x[0].numel(), item, nl._sms(dev), nl.holds_whole_sample(shape))
+            log(f"  K1 {dtype_name} {shape} off the main path, {plan}: max_abs_err "
+                f"{k1_check(x, f'K1 {dtype_name} {shape}'):.3g}")
+            del x
+
+        log(f"K1' norm_lrelu_from_stats (stats-in apply), {dtype_name}, serve shape then train-step shapes "
+            "(encoder block1 after K3: K3_STEP's launches)")
+        for xshape, per_step in [(K3_SHAPE[0], None)] + K3_STEP:
+            shape = xshape[:3] + (K3_SHAPE[1],)
+            y = (torch.randn(shape, device=dev, generator=gen) + 0.3).to(dt)
+            yf = y.float()
+            s1, s2 = yf.sum((1, 2, 3)), yf.square().sum((1, 2, 3))
+            got = norm_lrelu_from_stats(y, s1, s2, gamma, beta, 0.3)
+            want = norm_lrelu_from_stats_plain(y, s1, s2, gamma, beta, 0.3)
             torch.cuda.synchronize()
             if not _within(got, want, atol, rtol):
-                failures.append(f"K1 {dtype_name} {shape}: max_abs_err {_max_err(got, want):.3g}")
-            pms = time_ms(lambda: fused_instance_norm_lrelu_plain(x, gamma, beta, 0.3))
-            n_el = x.numel()
-            rec("fused_instance_norm_lrelu", dtype_name, shape, _max_err(got, want),
-                lambda: fused_instance_norm_lrelu(x, gamma, beta, 0.3), pms, None,
-                bound(2 * n_el * item + 8, 7 * n_el, dtype_name), per_step)
-            del x, got, want
-
-        log(f"K1 norm_lrelu_from_stats (stats-in apply), {dtype_name}")
-        shape = K3_SHAPE[0][:3] + (K3_SHAPE[1],)
-        y = (torch.randn(shape, device=dev, generator=gen) + 0.3).to(dt)
-        yf = y.float()
-        s1, s2 = yf.sum((1, 2, 3)), yf.square().sum((1, 2, 3))
-        got = norm_lrelu_from_stats(y, s1, s2, gamma, beta, 0.3)
-        want = norm_lrelu_from_stats_plain(y, s1, s2, gamma, beta, 0.3)
-        torch.cuda.synchronize()
-        if not _within(got, want, atol, rtol):
-            failures.append(f"K1 from_stats {dtype_name} {shape}: max_abs_err {_max_err(got, want):.3g}")
-        pms = time_ms(lambda: norm_lrelu_from_stats_plain(y, s1, s2, gamma, beta, 0.3))
-        rec("norm_lrelu_from_stats", dtype_name, shape, _max_err(got, want),
-            lambda: norm_lrelu_from_stats(y, s1, s2, gamma, beta, 0.3), pms, None,
-            bound(2 * y.numel() * item + 8 * BATCH + 8, 4 * y.numel(), dtype_name))
+                failures.append(f"K1' {dtype_name} {shape}: max_abs_err {_max_err(got, want):.3g}")
+            pms = time_ms(lambda: norm_lrelu_from_stats_plain(y, s1, s2, gamma, beta, 0.3))
+            rec("norm_lrelu_from_stats", dtype_name, shape, _max_err(got, want),
+                lambda: norm_lrelu_from_stats(y, s1, s2, gamma, beta, 0.3), pms, None,
+                bound(2 * y.numel() * item + 8 * shape[0] + 8, 4 * y.numel(), dtype_name), per_step)
+            del y, yf, got, want
 
         log(f"K3 conv3x3_same_stats, {dtype_name}, serve shape then train-step shapes "
             "(library: F.conv2d + the two sums), then, checked only, two shapes off the main path: "
@@ -518,6 +559,67 @@ def check_backward_kernels():
     if failures:
         raise AssertionError("backward kernel/plain mismatch:\n  " + "\n  ".join(failures))
     return records
+
+
+# blocks per sample on K1's cluster route, timed by compare_fwd_routes
+# against the two-launch route (0) and the default plan
+FWD_BLOCKS = (0, 2, 4, 8, 16)
+
+
+def compare_fwd_routes():
+    """K1, bf16, at every serve and train-step shape: the two-launch route
+    (one-pass moments at every shape, as before the cluster route) against
+    the cluster route with 2, 4, 8 and 16 blocks per sample (where a share
+    fits shared memory), timed in this one run in turns, forward through
+    ``FWD_BLOCKS`` and back; then the default plan, and at the two-pass
+    shapes the default cluster with one-pass moments (what the second
+    exchange costs). Returns one record per shape, with the totals per
+    /adjust call and per train step logged."""
+    import torch
+
+    from littlegan_tpu_torch.ops.cuda import norm_lrelu as nl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gamma = torch.tensor([1.3], device=dev)
+    beta = torch.tensor([-0.2], device=dev)
+    log("K1 routes, bf16, in turns in this run (default: as fwd_plan picks):")
+    out = []
+    for shape, per_step in [(s, None) for s in dict.fromkeys(K1_SHAPES)] + K1_STEP:
+        x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).bfloat16()
+        n, m, sms = shape[0], x[0].numel(), nl._sms(dev)
+        whole = nl.holds_whole_sample(shape)
+        plans = {}
+        for b in FWD_BLOCKS:
+            try:
+                plans["two launches" if b == 0 else f"cluster {b}"] = nl.fwd_plan(n, m, 2, sms, whole and b > 0, b)
+            except ValueError:  # a share beyond shared memory: not timed
+                pass
+        keys = list(plans)
+        plans["default"] = nl.fwd_plan(n, m, 2, sms, whole)
+        if whole:  # the price of the second exchange: the same cluster with one-pass moments
+            plans["default, one pass"] = plans["default"]._replace(two_pass=False)
+        times = {}
+        for k in keys + keys[::-1] + list(plans)[len(keys):]:
+            times.setdefault(k, []).append(
+                time_ms(lambda: nl.fused_instance_norm_lrelu(x, gamma, beta, 0.3, 1e-3, plans[k])))
+        bnd = bound(2 * x.numel() * 2 + 8 * n + 8, 7 * x.numel(), "bfloat16")[0]
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        log(f"  {shape}{'' if per_step is None else f' x{per_step}/step'}, bound {bnd:.4f} ms, "
+            f"default {tuple(plans['default'])}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+        out.append({"shape": list(shape), "per_step": per_step, "bound_ms": bnd, "ms": ms, "runs_ms": times,
+                    "plan": plans["default"]._asdict()})
+        del x
+    serve = {tuple(r["shape"]): r for r in out if r["per_step"] is None}
+    adjust = [serve[s] for s in K1_SHAPES]  # the seven calls of one /adjust
+    train = [r for r in out if r["per_step"] is not None]
+    for label, rows, mult in (("per /adjust call", adjust, lambda r: 1), ("per train step", train,
+                                                                          lambda r: r["per_step"])):
+        common = [k for k in rows[0]["ms"] if all(k in r["ms"] for r in rows)]
+        tot = {k: sum(r["ms"][k] * mult(r) for r in rows) for k in common}
+        log(f"  K1 {label} (bound {sum(r['bound_ms'] * mult(r) for r in rows):.4f} ms): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in tot.items()))
+    return out
 
 
 # shared memory per block of the backward's cluster route, timed by
@@ -997,13 +1099,13 @@ def summarize(records, serve_launches, train_launches):
     "launches" counts both paths' runs, split in "launches_by_path"."""
     meta = {
         "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
-                                      "littlegan_tpu/ops/pallas/norm_lrelu.py:108"),
+                                      "littlegan_tpu/ops/pallas/norm_lrelu.py:111"),
         "norm_lrelu_from_stats": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
                                   "littlegan_tpu/ops/norm.py:59"),
         "conv3x3_same_stats": ("littlegan_tpu_torch/csrc/boundary_conv.cu",
-                               "littlegan_tpu/ops/pallas/boundary_conv.py:118"),
+                               "littlegan_tpu/ops/pallas/boundary_conv.py:132"),
         "fused_instance_norm_lrelu_bwd": ("littlegan_tpu_torch/csrc/norm_lrelu_bwd.cu",
-                                          "littlegan_tpu/ops/pallas/norm_lrelu.py:195"),
+                                          "littlegan_tpu/ops/pallas/norm_lrelu.py:198"),
         "norm_lrelu_from_stats_bwd": ("littlegan_tpu_torch/csrc/norm_lrelu_bwd.cu",
                                       "littlegan_tpu/ops/norm.py:59"),
         "conv3x3_bwd_fold": ("littlegan_tpu_torch/csrc/boundary_conv_bwd.cu",
@@ -1067,6 +1169,7 @@ def main() -> int:
 
     records = check_kernels()
     records.update(check_backward_kernels())
+    log("K1 routes: " + json.dumps(compare_fwd_routes()))
     log("backward routes: " + json.dumps(compare_bwd_routes()))
     serve_launches = check_serving(full_config())
     train_launches, train = check_training()

@@ -3,7 +3,7 @@
 // Replaces the Pallas kernel littlegan_tpu/ops/pallas/norm_lrelu.py
 // (_bwd_kernel / _bwd_pallas), the analytic VJP of the forward in
 // norm_lrelu.cu. Per sample n of an NHWC tensor with M = H*W*C elements,
-// from the forward's stats (mean, std, d = std + eps):
+// from the forward's per-sample (mean, std), d = std + eps:
 //
 //     nrm = (x - mean)/d,  z = (x - mean)*gamma/d + beta
 //     dz  = dy * (z >= 0 ? 1 : alpha),  dn = gamma*dz
@@ -23,10 +23,9 @@
 // large train shapes): one thread block cluster per sample, of up to 16
 // blocks, so that the second pass finds x and dy on the chip:
 //   - each block copies the first `kept` elements of its chunk of x and dy
-//     into shared memory with cp.async while warp 0 reduces the forward's
-//     partials (the (n, fparts) f32 sum(x), sum(x^2) the forward left
-//     behind, in the forward's fixed order, so mean and std are the
-//     forward's bit for bit);
+//     into shared memory with cp.async while it reads its sample's mean and
+//     std from the (2, n) f32 moments the forward wrote (so they are the
+//     forward's bit for bit, two-pass where the forward took two passes);
 //   - each block sums dz and dz*nrm over its chunk, the kept part from
 //     shared memory and the rest straight from device memory; after a
 //     cluster barrier every block adds the cluster's block partials in rank
@@ -42,10 +41,9 @@
 //
 // two passes (sums_kernel, apply_kernel), for the rest (a batch whose x
 // and dy fit L2 finds them there in pass 2), split into (sample x chunk)
-// blocks as in the forward:
-//   pass 1 (sums_kernel): each block reduces its sample's forward partials
-//       as above, then writes the f32 partials sum(dz) and sum(dz*nrm) of
-//       its chunk;
+// blocks:
+//   pass 1 (sums_kernel): each block reads its sample's moments as above,
+//       then writes the f32 partials sum(dz) and sum(dz*nrm) of its chunk;
 //   pass 2 (apply_kernel): each block reduces its sample's partials of both
 //       kinds in a fixed order, writes its chunk of dx with 16-byte stores,
 //       and block (0, 0) also reduces all samples' partials, in a fixed
@@ -58,9 +56,10 @@
 //
 // The stats-in form (lg_norm_lrelu_from_stats_bwd) is the backward of
 // lg_norm_lrelu_apply, whose mean and std come from per-sample sums s1, s2
-// (the boundary conv's fused stats) and not from x. It runs the same
-// routes with fparts = 1, writes dx = dn/d (the direct path) and, per
-// sample, the cotangents of s1 and s2:
+// (the boundary conv's fused stats, one-pass) and not from x. It runs the
+// same routes, reading s1 and s2 where the fused form reads the mean and
+// std, writes dx = dn/d (the direct path) and, per sample, the cotangents
+// of s1 and s2:
 //
 //     dstd = -sum(dn*nrm)/d,  dvar = var > 0 ? dstd/(2 std) : 0
 //     ds1  = (-sum(dn)/d - 2*mean*dvar)/M,  ds2 = dvar/M
@@ -102,30 +101,27 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b) {
   }
 }
 
-// Lane-strided sums of `parts` partials at ps/pq, then a shuffle tree: the
-// order of norm_lrelu.cu's apply_kernel. Call from all 32 lanes of warp 0;
-// lane 0 holds the result.
-__device__ __forceinline__ void reduce_parts(const float* ps, const float* pq, int parts, float& s,
-                                             float& q) {
-  s = 0.f;
-  q = 0.f;
-  for (int p = threadIdx.x; p < parts; p += 32) {
-    s += ps[p];
-    q += pq[p];
-  }
-  warp_sum2(s, q);
-}
-
-// The forward's per-sample constants, as apply_kernel computes them.
+// A sample's constants. The fused form reads the forward's (mean, std)
+// from a = means, b = stds; the stats-in form (kFromStats) takes them from
+// the sums a = s1, b = s2 as lg_norm_lrelu_apply does, with var for the
+// clamp's cotangent.
 struct Moments {
   float mean, var, std, d, inv;  // inv = gamma / d
 };
 
-__device__ __forceinline__ Moments moments(float s, float q, float fm, float gamma, float eps) {
+template <bool kFromStats>
+__device__ __forceinline__ Moments moments(const float* a, const float* b, int64_t n, float fm,
+                                           float gamma, float eps) {
   Moments r;
-  r.mean = s / fm;
-  r.var = q / fm - r.mean * r.mean;
-  r.std = sqrtf(fmaxf(r.var, 0.f));
+  if (kFromStats) {
+    r.mean = a[n] / fm;
+    r.var = b[n] / fm - r.mean * r.mean;
+    r.std = sqrtf(fmaxf(r.var, 0.f));
+  } else {
+    r.mean = a[n];
+    r.std = b[n];
+    r.var = r.std * r.std;
+  }
   r.d = r.std + eps;
   r.inv = gamma / r.d;
   return r;
@@ -152,26 +148,15 @@ __device__ __forceinline__ Elem elem(float v, float g, float mean, float inv, fl
   return {z >= 0.f ? g : alpha * g, (v - mean) * rd};
 }
 
-template <typename T>
+template <typename T, bool kFromStats>
 __global__ void __launch_bounds__(kThreads)
-    sums_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ fsum,
-                const float* __restrict__ fsq, int fparts, const float* __restrict__ gamma,
+    sums_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ fa,
+                const float* __restrict__ fb, const float* __restrict__ gamma,
                 const float* __restrict__ beta, float* __restrict__ bsum, float* __restrict__ bsq,
                 int64_t m, int64_t chunk, float alpha, float eps, int vec_ok) {
   const int64_t n = blockIdx.y;
-  __shared__ float stat[3];  // mean, gamma/d, 1/d
-  if (threadIdx.x < 32) {
-    float s, q;
-    reduce_parts(fsum + n * fparts, fsq + n * fparts, fparts, s, q);
-    if (threadIdx.x == 0) {
-      const Moments mo = moments(s, q, static_cast<float>(m), gamma[0], eps);
-      stat[0] = mo.mean;
-      stat[1] = mo.inv;
-      stat[2] = 1.f / mo.d;
-    }
-  }
-  __syncthreads();
-  const float mean = stat[0], inv = stat[1], rd = stat[2], b = beta[0];
+  const Moments mo = moments<kFromStats>(fa, fb, n, static_cast<float>(m), gamma[0], eps);
+  const float mean = mo.mean, inv = mo.inv, rd = 1.f / mo.d, b = beta[0];
   const Chunk c = chunk_of(m, chunk);
   const T* xs = x + n * m;
   const T* gs = dy + n * m;
@@ -221,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, bool kFromStats>
 __global__ void __launch_bounds__(kThreads)
     apply_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
-                 const float* __restrict__ fsum, const float* __restrict__ fsq, int fparts,
+                 const float* __restrict__ fa, const float* __restrict__ fb,
                  const float* __restrict__ bsum, const float* __restrict__ bsq,
                  const float* __restrict__ gamma, const float* __restrict__ beta,
                  float* __restrict__ dgamma, float* __restrict__ dbeta, float* __restrict__ ds1,
@@ -233,11 +218,16 @@ __global__ void __launch_bounds__(kThreads)
   const float fm = static_cast<float>(m);
   __shared__ float stat[5];  // mean, gamma/d, 1/d, mean(dn), mean(dn*nrm)/max(std, 1e-20)
   if (threadIdx.x < 32) {
-    float s, q, sdz, sdzn;
-    reduce_parts(fsum + n * fparts, fsq + n * fparts, fparts, s, q);
-    reduce_parts(bsum + n * chunks, bsq + n * chunks, chunks, sdz, sdzn);
+    // this sample's partials of sum(dz), sum(dz*nrm): lane-strided sums,
+    // then a shuffle tree, the same in every block of the sample
+    float sdz = 0.f, sdzn = 0.f;
+    for (int p = threadIdx.x; p < chunks; p += 32) {
+      sdz += bsum[n * chunks + p];
+      sdzn += bsq[n * chunks + p];
+    }
+    warp_sum2(sdz, sdzn);
     if (threadIdx.x == 0) {
-      const Moments mo = moments(s, q, fm, g, eps);
+      const Moments mo = moments<kFromStats>(fa, fb, n, fm, g, eps);
       stat[0] = mo.mean;
       stat[1] = mo.inv;
       stat[2] = 1.f / mo.d;
@@ -314,7 +304,7 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 template <typename T, bool kFromStats>
 __global__ void __launch_bounds__(kThreads)
     cluster_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
-                   const float* __restrict__ fsum, const float* __restrict__ fsq, int fparts,
+                   const float* __restrict__ fa, const float* __restrict__ fb,
                    const float* __restrict__ gamma, const float* __restrict__ beta,
                    float* __restrict__ ssum, float* __restrict__ ssq, float* __restrict__ ds1,
                    float* __restrict__ ds2, int64_t m, int64_t chunk, int64_t kept, float alpha,
@@ -343,18 +333,14 @@ __global__ void __launch_bounds__(kThreads)
     cp_async16(gs + i * V, gg + i);
   }
   const float g = gamma[0], b = beta[0], fm = static_cast<float>(m);
-  if (threadIdx.x < 32) {
-    float s, q;
-    reduce_parts(fsum + n * fparts, fsq + n * fparts, fparts, s, q);
-    if (threadIdx.x == 0) {
-      const Moments mo = moments(s, q, fm, g, eps);
-      stat[0] = mo.mean;
-      stat[1] = mo.inv;
-      stat[2] = 1.f / mo.d;
-      stat[3] = mo.std;
-      stat[4] = mo.var;
-      stat[5] = mo.d;
-    }
+  if (threadIdx.x == 0) {
+    const Moments mo = moments<kFromStats>(fa, fb, n, fm, g, eps);
+    stat[0] = mo.mean;
+    stat[1] = mo.inv;
+    stat[2] = 1.f / mo.d;
+    stat[3] = mo.std;
+    stat[4] = mo.var;
+    stat[5] = mo.d;
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -452,8 +438,8 @@ __global__ void totals_kernel(const float* __restrict__ ssum, const float* __res
 }
 
 template <typename T, bool kFromStats>
-cudaError_t launch_cluster(const void* x, const void* dy, void* dx, const float* fsum,
-                           const float* fsq, int fparts, float* ssum, float* ssq,
+cudaError_t launch_cluster(const void* x, const void* dy, void* dx, const float* fa,
+                           const float* fb, float* ssum, float* ssq,
                            const float* gamma, const float* beta, float* dgamma, float* dbeta,
                            float* ds1, float* ds2, int64_t n, int64_t m, int64_t chunk, int chunks,
                            int64_t kept, float alpha, float eps, cudaStream_t stream) {
@@ -476,7 +462,7 @@ cudaError_t launch_cluster(const void* x, const void* dy, void* dx, const float*
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(dy),
-                         static_cast<T*>(dx), fsum, fsq, fparts, gamma, beta, ssum, ssq, ds1, ds2, m,
+                         static_cast<T*>(dx), fa, fb, gamma, beta, ssum, ssq, ds1, ds2, m,
                          chunk, kept, alpha, eps);
   if (e != cudaSuccess) return e;
   totals_kernel<<<1, 32, 0, stream>>>(ssum, ssq, n, dgamma, dbeta);
@@ -489,18 +475,18 @@ int can_vectorize(const void* a, const void* b, const void* c, int64_t m, int64_
 }
 
 template <typename T, bool kFromStats>
-cudaError_t launch_two_pass(const void* x, const void* dy, void* dx, const float* fsum,
-                            const float* fsq, int fparts, float* bsum, float* bsq,
+cudaError_t launch_two_pass(const void* x, const void* dy, void* dx, const float* fa,
+                            const float* fb, float* bsum, float* bsq,
                             const float* gamma, const float* beta, float* dgamma, float* dbeta,
                             float* ds1, float* ds2, int64_t n, int64_t m, int64_t chunk, int chunks,
                             float alpha, float eps, cudaStream_t stream) {
   const dim3 grid(chunks, static_cast<unsigned>(n));
   const int vec_ok = can_vectorize(x, dy, dx, m, chunk);
-  sums_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const T*>(dy),
-                                                fsum, fsq, fparts, gamma, beta, bsum, bsq, m, chunk,
-                                                alpha, eps, vec_ok);
+  sums_kernel<T, kFromStats><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), fa, fb, gamma, beta, bsum, bsq, m, chunk,
+      alpha, eps, vec_ok);
   apply_kernel<T, kFromStats><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), fsum, fsq, fparts,
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), fa, fb,
       bsum, bsq, gamma, beta, dgamma, dbeta, ds1, ds2, n, m, chunk, alpha, eps, vec_ok);
   return cudaGetLastError();
 }
@@ -509,18 +495,18 @@ cudaError_t launch_two_pass(const void* x, const void* dy, void* dx, const float
 // keeping `kept` elements of x and of dy in shared memory); else the
 // two-pass route.
 template <typename T, bool kFromStats>
-cudaError_t launch(const void* x, const void* dy, void* dx, const float* fsum, const float* fsq,
-                   int fparts, float* bsum, float* bsq, const float* gamma, const float* beta,
+cudaError_t launch(const void* x, const void* dy, void* dx, const float* fa, const float* fb,
+                   float* bsum, float* bsq, const float* gamma, const float* beta,
                    float* dgamma, float* dbeta, float* ds1, float* ds2, int64_t n, int64_t m,
                    int64_t chunk, int chunks, int64_t kept, float alpha, float eps,
                    cudaStream_t stream) {
   if (kept > 0) {
     if (!can_vectorize(x, dy, dx, m, chunk) || kept % 8 || chunks > 16) return cudaErrorInvalidValue;
-    return launch_cluster<T, kFromStats>(x, dy, dx, fsum, fsq, fparts, bsum, bsq, gamma, beta,
+    return launch_cluster<T, kFromStats>(x, dy, dx, fa, fb, bsum, bsq, gamma, beta,
                                          dgamma, dbeta, ds1, ds2, n, m, chunk, chunks, kept, alpha,
                                          eps, stream);
   }
-  return launch_two_pass<T, kFromStats>(x, dy, dx, fsum, fsq, fparts, bsum, bsq, gamma, beta,
+  return launch_two_pass<T, kFromStats>(x, dy, dx, fa, fb, bsum, bsq, gamma, beta,
                                         dgamma, dbeta, ds1, ds2, n, m, chunk, chunks, alpha, eps,
                                         stream);
 }
@@ -529,24 +515,25 @@ cudaError_t launch(const void* x, const void* dy, void* dx, const float* fsum, c
 
 extern "C" {
 
-// Backward of lg_norm_lrelu. dtype: 0 = float32, 1 = bfloat16 (x, dy, dx).
-// fsum/fsq: the forward's (n, fparts) partials; bsum/bsq: (n, chunks) f32
+// Backward of lg_norm_lrelu / lg_norm_lrelu_cluster. dtype: 0 = float32,
+// 1 = bfloat16 (x, dy, dx). mean/std: the forward's per-sample moments, (n,)
+// f32 each (the rows of its (2, n) output); bsum/bsq: (n, chunks) f32
 // scratch; dgamma/dbeta: one f32 each. Each sample in `chunks` blocks of
 // `chunk` elements (a multiple of 8). kept > 0: the cluster route, those
 // blocks one cluster (chunks <= 16), each keeping `kept` elements of x and
 // of dy in shared memory; kept = 0: the two-pass route.
-int lg_norm_lrelu_bwd(int dtype, const void* x, const void* dy, void* dx, const float* fsum,
-                      const float* fsq, int fparts, float* bsum, float* bsq, const float* gamma,
+int lg_norm_lrelu_bwd(int dtype, const void* x, const void* dy, void* dx, const float* mean,
+                      const float* std, float* bsum, float* bsq, const float* gamma,
                       const float* beta, float* dgamma, float* dbeta, int64_t n, int64_t m,
                       int64_t chunk, int chunks, int64_t kept, float alpha, float eps,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return static_cast<int>(launch<float, false>(x, dy, dx, fsum, fsq, fparts, bsum, bsq, gamma,
+    return static_cast<int>(launch<float, false>(x, dy, dx, mean, std, bsum, bsq, gamma,
                                                  beta, dgamma, dbeta, nullptr, nullptr, n, m, chunk,
                                                  chunks, kept, alpha, eps, s));
   if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16, false>(x, dy, dx, fsum, fsq, fparts, bsum, bsq,
+    return static_cast<int>(launch<__nv_bfloat16, false>(x, dy, dx, mean, std, bsum, bsq,
                                                          gamma, beta, dgamma, dbeta, nullptr,
                                                          nullptr, n, m, chunk, chunks, kept, alpha,
                                                          eps, s));
@@ -564,11 +551,11 @@ int lg_norm_lrelu_from_stats_bwd(int dtype, const void* y, const void* dout, voi
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return static_cast<int>(launch<float, true>(y, dout, dy, s1, s2, 1, bsum, bsq, gamma, beta,
+    return static_cast<int>(launch<float, true>(y, dout, dy, s1, s2, bsum, bsq, gamma, beta,
                                                 dgamma, dbeta, ds1, ds2, n, m, chunk, chunks, kept,
                                                 alpha, eps, s));
   if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16, true>(y, dout, dy, s1, s2, 1, bsum, bsq, gamma,
+    return static_cast<int>(launch<__nv_bfloat16, true>(y, dout, dy, s1, s2, bsum, bsq, gamma,
                                                         beta, dgamma, dbeta, ds1, ds2, n, m, chunk,
                                                         chunks, kept, alpha, eps, s));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -4,26 +4,34 @@ Replaces ``littlegan_tpu/ops/pallas/norm_lrelu.py::fused_instance_norm_lrelu``:
 the forward (``_fwd_kernel`` / ``_fwd_pallas``) and its custom VJP's backward
 (``_bwd_kernel`` / ``_bwd_pallas``). It closes every encoder and decoder
 block: ``leaky_relu(instance_norm(x, gamma, beta), alpha)`` per sample over
-all of (H, W, C), with f32 one-pass stats and scalar gamma, beta.
+all of (H, W, C), with f32 stats and scalar gamma, beta. The moments are the
+Pallas op's (``_moments``): two passes (the mean, then the mean of squared
+deviations) where it holds the sample whole (:func:`holds_whole_sample`),
+one pass (sum and sum of squares, variance clamped at 0) elsewhere.
 
 What bounds it on the H100 is bytes: a few operations per element, so the
 least time is one read of x and one write of y forward, and a read of x and
-dy and a write of dx backward, at 3.35 TB/s. The design
-(``csrc/norm_lrelu.cu``, ``csrc/norm_lrelu_bwd.cu``) splits each sample over
-many blocks so that a small batch fills the card: a stats launch writes
-per-chunk f32 partials, an apply launch reduces them in a fixed order
-(deterministic, no atomics) and writes y with 16-byte stores. The backward
-reuses the forward's partials (so it never rereads x for the moments), writes
-per-chunk partials of sum(dz) and sum(dz * n), and reduces those per sample
-for dx and over the batch for dgamma and dbeta. That is the two-pass
-route; for a batch whose x and dy outgrow L2 (the large train shapes) the
-backward instead gives each sample one thread block cluster: its blocks
+dy and a write of dx backward, at 3.35 TB/s. The forward
+(``csrc/norm_lrelu.cu``, :func:`fwd_plan`) gives each sample one thread
+block cluster whose blocks copy their shares of x into shared memory, add
+their sums through distributed shared memory (a second exchange for the
+two-pass variance) and write y from shared memory: x is read once, in one
+launch. Samples too large for the cluster's shared memory, and one-pass
+batches whose x the second launch finds in L2, take two launches
+(per-chunk partials, then a fixed-order reduce and the write, rereading x).
+Either route writes the sample's f32 (mean, std), shape (2, N), which the
+backward reads, so it sees the forward's moments bit for bit. The backward
+(``csrc/norm_lrelu_bwd.cu``) writes per-chunk partials of sum(dz) and
+sum(dz * n) and reduces those per sample for dx and over the batch for
+dgamma and dbeta, in two passes; for a batch whose x and dy outgrow L2 (the
+large train shapes) it instead gives each sample one cluster: its blocks
 read their shares of x and dy once, keep what their shared memory holds,
 reread the rest from L2 while it is still there, and share their sums
 through distributed shared memory (:func:`bwd_plan`).
 ``norm_lrelu_from_stats`` is the apply launch alone, for stats that a conv
-epilogue already produced (encoder block1, ``boundary_conv.py``); its
-backward also returns the stats' cotangents.
+epilogue already produced (encoder block1, ``boundary_conv.py``), with
+one-pass moments as ``instance_norm_from_stats``; its backward also returns
+the stats' cotangents.
 
 :class:`FusedNormLReLU` and :class:`NormLReLUFromStats` are the autograd
 Functions the model calls. A CPU tensor takes the plain PyTorch versions
@@ -42,10 +50,35 @@ import torch
 
 from littlegan_tpu_torch.ops.conv import leaky_relu
 from littlegan_tpu_torch.ops.cuda import _build
-from littlegan_tpu_torch.ops.norm import instance_norm, instance_norm_from_stats
+from littlegan_tpu_torch.ops.norm import instance_norm_from_stats
 
 _MIN_CHUNK = 2048  # elements per block at the least: 8 vectors of 8 bf16 per thread
 _BLOCKS_PER_SM = 4  # aim for this many blocks per SM over the whole batch
+# The Pallas op holds a sample whole, and takes two-pass moments, where its
+# f32 copy takes at most _WHOLE_SAMPLE_F32_LIMIT bytes or its rows do not
+# split into _CHUNK_ROWS-row chunks (``_pick_chunk``).
+_WHOLE_SAMPLE_F32_LIMIT = 512 * 1024
+_CHUNK_ROWS = 8
+# The forward's cluster route: one thread block cluster per sample, of a
+# power of two blocks: as many as give each block about _FWD_SHARE bytes of
+# x and the batch at least _FWD_MIN_BLOCKS blocks, at most _FWD_CLUSTER (the
+# largest portable cluster); _MAX_CLUSTER for samples of _FWD_BIG_SAMPLE
+# bytes or more in batches of _FWD_BIG_BATCH or more, or where a share would
+# not fit. Clusters of 16 are placed a GPC at a time and ran slower
+# everywhere else (PERF.md, the K1 route table). A block keeps its whole
+# share in shared memory, at most _FWD_SMEM_MAX bytes (the H100's 227 KB
+# less the kernel's static arrays); a sample that does not fit 16 such
+# shares takes the two-launch route. So does a one-pass batch of at least _FWD_BIG_BATCH
+# samples whose x takes at most _FWD_TWO_LAUNCH_BYTES: its second launch
+# finds x in L2, while the cluster route's one wave loads, synchronises and
+# writes in lock step (tied or faster at (32, 64, 64, 64): PERF.md).
+_FWD_SHARE = 32 << 10
+_FWD_MIN_BLOCKS = 64
+_FWD_CLUSTER = 8
+_FWD_BIG_SAMPLE = 1 << 20
+_FWD_BIG_BATCH = 16
+_FWD_SMEM_MAX = 224 << 10
+_FWD_TWO_LAUNCH_BYTES = 16 << 20
 # The backward's cluster route: a thread block cluster per sample, of at
 # most _MAX_CLUSTER blocks (the H100's largest cluster), as many as give
 # each block about _BWD_SHARE bytes of the sample's x and dy. Each block
@@ -67,10 +100,42 @@ _MAX_CLUSTER = 16
 _sm_count = {}
 
 
+def _per_sample(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    return t.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def holds_whole_sample(shape) -> bool:
+    """Whether the Pallas op holds an (N, H, W, C) tensor's sample whole and
+    takes its moments in two passes: the port's copy of ``_pick_chunk``'s
+    rule (``littlegan_tpu/ops/pallas/norm_lrelu.py:57-61``)."""
+    _, h, w, c = shape
+    return h * w * c * 4 <= _WHOLE_SAMPLE_F32_LIMIT or h % _CHUNK_ROWS != 0
+
+
+def instance_norm_moments_plain(x: torch.Tensor) -> torch.Tensor:
+    """The per-sample f32 (mean, std) of an NHWC tensor, shape (2, N), as the
+    Pallas op's ``_moments`` takes them: two-pass where it holds the sample
+    whole, else one-pass with the variance clamped at 0."""
+    red = tuple(range(1, x.ndim))
+    xf = x.float()
+    mean = xf.mean(red, keepdim=True)
+    if holds_whole_sample(x.shape):
+        var = (xf - mean).square().mean(red)
+    else:
+        var = (xf.square().mean(red) - mean.reshape(-1).square()).clamp_min(0.0)
+    return torch.stack([mean.reshape(-1), var.sqrt()])
+
+
 def fused_instance_norm_lrelu_plain(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, alpha: float = 0.3, eps: float = 1e-3
 ) -> torch.Tensor:
-    return leaky_relu(instance_norm(x, gamma, beta, eps), alpha)
+    return _norm_lrelu_plain(x, instance_norm_moments_plain(x), gamma, beta, alpha, eps)
+
+
+def _norm_lrelu_plain(x, moments, gamma, beta, alpha, eps) -> torch.Tensor:
+    mean, std = (_per_sample(t, x.ndim) for t in moments)
+    normed = (x.float() - mean) / (std + eps)
+    return leaky_relu((normed * gamma.float() + beta.float()).to(x.dtype), alpha)
 
 
 def norm_lrelu_from_stats_plain(
@@ -85,10 +150,6 @@ def norm_lrelu_from_stats_plain(
     return leaky_relu(instance_norm_from_stats(y, s1, s2, gamma, beta, eps), alpha)
 
 
-def _per_sample(t: torch.Tensor, ndim: int) -> torch.Tensor:
-    return t.reshape((-1,) + (1,) * (ndim - 1))
-
-
 def fused_instance_norm_lrelu_bwd_plain(
     x: torch.Tensor,
     dy: torch.Tensor,
@@ -96,15 +157,18 @@ def fused_instance_norm_lrelu_bwd_plain(
     beta: torch.Tensor,
     alpha: float = 0.3,
     eps: float = 1e-3,
+    stats: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dgamma, dbeta): the analytic VJP of ``_bwd_kernel``
-    (``littlegan_tpu/ops/pallas/norm_lrelu.py:138-150``), in f32; dx in x's
-    dtype, dgamma and dbeta f32 of shape (1,), summed over the batch."""
+    (``littlegan_tpu/ops/pallas/norm_lrelu.py:128-150``), in f32, from the
+    forward's (mean, std) ``stats`` (taken afresh if None); dx in x's dtype,
+    dgamma and dbeta f32 of shape (1,), summed over the batch."""
     red = tuple(range(1, x.ndim))
     xf = x.float()
     g, b = gamma.float().reshape(()), beta.float().reshape(())
-    mean = xf.mean(red, keepdim=True)
-    std = (xf.square().mean(red, keepdim=True) - mean.square()).clamp_min(0.0).sqrt()
+    if stats is None:
+        stats = instance_norm_moments_plain(x)
+    mean, std = (_per_sample(t, x.ndim) for t in stats)
     d = std + eps
     nrm = (xf - mean) / d
     dz = dy.float() * torch.where(nrm * g + b >= 0, 1.0, alpha)
@@ -162,6 +226,57 @@ def chunking(n: int, m: int, sms: int) -> Tuple[int, int]:
     return chunk, math.ceil(m / chunk)
 
 
+class FwdPlan(NamedTuple):
+    """How the forward kernel splits a batch: each sample in ``chunks``
+    blocks of ``chunk`` elements (a multiple of 8). ``cluster``: those
+    blocks form one thread block cluster that keeps the sample in shared
+    memory (x read once, one launch); else two launches over (sample x
+    chunk) blocks, the second rereading x. ``two_pass``: the Pallas op's
+    whole-sample moments, which only the cluster route computes."""
+
+    chunk: int
+    chunks: int
+    cluster: bool
+    two_pass: bool
+
+
+def fwd_plan(
+    n: int, m: int, itemsize: int, sms: int, two_pass: bool = False, blocks: Optional[int] = None,
+) -> FwdPlan:
+    """The forward's plan for n samples of m elements of ``itemsize`` bytes;
+    ``two_pass`` as :func:`holds_whole_sample` says for the shape. The
+    cluster route, blocks per sample as the constants above say, where a
+    sample fits 16 blocks' shared memory; else, and for a one-pass batch
+    that fits ``_FWD_TWO_LAUNCH_BYTES``, two launches chunked by
+    :func:`chunking`, which two-pass moments cannot take (ValueError).
+    ``blocks`` forces a cluster of that many blocks, or with 0 the
+    two-launch route: the wrappers take the default, the argument is for
+    measuring the routes against each other (``chip_smoke.py``)."""
+    two_launches = FwdPlan(*chunking(n, m, sms), False, False)
+    if blocks == 0:
+        if two_pass:
+            raise ValueError("the two-launch route takes one-pass moments only")
+        return two_launches
+    forced = blocks is not None
+    if not forced:
+        if not two_pass and n >= _FWD_BIG_BATCH and n * m * itemsize <= _FWD_TWO_LAUNCH_BYTES:
+            return two_launches
+        want = max(-(-m * itemsize // _FWD_SHARE), -(-_FWD_MIN_BLOCKS // n))
+        blocks = min(_FWD_CLUSTER, 1 << (want - 1).bit_length())
+        if ((m * itemsize >= _FWD_BIG_SAMPLE and n >= _FWD_BIG_BATCH)
+                or 8 * -(-m // (8 * blocks)) * itemsize > _FWD_SMEM_MAX):
+            blocks = _MAX_CLUSTER
+    chunk = 8 * -(-m // (8 * blocks))
+    if chunk * itemsize <= _FWD_SMEM_MAX:
+        return FwdPlan(chunk, -(-m // chunk), True, two_pass)
+    if forced or two_pass:
+        raise ValueError(
+            f"a sample of {m} elements does not fit {blocks} blocks' shared memory"
+            + (", and the two-launch route does not take two-pass moments" if two_pass else "")
+        )
+    return two_launches
+
+
 class BwdPlan(NamedTuple):
     """How the backward kernels split a batch: each sample in ``chunks``
     blocks of ``chunk`` elements. ``kept`` > 0, the cluster route: those
@@ -190,7 +305,7 @@ def bwd_plan(
     two, enough for about ``_BWD_SHARE`` bytes of x and dy per block and two
     blocks per SM over the batch, at most ``_MAX_CLUSTER``; each keeps
     ``smem`` bytes of its share if given, else what the rule above picks.
-    Else, or with ``smem`` 0, two passes, chunked as the forward
+    Else, or with ``smem`` 0, two passes over (sample x chunk) blocks
     (:func:`chunking`). The wrappers take the defaults; the arguments are
     for measuring the routes against each other (``chip_smoke.py``)."""
     if m % 8 or smem == 0 or 2 * n * m * itemsize <= two_pass_bytes:
@@ -215,8 +330,9 @@ def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _check_plan(plan: BwdPlan, m: int, what: str) -> None:
-    if plan.chunk % 8 or plan.chunks * plan.chunk < m or plan.kept % 8 or plan.kept > plan.chunk:
+def _check_plan(plan, m: int, what: str) -> None:
+    kept = getattr(plan, "kept", 0)
+    if plan.chunk % 8 or plan.chunks * plan.chunk < m or kept % 8 or kept > plan.chunk:
         raise ValueError(f"{what}: {plan} does not cover a sample of {m} elements in whole vectors")
 
 
@@ -258,34 +374,59 @@ def _scalar(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(1).to(torch.float32).contiguous()
 
 
-def _fused_forward(x, gamma, beta, alpha, eps) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(y, stats): on the card stats are the (2, N, chunks) f32 partials of
-    sum(x) and sum(x^2) the backward reuses; None on the CPU."""
+def _check_stats(stats: torch.Tensor, n: int, device, what: str) -> None:
+    if stats.shape != (2, n) or stats.dtype != torch.float32 or stats.device != device or not stats.is_contiguous():
+        raise ValueError(f"{what}: stats must be the forward's contiguous f32 (2, {n}) (mean, std) on {device}")
+
+
+def _fused_forward(
+    x, gamma, beta, alpha, eps, plan: Optional[FwdPlan] = None, write_y: bool = True,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """(y, stats): y (None unless ``write_y``) and the per-sample f32
+    (mean, std), shape (2, N), that the backward reads."""
     if x.device.type == "cpu":
-        return fused_instance_norm_lrelu_plain(x, gamma, beta, alpha, eps), None
-    refuse_grad("fused_instance_norm_lrelu", "FusedNormLReLU", x, gamma, beta)
-    _check_inputs(x, gamma, beta, "fused_instance_norm_lrelu")
+        stats = instance_norm_moments_plain(x)
+        return (_norm_lrelu_plain(x, stats, gamma, beta, alpha, eps) if write_y else None), stats
+    what = "fused_instance_norm_lrelu"
+    refuse_grad(what, "FusedNormLReLU", x, gamma, beta)
+    _check_inputs(x, gamma, beta, what)
     code = _build.dtype_code(x)
     n, m = x.shape[0], x[0].numel()
-    chunk, chunks = chunking(n, m, _sms(x.device))
-    y = torch.empty_like(x)
-    part = torch.empty((2, n, chunks), dtype=torch.float32, device=x.device)
+    if plan is None:
+        plan = fwd_plan(n, m, x.element_size(), _sms(x.device), holds_whole_sample(x.shape))
+    _check_plan(plan, m, what)
+    if plan.two_pass and not plan.cluster:
+        raise ValueError(f"{what}: {plan}: only the cluster route takes two-pass moments")
+    y = torch.empty_like(x) if write_y else None
+    y_ptr = y.data_ptr() if write_y else None
+    stats = torch.empty((2, n), dtype=torch.float32, device=x.device)
     g, b = _scalar(gamma), _scalar(beta)
-    err = _build.lib().lg_norm_lrelu(
-        code, x.data_ptr(), y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-        g.data_ptr(), b.data_ptr(), n, m, chunk, chunks, alpha, eps, _build.stream_ptr(x.device),
-    )
-    _build.check(err, "fused_instance_norm_lrelu")
-    fused_instance_norm_lrelu.launches.add()
-    return y, part
+    lib, stream = _build.lib(), _build.stream_ptr(x.device)
+    if plan.cluster:
+        err = lib.lg_norm_lrelu_cluster(
+            code, x.data_ptr(), y_ptr, stats.data_ptr(), g.data_ptr(), b.data_ptr(), n, m, plan.chunk,
+            plan.chunks, int(plan.two_pass), alpha, eps, stream,
+        )
+    else:
+        part = torch.empty((2, n, plan.chunks), dtype=torch.float32, device=x.device)
+        err = lib.lg_norm_lrelu(
+            code, x.data_ptr(), y_ptr, part[0].data_ptr(), part[1].data_ptr(), stats.data_ptr(),
+            g.data_ptr(), b.data_ptr(), n, m, plan.chunk, plan.chunks, alpha, eps, stream,
+        )
+    _build.check(err, what)
+    if write_y:
+        fused_instance_norm_lrelu.launches.add()
+    return y, stats
 
 
 def fused_instance_norm_lrelu(
-    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, alpha: float = 0.3, eps: float = 1e-3
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, alpha: float = 0.3, eps: float = 1e-3,
+    plan: Optional[FwdPlan] = None,
 ) -> torch.Tensor:
     """leaky_relu(instance_norm(x, gamma, beta), alpha). x: (N, H, W, C)
-    float32 or bfloat16; gamma, beta: shape (1,). Output in x's dtype."""
-    return _fused_forward(x, gamma, beta, alpha, eps)[0]
+    float32 or bfloat16; gamma, beta: shape (1,). Output in x's dtype.
+    ``plan``: the kernel's split of the batch (default :func:`fwd_plan`'s)."""
+    return _fused_forward(x, gamma, beta, alpha, eps, plan)[0]
 
 
 def fused_instance_norm_lrelu_bwd(
@@ -299,39 +440,36 @@ def fused_instance_norm_lrelu_bwd(
     plan: Optional[BwdPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dgamma, dbeta) of ``fused_instance_norm_lrelu`` for the output
-    cotangent dy (x's shape and dtype). ``stats``: the forward's partials;
-    without them the card makes them first with the forward's stats pass.
-    ``plan``: the kernel's split of the batch (default :func:`bwd_plan`'s).
-    dgamma and dbeta are f32 (1,), summed over the batch."""
-    if x.device.type == "cpu":
-        return fused_instance_norm_lrelu_bwd_plain(x, dy, gamma, beta, alpha, eps)
+    cotangent dy (x's shape and dtype). ``stats``: the forward's (2, N)
+    (mean, std); without them the forward's kernel takes them first (no y
+    written). ``plan``: the kernel's split of the batch (default
+    :func:`bwd_plan`'s). dgamma and dbeta are f32 (1,), summed over the
+    batch."""
     what = "fused_instance_norm_lrelu_bwd"
+    if x.device.type == "cpu":
+        if stats is not None:
+            _check_stats(stats, x.shape[0], x.device, what)
+        return fused_instance_norm_lrelu_bwd_plain(x, dy, gamma, beta, alpha, eps, stats)
     refuse_grad(what, "FusedNormLReLU", x, dy, gamma, beta)
     _check_inputs(x, gamma, beta, what)
     _check_like(x, dy, "dy", what)
     code = _build.dtype_code(x)
     n, m = x.shape[0], x[0].numel()
     sms = _sms(x.device)
-    fchunk, fchunks = chunking(n, m, sms)  # the forward's split of the stats partials
-    lib, stream = _build.lib(), _build.stream_ptr(x.device)
     if stats is None:
-        stats = torch.empty((2, n, fchunks), dtype=torch.float32, device=x.device)
-        err = lib.lg_norm_stats(code, x.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), n, m, fchunk,
-                                fchunks, stream)
-        _build.check(err, what)
-    elif stats.shape != (2, n, fchunks) or stats.dtype != torch.float32 or not stats.is_contiguous():
-        raise ValueError(f"{what}: stats must be the forward's contiguous f32 (2, {n}, {fchunks}) partials")
+        stats = _fused_forward(x, gamma, beta, alpha, eps, write_y=False)[1]
+    _check_stats(stats, n, x.device, what)
     dx = torch.empty_like(x)
     if plan is None:
-        plan = bwd_plan(n, m, x.element_size(), sms) if _aligned(x, dy, dx) else BwdPlan(fchunk, fchunks)
+        plan = bwd_plan(n, m, x.element_size(), sms) if _aligned(x, dy, dx) else BwdPlan(*chunking(n, m, sms))
     _check_plan(plan, m, what)
     part = torch.empty((2, n, plan.chunks), dtype=torch.float32, device=x.device)
     dgb = torch.empty((2,), dtype=torch.float32, device=x.device)
     g, b = _scalar(gamma), _scalar(beta)
-    err = lib.lg_norm_lrelu_bwd(
-        code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), fchunks,
+    err = _build.lib().lg_norm_lrelu_bwd(
+        code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
         part[0].data_ptr(), part[1].data_ptr(), g.data_ptr(), b.data_ptr(), dgb[0].data_ptr(),
-        dgb[1].data_ptr(), n, m, *plan, alpha, eps, stream,
+        dgb[1].data_ptr(), n, m, *plan, alpha, eps, _build.stream_ptr(x.device),
     )
     _build.check(err, what)
     fused_instance_norm_lrelu_bwd.launches.add()
@@ -429,7 +567,7 @@ class FusedNormLReLU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        x, gamma, beta, stats = ctx.saved_tensors
+        x, gamma, beta, stats = ctx.saved_tensors  # stats: the forward's (mean, std)
         dx, dg, db = fused_instance_norm_lrelu_bwd(
             x, dy.to(x.dtype).contiguous(), gamma, beta, ctx.alpha, ctx.eps, stats
         )

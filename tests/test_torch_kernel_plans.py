@@ -1,5 +1,9 @@
 """How the port's kernels split their work, on the CPU.
 
+``ops/cuda/norm_lrelu.py::fwd_plan`` is what the K1 forward wrapper hands
+to ``csrc/norm_lrelu.cu``: per sample, ``chunks`` blocks of ``chunk``
+elements, on the cluster route (one thread block cluster per sample holding
+it in shared memory, x read once) or the two-launch route.
 ``ops/cuda/norm_lrelu.py::bwd_plan`` is what the K2 and K1' backward
 wrappers hand to ``csrc/norm_lrelu_bwd.cu``: per sample, ``chunks`` blocks
 of ``chunk`` elements, and for the cluster route (one thread block cluster
@@ -107,9 +111,23 @@ def test_bwd_blocks_stay_near_the_aimed_share(shape, dtype):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_two_pass_route_is_chunked_as_the_forward(shape, dtype):
     """Without shared memory for the cluster route (``smem=0``) the plan is
-    the two-pass route with the forward's chunking."""
-    n, m, _, plan = _plan(shape, dtype, smem=0)
+    the two-pass route, chunked as the forward's two-launch route."""
+    n, m, item, plan = _plan(shape, dtype, smem=0)
     assert not plan.one_pass and plan == (*tnl.chunking(n, m, SMS), 0)
+    assert plan[:2] == tnl.fwd_plan(n, m, item, SMS, blocks=0)[:2]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_the_backward_takes_the_forwards_moments_whatever_its_route(shape, dtype):
+    """K2's stats input is K1's (2, N) f32 (mean, std) on either forward
+    route, not the two-launch route's (2, N, chunks) partials: the backward
+    no longer depends on how the forward split the batch."""
+    n, m, item, _ = _plan(shape, dtype)
+    for plan in (tnl.fwd_plan(n, m, item, SMS), tnl.fwd_plan(n, m, item, SMS, blocks=0)):
+        tnl._check_stats(torch.empty((2, n)), n, torch.device("cpu"), "bwd")
+        with pytest.raises(ValueError, match=rf"\(2, {n}\)"):
+            tnl._check_stats(torch.empty((2, n, plan.chunks)), n, torch.device("cpu"), "bwd")
 
 
 def test_a_length_not_a_multiple_of_8_takes_two_passes():
@@ -126,3 +144,90 @@ def test_boundary_conv_routes_by_dtype(dtype, route):
     """bf16 runs on the tensor cores; f32 keeps the FMA loop (TF32 would
     miss its 1e-5 tolerance)."""
     assert tbc.kernel_route(dtype) == route
+
+
+# K1's shapes: the serve path's (batch 8, encoder blocks 2-4 and decoder
+# blocks 1-4) and the train step's (batch 32 and the adjuster's 64 rows)
+K1_SPATIAL = [(32, 32, 128), (16, 16, 256), (8, 8, 384), (64, 64, 64), (64, 64, 128)]
+K1_SHAPES = [pytest.param((n,) + hwc, id=f"K1-{n}x{'x'.join(map(str, hwc))}") for n in (8, 32, 64) for hwc in K1_SPATIAL]
+
+
+def _fwd(shape, dtype, **kw):
+    n, m = shape[0], math.prod(shape[1:])
+    item = torch.tensor([], dtype=dtype).element_size()
+    return n, m, item, tnl.fwd_plan(n, m, item, SMS, tnl.holds_whole_sample(shape), **kw)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_fwd_chunks_cover_every_element_of_a_sample(shape, dtype):
+    _, m, _, plan = _fwd(shape, dtype)
+    assert plan.chunk % 8 == 0 and plan.chunk > 0
+    assert (plan.chunks - 1) * plan.chunk < m <= plan.chunks * plan.chunk
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_fwd_cluster_fits_the_card(shape, dtype):
+    """At most 16 blocks per cluster (8, the portable size, but for samples
+    of 1 MiB or more in batches of 16 or more), each holding its whole share
+    in shared memory; the two-launch route chunks as :func:`chunking`."""
+    n, m, item, plan = _fwd(shape, dtype)
+    if plan.cluster:
+        assert 1 <= plan.chunks <= 16
+        assert plan.chunk * item <= tnl._FWD_SMEM_MAX <= 227 << 10
+        assert plan.chunks <= 8 or m * item >= 1 << 20
+    else:
+        assert plan == (*tnl.chunking(n, m, SMS), False, False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_whole_sample_shapes_take_the_cluster_route(shape, dtype):
+    """Only the cluster route computes the Pallas op's two-pass moments;
+    the plan says two-pass exactly where the Pallas op holds the sample."""
+    _, _, _, plan = _fwd(shape, dtype)
+    assert plan.two_pass == tnl.holds_whole_sample(shape)
+    if plan.two_pass:
+        assert plan.cluster
+
+
+@pytest.mark.parametrize("hwc", K1_SPATIAL)
+def test_batch_8_spreads_each_sample_over_8_blocks(hwc):
+    """The serve batch: a cluster of 8 blocks per sample, 64 blocks in all.
+    Clusters of 16 would fill the card's 132 SMs but ran slower at every
+    batch-8 shape on the H100 (PERF.md, the K1 route table)."""
+    _, _, _, plan = _fwd((8,) + hwc, torch.bfloat16)
+    assert plan.cluster and plan.chunks == 8
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((8, 64, 64, 64), 8), ((8, 64, 64, 128), 8), ((32, 64, 64, 64), 0), ((32, 64, 64, 128), 16),
+    ((64, 64, 64, 64), 8), ((64, 64, 64, 128), 16),
+])
+def test_bf16_chunked_shapes_take_the_route_that_ran_fastest(shape, route):
+    """The one-pass shapes' routes (0: two launches, else blocks per
+    cluster): the fastest in the same-call comparison on the H100 (PERF.md,
+    the K1 route table)."""
+    _, _, _, plan = _fwd(shape, torch.bfloat16)
+    assert not plan.two_pass and (plan.chunks if plan.cluster else 0) == route
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4, 8, 16])
+def test_a_forced_cluster_has_the_blocks_asked(blocks):
+    """A share beyond shared memory (256 KB in one block) raises."""
+    if blocks == 1:
+        with pytest.raises(ValueError, match="does not fit 1 blocks"):
+            _fwd((32, 32, 32, 128), torch.bfloat16, blocks=blocks)
+        return
+    n, m, _, plan = _fwd((32, 32, 32, 128), torch.bfloat16, blocks=blocks)
+    assert plan.cluster and plan.chunks == blocks and plan.chunk == m // blocks
+
+
+def test_a_sample_beyond_16_blocks_of_shared_memory_takes_two_launches():
+    n, m = 4, 256 * 256 * 64  # 8 MiB of bf16 per sample, 512 KiB per block
+    assert tnl.fwd_plan(n, m, 2, SMS) == (*tnl.chunking(n, m, SMS), False, False)
+    with pytest.raises(ValueError, match="two-pass"):
+        tnl.fwd_plan(n, m, 2, SMS, two_pass=True)
+    with pytest.raises(ValueError, match="one-pass"):
+        tnl.fwd_plan(n, 1024, 2, SMS, two_pass=True, blocks=0)

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from littlegan_tpu.ops.conv import leaky_relu as jleaky_relu
 from littlegan_tpu.ops.norm import instance_norm_from_stats as jnorm_from_stats
 from littlegan_tpu.ops.pallas import boundary_conv as jbc
+from littlegan_tpu.ops.pallas import norm_lrelu as jnl
 from littlegan_tpu.ops.pallas.norm_lrelu import fused_instance_norm_lrelu as jfused
 from littlegan_tpu_torch.ops.cuda import boundary_conv as tbc
 from littlegan_tpu_torch.ops.cuda import norm_lrelu as tnl
@@ -125,6 +126,79 @@ def test_fused_norm_lrelu_grads_match_pallas(shape):
         torch.from_numpy(a) for a in (g, b)), 0.3)
     assert dx.dtype == torch.float32 and dg.shape == db.shape == (1,)
     np.testing.assert_allclose(dx.numpy(), np.asarray(want[0]), **NORM_GRAD_TOL)
+
+
+def _paired_sample(rng, shape, offset):
+    """offset + d per sample, d on a 1/4 grid with every value paired with
+    its negation: any order of f32 summation gives sum(x) = M*offset and
+    sum((x - mean)^2) exactly, so two-pass moments are exact in both
+    packages, while sum(x^2) (the one-pass variance) rounds at offset 30."""
+    n, m = shape[0], math.prod(shape[1:])
+    d = np.round(rng.normal(size=(n, m // 2)) * 4) / 4
+    d = rng.permuted(np.concatenate([d, -d], axis=1), axis=1)
+    return (offset + d).reshape(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((2, 8, 8, 384), 30.0), ((2, 16, 16, 256), 30.0), ((2, 32, 32, 128), 30.0), ((2, 64, 64, 64), 0.5),
+])
+def test_fused_norm_lrelu_takes_the_pallas_moments(shape, offset):
+    """FusedNormLReLU (forward and backward, plain versions on the CPU)
+    against the Pallas op in interpret mode and jax.grad through its custom
+    VJP, at a mean large against the std: two-pass moments where the Pallas
+    op holds the sample whole (the first three shapes), one-pass where it
+    chunks it. dx leaves out the elements within 1e-5 of LeakyReLU's kink."""
+    rng = np.random.default_rng(sum(shape))
+    x = _paired_sample(rng, shape, offset)
+    gout = rng.normal(size=shape).astype(np.float32)
+    g, b = _gb()
+    assert tnl.holds_whole_sample(shape) == (offset == 30.0)
+
+    def f(x, g, b):
+        y = jfused(x, g, b, 0.3)
+        return jnp.sum(y * gout), y
+
+    (_, want_y), want = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    xt, gt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, g, b))
+    y = tnl.FusedNormLReLU.apply(xt, gt, bt, 0.3)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y), **Y_TOL)
+    (y * torch.from_numpy(gout)).sum().backward()
+    x64 = x.astype(np.float64).reshape(shape[0], -1)
+    mean, std = x64.mean(1, keepdims=True), x64.std(1, keepdims=True)
+    away = (np.abs((x64 - mean) / (std + 1e-3) * g[0] + b[0]) > 1e-5).reshape(shape)
+    np.testing.assert_allclose(xt.grad.numpy()[away], np.asarray(want[0])[away], **NORM_GRAD_TOL)
+    for name, got, w in (("dgamma", gt.grad, want[1]), ("dbeta", bt.grad, want[2])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **NORM_GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 8, 8, 384), (8, 16, 16, 256), (8, 32, 32, 128), (8, 64, 64, 64), (8, 64, 64, 128),
+    (2, 128, 128, 32), (2, 12, 12, 2048), (2, 60, 60, 64), (3, 8, 8, 3),
+])
+def test_whole_sample_rule_is_the_pallas_ops(shape):
+    """The port's copy of ``_pick_chunk``'s rule: whole (two-pass moments)
+    at 512 KiB of f32 or less, or where the rows do not split by 8."""
+    assert tnl.holds_whole_sample(shape) == (jnl._pick_chunk(*shape[1:]) is None)
+
+
+def test_backward_reads_the_forwards_moments():
+    """The forward hands the backward its (2, N) f32 (mean, std); the
+    backward given them equals the one that takes them afresh, and refuses
+    stats of another shape."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((rng.normal(size=(3, 8, 8, 16)) * 2.0 + 5.0).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+    g, b = (torch.from_numpy(a) for a in _gb())
+    y, stats = tnl._fused_forward(x, g, b, 0.3, 1e-3)
+    assert stats.shape == (2, 3) and stats.dtype == torch.float32
+    torch.testing.assert_close(stats, tnl.instance_norm_moments_plain(x), rtol=0, atol=0)
+    torch.testing.assert_close(y, tnl.fused_instance_norm_lrelu_plain(x, g, b, 0.3), rtol=0, atol=0)
+    with_stats = tnl.fused_instance_norm_lrelu_bwd(x, dy, g, b, 0.3, 1e-3, stats)
+    for got, want in zip(with_stats, tnl.fused_instance_norm_lrelu_bwd(x, dy, g, b, 0.3)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match=r"\(2, 3\)"):
+        tnl.fused_instance_norm_lrelu_bwd(x, dy, g, b, 0.3, 1e-3, stats[:, :2].contiguous())
 
 
 def test_norm_lrelu_from_stats_grads_match_jax():
