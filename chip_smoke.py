@@ -39,7 +39,20 @@ Phases, each of which fails the run on any error:
       the train image and the epoch checkpoint, and that the checkpoint
       restores in a new ``Trainer``; then one step's losses and gradients
       with the kernels against the same step through the plain versions,
-      and the step's host and device times with the kernels on and off.
+      and the step's host and device times with the kernels on and off;
+  (e) trains the same configuration over the card-resident dataset
+      (``device_data``) with ``steps_per_dispatch`` 8: one epoch of 20
+      steps (updates 1-8 and 9-16 as replays of one CUDA graph, 17-20 of
+      the remainder's), crossing the partition batches and the adjuster
+      gate inside a replay; checks the kernels' launches (each replay adds
+      what its graph holds) and the same counts read from the kernels a
+      profiler trace of the epoch saw run, the logged losses, the image, the
+      checkpoint and its restore; runs the same epoch from the same init through the
+      gather step (one eager update per call) and holds every step's losses
+      and each group's final weights against the graph run; holds 8 updates
+      of ``grad_accum`` 2 in two 4-update replays against the same updates
+      run eagerly; and times the host-fed step, the gather step and the
+      8-update graph in turns.
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -143,6 +156,16 @@ EXPECTED_TRAIN_LAUNCHES = {  # per train step
     "norm_lrelu_from_stats_bwd": sum(c for _, c in BLOCK1_STEP),
     "conv3x3_bwd_fold": sum(c for _, c in BLOCK1_STEP),
 }
+# phase (e): one epoch of DISPATCH_STEPS updates, DISPATCH_K per CUDA graph
+# replay: 8 + 8 + a remainder of 4, the partition batches 5, 10, 15, 20 and
+# the adjuster gate (batch_no > 10) inside replays; then ACCUM_UPDATES
+# updates of ACCUM_M micro-pairs, ACCUM_K per replay. The graph runs against
+# eager runs of the same updates: losses to TRAIN_TOL["loss_rtol"], the
+# weights at each group's end to a relative norm error of DISPATCH_PARAM_REL
+DISPATCH_K = 8
+DISPATCH_STEPS = 20
+ACCUM_M, ACCUM_K, ACCUM_UPDATES = 2, 4, 8
+DISPATCH_PARAM_REL = 1e-3
 EXPECTED_LAUNCHES = {  # per engine call
     "generate": {"fused_instance_norm_lrelu": 4, "conv3x3_same_stats": 0, "norm_lrelu_from_stats": 0},
     "adjust": {"fused_instance_norm_lrelu": 7, "conv3x3_same_stats": 1, "norm_lrelu_from_stats": 1},
@@ -158,6 +181,50 @@ def require(ok, what) -> None:
     """A check that stays under ``python -O`` (unlike assert)."""
     if not ok:
         raise AssertionError(what)
+
+
+def device_events(prof):
+    """The device-side events (kernels, copies) of a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity Buffer")]
+
+
+def traced_launches(events) -> dict:
+    """Each train-path wrapper's launches, counted from the kernels a
+    torch.profiler trace saw run on the card (``device_events``), by the
+    kernel that starts each launch (littlegan_tpu_torch/csrc): K1 its cluster
+    kernel or the stats kernel of its two-launch route; K1' the forward's
+    apply kernel, less those of K1's two-launch route; K2 and K1' bwd the
+    backward's cluster or sums kernel (template argument kFromStats false,
+    true); K3 its conv kernel; the fold its fold kernel. They sit in the
+    sources' top-level anonymous namespace. A forward and a backward kernel
+    of one name differ in their second argument: the forward's y is
+    written, the backward's dy read."""
+    out = dict.fromkeys(EXPECTED_TRAIN_LAUNCHES, 0)
+    fwd_apply = stats = 0
+    for e in events:
+        m = re.match(r"void \(anonymous namespace\)::(\w+)(?:<([^>]*)>)?\((.*)\)\s*$", e.key)
+        if m is None:
+            continue
+        name, targs, args = m.group(1), (m.group(2) or "").split(", "), m.group(3).split(", ")
+        bwd = len(args) > 1 and args[1].endswith("const*")
+        if name == "cluster_kernel" and not bwd:
+            out["fused_instance_norm_lrelu"] += e.count
+        elif name == "stats_kernel":
+            stats += e.count
+        elif name == "apply_kernel" and len(targs) == 1:
+            fwd_apply += e.count
+        elif name in ("sums_kernel", "cluster_kernel"):
+            out["norm_lrelu_from_stats_bwd" if targs[-1] == "true" else "fused_instance_norm_lrelu_bwd"] += e.count
+        elif name in ("conv3x3_mma_kernel", "conv3x3_stats_kernel"):
+            out["conv3x3_same_stats"] += e.count
+        elif name == "fold_kernel":
+            out["conv3x3_bwd_fold"] += e.count
+    out["fused_instance_norm_lrelu"] += stats
+    out["norm_lrelu_from_stats"] += fwd_apply - stats
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -881,7 +948,6 @@ def time_engine(engine, noise, cond, images):
     sum of the device-side events (kernels, copies) torch.profiler records.
     A CPU op's own device time repeats its kernels' and is left out. The gap
     between the two is the device's idle time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     calls = {
@@ -899,10 +965,7 @@ def time_engine(engine, noise, cond, images):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
                 fn()
-        device = [
-            e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity Buffer")
-        ]
+        device = device_events(prof)
         busy = sum(e.self_device_time_total for e in device) / 5 / 1e3
         kernels = sum(e.count for e in device) / 5
         log(f"  engine.{name}: {wall:.3f} ms per call (host wall); device busy {busy:.3f} ms "
@@ -1064,7 +1127,6 @@ def time_train_step(trainer, reps: int = 10):
 
 def _time_steps(step, reps, batch, top=0):
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
@@ -1080,8 +1142,7 @@ def _time_steps(step, reps, batch, top=0):
         for i in range(n_prof):
             step(i)
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity Buffer")]
+    device = device_events(prof)
     busy = sum(e.self_device_time_total for e in device) / n_prof / 1e3
     ops = sum(e.count for e in device) / n_prof
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:top]:
@@ -1090,13 +1151,298 @@ def _time_steps(step, reps, batch, top=0):
             "images_per_s": 2 * batch / (wall / 1e3)}
 
 
-def summarize(records, serve_launches, train_launches):
+def _flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().float().flatten() for p in model.parameters()])
+
+
+def _snapshotting(step, model, box):
+    """``step`` that appends the weights after each call to ``box``."""
+    def wrapped(*a, **k):
+        out = step(*a, **k)
+        box.append(_flat_params(model))
+        return out
+
+    return wrapped
+
+
+def _hold(what, losses, want_losses, params, want_params):
+    """Hold per-update losses (lists of (gen, disc, adj)) and per-group
+    weights against an eager run's; returns the record, raises on a miss."""
+    import torch
+
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-12) for la, lb in zip(losses, want_losses) for a, b in zip(la, lb))
+    param_rel = max(_rel_err(a, b) for a, b in zip(params, want_params))
+    bitwise = losses == want_losses and all(torch.equal(a, b) for a, b in zip(params, want_params))
+    log(f"{what}: largest loss difference {loss_rel:.3g} (relative), weights at the groups' ends "
+        f"{param_rel:.3g} (relative norm); bitwise: {bitwise}")
+    require(len(losses) == len(want_losses) and len(params) == len(want_params), (what, len(losses), len(params)))
+    if not loss_rel <= TRAIN_TOL["loss_rtol"] or not param_rel <= DISPATCH_PARAM_REL:
+        raise AssertionError(f"{what}: the graph run disagrees with the eager one (losses {loss_rel}, "
+                             f"weights {param_rel}; tolerance {TRAIN_TOL['loss_rtol']}, {DISPATCH_PARAM_REL})")
+    return {"loss_rel": loss_rel, "param_rel": param_rel, "bitwise": bitwise}
+
+
+def check_dispatch():
+    """Phase (e): DISPATCH_STEPS updates of ``Trainer`` over the device
+    store in CUDA-graph replays of DISPATCH_K, against the gather step; the
+    accumulation graph against eager accumulation steps; the timing.
+    Returns (each kernel's launches in the graph run, the record)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.training.trainer import Trainer
+    from littlegan_tpu_torch.utils.tensorboard import read_scalars
+
+    record = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dispatch_") as root:
+        cfg = train_config(root).replace(device_data=True, steps_per_dispatch=DISPATCH_K, freq_gen=DISPATCH_STEPS,
+                                         exp_name="chip_smoke_dispatch")
+        data = SyntheticDataset(cfg, num_items=2 * DISPATCH_STEPS * cfg.batch_size)
+        trainer = Trainer(cfg, data)
+        imgs, conds = trainer._ensure_device_store()
+        sizes = [DISPATCH_STEPS % DISPATCH_K, DISPATCH_K]
+        t0 = time.time()
+        for k in sizes:  # what train() captures at first use, captured before the counted run
+            trainer._scan_step(k).prepare(trainer.state, imgs, conds)
+        torch.cuda.synchronize()
+        log(f"device store {tuple(imgs.shape)} {imgs.dtype}; graphs of {sizes} updates captured in "
+            f"{time.time() - t0:.1f} s (each after one eager warm-up)")
+        for k in sizes:
+            held = trainer._scan_steps[k].graphed.launches
+            want = {name: v * k for name, v in EXPECTED_TRAIN_LAUNCHES.items()}
+            require(held == want, f"the {k}-update graph holds {held}, want {want}")
+        graph_params = []
+        for k in sizes:
+            trainer._scan_steps[k] = _snapshotting(trainer._scan_steps[k], trainer.state.model, graph_params)
+        counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+        for c in counters.values():
+            c.reset()
+        t0 = time.time()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train()
+            torch.cuda.synchronize()
+        log(f"trained {DISPATCH_STEPS} steps in {len(graph_params)} graph replays in {time.time() - t0:.1f} s "
+            f"(traced)")
+        require(sorted(trainer._scan_steps) == sizes, f"the epoch used graphs of {sorted(trainer._scan_steps)}")
+        launches = {k: c.value for k, c in counters.items()}
+        traced = traced_launches(device_events(prof))
+        want = {k: v * DISPATCH_STEPS for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+        require(launches == want, f"dispatch-run launches {launches}, want {want}")
+        require(traced == want, f"the trace of the dispatch run saw the kernels of {traced} launches, want {want}")
+        log(f"dispatch-run launches: {launches} ({DISPATCH_STEPS} steps); the same counted from the kernels "
+            f"its trace saw run")
+        record["traced_launches"] = traced
+        scalars = read_scalars(os.path.join(cfg.result_dir, "log"))
+        counts = {k: len(v) for k, v in scalars.items()}
+        require(counts == {"loss/gen": DISPATCH_STEPS, "loss/disc": DISPATCH_STEPS, "loss/adj": DISPATCH_STEPS - 10},
+                f"logged losses {counts}")
+        require(all(np.isfinite(v) for series in scalars.values() for _, v in series), f"non-finite: {scalars}")
+        image = os.path.join(cfg.result_dir, "train", "gen", f"1-{DISPATCH_STEPS}.jpg")
+        ckpt = os.path.join(cfg.result_dir, "checkpoint", "ckpt-1.npz")
+        require(os.path.isfile(image) and os.path.isfile(ckpt), (image, ckpt))
+        again = Trainer(cfg, data)
+        require((again.global_epoch, again.global_step) == (2, DISPATCH_STEPS), (again.global_epoch, again.global_step))
+        live = dict(trainer.state.model.named_parameters())
+        same = all(torch.equal(p, live[n]) for n, p in again.state.model.named_parameters())
+        opts = all(getattr(again.state, o).count == getattr(trainer.state, o).count for o in ("opt_g", "opt_d", "opt_a"))
+        require(same and opts, "the dispatch run's checkpoint did not restore its state")
+        del again
+        log("dispatch run: 20/20/10 finite losses, image, checkpoint and its restore")
+
+        # (ii) the same epoch from the same init, one eager gather step per call
+        gcfg = cfg.replace(steps_per_dispatch=1, exp_name="chip_smoke_gather")
+        gather = Trainer(gcfg, data)
+        gather_params = []
+        real_gather = gather._gather_step
+
+        def gather_step(*a, **k):
+            out = real_gather(*a, **k)
+            if gather.global_step in (8, 16, 20):
+                gather_params.append(_flat_params(gather.state.model))
+            return out
+
+        gather._gather_step = gather_step
+        gather.train()
+        torch.cuda.synchronize()
+        def per_step(c):  # [gen, disc(, adj)] per step, as logged
+            sc = read_scalars(os.path.join(c.result_dir, "log"))
+            adj = dict(sc["loss/adj"])
+            return [[g, d] + ([adj[i]] if i in adj else []) for (i, g), (_, d) in zip(sc["loss/gen"], sc["loss/disc"])]
+
+        record["graph_vs_gather"] = _hold(f"graph (K = {DISPATCH_K}) vs gather steps, {DISPATCH_STEPS} updates",
+                                          per_step(cfg), per_step(gcfg), graph_params, gather_params)
+        del gather, gather_params, graph_params
+
+        record["accum"] = check_accum_dispatch(trainer)
+        record["timing"] = time_dispatch(trainer)
+    return launches, record
+
+
+def _update_draws(cfg, global_step, m, device):
+    """The trainer's draws of one update (``Trainer.update_draws``) for M
+    micro-steps, without a trainer."""
+    import torch
+
+    from littlegan_tpu_torch.training.step import draw_step, stack_draws
+    from littlegan_tpu_torch.training.trainer import step_seed
+
+    gen = torch.Generator(device=device)
+
+    def one(micro):
+        gen.manual_seed(step_seed(cfg.seed, global_step, micro))
+        return draw_step(gen, cfg, cfg.batch_size, device)
+
+    return stack_draws([one(j) for j in range(m)])
+
+
+def check_accum_dispatch(trainer):
+    """(iii) ACCUM_UPDATES updates of ACCUM_M micro-pairs from the card's
+    store: ACCUM_K per graph replay on one fresh state, one eager
+    ``accum_train_step`` per update on another from the same init."""
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.data.celeba import epoch_batch_order
+    from littlegan_tpu_torch.training.state import create_train_state
+    from littlegan_tpu_torch.training.step import LOSS_KEYS, accum_train_step, make_scan_accum_train_step, stack_draws
+
+    cfg = trainer.cfg.replace(grad_accum=ACCUM_M)
+    dev = trainer.device
+    imgs, conds = trainer._device_store
+    ids = epoch_batch_order(cfg.seed, 1, imgs.shape[0])[: 2 * ACCUM_M * ACCUM_UPDATES].reshape(ACCUM_UPDATES,
+                                                                                                 ACCUM_M, 2)
+    draws = [_update_draws(cfg, 1 + u, ACCUM_M, dev) for u in range(ACCUM_UPDATES)]
+    graph_state, eager_state = create_train_state(cfg, dev), create_train_state(cfg, dev)
+    step = make_scan_accum_train_step(cfg, graph_state, ACCUM_K)
+    step.prepare(graph_state, imgs, conds)
+    want = {k: v * ACCUM_K * ACCUM_M for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+    require(step.graphed.launches == want, f"the accumulation graph holds {step.graphed.launches}, want {want}")
+    graph_losses, graph_params = [], []
+    for g in range(ACCUM_UPDATES // ACCUM_K):
+        sl = slice(g * ACCUM_K, (g + 1) * ACCUM_K)
+        out = step(graph_state, imgs, conds, ids[sl, :, 0], ids[sl, :, 1], stack_draws(draws[sl]), 1 + g * ACCUM_K)
+        graph_losses += torch.stack([out.metrics[k] for k in LOSS_KEYS], 1).tolist()
+        graph_params.append(_flat_params(graph_state.model))
+    eager_losses, eager_params = [], []
+    for u in range(ACCUM_UPDATES):
+        pick = lambda col: (imgs[torch.from_numpy(ids[u, :, col]).to(dev)],  # noqa: E731
+                            conds[torch.from_numpy(ids[u, :, col]).to(dev)])
+        out = accum_train_step(eager_state, pick(0), pick(1), draws[u], 1 + u, cfg)
+        eager_losses.append([float(out.metrics[k]) for k in LOSS_KEYS])
+        if (u + 1) % ACCUM_K == 0:
+            eager_params.append(_flat_params(eager_state.model))
+    require(all(np.isfinite(graph_losses).flatten()), graph_losses)
+    for o in ("opt_g", "opt_d", "opt_a"):
+        require(getattr(graph_state, o).count == getattr(eager_state, o).count, f"{o} counts differ")
+    return _hold(f"grad_accum {ACCUM_M}, {ACCUM_K} updates per replay vs eager accumulation steps",
+                 graph_losses, eager_losses, graph_params, eager_params)
+
+
+def time_dispatch(trainer, rounds: int = 2, updates: int = 3 * DISPATCH_K):
+    """(iv) Per update: host wall ms (synchronous, draws included), the
+    device's busy ms (sum of device-side events in torch.profiler, as
+    ``time_engine``) and device ops, the idle share and images/s (2 x
+    batch per update), for the host-fed step (batches copied from host
+    memory), the gather step over the store and the DISPATCH_K-update graph,
+    each on its own fresh state, in turns: host-fed, gather, graph, then
+    the reverse. For the graph also the device span of one replay by CUDA
+    events."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from littlegan_tpu_torch.training.state import create_train_state
+    from littlegan_tpu_torch.training.step import (
+        make_gather_train_step, make_scan_train_step, make_train_step, stack_draws,
+    )
+
+    cfg, dev = trainer.cfg, trainer.device
+    imgs, conds = trainer._device_store
+    host_imgs, host_conds = imgs.cpu().numpy(), conds.cpu().numpy()
+    n = imgs.shape[0]
+    states = {name: create_train_state(cfg, dev) for name in ("host-fed", "gather", "graph")}
+    host_step = make_train_step(cfg, states["host-fed"])
+    gather_step = make_gather_train_step(cfg, states["gather"])
+    scan_step = make_scan_train_step(cfg, states["graph"], DISPATCH_K)
+    scan_step.prepare(states["graph"], imgs, conds)
+    counter = {"i": 0}
+
+    def host_fed():
+        i = counter["i"] = counter["i"] + 1
+        b1, b2 = (trainer._put((host_imgs[j], host_conds[j])) for j in ((2 * i) % n, (2 * i + 1) % n))
+        host_step(states["host-fed"], b1, b2, trainer.draws(i), 1 + i % 20)
+        return 1
+
+    def gather():
+        i = counter["i"] = counter["i"] + 1
+        gather_step(states["gather"], imgs, conds, (2 * i) % n, (2 * i + 1) % n, trainer.draws(i), 1 + i % 20)
+        return 1
+
+    def graph():
+        i = counter["i"] = counter["i"] + DISPATCH_K
+        ids = (np.arange(2 * DISPATCH_K) + 2 * i) % n
+        draws = stack_draws([trainer.draws(i + u) for u in range(DISPATCH_K)])
+        scan_step(states["graph"], imgs, conds, ids[0::2], ids[1::2], draws, 1 + i % 20)
+        return DISPATCH_K
+
+    variants = {"host-fed": host_fed, "gather": gather, "graph": graph}
+    out = {name: [] for name in variants}
+    order = list(variants)
+    for rnd in range(rounds):
+        for name in (order if rnd % 2 == 0 else order[::-1]):
+            fn = variants[name]
+            done = 0
+            while done < DISPATCH_K:  # warm-up
+                done += fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            done = 0
+            while done < updates:
+                done += fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3 / done
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                done = 0
+                while done < DISPATCH_K:
+                    done += fn()
+                torch.cuda.synchronize()
+            device = device_events(prof)
+            traced = traced_launches(device)
+            want = {k: v * done for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+            require(traced == want, f"{name}: the trace saw the kernels of {traced} launches, want {want}")
+            busy = sum(e.self_device_time_total for e in device) / done / 1e3
+            ops = sum(e.count for e in device) / done
+            r = {"update_ms": wall, "device_busy_ms": busy, "device_ops": ops, "idle_share": 1 - busy / wall,
+                 "images_per_s": 2 * cfg.batch_size / (wall / 1e3)}
+            if name == "graph":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                r["replay_span_ms"] = start.elapsed_time(end) / DISPATCH_K
+            log(f"{name} (round {rnd + 1}): {wall:.3f} ms per update (host wall, {updates} updates); device busy "
+                f"{busy:.3f} ms ({ops:.0f} device ops) per update; idle share {r['idle_share']:.1%}; "
+                f"{r['images_per_s']:.1f} images/s"
+                + (f"; replay device span {r['replay_span_ms']:.3f} ms per update" if name == "graph" else ""))
+            out[name].append(r)
+    return out
+
+
+def summarize(records, serve_launches, train_launches, dispatch_launches):
     """One JSON record per kernel, bf16 (the working dtype): summed over the
     launches of one train step where phase (b) timed the train shapes, else
     over the shapes one /adjust call gives it ("per" says which; a kernel
     timed on both paths adds the /adjust sums as "serve_ms",
     "serve_plain_ms", "serve_bound_ms"); per-shape numbers under "shapes".
-    "launches" counts both paths' runs, split in "launches_by_path"."""
+    "launches" counts the three paths' runs (serve, host-fed train,
+    CUDA-graph dispatch), split in "launches_by_path"."""
     meta = {
         "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
                                       "littlegan_tpu/ops/pallas/norm_lrelu.py:111"),
@@ -1122,7 +1468,8 @@ def summarize(records, serve_launches, train_launches):
 
         shapes = train or serve
         lib = None if shapes[0]["library_ms"] is None else tot("library_ms", shapes)
-        by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0)}
+        by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
+                   "dispatch": dispatch_launches.get(name, 0)}
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1174,7 +1521,9 @@ def main() -> int:
     serve_launches = check_serving(full_config())
     train_launches, train = check_training()
     log("train record: " + json.dumps(train))
-    log(json.dumps({"kernels": summarize(records, serve_launches, train_launches)}))
+    dispatch_launches, dispatch = check_dispatch()
+    log("dispatch record: " + json.dumps(dispatch))
+    log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

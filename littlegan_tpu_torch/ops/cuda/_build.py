@@ -21,7 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -157,18 +157,29 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+COUNTERS: Dict[str, "LaunchCounter"] = {}
+
+
 class LaunchCounter:
     """Count of kernel launches made through one wrapper (thread-safe: the
-    serving batchers launch from several threads)."""
+    serving batchers launch from several threads), registered in
+    :data:`COUNTERS` under the wrapper's name. A CUDA graph adds the
+    launches it holds at each replay (``training/dispatch.py``)."""
 
-    def __init__(self):
+    def __init__(self, name: str):
         self._lock = threading.Lock()
         self.value = 0
+        COUNTERS[name] = self
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self.value += 1
+            self.value += n
 
     def reset(self) -> None:
         with self._lock:
             self.value = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every wrapper's launch count, by name."""
+    return {name: c.value for name, c in COUNTERS.items()}

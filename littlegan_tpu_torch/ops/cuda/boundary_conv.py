@@ -179,8 +179,8 @@ def conv3x3_input_weight_grads(
     return (dx.permute(0, 2, 3, 1) if need_dx else None), dw.permute(2, 3, 1, 0)
 
 
-conv3x3_same_stats.launches = _build.LaunchCounter()
-conv3x3_bwd_fold.launches = _build.LaunchCounter()
+conv3x3_same_stats.launches = _build.LaunchCounter("conv3x3_same_stats")
+conv3x3_bwd_fold.launches = _build.LaunchCounter("conv3x3_bwd_fold")
 
 
 def boundary_conv_s2d_bwd(

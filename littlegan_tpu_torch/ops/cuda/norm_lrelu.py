@@ -548,10 +548,10 @@ def norm_lrelu_from_stats_bwd(
     return dy, ds[0], ds[1], dgb[0:1], dgb[1:2]
 
 
-fused_instance_norm_lrelu.launches = _build.LaunchCounter()
-fused_instance_norm_lrelu_bwd.launches = _build.LaunchCounter()
-norm_lrelu_from_stats.launches = _build.LaunchCounter()
-norm_lrelu_from_stats_bwd.launches = _build.LaunchCounter()
+fused_instance_norm_lrelu.launches = _build.LaunchCounter("fused_instance_norm_lrelu")
+fused_instance_norm_lrelu_bwd.launches = _build.LaunchCounter("fused_instance_norm_lrelu_bwd")
+norm_lrelu_from_stats.launches = _build.LaunchCounter("norm_lrelu_from_stats")
+norm_lrelu_from_stats_bwd.launches = _build.LaunchCounter("norm_lrelu_from_stats_bwd")
 
 
 class FusedNormLReLU(torch.autograd.Function):

@@ -38,13 +38,25 @@ def depth_to_space(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(n, 2 * h, 2 * w, c)
 
 
+_INDEX_CACHE: dict = {}
+
+
+def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` as a tensor on ``device``, copied there once per device: a
+    step captured in a CUDA graph may not copy from the host. Made outside
+    inference mode, so that a model served first can still be trained."""
+    key = (a.shape, a.tobytes(), str(device))
+    if key not in _INDEX_CACHE:
+        with torch.inference_mode(False):
+            _INDEX_CACHE[key] = torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return _INDEX_CACHE[key]
+
+
 def _gather_kernel(w: torch.Tensor, ih: np.ndarray, iw: np.ndarray) -> torch.Tensor:
     """K[...] = w_ring_padded[ih[...], iw[...]] (a zero ring around the two
     spatial axes lets indices -1..k land in range)."""
     wp = F.pad(w, (0, 0, 0, 0, 1, 1, 1, 1))
-    ih_t = torch.as_tensor(np.ascontiguousarray(ih), device=w.device)
-    iw_t = torch.as_tensor(np.ascontiguousarray(iw), device=w.device)
-    return wp[ih_t, iw_t]
+    return wp[_index(ih, w.device), _index(iw, w.device)]
 
 
 def _check5(w: torch.Tensor) -> None:

@@ -17,21 +17,26 @@ How this differs in form from the JAX function, not in result:
 - Leaves are dicts ``name -> tensor`` (the model's parameter names), and the
   update happens IN PLACE under ``torch.no_grad()``: parameters, ``mu`` and
   ``nu`` are the same tensors afterwards. The function also returns them.
-- ``batch_no`` is known on the host, so each mask is a Python number and the
-  where-select of the JAX function is made on the host: a masked-off leaf is
-  not touched at all, so a non-finite gradient there cannot reach its
-  moments or value (the reason JAX selects rather than multiplies).
 - Counts are Python ints on the host; ``b1**t``, ``b2**t`` and ``lr_t`` are
   evaluated in float32 with numpy, as JAX evaluates them in float32.
-- Active leaves are updated with PyTorch's multi-tensor (``_foreach``) ops,
-  a handful of launches for all of them; moments stored in bfloat16 are
-  upcast to float32 for the math and rounded back on store. Parameters are
-  float32, as the model keeps them.
+- Two forms. :func:`masked_adam_update` (the host-fed step) takes each mask
+  as a Python number and makes the JAX function's where-select on the
+  host: a masked-off leaf is not touched at all. :func:`masked_adam_update_rows`
+  (the K-update dispatch, which cannot ask the host) takes the masks and
+  step sizes as device tensors and selects with ``torch.where``, as JAX
+  does; :func:`advance_counts` moves the host counts through those updates
+  and gives their step sizes. Either way a non-finite gradient on a
+  masked-off leaf cannot reach its moments or value (the reason JAX selects
+  rather than multiplies), and both forms run the same float32 arithmetic
+  on an active leaf, so they agree bit for bit.
+- Leaves are updated with PyTorch's multi-tensor (``_foreach``) ops;
+  moments stored in bfloat16 are upcast to float32 for the math and rounded
+  back on store. Parameters are float32, as the model keeps them.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -109,6 +114,27 @@ def adam_lr_t(lr: float, b1: float, b2: float, count: int, lr_scale=None) -> flo
     return float(f32(lr_t))
 
 
+def _adam_math(g: List[torch.Tensor], m: List[torch.Tensor], v: List[torch.Tensor], steps: Sequence,
+               b1: float, b2: float, eps: float, in_place: bool):
+    """(m', v', the amounts to subtract from the parameters) of one v1 Adam
+    update of each leaf, float32; m' and v' are m and v updated in place
+    when ``in_place``. ``steps``: each leaf's ``lr_t``, Python floats or
+    0-dim float32 tensors (the same product either way)."""
+    if in_place:
+        torch._foreach_mul_(m, b1)
+        torch._foreach_mul_(v, b2)
+        m_new, v_new = m, v
+    else:
+        m_new, v_new = torch._foreach_mul(m, b1), torch._foreach_mul(v, b2)
+    torch._foreach_add_(m_new, g, alpha=1.0 - b1)
+    torch._foreach_addcmul_(v_new, g, g, value=1.0 - b2)
+    denom = torch._foreach_sqrt(v_new)
+    torch._foreach_add_(denom, eps)
+    delta = torch._foreach_div(m_new, denom)
+    torch._foreach_mul_(delta, list(steps))
+    return m_new, v_new, delta
+
+
 @torch.no_grad()
 def masked_adam_update(
     grads: Dict[str, torch.Tensor],
@@ -130,19 +156,56 @@ def masked_adam_update(
             state.count[k] += 1
     if not active:
         return params, state
-    g = [grads[k].float() for k in active]
-    m = [state.mu[k].float() for k in active]
-    v = [state.nu[k].float() for k in active]
-    torch._foreach_mul_(m, b1)
-    torch._foreach_add_(m, g, alpha=1.0 - b1)
-    torch._foreach_mul_(v, b2)
-    torch._foreach_addcmul_(v, g, g, value=1.0 - b2)
-    denom = torch._foreach_sqrt(v)
-    torch._foreach_add_(denom, eps)
-    steps = [-adam_lr_t(lr, b1, b2, state.count[k], lr_scale) for k in active]
-    torch._foreach_addcdiv_([params[k] for k in active], m, denom, steps)
+    steps = [adam_lr_t(lr, b1, b2, state.count[k], lr_scale) for k in active]
+    m, v, delta = _adam_math([grads[k].float() for k in active], [state.mu[k].float() for k in active],
+                             [state.nu[k].float() for k in active], steps, b1, b2, eps, in_place=True)
+    torch._foreach_sub_([params[k] for k in active], delta)
     for k, mk, vk in zip(active, m, v):
         if state.mu[k].dtype != torch.float32:  # bf16 storage: round back
             state.mu[k].copy_(mk)
             state.nu[k].copy_(vk)
     return params, state
+
+
+def advance_counts(
+    state: AdamState, masks: np.ndarray, lr: float, b1: float, b2: float, tick_all: bool = False, lr_scale=None
+) -> np.ndarray:
+    """Move the host counts through K updates whose (K, leaves) 0/1 ``masks``
+    (leaves in ``state.count``'s order) are given, as K calls of
+    :func:`masked_adam_update` would; returns the (K, leaves) float32 step
+    sizes ``lr_t`` those updates apply (a masked-off leaf's is unused)."""
+    names = list(state.count)
+    steps = np.zeros(masks.shape, np.float32)
+    for i, row in enumerate(masks):
+        for j, k in enumerate(names):
+            if tick_all or row[j] > 0.5:
+                state.count[k] += 1
+            steps[i, j] = adam_lr_t(lr, b1, b2, state.count[k], lr_scale)
+    return steps
+
+
+@torch.no_grad()
+def masked_adam_update_rows(
+    grads: Dict[str, torch.Tensor],
+    state: AdamState,
+    params: Dict[str, torch.Tensor],
+    mask: torch.Tensor,
+    steps: torch.Tensor,
+    b1: float,
+    b2: float,
+    eps: float = 1e-8,
+) -> None:
+    """One masked Adam step, in place, from device rows: ``mask`` and
+    ``steps`` are (leaves,) float32 tensors in ``params``' order (the 0/1
+    masks and the step sizes of :func:`advance_counts`). Every leaf's update
+    is computed and ``torch.where`` keeps the old value, moments included,
+    where the mask is 0. The host counts are not touched here."""
+    names = list(params)
+    on = mask > 0.5
+    m, v, delta = _adam_math([grads[k].float() for k in names], [state.mu[k].float() for k in names],
+                             [state.nu[k].float() for k in names], steps.unbind(), b1, b2, eps, in_place=False)
+    for j, k in enumerate(names):
+        p = params[k]
+        torch.where(on[j], p - delta[j], p, out=p)
+        for new, old in ((m[j], state.mu[k]), (v[j], state.nu[k])):
+            torch.where(on[j], new.to(old.dtype), old, out=old)

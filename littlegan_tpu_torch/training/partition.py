@@ -11,12 +11,15 @@ by parameter name they are:
 On batches where ``use_partition and batch_no % (interval + 1) == 0`` only
 group ``(batch_no // (interval + 1)) % n_groups`` trains; on the others
 every weight does. ``batch_no`` is a host integer here, so a mask is a
-Python number per parameter.
+Python number per parameter; :func:`mask_rows` gives the masks of K
+updates as rows, which a K-update dispatch reads on the device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence
+
+import numpy as np
 
 _G_GROUPS = [
     ["g_head."],
@@ -54,3 +57,25 @@ def resolve_mask(stacked: Dict[str, List[float]], batch_no: int, use_partition: 
     n_groups = len(next(iter(stacked.values())))
     group = (batch_no // period) % n_groups
     return {k: row[group] for k, row in stacked.items()}
+
+
+def adjuster_gate(batch_no: int, train_adj: bool) -> float:
+    """The adjuster's warm-up gate (eager_trainer.py:152): it trains only
+    after batch 10 of every epoch, and never without ``train_adj``."""
+    return 1.0 if train_adj and batch_no > 10 else 0.0
+
+
+def mask_rows(
+    part_masks, batch_nos: Sequence[int], use_partition: bool, interval: int, train_adj: bool
+) -> Dict[str, np.ndarray]:
+    """Per model, the (len(batch_nos), leaves) f32 0/1 rows of the updates
+    at ``batch_nos``: :func:`resolve_mask` of each batch number, leaves in
+    the order of ``part_masks[model]``; the adjuster's rows are multiplied
+    by its warm-up gate."""
+    out = {}
+    for which, stacked in part_masks.items():
+        rows = [list(resolve_mask(stacked, b, use_partition, interval).values()) for b in batch_nos]
+        out[which] = np.asarray(rows, np.float32).reshape(len(batch_nos), len(stacked))
+    gates = np.asarray([adjuster_gate(b, train_adj) for b in batch_nos], np.float32)
+    out["adjuster"] = out["adjuster"] * gates[:, None]
+    return out

@@ -26,17 +26,29 @@ parameters it is not asked for is never formed, which is what JAX's
 
 Random draws (latent noise, augmentation) are arguments (:class:`StepDraws`),
 drawn by :func:`draw_step` from a ``torch.Generator``: tests feed the JAX
-step's draws instead. ``batch_no`` is a host integer, so the partition
-masks and the adjuster gate are decided on the host.
+step's draws instead. With gradient accumulation (``grad_accum`` = M) an
+update takes M micro-pairs, their draws stacked over M, and applies the
+mean of their float32 gradients once (:func:`accum_train_step`).
+
+Two forms of the optimizer tail. The one-update steps (:func:`train_step`,
+the gather step, :func:`accum_train_step`) take ``batch_no`` as a host
+integer and decide the partition masks and the adjuster gate on the host.
+The K-update steps over the device-resident dataset
+(:func:`make_scan_train_step`, :func:`make_scan_accum_train_step`) must not
+ask the host inside a CUDA graph: the host writes each update's schedule
+as a row (:func:`schedule_rows`: masks, Adam step sizes, the
+``adj_half_batch`` parity) and the updates read it on the device
+(:func:`scan_updates`). Both forms give the same result.
 
 Not ported yet, and refused with ``NotImplementedError``: ``use_gp`` (a
-grad-of-grad penalty), ``remat`` and ``grad_accum > 1`` (ROADMAP A5).
+grad-of-grad penalty) and ``remat`` (ROADMAP A5), and an s2d-layout store
+(``store_s2d``).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,11 +58,16 @@ from littlegan_tpu_torch.models.littlegan import s2d_active
 from littlegan_tpu_torch.ops.augment import AugmentDraws, augment, draw_augment
 from littlegan_tpu_torch.ops.losses import adjuster_loss, discriminator_loss, generator_loss
 from littlegan_tpu_torch.ops.s2d import depth_to_space, space_to_depth
-from littlegan_tpu_torch.training.optimizer import lr_scale_from_config, masked_adam_update
-from littlegan_tpu_torch.training.partition import build_partition_masks, resolve_mask
+from littlegan_tpu_torch.training.dispatch import GraphedUpdates
+from littlegan_tpu_torch.training.optimizer import (
+    advance_counts, lr_scale_from_config, masked_adam_update, masked_adam_update_rows,
+)
+from littlegan_tpu_torch.training.partition import adjuster_gate, build_partition_masks, mask_rows, resolve_mask
 from littlegan_tpu_torch.training.state import A_KEYS, D_KEYS, G_KEYS, TrainState, subtree
 
 LOSS_KEYS = ("loss/gen", "loss/disc", "loss/adj")
+# the three Adams: (state field, partition model, parameter parts)
+_ADAMS = (("opt_g", "generator", G_KEYS), ("opt_d", "discriminator", D_KEYS), ("opt_a", "adjuster", A_KEYS))
 
 
 class StepDraws(NamedTuple):
@@ -60,18 +77,14 @@ class StepDraws(NamedTuple):
 
 class StepOutput(NamedTuple):
     state: TrainState
-    metrics: Dict[str, torch.Tensor]  # the three losses, 0-dim f32 on the device
-    fake_image: torch.Tensor  # raw layout, compute dtype
+    metrics: Dict[str, torch.Tensor]  # the three losses, f32 on the device: 0-dim, or (K,) from K updates
+    fake_image: torch.Tensor  # raw layout, compute dtype (the last update's)
     adj_image: torch.Tensor  # (1, 1, 1, 1) zeros when train_adj is off
 
 
 def check_supported(cfg: Config) -> None:
     """Refuse the step options the port does not have yet."""
-    for on, what in (
-        (cfg.use_gp, "use_gp (the gradient penalty)"),
-        (cfg.remat, "remat"),
-        (cfg.grad_accum > 1, f"grad_accum={cfg.grad_accum}"),
-    ):
+    for on, what in ((cfg.use_gp, "use_gp (the gradient penalty)"), (cfg.remat, "remat")):
         if on:
             raise NotImplementedError(f"{what} is not ported to littlegan_tpu_torch yet (ROADMAP A5)")
 
@@ -84,6 +97,17 @@ def draw_step(generator: torch.Generator, cfg: Config, n: int, device) -> StepDr
     return StepDraws(noise, aug)
 
 
+def map_draws(fn, *draws: StepDraws) -> StepDraws:
+    """``fn`` applied field by field across ``draws``."""
+    aug = AugmentDraws(*(fn(*fields) for fields in zip(*(d.augment for d in draws))))
+    return StepDraws(fn(*(d.noise for d in draws)), aug)
+
+
+def stack_draws(draws: Sequence[StepDraws]) -> StepDraws:
+    """Draws stacked over a new leading axis (micro-steps, or updates)."""
+    return map_draws(lambda *xs: torch.stack(xs), *draws)
+
+
 def prep_images(x: torch.Tensor) -> torch.Tensor:
     """uint8 [0, 255] -> f32 [-1, 1] on the tensor's device; floats pass."""
     if x.dtype == torch.uint8:
@@ -92,11 +116,13 @@ def prep_images(x: torch.Tensor) -> torch.Tensor:
 
 
 def total_loss_fn(
-    model, batch1, batch2, noise: torch.Tensor, new_image: torch.Tensor, cfg: Config, adj_sel: Optional[int] = None
+    model, batch1, batch2, noise: torch.Tensor, new_image: torch.Tensor, cfg: Config,
+    adj_sel: Optional[torch.Tensor] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(the three losses on one autograd graph, {"fake", "adj"} images in
-    raw layout). ``adj_sel`` (``adj_half_batch`` only) is ``batch_no % 2``:
-    the adjuster takes the real task on even steps, the generated one on odd."""
+    raw layout). ``adj_sel`` (``adj_half_batch`` only) is ``batch_no % 2``
+    as a 0-dim tensor: the adjuster takes the real task on even steps, the
+    generated one on odd, chosen on the device (JAX ``step.py:185-193``)."""
     img1, cond1 = batch1
     img2, cond2 = batch2
     s2 = s2d_active(cfg)
@@ -118,7 +144,10 @@ def total_loss_fn(
         if cfg.adj_half_batch:
             if adj_sel is None:
                 raise ValueError("adj_half_batch requires adj_sel (= batch_no % 2)")
-            tgt_cond, in_img, tgt_img = (cond2, img1, img2) if adj_sel == 0 else (cond1, fake_data, img1)
+            even = adj_sel == 0
+            tgt_cond = torch.where(even, cond2, cond1)
+            in_img = torch.where(even, img1, fake_data)
+            tgt_img = torch.where(even, img2, img1)
         else:
             tgt_cond = torch.cat([cond2, cond1])
             in_img = torch.cat([img1, fake_data])
@@ -133,17 +162,17 @@ def total_loss_fn(
     return losses, {"fake": fake_out.detach(), "adj": adj_out.detach()}
 
 
-def compute_grads(
-    state: TrainState, batch1, batch2, draws: StepDraws, batch_no: int, cfg: Config
+def micro_grads(
+    state: TrainState, batch1, batch2, draws: StepDraws, cfg: Config, adj_sel: Optional[torch.Tensor] = None
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(``name -> gradient`` for every parameter, aux with the detached
-    losses and images): everything in a step before the optimizer."""
+    losses and images) of one micro-pair: everything in a step before the
+    optimizer. Reads nothing from the host."""
     check_supported(cfg)
     model = state.model
     batch1 = (prep_images(batch1[0]), batch1[1])
     batch2 = (prep_images(batch2[0]), batch2[1])
     new_image = augment(batch1[0], draws.augment)
-    adj_sel = batch_no % 2 if cfg.adj_half_batch else None
     losses, aux = total_loss_fn(model, batch1, batch2, draws.noise, new_image, cfg, adj_sel)
 
     grads: Dict[str, torch.Tensor] = {}
@@ -160,38 +189,121 @@ def compute_grads(
     return grads, aux
 
 
+def _adj_sel(batch_no: int, cfg: Config, device) -> Optional[torch.Tensor]:
+    return torch.full((), batch_no % 2, device=device) if cfg.adj_half_batch else None
+
+
+def compute_grads(
+    state: TrainState, batch1, batch2, draws: StepDraws, batch_no: int, cfg: Config
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """:func:`micro_grads` of the step at host ``batch_no``."""
+    return micro_grads(state, batch1, batch2, draws, cfg, _adj_sel(batch_no, cfg, batch1[0].device))
+
+
+def accum_grads(
+    state: TrainState, batch1s, batch2s, draws: StepDraws, cfg: Config, adj_sel: Optional[torch.Tensor] = None
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(mean gradients over the M stacked micro-pairs, the last micro-step's
+    aux), the port of JAX ``accum_grads`` (``step.py:370-403``).
+    ``batch1s``/``batch2s``: (images (M, B, ...), conds (M, B, c));
+    ``draws``: stacked over M. Each micro-pair's gradients are summed in
+    float32, then divided by M."""
+    m = batch1s[0].shape[0]
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in state.model.parameters()]
+    names = [n for n, _ in state.model.named_parameters()]
+    for j in range(m):
+        grads, aux = micro_grads(
+            state, (batch1s[0][j], batch1s[1][j]), (batch2s[0][j], batch2s[1][j]),
+            map_draws(lambda x: x[j], draws), cfg, adj_sel,
+        )
+        torch._foreach_add_(acc, [grads[n].float() for n in names])
+    torch._foreach_div_(acc, float(m))
+    return dict(zip(names, acc)), aux
+
+
+def _clip_d(grads: Dict[str, torch.Tensor], cfg: Config, d_names) -> Dict[str, torch.Tensor]:
+    """D's gradients clipped to ±clip_range (eager_trainer.py:146-148, D only)."""
+    if not cfg.use_clip:
+        return grads
+    return {**grads, **{k: grads[k].clamp(-cfg.clip_range, cfg.clip_range) for k in d_names}}
+
+
+def _adam_args(cfg: Config, opt: str) -> Tuple[float, float, bool]:
+    """(b1, b2, tick_all) of one of the three Adams: the adjuster's has the
+    default betas and never ticks all (its apply count is its tick count)."""
+    if opt == "opt_a":
+        return 0.9, 0.999, False
+    return cfg.beta_1, cfg.beta_2, cfg.adam_tf_parity
+
+
+@torch.no_grad()
+def _update_ema(state: TrainState, cfg: Config) -> None:
+    if cfg.ema_decay > 0 and state.ema is not None:
+        g_params = subtree(state.model, G_KEYS)
+        d = np.float32(cfg.ema_decay)
+        for k, e in state.ema.items():  # d and 1 - d in f32, as in JAX
+            e.copy_(float(d) * e.float() + float(np.float32(1.0) - d) * g_params[k].float())
+
+
 def apply_updates(
     state: TrainState, grads: Dict[str, torch.Tensor], aux, batch_no: int, cfg: Config, part_masks
 ) -> StepOutput:
     """D-gradient clipping, the partition masks, the adjuster's warm-up
-    gate and the three masked Adams, in place; then the G-only EMA."""
+    gate and the three masked Adams, in place, decided on the host from
+    ``batch_no``; then the G-only EMA."""
     model = state.model
-    d_params = subtree(model, D_KEYS)
-    d_grads = {k: grads[k] for k in d_params}
-    if cfg.use_clip:  # eager_trainer.py:146-148, D only
-        d_grads = {k: g.clamp(-cfg.clip_range, cfg.clip_range) for k, g in d_grads.items()}
-    g_params, a_params = subtree(model, G_KEYS), subtree(model, A_KEYS)
-
-    def mask(which):
-        return resolve_mask(part_masks[which], batch_no, cfg.use_partition, cfg.partition_interval)
-
-    g_mask, d_mask, a_mask = mask("generator"), mask("discriminator"), mask("adjuster")
-    gate = 1.0 if cfg.train_adj and batch_no > 10 else 0.0  # eager_trainer.py:152
-    a_mask = {k: m * gate for k, m in a_mask.items()}
+    grads = _clip_d(grads, cfg, subtree(model, D_KEYS))
     lr_scale = lr_scale_from_config(cfg)
-    tick_all = cfg.adam_tf_parity
-    masked_adam_update({k: grads[k] for k in g_params}, state.opt_g, g_params, g_mask, cfg.lr, cfg.beta_1,
-                       cfg.beta_2, tick_all=tick_all, lr_scale=lr_scale)
-    masked_adam_update(d_grads, state.opt_d, d_params, d_mask, cfg.lr, cfg.beta_1, cfg.beta_2,
-                       tick_all=tick_all, lr_scale=lr_scale)
-    # the adjuster's Adam has the default betas and never ticks all
-    masked_adam_update({k: grads[k] for k in a_params}, state.opt_a, a_params, a_mask, cfg.lr, 0.9, 0.999,
-                       lr_scale=lr_scale)
-    if cfg.ema_decay > 0 and state.ema is not None:
-        with torch.no_grad():
-            d = np.float32(cfg.ema_decay)
-            for k, e in state.ema.items():  # d and 1 - d in f32, as in JAX
-                e.copy_(float(d) * e.float() + float(np.float32(1.0) - d) * g_params[k].float())
+    gate = adjuster_gate(batch_no, cfg.train_adj)
+    for opt, which, keys in _ADAMS:
+        params = subtree(model, keys)
+        mask = resolve_mask(part_masks[which], batch_no, cfg.use_partition, cfg.partition_interval)
+        if opt == "opt_a":
+            mask = {k: m * gate for k, m in mask.items()}
+        b1, b2, tick_all = _adam_args(cfg, opt)
+        masked_adam_update({k: grads[k] for k in params}, getattr(state, opt), params, mask, cfg.lr, b1, b2,
+                           tick_all=tick_all, lr_scale=lr_scale)
+    _update_ema(state, cfg)
+    metrics = {k: aux[k] for k in LOSS_KEYS}
+    return StepOutput(state=state, metrics=metrics, fake_image=aux["fake"], adj_image=aux["adj"])
+
+
+def schedule_rows(state: TrainState, cfg: Config, part_masks, batch_nos: Sequence[int]) -> np.ndarray:
+    """(K, width) float32: one row per update at ``batch_nos``, read on the
+    device by :func:`apply_updates_rows`. For each Adam (G, D, A) its
+    leaves' 0/1 masks (the partition schedule; the adjuster's times its
+    gate), then their step sizes; last the update's ``batch_no % 2``.
+    Advances the state's host counts through the K updates."""
+    masks = mask_rows(part_masks, batch_nos, cfg.use_partition, cfg.partition_interval, cfg.train_adj)
+    lr_scale = lr_scale_from_config(cfg)
+    cols = []
+    for opt, which, _ in _ADAMS:
+        b1, b2, tick_all = _adam_args(cfg, opt)
+        cols += [masks[which], advance_counts(getattr(state, opt), masks[which], cfg.lr, b1, b2, tick_all, lr_scale)]
+    cols.append((np.asarray(batch_nos, np.int64) % 2).astype(np.float32)[:, None])
+    return np.concatenate(cols, axis=1)
+
+
+def schedule_width(state: TrainState) -> int:
+    return 2 * sum(len(getattr(state, opt).count) for opt, _, _ in _ADAMS) + 1
+
+
+def apply_updates_rows(state: TrainState, grads: Dict[str, torch.Tensor], aux, row: torch.Tensor,
+                       cfg: Config) -> StepOutput:
+    """:func:`apply_updates` from one device row of :func:`schedule_rows`:
+    the masks select with ``torch.where`` and the step sizes are tensors, so
+    no value comes from the host."""
+    model = state.model
+    grads = _clip_d(grads, cfg, subtree(model, D_KEYS))
+    off = 0
+    for opt, _, keys in _ADAMS:
+        params = subtree(model, keys)
+        n = len(params)
+        b1, b2, _ = _adam_args(cfg, opt)
+        masked_adam_update_rows({k: grads[k] for k in params}, getattr(state, opt), params,
+                                row[off:off + n], row[off + n:off + 2 * n], b1, b2)
+        off += 2 * n
+    _update_ema(state, cfg)
     metrics = {k: aux[k] for k in LOSS_KEYS}
     return StepOutput(state=state, metrics=metrics, fake_image=aux["fake"], adj_image=aux["adj"])
 
@@ -218,3 +330,169 @@ def make_train_step(cfg: Config, state: TrainState):
     partition masks bound."""
     check_supported(cfg)
     return functools.partial(train_step, cfg=cfg, part_masks=partition_masks(state.model))
+
+
+def accum_train_step(
+    state: TrainState, batch1s, batch2s, draws: StepDraws, batch_no: int, cfg: Config, part_masks=None
+) -> StepOutput:
+    """Gradient accumulation, the port of JAX ``accum_train_step``: the mean
+    gradient over M micro-pairs, then ONE optimizer apply at ``batch_no``
+    (clipping applies to the mean). ``batch1s``/``batch2s`` and ``draws``
+    carry a leading (M,) axis; metrics and images are the last micro-step's."""
+    if part_masks is None:
+        part_masks = partition_masks(state.model)
+    grads, aux = accum_grads(state, batch1s, batch2s, draws, cfg, _adj_sel(batch_no, cfg, batch1s[0].device))
+    return apply_updates(state, grads, aux, batch_no, cfg, part_masks)
+
+
+def make_accum_train_step(cfg: Config, state: TrainState):
+    """``step(state, batch1s, batch2s, draws, batch_no)`` with (M, B, ...)
+    stacked batches and draws."""
+    check_supported(cfg)
+    return functools.partial(accum_train_step, cfg=cfg, part_masks=partition_masks(state.model))
+
+
+# ------------------------------------------------ the device-resident dataset --
+
+
+def take_batch(store: torch.Tensor, b) -> torch.Tensor:
+    """Batch ``b`` of a (n_batches, B, ...) store: a view for a host int, a
+    gather for a 0-dim device tensor (no host read)."""
+    if isinstance(b, torch.Tensor):
+        return store.index_select(0, b.long().reshape(1))[0]
+    return store[int(b)]
+
+
+def _check_store_layout(cfg: Config, store_s2d: bool) -> None:
+    """An s2d-layout store needs the s2d step active; the port keeps a raw
+    store, as the JAX trainer does (``trainer.py:545-552``)."""
+    if store_s2d and not s2d_active(cfg):
+        raise ValueError(
+            "store_s2d=True but the s2d step is inactive for this config (s2d needs use_s2d, "
+            "kernel_size=5 and an even image_dim) — upload a RAW-layout store instead"
+        )
+    if store_s2d:
+        raise NotImplementedError(
+            "an s2d-layout store (store_s2d) is not ported to littlegan_tpu_torch yet (ROADMAP A6); "
+            "the trainer keeps a raw store"
+        )
+
+
+def make_gather_train_step(cfg: Config, state: TrainState, store_s2d: bool = False):
+    """``step(state, images, conds, b1, b2, draws, batch_no)``: one train
+    step whose two batches are ids into the (n_batches, B, ...) device store
+    (``cfg.device_data`` with one update per call)."""
+    check_supported(cfg)
+    _check_store_layout(cfg, store_s2d)
+    part_masks = partition_masks(state.model)
+
+    def step(state, images, conds, b1, b2, draws, batch_no):
+        batch1 = (take_batch(images, b1), take_batch(conds, b1))
+        batch2 = (take_batch(images, b2), take_batch(conds, b2))
+        return train_step(state, batch1, batch2, draws, batch_no, cfg, part_masks)
+
+    return step
+
+
+def scan_updates(state: TrainState, images, conds, ids1, ids2, draws: StepDraws, rows: torch.Tensor,
+                 cfg: Config):
+    """K applied updates from the device store, in place, reading nothing
+    from the host: ``ids1``/``ids2`` (K,) batch ids, or (K, M) for M
+    accumulated micro-pairs per update; ``draws`` stacked over K (then M);
+    ``rows`` the (K, width) :func:`schedule_rows`. Returns the (K, 3)
+    losses and the last update's fake and adj images."""
+    losses = []
+    for i in range(ids1.shape[0]):
+        adj_sel = rows[i, -1] if cfg.adj_half_batch else None
+        d = map_draws(lambda x: x[i], draws)
+        if ids1.dim() == 2:
+            gather = lambda ids: (images.index_select(0, ids), conds.index_select(0, ids))  # noqa: E731
+            grads, aux = accum_grads(state, gather(ids1[i]), gather(ids2[i]), d, cfg, adj_sel)
+        else:
+            batch1 = (take_batch(images, ids1[i]), take_batch(conds, ids1[i]))
+            batch2 = (take_batch(images, ids2[i]), take_batch(conds, ids2[i]))
+            grads, aux = micro_grads(state, batch1, batch2, d, cfg, adj_sel)
+        out = apply_updates_rows(state, grads, aux, rows[i], cfg)
+        losses.append(torch.stack([out.metrics[k] for k in LOSS_KEYS]))
+    return torch.stack(losses), out.fake_image, out.adj_image
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor an update writes: parameters, moments, the EMA."""
+    out = list(state.model.parameters())
+    for opt, _, _ in _ADAMS:
+        adam = getattr(state, opt)
+        out += list(adam.mu.values()) + list(adam.nu.values())
+    return out + (list(state.ema.values()) if state.ema is not None else [])
+
+
+def zero_draws(cfg: Config, n: int, device) -> StepDraws:
+    """Draws of an n-image batch, all zero but a contrast factor of 1."""
+    z = lambda *shape: torch.zeros(shape, device=device)  # noqa: E731
+    aug = AugmentDraws(torch.zeros((n,), dtype=torch.bool, device=device), z(), z() + 1.0, z(),
+                       z(n, cfg.image_dim, cfg.image_dim, cfg.image_channel))
+    return StepDraws(z(n, cfg.noise_dim), aug)
+
+
+def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Optional[int], store_s2d: bool):
+    """The K-update step over the device store, the port's counterpart of
+    JAX ``_make_scan_dispatch`` (``step.py:554-611``): the host turns the
+    batch ids and the schedule of updates ``batch_no0 … batch_no0+K-1`` into
+    one (K, width) float32 array, and ``GraphedUpdates``
+    (``training/dispatch.py``) runs :func:`scan_updates` on it (one CUDA
+    graph replay on the card). ``micro``: M for (K, M) ids, None for (K,)."""
+    check_supported(cfg)
+    _check_store_layout(cfg, store_s2d)
+    part_masks = partition_masks(state.model)
+    m = micro or 1
+
+    def body(inputs, draws, state, images, conds):
+        ids1, ids2 = inputs[:, :m].long(), inputs[:, m:2 * m].long()
+        if micro is None:
+            ids1, ids2 = ids1[:, 0], ids2[:, 0]
+        return scan_updates(state, images, conds, ids1, ids2, draws, inputs[:, 2 * m:], cfg)
+
+    graphed = GraphedUpdates(body)
+
+    def host_inputs(b1s, b2s, rows) -> np.ndarray:
+        ids = [np.asarray(b, np.int64).reshape(n_steps, m) for b in (b1s, b2s)]
+        if max(int(np.max(i)) for i in ids) >= 1 << 24:
+            raise ValueError("batch ids must stay below 2**24 (they travel as float32)")
+        return np.concatenate([ids[0], ids[1], rows], axis=1).astype(np.float32)
+
+    def step(state, images, conds, b1s, b2s, draws, batch_no0):
+        rows = schedule_rows(state, cfg, part_masks, range(batch_no0, batch_no0 + n_steps))
+        losses, fake, adj = graphed(host_inputs(b1s, b2s, rows), draws, (state, images, conds), state_tensors(state))
+        return StepOutput(state, {k: losses[:, i] for i, k in enumerate(LOSS_KEYS)}, fake, adj)
+
+    def prepare(state, images, conds):
+        """Capture the CUDA graph now (on a CPU state: nothing to do)."""
+        lead = (n_steps,) if micro is None else (n_steps, m)
+        draws = zero_draws(cfg, images.shape[1], images.device)
+        draws = map_draws(lambda x: x.expand(*lead, *x.shape).contiguous(), draws)
+        zeros = np.zeros((n_steps, 2 * m + schedule_width(state)), np.float32)
+        graphed.prepare(zeros, draws, (state, images, conds), state_tensors(state))
+
+    step.prepare = prepare
+    step.graphed = graphed
+    return step
+
+
+def make_scan_train_step(cfg: Config, state: TrainState, n_steps: int, store_s2d: bool = False):
+    """K train steps per call over the device store:
+    ``step(state, images, conds, b1s (K,), b2s (K,), draws, batch_no0)``,
+    ``draws`` the K updates' :class:`StepDraws` stacked. Update i takes
+    batches ``b1s[i]``, ``b2s[i]`` and the schedule of ``batch_no0 + i``,
+    exactly as K sequential steps would. Returns the state (updated in
+    place), (K,) metrics and the LAST update's images (cadence artifacts
+    snap to the group). ``step.prepare(state, images, conds)`` captures the
+    graph ahead of the first call."""
+    return _make_scan_dispatch(cfg, state, n_steps, None, store_s2d)
+
+
+def make_scan_accum_train_step(cfg: Config, state: TrainState, n_steps: int, store_s2d: bool = False):
+    """``grad_accum`` x the device store: K applied updates per call, each
+    the mean over ``cfg.grad_accum`` = M micro-pairs. As
+    :func:`make_scan_train_step` with (K, M) batch ids and draws stacked
+    over (K, M)."""
+    return _make_scan_dispatch(cfg, state, n_steps, cfg.grad_accum, store_s2d)

@@ -1,65 +1,83 @@
-"""Trainer: the host loop around the train step, the port of the host-fed
-path of littlegan_tpu/training/trainer.py.
+"""Trainer: the host loop around the train step, the port of
+littlegan_tpu/training/trainer.py.
 
 - result tree and provenance (``config.json``, ``code.tar``);
 - the pinned eval fixture (noise, cond, image) in
   ``test_data_<env>.npz`` with the reference's reuse contract;
 - the epoch loop: two batches per step from the dataset's (seed, epoch)
-  order, per-step TensorBoard scalars (flushed every 16 steps in one copy
+  order, per-step TensorBoard scalars (flushed every 16 calls in one copy
   from the card), train-sample grids every ``freq_gen`` batches, the
   fixture ``predict`` every ``freq_test``, the "Time usage ... images/s"
-  line (2 x batch images per step), a checkpoint per epoch;
+  line (2 x batch x grad_accum images per update), a checkpoint per epoch;
 - restore of the latest checkpoint at start; SIGINT sets a flag and the
-  loop saves an ``interrupt`` checkpoint at the next step boundary with the
-  batch it reached, then exits 1; a restart resumes at that batch.
+  loop saves an ``interrupt`` checkpoint at the next step (or dispatch)
+  boundary with the batch it reached, then exits 1; a restart resumes at
+  that batch.
 
-Each step's draws come from a ``torch.Generator`` on the card seeded from
-``(cfg.seed, global_step)``, so a resumed run draws what the uninterrupted
-one would have. The fixture's noise (and its image, without a dataset)
-come from numpy seeded from ``cfg.seed``: other numbers than the JAX
-package's ``jax.random`` streams.
+Four ways through an epoch, as in the JAX trainer:
+
+- host-fed: each step's two batches are copied from the host;
+- ``grad_accum`` = M > 1, host-fed: M pairs per applied update
+  (:func:`_accum_groups`);
+- ``device_data``: the whole dataset (uint8, or f32 for the synthetic set)
+  is uploaded once as a (n_batches, B, ...) store in the canonical order,
+  and each step picks its batches by id in the epoch's
+  :func:`~littlegan_tpu_torch.data.celeba.epoch_batch_order`;
+- ``device_data`` with ``steps_per_dispatch`` = K > 1 or M > 1: K applied
+  updates per host call, one CUDA graph replay on the card
+  (``training/dispatch.py``); a trailing remainder group runs its own
+  graph, cached by its size; cadences snap to group boundaries.
+
+Each update's draws come from a ``torch.Generator`` on the card seeded from
+``(cfg.seed, global_step)``, or ``(cfg.seed, global_step, j)`` for micro-step
+j of an accumulated update, so a resumed or dispatched run draws what the
+sequential one would have. The fixture's noise (and its image, without a
+dataset) come from numpy seeded from ``cfg.seed``: other numbers than the
+JAX package's ``jax.random`` streams.
 
 It runs on the card unless ``device="cpu"`` is given; without a card and
 without that argument it raises. Not ported yet, and refused with
-``NotImplementedError``: the device-resident dataset and K steps per
-dispatch (``device_data``, ``steps_per_dispatch > 1``, ROADMAP A6), the
-step options of ``step.check_supported`` (ROADMAP A5), meshes and sharded
-state (ROADMAP A13) and the profiler window (``profile_steps``).
+``NotImplementedError``: the step options of ``step.check_supported``
+(ROADMAP A5), meshes and sharded state (ROADMAP A13) and the profiler
+window (``profile_steps``, ROADMAP A8).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import signal
 import sys
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from littlegan_tpu_torch.config import Config
+from littlegan_tpu_torch.data.celeba import epoch_batch_order
 from littlegan_tpu_torch.models.littlegan import LittleGAN
 from littlegan_tpu_torch.ops.losses import mean_squared_error
 from littlegan_tpu_torch.training.checkpoint import make_checkpointer
 from littlegan_tpu_torch.training.state import TrainState, create_train_state, eval_params
-from littlegan_tpu_torch.training.step import LOSS_KEYS, check_supported, draw_step, make_train_step
+from littlegan_tpu_torch.training.step import (
+    LOSS_KEYS, check_supported, draw_step, make_accum_train_step, make_gather_train_step,
+    make_scan_accum_train_step, make_scan_train_step, make_train_step, stack_draws,
+)
 from littlegan_tpu_torch.utils.device import resolve_device
 from littlegan_tpu_torch.utils.image import ensure_pm1, inverse_rescale, save_image, soft, to_grid
 from littlegan_tpu_torch.utils.provenance import init_result_dirs, snapshot_run
 from littlegan_tpu_torch.utils.tensorboard import SummaryWriter
 
-FLUSH_EVERY = 16  # steps whose losses stay on the card before one copy to the host
+FLUSH_EVERY = 16  # calls whose losses stay on the card before one copy to the host
 
 
 def check_trainer_supported(cfg: Config) -> None:
     """Refuse the trainer options the port does not have yet."""
     check_supported(cfg)
     for on, what, item in (
-        (cfg.device_data, "device_data (the GPU-resident dataset)", "A6"),
-        (cfg.steps_per_dispatch > 1, f"steps_per_dispatch={cfg.steps_per_dispatch}", "A6"),
         (cfg.mesh_shape is not None or tuple(cfg.mesh_axes) != ("data",), "a device mesh", "A13"),
         (cfg.shard_opt_state or cfg.shard_dense, "sharded train state", "A13"),
         (cfg.profile_steps > 0, "profile_steps", "A8"),
@@ -79,6 +97,16 @@ def _pairwise(it):
         yield b1, b2
 
 
+def _accum_groups(pairs, m: int):
+    """Stack ``m`` host (batch1, batch2) pairs into (M, B, ...) numpy arrays
+    for the accumulation step; a trailing partial group is dropped."""
+    while True:
+        chunk = list(itertools.islice(pairs, m))
+        if len(chunk) < m:
+            return
+        yield tuple(tuple(np.stack([np.asarray(c[i][j]) for c in chunk]) for j in range(2)) for i in range(2))
+
+
 def d_score_stats(cond, real_pr, real_c, fake_pr, fake_c) -> Dict:
     """The predict-mode D-score payload: rounded percentage score lists and
     MSE against the softened targets."""
@@ -95,9 +123,11 @@ def d_score_stats(cond, real_pr, real_c, fake_pr, fake_c) -> Dict:
     return save
 
 
-def step_seed(seed: int, global_step: int) -> int:
-    """The seed of step ``global_step``'s draws."""
-    return int(np.random.SeedSequence([seed, global_step]).generate_state(1)[0])
+def step_seed(seed: int, global_step: int, micro: Optional[int] = None) -> int:
+    """The seed of step ``global_step``'s draws, or of its micro-step
+    ``micro`` in an accumulated update."""
+    entropy = [seed, global_step] if micro is None else [seed, global_step, micro]
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
 
 
 class Trainer:
@@ -127,8 +157,17 @@ class Trainer:
         self._interrupt_requested = False
         self._nonfinite_warned = False
         self._in_train = False
+        self._device_store: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._scan_steps: Dict[int, object] = {}  # K -> K-update step (one CUDA graph each)
         self._init_fixture()
+        if cfg.grad_accum > 1 and getattr(dataset, "batches", None) is not None \
+                and dataset.batches < 2 * cfg.grad_accum:
+            print(f"WARNING: dataset has {dataset.batches} batches but one accumulation group consumes "
+                  f"{2 * cfg.grad_accum}; every epoch would apply ZERO updates. Lower grad_accum or grow "
+                  "the dataset.")
         self._train_step = make_train_step(cfg, self.state)
+        self._accum_step = make_accum_train_step(cfg, self.state)
+        self._gather_step = make_gather_train_step(cfg, self.state)
         self._generator = torch.Generator(device=self.device)
 
     # ---------------------------------------------------------- fixture ----
@@ -170,10 +209,65 @@ class Trainer:
         return (torch.from_numpy(np.ascontiguousarray(img)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(cond, np.float32)).to(self.device))
 
-    def draws(self, global_step: int):
-        """The draws of step ``global_step``."""
-        self._generator.manual_seed(step_seed(self.cfg.seed, global_step))
+    def draws(self, global_step: int, micro: Optional[int] = None):
+        """The draws of step ``global_step`` (or of its micro-step ``micro``)."""
+        self._generator.manual_seed(step_seed(self.cfg.seed, global_step, micro))
         return draw_step(self._generator, self.cfg, self.cfg.batch_size, self.device)
+
+    def update_draws(self, global_step: int):
+        """The draws of the update at ``global_step``: today's step draws,
+        or with ``grad_accum`` = M > 1 its M micro-steps' stacked."""
+        m = self.cfg.grad_accum
+        if m == 1:
+            return self.draws(global_step)
+        return stack_draws([self.draws(global_step, j) for j in range(m)])
+
+    # ---------------------------------------------------- device store ----
+
+    def _ensure_device_store(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Upload the whole dataset to the card once (``cfg.device_data``):
+        images as the dataset yields them (uint8; f32 for the synthetic
+        set) and f32 conditions, reshaped to (n_batches, B, ...). Row j is
+        batch j of the canonical (unshuffled) order, so an epoch's
+        :func:`epoch_batch_order` reproduces the host pipeline's batch
+        sequence."""
+        if self._device_store is None:
+            cache = getattr(self.dataset, "_cache", None)  # a decode cache is dead weight here
+            if cache is not None:
+                self.dataset._cache = None
+            try:
+                images, conds = zip(*self.dataset.epoch_iterator(0, shuffle=False))
+            finally:
+                if cache is not None:
+                    self.dataset._cache = cache
+            b = self.cfg.batch_size
+            imgs, cs = np.concatenate(images), np.concatenate(conds).astype(np.float32)
+            n = imgs.shape[0] // b
+            imgs = imgs[: n * b].reshape(n, b, *imgs.shape[1:])
+            cs = cs[: n * b].reshape(n, b, -1)
+            print(f"device_data: uploading {imgs.nbytes / 1e9:.2f} GB {imgs.dtype} dataset "
+                  f"({n} batches) to {self.device}")
+            self._device_store = (torch.from_numpy(imgs).to(self.device), torch.from_numpy(cs).to(self.device))
+        return self._device_store
+
+    def _device_epoch(self, epoch: int) -> Iterator[int]:
+        """Batch ids into the store, in the epoch's order: the same
+        (seed, epoch) stream as the host pipeline's."""
+        imgs, _ = self._ensure_device_store()
+        for b in epoch_batch_order(self.cfg.seed, epoch, imgs.shape[0]):
+            yield int(b)
+
+    def _scan_step(self, k: int):
+        """The K-update step (cached by K, so the trailing remainder group
+        captures its graph once)."""
+        if k not in self._scan_steps:
+            make = make_scan_accum_train_step if self.cfg.grad_accum > 1 else make_scan_train_step
+            self._scan_steps[k] = make(self.cfg, self.state, k)
+        return self._scan_steps[k]
+
+    def _uses_scan(self) -> bool:
+        cfg = self.cfg
+        return cfg.device_data and (cfg.steps_per_dispatch > 1 or cfg.grad_accum > 1)
 
     @property
     def writer(self) -> SummaryWriter:
@@ -215,6 +309,12 @@ class Trainer:
         cfg = self.cfg
         if self.dataset is None:
             raise ValueError("train mode needs a dataset")
+        if cfg.steps_per_dispatch > 1 and not cfg.device_data:
+            print("WARNING: steps_per_dispatch > 1 requires device_data=True (the card-resident "
+                  "dataset); running one step per dispatch.")
+        if self._uses_scan() and cfg.grad_accum > 1:
+            print(f"device_data x grad_accum: {cfg.grad_accum} micro-pairs per update (effective batch "
+                  f"{cfg.grad_accum * cfg.batch_size}), {cfg.steps_per_dispatch} updates per dispatch")
         self._interrupt_requested = False
         self._in_train = True
         main = threading.current_thread() is threading.main_thread()
@@ -230,37 +330,13 @@ class Trainer:
                 if resume_b:
                     print(f"mid-epoch resume: continuing epoch {epoch} at batch {resume_b + 1} "
                           f"(skipping {resume_b} already-trained batches)")
-                pairs = _pairwise(self.dataset.epoch_iterator(epoch, start_batch=2 * resume_b))
-                batch_no = resume_b
-                self._cur_batch_no = batch_no
-                images_done = 0
-                for b1, b2 in pairs:
-                    batch_no += 1
-                    self._cur_batch_no = batch_no
-                    self.global_step += 1
-                    out = self._train_step(
-                        self.state, self._put(b1), self._put(b2), self.draws(self.global_step), batch_no
-                    )
-                    self._metrics_buffer.append((self.global_step, batch_no, out.metrics))
-                    images_done += 2 * cfg.batch_size
-                    if len(self._metrics_buffer) >= FLUSH_EVERY:
-                        self._flush_buffered()
-                    if cfg.freq_gen > 0 and batch_no % cfg.freq_gen == 0:
-                        self._save_train_images(out, epoch, batch_no)
-                    if cfg.freq_test > 0 and batch_no % cfg.freq_test == 0:
-                        name = f"{epoch}-{batch_no}"
-                        self.predict(
-                            self.test_noise, self.test_cond, self.test_image,
-                            os.path.join(cfg.result_dir, "test", "gen", f"{name}.jpg"),
-                            os.path.join(cfg.result_dir, "test", "disc", f"{name}.json"),
-                            os.path.join(cfg.result_dir, "test", "adj", f"{name}.jpg"),
-                        )
-                    if self._interrupt_requested:
-                        self._save_interrupt()
+                run = self._scan_epoch if self._uses_scan() else self._step_epoch
+                images_done, dropped = run(epoch, resume_b)
                 self._flush_buffered()
                 elapsed = time.time() - start
                 rate = images_done / elapsed if elapsed > 0 else 0.0
-                print(f"Time usage: {elapsed:.1f}s  ({rate:.1f} images/s)")
+                note = f"  [{dropped} trailing batch(es) dropped]" if dropped else ""
+                print(f"Time usage: {elapsed:.1f}s  ({rate:.1f} images/s){note}")
                 self._save_epoch_checkpoint(epoch)
                 if self._interrupt_requested:
                     self._save_interrupt()
@@ -270,6 +346,104 @@ class Trainer:
                 signal.signal(signal.SIGINT, prev_handler)
             if self._writer is not None:
                 self._writer.flush()
+
+    def _step_epoch(self, epoch: int, resume_b: int) -> Tuple[int, int]:
+        """One applied update per call: host-fed, host-fed accumulation or
+        the gather step over the device store. Returns (images, 0)."""
+        cfg = self.cfg
+        m = cfg.grad_accum
+        if cfg.device_data:  # M == 1 here: accumulation over the store rides the scan path
+            imgs, conds = self._ensure_device_store()
+            ids = self._device_epoch(epoch)
+            for _ in range(2 * resume_b):
+                next(ids, None)
+            updates = _pairwise(ids)
+
+            def run(b1, b2, draws, batch_no):
+                return self._gather_step(self.state, imgs, conds, b1, b2, draws, batch_no)
+        elif m > 1:
+            updates = _accum_groups(_pairwise(self.dataset.epoch_iterator(epoch, start_batch=2 * m * resume_b)), m)
+
+            def run(b1, b2, draws, batch_no):
+                return self._accum_step(self.state, self._put(b1), self._put(b2), draws, batch_no)
+        else:
+            updates = _pairwise(self.dataset.epoch_iterator(epoch, start_batch=2 * resume_b))
+
+            def run(b1, b2, draws, batch_no):
+                return self._train_step(self.state, self._put(b1), self._put(b2), draws, batch_no)
+
+        batch_no = resume_b
+        self._cur_batch_no = batch_no
+        images_done = 0
+        for b1, b2 in updates:
+            batch_no += 1
+            self._cur_batch_no = batch_no
+            self.global_step += 1
+            out = run(b1, b2, self.update_draws(self.global_step), batch_no)
+            self._metrics_buffer.append((self.global_step, batch_no, out.metrics))
+            images_done += 2 * cfg.batch_size * m
+            self._after_dispatch(out, epoch, batch_no - 1, batch_no)
+        return images_done, 0
+
+    def _scan_epoch(self, epoch: int, resume_b: int) -> Tuple[int, int]:
+        """K applied updates per call over the device store, each of M
+        micro-pairs; the trailing partial group runs as a smaller one.
+        Returns (images, trailing batches dropped)."""
+        cfg = self.cfg
+        k, m = cfg.steps_per_dispatch, cfg.grad_accum
+        per_update = 2 * m
+        imgs, conds = self._ensure_device_store()
+        ids = self._device_epoch(epoch)
+        for _ in range(per_update * resume_b):
+            next(ids, None)
+        batch_no = resume_b
+        self._cur_batch_no = batch_no
+        images_done = dropped = 0
+        while True:
+            group = list(itertools.islice(ids, per_update * k))
+            k_r = len(group) // per_update
+            if k_r < k:  # the trailing partial group: only a partial update's batches drop
+                dropped = len(group) - per_update * k_r
+                if k_r == 0:
+                    break
+                group = group[: per_update * k_r]
+            # pair p = (group[2p], group[2p + 1]); update u takes pairs [u*M, (u+1)*M)
+            b1 = np.asarray(group[0::2], np.int64).reshape(k_r, m)
+            b2 = np.asarray(group[1::2], np.int64).reshape(k_r, m)
+            if m == 1:
+                b1, b2 = b1[:, 0], b2[:, 0]
+            draws = stack_draws([self.update_draws(self.global_step + 1 + i) for i in range(k_r)])
+            out = self._scan_step(k_r)(self.state, imgs, conds, b1, b2, draws, batch_no + 1)
+            self._metrics_buffer.append((self.global_step + 1, batch_no + 1, out.metrics))
+            prev = batch_no
+            batch_no += k_r
+            self._cur_batch_no = batch_no
+            self.global_step += k_r
+            images_done += 2 * cfg.batch_size * k_r * m
+            self._after_dispatch(out, epoch, prev, batch_no)
+            if k_r < k:
+                break
+        return images_done, dropped
+
+    def _after_dispatch(self, out, epoch: int, prev_batch: int, batch_no: int) -> None:
+        """Between two calls: flush the losses every FLUSH_EVERY calls, the
+        cadences (once if any update of the call crossed one: group-snapped
+        on the scan path) and a deferred SIGINT."""
+        cfg = self.cfg
+        if len(self._metrics_buffer) >= FLUSH_EVERY:
+            self._flush_buffered()
+        if cfg.freq_gen > 0 and batch_no // cfg.freq_gen > prev_batch // cfg.freq_gen:
+            self._save_train_images(out, epoch, batch_no)
+        if cfg.freq_test > 0 and batch_no // cfg.freq_test > prev_batch // cfg.freq_test:
+            name = f"{epoch}-{batch_no}"
+            self.predict(
+                self.test_noise, self.test_cond, self.test_image,
+                os.path.join(cfg.result_dir, "test", "gen", f"{name}.jpg"),
+                os.path.join(cfg.result_dir, "test", "disc", f"{name}.json"),
+                os.path.join(cfg.result_dir, "test", "adj", f"{name}.jpg"),
+            )
+        if self._interrupt_requested:
+            self._save_interrupt()
 
     def _save_train_images(self, out, epoch: int, batch_no: int) -> None:
         base = os.path.join(self.cfg.result_dir, "train")
@@ -285,9 +459,11 @@ class Trainer:
             return
         self._flushing = True
         try:
-            buf = self._metrics_buffer
-            host = torch.stack([torch.stack([m[k] for k in LOSS_KEYS]) for _, _, m in buf]).cpu().tolist()
-            for (step, batch_no, _), (g, d, a) in zip(buf, host):
+            buf = self._metrics_buffer  # (first step, its batch_no, 0-dim or (K,) losses) per call
+            per_call = [torch.stack([torch.atleast_1d(m[k]) for k in LOSS_KEYS], 1) for _, _, m in buf]
+            host = torch.cat(per_call).cpu().tolist()
+            steps = [(s0 + i, b0 + i) for (s0, b0, _), t in zip(buf, per_call) for i in range(t.shape[0])]
+            for (step, batch_no), (g, d, a) in zip(steps, host):
                 pairs = [("loss/gen", g), ("loss/disc", d)]
                 if self.cfg.train_adj and batch_no > 10:  # no adj loss in the warm-up window
                     pairs.append(("loss/adj", a))
@@ -297,7 +473,7 @@ class Trainer:
                     print(f"WARNING: non-finite loss at step {step} (G={g} D={d} A={a}) — training has "
                           f"diverged; recover by restoring a checkpoint from BEFORE step {step} "
                           "(checkpoint pruning is now disabled so those epochs stay on disk).")
-            print(f"  step {buf[-1][0]}: LossG {host[-1][0]:.4f} LossD {host[-1][1]:.4f} LossA {host[-1][2]:.4f}")
+            print(f"  step {steps[-1][0]}: LossG {host[-1][0]:.4f} LossD {host[-1][1]:.4f} LossA {host[-1][2]:.4f}")
             self._metrics_buffer.clear()
         finally:
             self._flushing = False

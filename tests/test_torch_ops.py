@@ -104,6 +104,19 @@ def test_s2d_kernel_rearrangements_match_jax(name, shape):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("name", ["s2d_conv1_kernel", "s2d_deconv_kernel", "s2d_outconv_kernel"])
+def test_s2d_kernels_train_after_a_first_use_under_inference_mode(name):
+    """The rearrangements' index tensors are made once per device; made first
+    under ``inference_mode`` (a served model), they must still serve a
+    backward (the model trained next, in the same process)."""
+    ts2d._INDEX_CACHE.clear()
+    w = torch.from_numpy(_draw(np.random.default_rng(11), 5, 5, 3, 4)).requires_grad_()
+    with torch.inference_mode():
+        getattr(ts2d, name)(w.detach())
+    getattr(ts2d, name)(w).square().sum().backward()
+    assert w.grad is not None and bool(w.grad.abs().sum() > 0)
+
+
 def test_s2d_kernels_reject_other_sizes():
     with pytest.raises(ValueError):
         ts2d.s2d_conv1_kernel(torch.zeros(3, 3, 3, 4))

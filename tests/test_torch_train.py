@@ -278,7 +278,7 @@ def test_encoder_grads_with_both_kernel_flags_match_jax(tiny_cfg):
 
 def test_step_refuses_unported_options(tiny_cfg):
     tc = tcfg_of(tiny_cfg)
-    for kw, item in ((dict(use_gp=True), "use_gp"), (dict(remat=True), "remat"), (dict(grad_accum=2), "grad_accum")):
+    for kw, item in ((dict(use_gp=True), "use_gp"), (dict(remat=True), "remat")):
         with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP A5"):
             tstep.check_supported(tc.replace(**kw))
 

@@ -7,7 +7,8 @@
 - an interrupted run resumed mid-epoch ends bit-identical to an
   uninterrupted one;
 - a 1-epoch synthetic ``train`` through ``python -m littlegan_tpu_torch``'s
-  ``main`` writes its artifacts; other modes exit 2; unported options raise.
+  ``main`` writes its artifacts; other modes exit 2; unported options raise
+  (the device-store and accumulation paths: tests/test_torch_trainer_device.py).
 """
 
 import os
@@ -160,7 +161,7 @@ def test_trainer_raises_without_a_card(tiny_cfg, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(device_data=True), "A6"), (dict(steps_per_dispatch=4), "A6"), (dict(grad_accum=2), "A5"),
+    (dict(use_gp=True), "A5"), (dict(remat=True), "A5"), (dict(profile_steps=2), "A8"),
     (dict(mesh_axes=["data", "model"]), "A13"), (dict(shard_opt_state=True), "A13"),
 ])
 def test_trainer_refuses_unported_options(tiny_cfg, tmp_path, kw, item):
