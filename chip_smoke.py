@@ -52,7 +52,28 @@ Phases, each of which fails the run on any error:
       and each group's final weights against the graph run; holds 8 updates
       of ``grad_accum`` 2 in two 4-update replays against the same updates
       run eagerly; and times the host-fed step, the gather step and the
-      8-update graph in turns.
+      8-update graph in turns;
+  (f) drives the sampling and evaluation path through the command line
+      (``littlegan_tpu_torch.cli.main``) at the same full width in a
+      temporary directory: one ``train`` epoch on the synthetic dataset
+      for weights, then ``export-model``, ``plot``, ``random-sample``,
+      ``condition-sample`` and ``interpolate`` (their files checked), then
+      ``evaluate-sample`` of ``EVAL_SAMPLES`` images (32 ``sample_u8``
+      calls at batch 32: the JPEGs and score files checked, and K1, K1'
+      and K3 launched ``SAMPLE_LAUNCHES`` times per call); holds one
+      ``sample_u8`` batch against the same weights through the plain
+      versions (``SAMPLE_TOL``) and profiles its device time; writes
+      ``EVAL_SAMPLES`` synthetic images as JPEGs, pre-calculates their
+      Inception statistics with ``python -m
+      littlegan_tpu_torch.eval.evaluate`` and runs ``evaluate`` with FID,
+      IS, KID and PRDC on ``gen`` and ``adj`` (finite values, RANDOM-INIT
+      tags); holds Inception features of 16 images on the card against the
+      CPU's (``FEATURE_TOL``, float32 without TF32; the TF32 error and time
+      are printed beside it) and the Newton–Schulz FID against the exact
+      value of a well-conditioned 2048-d pair and against scipy's on a
+      ``NS_SCIPY_DIM``-d one (``NS_RTOL``); prints evaluate-sample's
+      images/s, Inception images/s at batch 100 and ``evaluate``'s host
+      wall. Each phase's wall is printed after (f).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -1435,14 +1456,329 @@ def time_dispatch(trainer, rounds: int = 2, updates: int = 3 * DISPATCH_K):
     return out
 
 
-def summarize(records, serve_launches, train_launches, dispatch_launches):
+# phase (f): evaluate-sample of EVAL_SAMPLES images at batch 32 (32 calls of
+# sample_u8), condition-sample cut to EVAL_CONDITION_BATCH grids
+EVAL_SAMPLES = 1024
+EVAL_CONDITION_BATCH = 2
+FEATURE_BATCH = 100
+# K1, K1' and K3 per sample_u8 call: one generate, two discriminate (the real
+# and the generated batch), two adjust (both), at phase (c)'s per-call counts
+SAMPLE_LAUNCHES = {k: EXPECTED_LAUNCHES["generate"][k] + 2 * EXPECTED_LAUNCHES["discriminate"][k]
+                   + 2 * EXPECTED_LAUNCHES["adjust"][k] for k in EXPECTED_LAUNCHES["generate"]}
+# sample_u8 with the kernels vs the same weights through the plain versions,
+# bf16: images in uint8 levels (ENGINE_TOL's 0.1 and 5e-3 of the [-1, 1]
+# range, times 127.5), D's scores in the payload's rounded percentage points
+# (ENGINE_TOL's 0.02, plus one for the rounding)
+SAMPLE_TOL = {"max_levels": 13, "mean_levels": 0.64, "score_points": 3}
+# Inception features on the card vs the CPU, both float32 (no TF32): sums in
+# another order through 94 convolutions; |card - cpu| <= atol + rtol*|cpu|
+FEATURE_TOL = (1e-4, 1e-4)
+# Newton–Schulz FID (float32 on the card) vs the exact value and scipy's
+# (float64 on the host), the latter at NS_SCIPY_DIM
+NS_RTOL = 1e-3
+NS_SCIPY_DIM = 512
+
+
+def eval_config(root):
+    """Phase (f)'s configuration file: the defaults at full width with both
+    kernels on, batch 32, one short synthetic train epoch, random-init
+    Inception allowed, all four metrics."""
+    return {
+        "use_pallas": True, "use_pallas_boundary": True, "seed": 0, "batch_size": TRAIN_BATCH, "epoch": 1,
+        "freq_gen": 0, "freq_test": 0, "debug": True, "all_result_dir": os.path.join(root, "result"),
+        "test_data_dir": os.path.join(root, "test-data"), "evaluate_sample_size": EVAL_SAMPLES,
+        "condition_sample_batch": EVAL_CONDITION_BATCH, "allow_random_fid": True,
+        "eval_metrics": ["fid", "is", "kid", "prdc"],
+    }
+
+
+def _mode(*argv) -> float:
+    """One CLI mode on the card; returns its host wall in seconds."""
+    from littlegan_tpu_torch import cli
+
+    import torch
+
+    t0 = time.perf_counter()
+    rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"{argv[0]} exited {rc}")
+    log(f"  {argv[0]}: {wall:.2f} s")
+    return wall
+
+
+def _count(path, pattern) -> int:
+    return sum(1 for f in os.listdir(path) if re.fullmatch(pattern, f))
+
+
+def check_eval():
+    """Phase (f): the sampling and evaluation modes at full width through
+    the CLI. Returns (each kernel's launches in the evaluate-sample run, the
+    record); raises on any miss."""
+    import tempfile
+
+    import torch
+
+    from littlegan_tpu_torch.config import load_config
+
+    record = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as root:
+        cwd = os.getcwd()
+        os.chdir(root)  # the CLI reads sample.config.json from the current directory
+        try:
+            with open("sample.config.json", "w") as f:
+                json.dump(eval_config(root), f)
+            cfg = load_config("sample", {"exp_name": "eval"})
+            require((cfg.image_dim, cfg.conv_filter, cfg.compute_dtype, cfg.use_s2d, cfg.train_adj) == (
+                128, [384, 256, 128, 64, 32], "bfloat16", True, True), "the defaults are no longer full width")
+            rd = cfg.result_dir
+            log("phase (f) modes, host wall:")
+            _mode("train", "eval", "--synthetic-data")
+            require(os.path.isfile(os.path.join(rd, "checkpoint", "ckpt-1.npz")), "no train checkpoint")
+            _mode("export-model", "eval")
+            require(os.path.isfile(os.path.join(rd, "model", "ckpt-model.npz")), "no exported model")
+            _mode("plot", "eval")
+            for net in ("Encoder", "Decoder", "Discriminator", "Generator", "Adjuster"):
+                require(os.path.isfile(os.path.join(rd, f"{net}.dot")), f"no {net}.dot")
+            with open(os.path.join(rd, "models.txt")) as f:
+                require(f.read().count("total parameters") == 5, "models.txt")
+            _mode("random-sample", "eval", "--synthetic-data")
+            _mode("condition-sample", "eval")
+            _mode("interpolate", "eval")
+            sample = os.path.join(rd, "sample")
+            for pattern, n in ((r"generator-\d+-\d\.jpg", cfg.random_sample_batch),
+                               (r"discriminator-\d+-\d\.json", cfg.random_sample_batch),
+                               (r"adjuster-\d+-\d\.jpg", cfg.random_sample_batch),
+                               (r"condition-gen-\d\.jpg", EVAL_CONDITION_BATCH),
+                               (r"interpolate-(z|attr)-\d+\.jpg", 2)):
+                require(_count(sample, pattern) == n, f"sample/{pattern}: {sorted(os.listdir(sample))}")
+
+            counters = _counters()
+            for c in counters.values():
+                c.reset()
+            wall = _mode("evaluate-sample", "eval", "--synthetic-data")
+            launches = {k: c.value for k, c in counters.items()}
+            calls = EVAL_SAMPLES // cfg.batch_size
+            want = {k: v * calls for k, v in SAMPLE_LAUNCHES.items()}
+            require(launches == want, f"evaluate-sample launches {launches}, want {want}")
+            ev = os.path.join(rd, "evaluate")
+            counts = {"gen": _count(os.path.join(ev, "gen"), r"\d+\.jpg"),
+                      "adj": _count(os.path.join(ev, "adj"), r"(real|fake)_\d+\.jpg"),
+                      "disc": _count(os.path.join(ev, "disc"), r"\d+\.json")}
+            require(counts == {"gen": EVAL_SAMPLES, "adj": 2 * EVAL_SAMPLES, "disc": calls}, counts)
+            record["evaluate_sample"] = {"wall_s": wall, "images_per_s": EVAL_SAMPLES / wall, "launches": launches}
+            log(f"evaluate-sample: {EVAL_SAMPLES} images ({calls} sample_u8 calls) in {wall:.2f} s host wall, "
+                f"{EVAL_SAMPLES / wall:.1f} images/s; launches {launches} ({calls} x {SAMPLE_LAUNCHES}); files {counts}")
+            record["sample_u8"] = check_sample_u8(cfg)
+
+            record["evaluate"] = check_evaluate(cfg)
+        finally:
+            os.chdir(cwd)
+    record["inception"] = check_inception()
+    record["newton_schulz"] = check_newton_schulz()
+    return launches, record
+
+
+def check_sample_u8(cfg):
+    """One sample_u8 batch: host wall and device busy (torch.profiler), and
+    the kernels' result against the same weights through the plain
+    versions. Both trainers are dropped before returning."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.training.trainer import Trainer
+
+    image, cond = next(SyntheticDataset(cfg, num_items=cfg.batch_size).epoch_iterator(7))
+    noise = np.random.default_rng(7).standard_normal((cfg.batch_size, cfg.noise_dim)).astype(np.float32)
+    trainer = Trainer(cfg.replace(reuse=True, restore=True), None)
+    for _ in range(3):
+        trainer.sample_u8(noise, cond, image)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        got = trainer.sample_u8(noise, cond, image)
+    wall = (time.perf_counter() - t0) * 1e3 / 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            trainer.sample_u8(noise, cond, image)
+    device = device_events(prof)
+    busy = sum(e.self_device_time_total for e in device) / 5 / 1e3
+    ops = sum(e.count for e in device) / 5
+    log(f"sample_u8, batch {cfg.batch_size}: {wall:.3f} ms per call (host wall, mean of 10, uint8 in and out); "
+        f"device busy {busy:.3f} ms ({ops:.0f} device ops); idle share {1 - busy / wall:.1%}; "
+        f"{cfg.batch_size / wall * 1e3:.1f} images/s")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 5 / 1e3:.4f} ms  x{e.count / 5:g}  {e.key[:90]}")
+
+    counters = _counters()
+    before = {k: c.value for k, c in counters.items()}
+    plain = Trainer(cfg.replace(reuse=True, restore=True, use_pallas=False, use_pallas_boundary=False), None)
+    want = plain.sample_u8(noise, cond, image)
+    require({k: c.value for k, c in counters.items()} == before, "the plain sample_u8 launched a kernel")
+    errs = {}
+    for name, g, w in zip(("gen", "adj_real", "adj_fake"), (got[0], got[2], got[3]), (want[0], want[2], want[3])):
+        d = np.abs(g.astype(np.int32) - w.astype(np.int32))
+        errs[name] = {"max_levels": int(d.max()), "mean_levels": float(d.mean())}
+        require(d.max() <= SAMPLE_TOL["max_levels"] and d.mean() <= SAMPLE_TOL["mean_levels"],
+                f"sample_u8 {name} vs plain: {errs[name]}")
+    score_err = max(int(np.abs(np.asarray(got[1][k]) - np.asarray(want[1][k])).max())
+                    for k in ("real_pr", "real_c", "fake_pr", "fake_c"))
+    require(score_err <= SAMPLE_TOL["score_points"], f"sample_u8 scores vs plain: {score_err} points")
+    log(f"sample_u8 with the kernels vs the plain versions (bf16, same weights and inputs): {errs}; "
+        f"scores within {score_err} percentage points (tolerance {SAMPLE_TOL})")
+    del trainer, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall, "device_busy_ms": busy, "device_ops": ops, "idle_share": 1 - busy / wall,
+            "vs_plain": errs, "score_points": score_err}
+
+
+def check_evaluate(cfg):
+    """Real-side statistics from EVAL_SAMPLES synthetic JPEGs (with raw
+    features for KID and PRDC), then the evaluate mode on gen and adj."""
+    import numpy as np
+
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.eval import evaluate as ev
+    from littlegan_tpu_torch.utils.image import BatchImageWriter
+
+    real = os.path.join(os.getcwd(), "real")
+    os.makedirs(real)
+    with BatchImageWriter() as w:
+        i = 0
+        for image, _ in SyntheticDataset(cfg, num_items=EVAL_SAMPLES).epoch_iterator(11):
+            for row in image:
+                w.save(row, os.path.join(real, f"{i}.jpg"))
+                i += 1
+    stats = os.path.join(cfg.test_data_dir, cfg.evaluate_pre_calculated)
+    t0 = time.perf_counter()
+    require(ev.main(["pre-calculate", real, stats, "--save-features", str(EVAL_SAMPLES)]) == 0, "pre-calculate")
+    pre = time.perf_counter() - t0
+    log(f"pre-calculate: {i} JPEGs in {pre:.2f} s host wall ({i / pre:.1f} images/s, decode included)")
+    wall = _mode("evaluate", "eval")
+    lines = {}
+    for sub in ("gen", "adj"):
+        with open(os.path.join(cfg.result_dir, "evaluate", f"fid-{sub}.log")) as f:
+            text = f.read()
+        for tag in ("FID", "IS", "KID", "PRDC"):
+            require(f"{tag}[RANDOM-INIT Inception, NOT comparable]" in text, f"fid-{sub}.log lacks {tag}: {text}")
+        lines[sub] = [line.split(" ", 2)[2] for line in text.strip().splitlines()]  # without the time stamp
+        nums = [float(x) for x in re.findall(r"-?(?:\d+(?:\.\d*)?(?:e[+-]?\d+)?|nan|inf)", " ".join(lines[sub]))]
+        # FID 1, IS 2, KID 2, PRDC k and 4
+        require(len(lines[sub]) == 4 and len(nums) == 10 and all(np.isfinite(nums)), f"fid-{sub}.log: {text}")
+        log(f"  fid-{sub}.log: " + " | ".join(lines[sub]))
+    log(f"evaluate ({EVAL_SAMPLES} gen + {2 * EVAL_SAMPLES} adj images, FID/IS/KID/PRDC): {wall:.2f} s host wall")
+    return {"precalculate_s": pre, "wall_s": wall, "logs": lines}
+
+
+def check_inception():
+    """Inception features of 16 images on the card against the CPU's, both
+    float32; the same with TF32 allowed, for its error; featurisation time
+    at batch FEATURE_BATCH, without and with TF32."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.eval import inception as inc
+
+    host = inc.init_inception_params("", seed=0)
+    dev, cpu = inc.device_params(host, "cuda"), inc.device_params(host, "cpu")
+    imgs = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (16, 128, 128, 3), dtype=np.uint8))
+    want = inc.inception_features(cpu, imgs)
+    got = inc.inception_features(dev, imgs.cuda()).cpu()
+    atol, rtol = FEATURE_TOL
+    err = _max_err(got, want)
+    require(_within(got, want, atol, rtol), f"Inception features card vs CPU: max_abs_err {err:.3g}")
+    batch = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (FEATURE_BATCH, 128, 128, 3), dtype=np.uint8))
+    batch = batch.cuda()
+    f32_ms = eager_ms(lambda: inc.inception_features(dev, batch), reps=10)
+
+    @contextlib.contextmanager
+    def tf32():
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+
+    with mock.patch.object(inc, "exact_float32", tf32):
+        tf32_err = _max_err(inc.inception_features(dev, imgs.cuda()).cpu(), want)
+        tf32_ms = eager_ms(lambda: inc.inception_features(dev, batch), reps=10)
+    scale = float(want.abs().max())
+    log(f"Inception features, 16 images 128->299, card vs CPU (float32, no TF32): max_abs_err {err:.3g} "
+        f"(|features| up to {scale:.3g}; tolerance atol {atol} + rtol {rtol}); with TF32 allowed: {tf32_err:.3g}")
+    log(f"Inception featurisation, batch {FEATURE_BATCH} uint8 128x128 on the card: {f32_ms:.2f} ms per call, "
+        f"{FEATURE_BATCH / f32_ms * 1e3:.1f} images/s (float32); with TF32 {tf32_ms:.2f} ms, "
+        f"{FEATURE_BATCH / tf32_ms * 1e3:.1f} images/s")
+    return {"max_abs_err": err, "tf32_max_abs_err": tf32_err, "scale": scale, "ms_per_100": f32_ms,
+            "images_per_s": FEATURE_BATCH / f32_ms * 1e3, "tf32_ms_per_100": tf32_ms}
+
+
+def ns_pair(dim, seed):
+    """A well-conditioned (mu1, S1, mu2, S2) at ``dim`` with its exact
+    Fréchet distance: S1 = Q diag(a) Q^T and S2 = S1^-1/2 M S1^-1/2 with
+    M = P diag(m) P^T (Q, P random orthogonal, a and m in [0.5, 2]), so
+    S1 S2 = S1^1/2 M S1^-1/2 is similar to M, Tr sqrt(S1 S2) = sum sqrt(m),
+    and the two do not commute."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q = np.linalg.qr(rng.normal(size=(dim, dim)))[0]
+    p = np.linalg.qr(rng.normal(size=(dim, dim)))[0]
+    a, m = rng.uniform(0.5, 2.0, dim), rng.uniform(0.5, 2.0, dim)
+    s1 = (q * a) @ q.T
+    r = (q * a ** -0.5) @ q.T
+    s2 = r @ ((p * m) @ p.T) @ r
+    s2 = (s2 + s2.T) / 2
+    mu1, mu2 = rng.normal(size=dim), rng.normal(size=dim) * 0.1
+    exact = float((mu1 - mu2) @ (mu1 - mu2) + a.sum() + np.trace(s2) - 2 * np.sqrt(m).sum())
+    return (mu1, s1, mu2, s2), exact
+
+
+def check_newton_schulz():
+    """Newton–Schulz FID on the card against the exact value of a 2048-d
+    pair (``ns_pair``), and against scipy's ``frechet_distance`` on a
+    ``NS_SCIPY_DIM``-d one: scipy's sqrtm of a 2048² product takes 10-30 s
+    on the host, which ``evaluate`` already spends twice."""
+    from littlegan_tpu_torch.eval import fid
+
+    stats, exact = ns_pair(2048, 0)
+    fid.frechet_distance_newton_schulz(*stats)  # warm-up
+    t0 = time.perf_counter()
+    ns = fid.frechet_distance_newton_schulz(*stats)
+    ns_s = time.perf_counter() - t0
+    rel = abs(ns - exact) / abs(exact)
+    require(rel <= NS_RTOL, f"Newton–Schulz FID {ns} vs exact {exact} at 2048-d: rel {rel:.3g}")
+    small, _ = ns_pair(NS_SCIPY_DIM, 1)
+    t0 = time.perf_counter()
+    host = fid.frechet_distance(*small)
+    host_s = time.perf_counter() - t0
+    ns_small = fid.frechet_distance_newton_schulz(*small)
+    rel_small = abs(ns_small - host) / abs(host)
+    require(rel_small <= NS_RTOL, f"Newton–Schulz FID {ns_small} vs scipy {host} at {NS_SCIPY_DIM}-d: "
+            f"rel {rel_small:.3g}")
+    log(f"FID, 2048-d: Newton–Schulz on the card {ns:.6f} ({ns_s * 1e3:.1f} ms host wall) vs exact {exact:.6f}: "
+        f"rel err {rel:.3g}; {NS_SCIPY_DIM}-d: {ns_small:.6f} vs scipy {host:.6f} ({host_s:.2f} s): "
+        f"rel err {rel_small:.3g} (tolerance {NS_RTOL})")
+    return {"ns": ns, "exact": exact, "rel_err": rel, "ns_s": ns_s, "scipy_dim": NS_SCIPY_DIM,
+            "ns_small": ns_small, "scipy": host, "scipy_rel_err": rel_small, "scipy_s": host_s}
+
+
+def summarize(records, serve_launches, train_launches, dispatch_launches, eval_launches):
     """One JSON record per kernel, bf16 (the working dtype): summed over the
     launches of one train step where phase (b) timed the train shapes, else
     over the shapes one /adjust call gives it ("per" says which; a kernel
     timed on both paths adds the /adjust sums as "serve_ms",
     "serve_plain_ms", "serve_bound_ms"); per-shape numbers under "shapes".
-    "launches" counts the three paths' runs (serve, host-fed train,
-    CUDA-graph dispatch), split in "launches_by_path"."""
+    "launches" counts the four paths' runs (serve, host-fed train,
+    CUDA-graph dispatch, evaluate-sample), split in "launches_by_path"."""
     meta = {
         "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
                                       "littlegan_tpu/ops/pallas/norm_lrelu.py:111"),
@@ -1469,7 +1805,7 @@ def summarize(records, serve_launches, train_launches, dispatch_launches):
         shapes = train or serve
         lib = None if shapes[0]["library_ms"] is None else tot("library_ms", shapes)
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
-                   "dispatch": dispatch_launches.get(name, 0)}
+                   "dispatch": dispatch_launches.get(name, 0), "eval": eval_launches.get(name, 0)}
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1514,16 +1850,27 @@ def main() -> int:
                 log("    " + line.strip())
     check_tensor_cores(so)
 
+    walls = {"build": time.time() - t0}
+    t0 = time.time()
     records = check_kernels()
     records.update(check_backward_kernels())
     log("K1 routes: " + json.dumps(compare_fwd_routes()))
     log("backward routes: " + json.dumps(compare_bwd_routes()))
+    walls["b"], t0 = time.time() - t0, time.time()
     serve_launches = check_serving(full_config())
+    walls["c"], t0 = time.time() - t0, time.time()
     train_launches, train = check_training()
     log("train record: " + json.dumps(train))
+    walls["d"], t0 = time.time() - t0, time.time()
     dispatch_launches, dispatch = check_dispatch()
     log("dispatch record: " + json.dumps(dispatch))
-    log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches)}))
+    walls["e"], t0 = time.time() - t0, time.time()
+    eval_launches, evaluation = check_eval()
+    log("eval record: " + json.dumps(evaluation))
+    walls["f"] = time.time() - t0
+    log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
+                                         eval_launches)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

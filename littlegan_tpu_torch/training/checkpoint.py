@@ -124,8 +124,12 @@ class Checkpointer:
     def save(self, tag: str, state, status: Optional[Dict[str, Any]] = None) -> str:
         """Write a TrainState atomically under ``tag``, then ``status`` to
         ``status.json``."""
+        return self.save_flat(tag, flatten_state(state), status)
+
+    def save_flat(self, tag: str, flat: Dict[str, np.ndarray], status: Optional[Dict[str, Any]] = None) -> str:
+        """Write arrays under their path keys atomically as ``tag`` (a
+        weights-only export holds the bare parameter keys), then ``status``."""
         os.makedirs(self.directory, exist_ok=True)
-        flat = flatten_state(state)
         fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
         try:
             with os.fdopen(fd, "wb") as f:

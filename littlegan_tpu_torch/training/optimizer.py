@@ -119,19 +119,25 @@ def _adam_math(g: List[torch.Tensor], m: List[torch.Tensor], v: List[torch.Tenso
     """(m', v', the amounts to subtract from the parameters) of one v1 Adam
     update of each leaf, float32; m' and v' are m and v updated in place
     when ``in_place``. ``steps``: each leaf's ``lr_t``, Python floats or
-    0-dim float32 tensors (the same product either way)."""
+    0-dim float32 tensors (the same product either way).
+
+    Rounded in the JAX function's order: ``b1*m + (1-b1)*g``,
+    ``b2*v + (1-b2)*(g*g)`` and ``(lr_t*m') / (sqrt(v') + eps)``, each
+    product rounded on its own (no fused ``addcmul``/``alpha`` forms)."""
     if in_place:
         torch._foreach_mul_(m, b1)
         torch._foreach_mul_(v, b2)
         m_new, v_new = m, v
     else:
         m_new, v_new = torch._foreach_mul(m, b1), torch._foreach_mul(v, b2)
-    torch._foreach_add_(m_new, g, alpha=1.0 - b1)
-    torch._foreach_addcmul_(v_new, g, g, value=1.0 - b2)
+    torch._foreach_add_(m_new, torch._foreach_mul(g, 1.0 - b1))
+    g2 = torch._foreach_mul(g, g)
+    torch._foreach_mul_(g2, 1.0 - b2)
+    torch._foreach_add_(v_new, g2)
     denom = torch._foreach_sqrt(v_new)
     torch._foreach_add_(denom, eps)
-    delta = torch._foreach_div(m_new, denom)
-    torch._foreach_mul_(delta, list(steps))
+    delta = torch._foreach_mul(m_new, list(steps))
+    torch._foreach_div_(delta, denom)
     return m_new, v_new, delta
 
 

@@ -35,6 +35,12 @@ sequential one would have. The fixture's noise (and its image, without a
 dataset) come from numpy seeded from ``cfg.seed``: other numbers than the
 JAX package's ``jax.random`` streams.
 
+Inference with the eval weights (the EMA of G's parts when the run keeps
+one): ``predict`` on the fixture, ``generate``/``adjust``, and
+``sample_u8``, evaluate-sample's batch as one ``inference_mode`` call with
+uint8 images both in and out. ``plot`` writes ``models.txt`` and one
+``.dot`` graph per network, ``export_model_checkpoint`` a weights-only npz.
+
 It runs on the card unless ``device="cpu"`` is given; without a card and
 without that argument it raises. Not ported yet, and refused with
 ``NotImplementedError``: the step options of ``step.check_supported``
@@ -56,6 +62,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from littlegan_tpu_torch.compat.jax_params import jax_key
 from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.data.celeba import epoch_batch_order
 from littlegan_tpu_torch.models.littlegan import LittleGAN
@@ -67,7 +74,9 @@ from littlegan_tpu_torch.training.step import (
     make_scan_accum_train_step, make_scan_train_step, make_train_step, stack_draws,
 )
 from littlegan_tpu_torch.utils.device import resolve_device
-from littlegan_tpu_torch.utils.image import ensure_pm1, inverse_rescale, save_image, soft, to_grid
+from littlegan_tpu_torch.utils.image import (
+    data_rescale, ensure_pm1, inverse_rescale, save_image, soft, to_grid,
+)
 from littlegan_tpu_torch.utils.provenance import init_result_dirs, snapshot_run
 from littlegan_tpu_torch.utils.tensorboard import SummaryWriter
 
@@ -157,8 +166,10 @@ class Trainer:
         self._interrupt_requested = False
         self._nonfinite_warned = False
         self._in_train = False
+        self._pinned_tags: set = set()
         self._device_store: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._scan_steps: Dict[int, object] = {}  # K -> K-update step (one CUDA graph each)
+        self._eval_model: Optional[LittleGAN] = None  # see eval_model
         self._init_fixture()
         if cfg.grad_accum > 1 and getattr(dataset, "batches", None) is not None \
                 and dataset.batches < 2 * cfg.grad_accum:
@@ -300,12 +311,36 @@ class Trainer:
         if cfg.ckpt_every > 1 and epoch % cfg.ckpt_every != 0 and epoch != cfg.epoch:
             return
         self.checkpointer.save(str(epoch), self.state, {"epoch": epoch + 1, "step": self.global_step})
-        if cfg.keep_checkpoints > 0 and not self._nonfinite_warned:
-            for tag in self.checkpointer.epoch_tags()[: -cfg.keep_checkpoints]:
+        if cfg.keep_checkpoints > 0:
+            self._prune_checkpoints(cfg.keep_checkpoints)
+
+    def _prune_checkpoints(self, keep: int) -> None:
+        """Drop all but the newest ``keep`` epoch checkpoints, except pinned
+        ones; after a non-finite loss nothing is dropped, so the
+        pre-divergence epochs stay on disk."""
+        if self._nonfinite_warned:
+            return
+        for tag in self.checkpointer.epoch_tags()[:-keep]:
+            if int(tag) not in self._pinned_tags:
                 self.checkpointer.delete(tag)
 
-    def train(self) -> None:
-        """Train from the restored epoch to ``cfg.epoch``."""
+    def pin_checkpoint(self, tag) -> None:
+        """Exempt an epoch checkpoint from pruning (an eval-driven caller
+        keeping its best epoch). Pins live in this Trainer only: a resumed
+        run starts with none."""
+        self._pinned_tags.add(int(tag))
+
+    def unpin_checkpoint(self, tag) -> None:
+        """Drop a pin; the tag is prunable again at the next rotation."""
+        self._pinned_tags.discard(int(tag))
+
+    def train(self, epoch_callback=None) -> None:
+        """Train from the restored epoch to ``cfg.epoch``.
+
+        ``epoch_callback(epoch)``, when given, runs after each epoch's
+        checkpoint is written (and pruned); with ``ckpt_every > 1`` it still
+        runs every epoch. Its exceptions propagate and end the run, the
+        epoch's checkpoint being on disk already."""
         cfg = self.cfg
         if self.dataset is None:
             raise ValueError("train mode needs a dataset")
@@ -340,6 +375,8 @@ class Trainer:
                 self._save_epoch_checkpoint(epoch)
                 if self._interrupt_requested:
                     self._save_interrupt()
+                if epoch_callback is not None:
+                    epoch_callback(epoch)
         finally:
             self._in_train = False
             if main:
@@ -485,13 +522,22 @@ class Trainer:
     # ----------------------------------------------------------- predict ----
 
     def eval_model(self) -> LittleGAN:
-        """The model inference uses: the live one, or a copy with the EMA of
-        G's parts when the run keeps one."""
+        """The model inference uses: the live one, or, when the run keeps an
+        EMA of G's parts, a second model over the same storage with the EMA
+        in G's place. That one is built once: the step and ``restore``
+        update both the parameters and the EMA in place, so it stays current
+        without a copy."""
         if self.state.ema is None:
             return self.state.model
-        model = LittleGAN(self.cfg).to(self.device)
-        model.load_state_dict(eval_params(self.state))
-        return model
+        if self._eval_model is None:
+            with torch.device("meta"):
+                model = LittleGAN(self.cfg)
+            model.load_state_dict(eval_params(self.state), assign=True)
+            self._eval_model = model.requires_grad_(False)
+        return self._eval_model
+
+    def _tensor(self, a, dtype=np.float32) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(self.device)
 
     def predict(
         self, noise, cond, image, gen_image_save_path: Optional[str] = None,
@@ -502,7 +548,7 @@ class Trainer:
         (gen image, scores, adjusted real, adjusted generated) as numpy."""
         cfg = self.cfg
         model = self.eval_model()
-        t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(self.device)  # noqa: E731
+        t = self._tensor
         with torch.inference_mode():
             start = time.time()
             gen = model.generator(t(noise), t(cond)).float()
@@ -528,3 +574,114 @@ class Trainer:
             if adj_real is not None:
                 self.writer.image("test/adj", grid(np.concatenate([adj_real, adj_fake])), self.global_step)
         return gen_np, save, adj_real, adj_fake
+
+    def generate(self, noise, cond) -> np.ndarray:
+        """G(noise, cond) with the eval weights, f32 [-1, 1] NHWC."""
+        with torch.inference_mode():
+            return self.eval_model().generator(self._tensor(noise), self._tensor(cond)).float().cpu().numpy()
+
+    def adjust(self, image, cond) -> np.ndarray:
+        """The adjuster on ``image`` ([-1, 1] NHWC) and ``cond``, eval weights."""
+        with torch.inference_mode():
+            return self.eval_model().adjuster(self._tensor(image), self._tensor(cond)).float().cpu().numpy()
+
+    def sample_u8(self, noise, cond, image) -> Tuple[np.ndarray, Dict, Optional[np.ndarray], Optional[np.ndarray]]:
+        """evaluate-sample's batch in one ``inference_mode`` call, uint8
+        images both in and out: G on (noise, cond), D on the real and the
+        generated images and, with ``train_adj``, the adjuster on both.
+
+        ``image``: uint8 [0, 255] rows as the pipeline yields them, or f32
+        [-1, 1] (quantised and clipped on the host first). Outputs are
+        quantised on the card with ``clip(round((y + 1) * 127.5), 0, 255)``,
+        which rounds half to even as numpy and JAX do. Returns ``(gen_u8,
+        d_score_stats dict, adj_real_u8 | None, adj_fake_u8 | None)``."""
+        arr = np.asarray(image)
+        if arr.dtype != np.uint8:
+            arr = np.clip(inverse_rescale(arr), 0, 255).astype(np.uint8)
+        q = lambda y: torch.clamp(torch.round((y.float() + 1.0) * 127.5), 0, 255).to(torch.uint8)  # noqa: E731
+        model = self.eval_model()
+        with torch.inference_mode():
+            c = self._tensor(cond)
+            img = data_rescale(self._tensor(arr, np.uint8).float())
+            gen = model.generator(self._tensor(noise), c).float()
+            scores = [*model.discriminator(img), *model.discriminator(gen)]
+            images = [q(gen)]
+            if self.cfg.train_adj:
+                images += [q(model.adjuster(img, c)), q(model.adjuster(gen, c))]
+            images = torch.stack(images).cpu().numpy()  # one copy of each kind back
+            widths = [t.shape[1] for t in scores]
+            scores = np.split(torch.cat([t.float() for t in scores], 1).cpu().numpy(), np.cumsum(widths)[:-1], 1)
+        stats = d_score_stats(np.asarray(cond, np.float32), *scores)
+        if self.cfg.train_adj:
+            return images[0], stats, images[1], images[2]
+        return images[0], stats, None, None
+
+    # -------------------------------------------------------------- plot ----
+
+    def _plot_specs(self):
+        """(network, [(top-level label, part)]) as the JAX trainer's plot
+        groups the parameter tree."""
+        specs = [
+            ("Encoder", [("encoder", "encoder")]),
+            ("Decoder", [("decoder", "decoder")]),
+            ("Discriminator", [("encoder", "encoder"), ("d_head", "d_head")]),
+            ("Generator", [(k, k) for k in ("g_head", "decoder", "out_conv")]),
+        ]
+        if self.cfg.train_adj:
+            specs.append(("Adjuster", [("encoder (shared w/ D)", "encoder"), ("adj_head (own)", "adj_head"),
+                                       ("decoder (shared w/ G)", "decoder"), ("out_conv (shared w/ G)", "out_conv")]))
+        return specs
+
+    def _leaves(self, parts) -> list:
+        """(path key, shape) of each parameter under ``parts``, in the JAX
+        package's leaf order: sorted keys at every level, ``/``-joined."""
+        by_part: Dict[str, list] = {}
+        for name, p in self.state.model.named_parameters():
+            top, rest = name.split(".", 1)
+            by_part.setdefault(top, []).append((jax_key(rest).split("/"), tuple(p.shape)))
+        leaves = [([label] + path, shape) for label, part in parts for path, shape in by_part[part]]
+        return [("/".join(path), shape) for path, shape in sorted(leaves)]
+
+    def plot(self) -> str:
+        """Each network's parameters, shapes and sizes -> ``models.txt``
+        (the layout of the JAX trainer's), plus a ``<network>.dot`` graph
+        of its kernels. Returns the text."""
+        sections = []
+        for name, parts in self._plot_specs():
+            leaves = self._leaves(parts)
+            pad = max(0, (53 - len(name)) // 2)
+            lines = ["=" * pad + f"   Model: {name}  " + "=" * pad]
+            lines += [f"  {key:<48} {str(shape):<18} {int(np.prod(shape))}" for key, shape in leaves]
+            lines.append(f"  total parameters: {sum(int(np.prod(shape)) for _, shape in leaves)}")
+            sections.append("\n".join(lines))
+            self._write_dot(name, leaves)
+        text = "\n\n".join(sections) + "\n"
+        with open(os.path.join(self.cfg.result_dir, "models.txt"), "w") as f:
+            f.write(text)
+        return text
+
+    def _write_dot(self, name: str, leaves) -> None:
+        """A graphviz chain of the network's kernels, in leaf order."""
+        lines = [f'digraph "{name}" {{', "  rankdir=TB;", "  node [shape=record];"]
+        prev = None
+        for key, shape in leaves:
+            if not key.endswith("kernel"):
+                continue
+            node = key.replace("/", "_").replace(" ", "_")
+            lines.append(f'  {node} [label="{key.rsplit("/", 1)[0]}\\n{shape}"];')
+            if prev:
+                lines.append(f"  {prev} -> {node};")
+            prev = node
+        lines.append("}")
+        with open(os.path.join(self.cfg.result_dir, f"{name}.dot"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    # ------------------------------------------------------------ export ----
+
+    def export_model_checkpoint(self) -> str:
+        """The eval weights alone as ``model/ckpt-model.npz``, under the
+        JAX package's bare parameter keys; returns its path."""
+        from littlegan_tpu_torch.training.checkpoint import to_numpy
+
+        flat = {jax_key(k): to_numpy(v) for k, v in eval_params(self.state).items()}
+        return make_checkpointer(self.cfg, os.path.join(self.cfg.result_dir, "model")).save_flat("model", flat)

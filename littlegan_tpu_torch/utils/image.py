@@ -6,6 +6,7 @@
 - ``ensure_pm1``: uint8 -> f32 [-1,1]; [-1,1] floats pass through.
 - ``to_grid`` / ``save_image``: a batch tiled into one image (index fills
   columns downward) and saved with PIL.
+- ``BatchImageWriter``: ``save_image`` on a thread pool, for bulk writers.
 """
 
 from __future__ import annotations
@@ -77,3 +78,49 @@ def save_image(image, path: Optional[str] = None, shape: Tuple[Optional[int], Op
         return img
     img.save(path)
     return img
+
+
+class BatchImageWriter:
+    """Thread-pooled ``save_image`` for bulk writers (``evaluate-sample``).
+
+    PIL's JPEG encoder releases the GIL, so a small pool overlaps encoding
+    and disk writes with the card computing the next batch. At most
+    ``max_pending`` writes wait at once, so a fast producer cannot pile
+    unencoded batches in memory; a worker's error re-raises on a later
+    ``save`` or on ``close``. As a context manager, a clean exit waits for
+    every write.
+    """
+
+    def __init__(self, workers: int = 8, max_pending: Optional[int] = None):
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="imgwrite")
+        self._pending = deque()
+        self._max = max_pending if max_pending is not None else workers * 4
+
+    def save(self, image, path: str, shape: Tuple[Optional[int], Optional[int]] = (None, None)):
+        self._drain(block=len(self._pending) >= self._max)
+        self._pending.append(self._pool.submit(save_image, np.asarray(image), path, shape))
+
+    def _drain(self, block: bool) -> None:
+        while self._pending and (block or self._pending[0].done()):
+            self._pending.popleft().result()  # re-raises a worker's error
+            block = False
+
+    def close(self) -> None:
+        try:
+            while self._pending:
+                self._pending.popleft().result()
+        finally:
+            self._pool.shutdown(wait=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if exc[0] is None:
+            self.close()
+        else:  # already unwinding: do not mask the original exception
+            self._pending.clear()
+            self._pool.shutdown(wait=True)

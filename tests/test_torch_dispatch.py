@@ -361,8 +361,8 @@ def test_accum_grads_match_jax(tiny_cfg, adj_half):
 
 
 def test_host_form_adam_within_an_ulp_of_fused_addcdiv():
-    """``masked_adam_update`` subtracts ``(m / denom) * lr_t`` (the row
-    form's arithmetic) where a fused ``addcdiv`` adds ``-lr_t * m / denom``
+    """``masked_adam_update`` subtracts ``(lr_t * m) / denom`` (the row
+    form's and JAX's arithmetic) where a fused ``addcdiv`` adds ``-lr_t * m / denom``
     from the same moments: over twenty updates of float32 leaves each
     weight stays within one ulp of the fused update's (of the larger of
     the weight and its step, where the weight is smaller than its step)."""

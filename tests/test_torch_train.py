@@ -10,8 +10,8 @@ the draws to the port. Weights come from JAX ``init_params`` through
 Tolerances: losses and augmentation rtol 1e-5 / atol 1e-6 (same math, f32);
 encoder grads with both kernel flags rtol 1e-3 / atol 1e-5
 (tests/test_pallas.py:169-172); Adam on equal gradients: weights rtol 1e-6
-(atol 2e-7 with bf16 moments), f32 moments rtol 1e-5, bf16 moments two of
-their ulps.
+(atol 2e-7 with bf16 moments), f32 moments exactly, bf16 moments two of
+their ulps; one f32 update bit for bit but for ``ADAM_BIT_MISSES`` weights.
 """
 
 import dataclasses
@@ -223,17 +223,18 @@ def test_masked_adam_matches_jax_over_a_partition_period(jparams, tick_all, mome
         tmask = tpart.resolve_mask(tmasks, batch_no, True, 4)
         topt.masked_adam_update({n: t(g) for n, g in zip(names, grads.values())}, tstate, tparams, tmask,
                                 5e-5, 0.5, 0.9, tick_all=tick_all)
-        # f32 moments to rtol 1e-5; bf16 storage to two of its ulps (2^-7):
-        # the f32 values may differ in their last bit and round either way,
-        # which moves a weight by up to lr_t * 2^-7 (~2e-7) more or less
-        mtol = 1e-5 if moments == "float32" else 2 ** -7
+        # f32 moments exactly (JAX's rounding order); bf16 storage to two of
+        # its ulps (2^-7): the f32 update of a weight may differ in its last
+        # bit, which moves the next moments' rounding, and a weight by up to
+        # lr_t * 2^-7 (~2e-7) more or less
+        mtol = 0.0 if moments == "float32" else 2 ** -7
         patol = 1e-9 if moments == "float32" else 2e-7
         for n, (k, want) in zip(names, _flatten(jp).items()):
             np.testing.assert_allclose(tparams[n].numpy(), np.asarray(want), rtol=1e-6, atol=patol, err_msg=k)
         for part, tpart_ in (("mu", tstate.mu), ("nu", tstate.nu)):
             for n, (k, want) in zip(names, _flatten(getattr(jstate, part)).items()):
                 np.testing.assert_allclose(tpart_[n].float().numpy(), np.asarray(want, np.float32),
-                                           rtol=mtol, atol=1e-10, err_msg=f"{part} {k} at {batch_no}")
+                                           rtol=mtol, atol=1e-10 if mtol else 0.0, err_msg=f"{part} {k} at {batch_no}")
         assert [tstate.count[n] for n in names] == [int(c) for c in _flatten(jstate.count).values()]
 
 
@@ -244,6 +245,53 @@ def test_masked_adam_leaves_masked_off_leaves_untouched_by_nan():
     topt.masked_adam_update(grads, state, p, {"a": 0.0, "b": 1.0}, 1e-3, 0.5, 0.9)
     assert torch.equal(p["a"], torch.ones(3)) and torch.equal(state.mu["a"], torch.zeros(3))
     assert state.count == {"a": 0, "b": 1} and bool((p["b"] < 1).all())
+
+
+# weights (of 13 x 5 x 200k) whose f32 update may differ from JAX's, by one
+# ulp of the larger of the weight and its step: the rounding order is JAX's,
+# but XLA may fuse the last subtract differently (2 differed when this was set)
+ADAM_BIT_MISSES = 8
+
+
+@pytest.mark.parametrize("form", ["host", "rows"])
+def test_masked_adam_equals_jax_bit_for_bit(form):
+    """One f32 update of five 200k-weight leaves at each apply count 1-13
+    (b1 0.5, b2 0.999), from the same weights, moments and gradients, through
+    JAX ``masked_adam_update`` and the port's host form
+    (``masked_adam_update``) or row form (``advance_counts`` +
+    ``masked_adam_update_rows``): moments and counts equal bit for bit, the
+    weights on all but ``ADAM_BIT_MISSES``."""
+    rng = np.random.default_rng(0)
+    names, n = [f"l{i}" for i in range(5)], 200_000
+    misses = 0
+    for c in range(1, 14):
+        draw = lambda scale: {k: (rng.normal(size=n) * scale).astype(np.float32) for k in names}  # noqa: E731
+        p, g = draw(1.0), draw(0.1)
+        m = draw(0.05) if c > 1 else {k: np.zeros(n, np.float32) for k in names}
+        v = {k: np.abs(a) for k, a in draw(0.01).items()} if c > 1 else {k: np.zeros(n, np.float32) for k in names}
+        jstate = jopt.AdamState(count={k: jnp.int32(c - 1) for k in names}, mu={k: jnp.asarray(m[k]) for k in names},
+                                nu={k: jnp.asarray(v[k]) for k in names})
+        ones = {k: 1.0 for k in names}
+        jp, jstate = jopt.masked_adam_update({k: jnp.asarray(g[k]) for k in names}, jstate,
+                                             {k: jnp.asarray(p[k]) for k in names}, ones, 5e-5, 0.5, 0.999)
+        tp, tg = {k: t(p[k]) for k in names}, {k: t(g[k]) for k in names}
+        tstate = topt.AdamState(count={k: c - 1 for k in names}, mu={k: t(m[k]) for k in names},
+                                nu={k: t(v[k]) for k in names})
+        if form == "host":
+            topt.masked_adam_update(tg, tstate, tp, ones, 5e-5, 0.5, 0.999)
+        else:
+            steps = topt.advance_counts(tstate, np.ones((1, len(names)), np.float32), 5e-5, 0.5, 0.999)
+            topt.masked_adam_update_rows(tg, tstate, tp, torch.ones(len(names)), t(steps[0]), 0.5, 0.999)
+        for k in names:
+            np.testing.assert_array_equal(tstate.mu[k].numpy(), np.asarray(jstate.mu[k]), err_msg=f"mu {k} at {c}")
+            np.testing.assert_array_equal(tstate.nu[k].numpy(), np.asarray(jstate.nu[k]), err_msg=f"nu {k} at {c}")
+            assert tstate.count[k] == int(jstate.count[k]) == c
+            got, want = tp[k].numpy(), np.asarray(jp[k])
+            off = got != want
+            misses += int(off.sum())
+            ulp = np.spacing(np.maximum(np.abs(want), np.abs(p[k] - want)))
+            assert np.all(np.abs(got - want)[off] <= ulp[off]), (k, c)
+    assert misses <= ADAM_BIT_MISSES, misses
 
 
 # ------------------------------------------------------ encoder gradients --

@@ -7,7 +7,7 @@
 - an interrupted run resumed mid-epoch ends bit-identical to an
   uninterrupted one;
 - a 1-epoch synthetic ``train`` through ``python -m littlegan_tpu_torch``'s
-  ``main`` writes its artifacts; other modes exit 2; unported options raise
+  ``main`` writes its artifacts; ``--devices`` above 1 exits 2; unported options raise
   (the device-store and accumulation paths: tests/test_torch_trainer_device.py).
 """
 
@@ -149,8 +149,10 @@ def test_cli_trains_one_synthetic_epoch(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["plot", "serve", "evaluate-sample"])
 def test_cli_other_modes_exit_2(mode, capsys):
-    assert cli.main([mode, "exp1", "--device", "cpu"]) == 2
-    assert "not ported yet (ROADMAP A9)" in capsys.readouterr().err
+    """Every mode is ported (tests/test_torch_cli.py runs them); what still
+    exits 2 is a request for more than one card, in any mode."""
+    assert cli.main([mode, "exp1", "--device", "cpu", "--devices", "2"]) == 2
+    assert "multi-GPU is not ported yet (ROADMAP A13)" in capsys.readouterr().err
 
 
 def test_trainer_raises_without_a_card(tiny_cfg, tmp_path):
