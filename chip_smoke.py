@@ -73,7 +73,26 @@ Phases, each of which fails the run on any error:
       value of a well-conditioned 2048-d pair and against scipy's on a
       ``NS_SCIPY_DIM``-d one (``NS_RTOL``); prints evaluate-sample's
       images/s, Inception images/s at batch 100 and ``evaluate``'s host
-      wall. Each phase's wall is printed after (f).
+      wall;
+  (g) drives the single-card trainer's remaining options at the same full
+      width: ``GP_K`` updates with the gradient penalty (both kernel flags
+      off) as one CUDA graph replay against the same updates run eagerly,
+      bit for bit, with the update's time and peak memory against the same
+      graph without the penalty, and a GP step with a kernel flag refused;
+      ``REMAT_STEPS`` steps with both kernel flags on with and without
+      ``remat`` from one init (losses and weights to ``REMAT_TOL``, the
+      kernels' launches per step exactly ``EXPECTED_REMAT_LAUNCHES`` and
+      ``EXPECTED_TRAIN_LAUNCHES``, peak memory and time per step); one
+      ``GP_K``-update replay over an s2d-layout store against the raw
+      store (bit for bit, the same launches); a host-fed ``Trainer``
+      epoch with ``profile_steps`` whose trace holds K1's and K3's kernels
+      (its window gives the host-fed path's idle share); host-fed
+      ``Trainer`` epochs with the prefetch, with a synchronous copy and
+      through the gather path, in turns (images/s); and the CelebA
+      pipeline on synthetic JPEGs at 128x128 and 178x218 with the native
+      loader and with PIL (images/s on the host, and which decoder ran: a
+      host without libjpeg decodes with PIL). Each phase's wall is printed
+      after (g).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -1070,6 +1089,17 @@ def check_training():
     return launches, record
 
 
+def _put(batch, device):
+    """One host (images, conds) batch on ``device``, copied synchronously
+    from pageable memory."""
+    import numpy as np
+    import torch
+
+    img, cond = batch
+    return (torch.from_numpy(np.ascontiguousarray(img)).to(device),
+            torch.from_numpy(np.ascontiguousarray(cond, np.float32)).to(device))
+
+
 def compare_plain_step(trainer):
     """One step's losses and gradients with the kernels against the same
     weights and draws through the plain versions, on the card, bf16."""
@@ -1080,7 +1110,7 @@ def compare_plain_step(trainer):
 
     cfg = trainer.cfg
     it = trainer.dataset.epoch_iterator(1)
-    b1, b2 = trainer._put(next(it)), trainer._put(next(it))
+    b1, b2 = _put(next(it), trainer.device), _put(next(it), trainer.device)
     draws = trainer.draws(10_000)
     batch_no = 12
     grads, aux = compute_grads(trainer.state, b1, b2, draws, batch_no, cfg)
@@ -1125,7 +1155,7 @@ def time_train_step(trainer, reps: int = 10):
 
     cfg = trainer.cfg
     it = trainer.dataset.epoch_iterator(2)
-    b1, b2 = trainer._put(next(it)), trainer._put(next(it))
+    b1, b2 = _put(next(it), trainer.device), _put(next(it), trainer.device)
     plain_cfg = cfg.replace(use_pallas=False, use_pallas_boundary=False)
     plain_model = type(trainer.state.model)(plain_cfg).to(trainer.device)
     plain_model.load_state_dict(trainer.state.model.state_dict())
@@ -1396,7 +1426,7 @@ def time_dispatch(trainer, rounds: int = 2, updates: int = 3 * DISPATCH_K):
 
     def host_fed():
         i = counter["i"] = counter["i"] + 1
-        b1, b2 = (trainer._put((host_imgs[j], host_conds[j])) for j in ((2 * i) % n, (2 * i + 1) % n))
+        b1, b2 = (_put((host_imgs[j], host_conds[j]), dev) for j in ((2 * i) % n, (2 * i + 1) % n))
         host_step(states["host-fed"], b1, b2, trainer.draws(i), 1 + i % 20)
         return 1
 
@@ -1771,14 +1801,413 @@ def check_newton_schulz():
             "ns_small": ns_small, "scipy": host, "scipy_rel_err": rel_small, "scipy_s": host_s}
 
 
-def summarize(records, serve_launches, train_launches, dispatch_launches, eval_launches):
+# phase (g): the single-card trainer's remaining options at full width.
+# GP_K updates of the gradient penalty (both kernel flags off, the
+# reference's only GP) as one CUDA graph replay against the same updates run
+# eagerly, bit for bit; REMAT_STEPS steps with both kernel flags on with and
+# without remat, to JAX's test_remat_step_equivalence bounds (REMAT_TOL); one
+# K = GP_K replay over an s2d-layout store against the raw store, bit for
+# bit (the networks see the same values in either layout: the augmentation's
+# contrast mean is summed in float64, ops/augment.py); a FEED_STEPS-step
+# Trainer epoch with profile_steps PROFILE_STEPS, then host-fed epochs with
+# and without the prefetch and the gather path's, in turns; LOADER_IMAGES
+# JPEGs per size through the CelebA pipeline with the native loader and with
+# PIL.
+GP_K = 8
+STORE_BATCHES = 16
+REMAT_STEPS = 3
+REMAT_TOL = {"loss_rtol": 1e-4, "rtol": 2e-4, "atol": 1e-6}
+PROFILE_STEPS = 2
+FEED_STEPS = 16
+LOADER_IMAGES = 256
+# remat recomputes each network in every backward that crosses it: the disc
+# loss's D on the real batch and on fake, the gen loss's D on fake and G, the
+# adj loss's D on the adjuster's output (D passes: K1 x3, K1' and K3 x1 each)
+# and the adjuster (K1 x7, K1' and K3 x1); the backwards are unchanged
+REMAT_EXTRA = {"fused_instance_norm_lrelu": 4 * 3 + 4 + 7, "norm_lrelu_from_stats": 4 + 1,
+               "conv3x3_same_stats": 4 + 1}
+EXPECTED_REMAT_LAUNCHES = {k: v + REMAT_EXTRA.get(k, 0) for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+
+
+def _store(cfg, device, seed=0):
+    """A uint8 (STORE_BATCHES, B, H, W, 3) image store and its f32 softened
+    conditions, made on the card from a seed."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (STORE_BATCHES, cfg.batch_size, cfg.image_dim, cfg.image_dim, cfg.image_channel)
+    imgs = torch.randint(0, 256, shape, generator=gen, device=device, dtype=torch.uint8)
+    bits = torch.rand((STORE_BATCHES, cfg.batch_size, cfg.cond_dim), generator=gen, device=device) < 0.5
+    return imgs, torch.where(bits, 0.98, -0.94).float()
+
+
+def _draws_k(cfg, first_step, k, device):
+    """The trainer's draws of updates first_step .. first_step + k - 1,
+    stacked, and as a list."""
+    from littlegan_tpu_torch.training.step import map_draws, stack_draws
+
+    one = [map_draws(lambda x: x[0], _update_draws(cfg, first_step + u, 1, device)) for u in range(k)]
+    return stack_draws(one), one
+
+
+def _equal_state(a, b) -> bool:
+    import torch
+
+    from littlegan_tpu_torch.training.step import state_tensors
+
+    return all(torch.equal(x, y) for x, y in zip(state_tensors(a), state_tensors(b)))
+
+
+def _losses(out):
+    import torch
+
+    from littlegan_tpu_torch.training.step import LOSS_KEYS
+
+    return torch.stack([torch.atleast_1d(out.metrics[k]) for k in LOSS_KEYS], 1).tolist()
+
+
+def _time_graph(step, state, imgs, conds, cfg, reps: int = 3):
+    """Host wall per update over ``reps`` replays (synchronous), the device's
+    busy ms per update over one profiled replay, images/s."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    k = GP_K
+    n = imgs.shape[0]
+
+    def replay(i):
+        ids = (np.arange(2 * k) + 2 * k * i) % n
+        draws = _draws_k(cfg, 100 + k * i, k, imgs.device)[0]
+        step(state, imgs, conds, ids[0::2], ids[1::2], draws, 1 + (k * i) % 20)
+
+    replay(0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(reps):
+        replay(1 + i)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / (reps * k)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        replay(reps + 1)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in device_events(prof)) / k / 1e3
+    return {"update_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+            "images_per_s": 2 * cfg.batch_size / (wall / 1e3)}
+
+
+def _step_peak_mb(step_fn):
+    """(peak allocated MB during one call of ``step_fn``, MB allocated
+    before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 20, base / 2 ** 20
+
+
+def check_gp(root, imgs, conds):
+    """(i) The gradient penalty, both kernel flags off: GP_K updates as one
+    graph replay against the same updates through the eager gather step,
+    bit for bit; finite losses; a GP step with a kernel flag refused; time
+    and peak memory per update against the same graph without GP."""
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.training.state import create_train_state
+    from littlegan_tpu_torch.training.step import make_gather_train_step, make_scan_train_step, make_train_step
+
+    plain = train_config(root).replace(use_pallas=False, use_pallas_boundary=False)
+    cfg = plain.replace(use_gp=True)
+    dev = imgs.device
+    probe = create_train_state(cfg, dev)
+    for flag in ("use_pallas", "use_pallas_boundary"):
+        try:
+            make_train_step(cfg.replace(**{flag: True}), probe)
+        except ValueError as e:
+            require("first order only" in str(e), str(e))
+        else:
+            raise AssertionError(f"a GP step with {flag} was built")
+    graph_state, eager_state = probe, create_train_state(cfg, dev)
+    n = imgs.shape[0]
+    ids = np.arange(2 * GP_K) % n
+    stacked, draws = _draws_k(cfg, 1, GP_K, dev)
+    require(stacked.gp_eps is not None and tuple(stacked.gp_eps.shape) == (GP_K, cfg.batch_size, 1, 1, 1),
+            "the GP draws carry no penalty mix")
+    step = make_scan_train_step(cfg, graph_state, GP_K)
+    t0 = time.time()
+    step.prepare(graph_state, imgs, conds)
+    torch.cuda.synchronize()
+    log(f"GP graph of {GP_K} updates captured in {time.time() - t0:.1f} s")
+    graph_losses = _losses(step(graph_state, imgs, conds, ids[0::2], ids[1::2], stacked, 1))
+    gather = make_gather_train_step(cfg, eager_state)
+    eager_losses = []
+    for u in range(GP_K):
+        eager_losses += _losses(gather(eager_state, imgs, conds, int(ids[2 * u]), int(ids[2 * u + 1]), draws[u], 1 + u))
+    torch.cuda.synchronize()
+    require(all(np.isfinite(graph_losses).flatten()), f"non-finite GP losses {graph_losses}")
+    bitwise = graph_losses == eager_losses and _equal_state(graph_state, eager_state)
+    log(f"GP, {GP_K} updates as one graph replay vs eager gather steps: bitwise {bitwise}; losses (gen, disc, adj) "
+        + "; ".join(", ".join(f"{v:.4f}" for v in row) for row in graph_losses))
+    require(bitwise, "the GP graph replay differs from the same updates run eagerly")
+    record = {"bitwise": bitwise, "losses": graph_losses}
+
+    # the same graph without GP, for the penalty's cost; peak memory of one eager update of each
+    base_state = create_train_state(plain, dev)
+    base_step = make_scan_train_step(plain, base_state, GP_K)
+    base_step.prepare(base_state, imgs, conds)
+    for name, (c, st, s, g) in (("gp", (cfg, graph_state, step, gather)),
+                                ("no_gp", (plain, base_state, base_step, make_gather_train_step(plain, base_state)))):
+        r = _time_graph(s, st, imgs, conds, c)
+        d = _draws_k(c, 1, 1, dev)[1][0]
+        g(st, imgs, conds, 0, 1, d, 12)  # this state's first eager update, outside the measurement
+        peak, before = _step_peak_mb(lambda: g(st, imgs, conds, 2, 3, d, 13))
+        r["eager_peak_mb"], r["eager_before_mb"] = peak, before
+        log(f"graph (K = {GP_K}, kernel flags off), {name}: {r['update_ms']:.3f} ms per update (host wall); "
+            f"device busy {r['device_busy_ms']:.3f} ms; idle share {r['idle_share']:.1%}; "
+            f"{r['images_per_s']:.1f} images/s; one eager update's peak {peak:.0f} MB allocated "
+            f"({before:.0f} MB before it)")
+        record[name] = r
+    return record
+
+
+def check_remat(root, imgs, conds):
+    """(ii) REMAT_STEPS steps with both kernel flags on, with and without
+    remat, from one init: losses and weights to REMAT_TOL, the kernels'
+    launches per step exactly, peak memory per step, step times. Returns
+    (the remat run's launches, the record)."""
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.training.state import create_train_state
+    from littlegan_tpu_torch.training.step import LOSS_KEYS, make_train_step, take_batch
+
+    cfg = train_config(root)
+    dev = imgs.device
+    counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+    runs, record, launches_run = {}, {}, {}
+    _, draws = _draws_k(cfg, 1, REMAT_STEPS, dev)
+    for remat in (False, True):
+        c = cfg.replace(remat=remat)
+        state = create_train_state(c, dev)
+        step = make_train_step(c, state)
+        losses, peaks, per_step = [], [], []
+        for c_ in counters.values():
+            c_.reset()
+        for i in range(REMAT_STEPS):
+            before = {k: v.value for k, v in counters.items()}
+            b1 = (take_batch(imgs, 2 * i), take_batch(conds, 2 * i))
+            b2 = (take_batch(imgs, 2 * i + 1), take_batch(conds, 2 * i + 1))
+            box = {}
+            peak, base = _step_peak_mb(lambda: box.setdefault("out", step(state, b1, b2, draws[i], 10 + i)))
+            losses.append([float(box["out"].metrics[k]) for k in LOSS_KEYS])
+            peaks.append({"peak": peak, "before": base})
+            per_step.append({k: v.value - before[k] for k, v in counters.items()})
+        want = EXPECTED_REMAT_LAUNCHES if remat else EXPECTED_TRAIN_LAUNCHES
+        require(all(p == want for p in per_step), f"remat={remat}: launches per step {per_step}, want {want}")
+        if remat:
+            launches_run = {k: v.value for k, v in counters.items()}
+        runs[remat] = (state, losses)
+        record[f"remat_{remat}"] = {"losses": losses, "peak_mb": peaks, "launches_per_step": per_step[0]}
+        log(f"remat={remat}: {REMAT_STEPS} steps, launches per step {per_step[0]}; peak allocated per step "
+            + ", ".join(f"{p['peak']:.0f} MB" for p in peaks) + f" ({peaks[0]['before']:.0f} MB before each)")
+    (s0, l0), (s1, l1) = runs[False], runs[True]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-12) for ra, rb in zip(l1, l0) for a, b in zip(ra, rb))
+    worst = 0.0
+    for (name, a), b in zip(s1.model.named_parameters(), s0.model.parameters()):
+        excess = float(((a - b).abs() - (REMAT_TOL["atol"] + REMAT_TOL["rtol"] * b.abs())).max().detach())
+        worst = max(worst, excess)
+    bitwise = l0 == l1 and _equal_state(s0, s1)
+    log(f"remat vs no remat, {REMAT_STEPS} steps: largest loss difference {loss_rel:.3g} (relative); weights "
+        f"{'within' if worst <= 0 else 'OUTSIDE'} rtol {REMAT_TOL['rtol']} / atol {REMAT_TOL['atol']}; "
+        f"bitwise {bitwise}")
+    require(np.isfinite(l1).all() and loss_rel <= REMAT_TOL["loss_rtol"] and worst <= 0,
+            f"remat changes the step: losses {loss_rel}, weights exceed the bound by {worst}")
+    record.update({"loss_rel": loss_rel, "bitwise": bitwise})
+    for remat in (False, True):
+        c = cfg.replace(remat=remat)
+        state = runs[remat][0]
+        step = make_train_step(c, state)
+        b1 = (take_batch(imgs, 0), take_batch(conds, 0))
+        b2 = (take_batch(imgs, 1), take_batch(conds, 1))
+        r = _time_steps(lambda i: step(state, b1, b2, draws[0], 11 + i % 5), 5, cfg.batch_size)
+        log(f"train step, batch {cfg.batch_size}, kernels on, remat={remat}: {r['step_ms']:.3f} ms (host wall); "
+            f"device busy {r['device_busy_ms']:.3f} ms ({r['device_ops']:.0f} ops); idle share "
+            f"{r['idle_share']:.1%}; {r['images_per_s']:.1f} images/s")
+        record.setdefault(f"time_remat_{remat}", []).append(r)
+    return launches_run, record
+
+
+def check_s2d_store(root, imgs, conds):
+    """(iii) One K = GP_K replay over an s2d-layout store against the same
+    updates over the raw store, both kernel flags on. Returns (the s2d
+    replay's launches, the record)."""
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.ops.s2d import space_to_depth
+    from littlegan_tpu_torch.training.state import create_train_state
+    from littlegan_tpu_torch.training.step import make_scan_train_step
+
+    cfg = train_config(root)
+    dev = imgs.device
+    s2d = space_to_depth(imgs.flatten(0, 1)).reshape(imgs.shape[0], imgs.shape[1], *space_to_depth(imgs[0]).shape[1:])
+    s2d = s2d.contiguous()
+    ids = np.arange(2 * GP_K) % imgs.shape[0]
+    stacked, _ = _draws_k(cfg, 1, GP_K, dev)
+    counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+    out, launches = {}, {}
+    for layout, store in (("raw", imgs), ("s2d", s2d)):
+        state = create_train_state(cfg, dev)
+        step = make_scan_train_step(cfg, state, GP_K, store_s2d=layout == "s2d")
+        step.prepare(state, store, conds)
+        for c in counters.values():
+            c.reset()
+        losses = _losses(step(state, store, conds, ids[0::2], ids[1::2], stacked, 1))
+        torch.cuda.synchronize()
+        launches[layout] = {k: c.value for k, c in counters.items()}
+        out[layout] = (state, losses)
+    want = {k: v * GP_K for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+    require(launches["raw"] == launches["s2d"] == want, f"s2d-store launches {launches}, want {want}")
+    (sr, lr_), (ss, ls) = out["raw"], out["s2d"]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-12) for ra, rb in zip(ls, lr_) for a, b in zip(ra, rb))
+    param_max = max(float((a - b).abs().max().detach()) for a, b in zip(ss.model.parameters(), sr.model.parameters()))
+    bitwise = ls == lr_ and _equal_state(sr, ss)
+    log(f"s2d-layout store vs raw store, {GP_K} updates in one replay each: largest loss difference {loss_rel:.3g} "
+        f"(relative), largest weight difference {param_max:.3g} = {param_max / cfg.lr:.3f} x lr; bitwise {bitwise}; "
+        f"launches {launches['s2d']}")
+    require(np.isfinite(ls).all() and bitwise,
+            f"the s2d store's updates differ from the raw store's: losses {loss_rel}, weights {param_max}")
+    return launches["s2d"], {"loss_rel": loss_rel, "param_max_over_lr": param_max / cfg.lr, "bitwise": bitwise}
+
+
+def _trace_idle(path):
+    """(device busy s, window s) of a torch.profiler trace file: the
+    device's kernels, copies and sets against the span of all its events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    busy = sum(e["dur"] for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e6
+    span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e6
+    return busy, span
+
+
+def check_profile_and_feed(root):
+    """(iv) A host-fed Trainer epoch of FEED_STEPS steps with profile_steps
+    PROFILE_STEPS: one trace, holding K1's and K3's kernels, whose window
+    gives the host-fed path's idle share. (v) FEED_STEPS-step host-fed
+    epochs through the prefetch and through a synchronous copy of each
+    batch, and the gather path's epoch, in turns: images/s."""
+    import glob
+
+    import torch
+
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.training.trainer import Trainer
+
+    cfg = train_config(root).replace(exp_name="chip_smoke_feed", profile_steps=PROFILE_STEPS, freq_gen=0)
+    data = SyntheticDataset(cfg, num_items=2 * FEED_STEPS * cfg.batch_size)
+    feeds = {}
+    for name, kw in (("prefetch", {}), ("synchronous", {}), ("gather", {"device_data": True})):
+        tr = Trainer(cfg.replace(exp_name=f"chip_smoke_feed_{name}", **kw), data)
+        tr._save_epoch_checkpoint = lambda epoch: None  # epochs for the clock only
+        if name == "synchronous":  # the feed before the prefetch: each batch copied when its step starts
+            tr._prefetch = lambda items, dev=tr.device: ((_put(b1, dev), _put(b2, dev)) for b1, b2 in items)
+        feeds[name] = tr
+
+    def epoch(tr):
+        tr.global_epoch = 1
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    prof = feeds["prefetch"]
+    epoch(prof)  # profile_steps: steps 10 and 11 of this first epoch are traced
+    traces = glob.glob(os.path.join(prof.cfg.result_dir, "log", "profile", "*.pt.trace.json"))
+    require(len(traces) == 1, f"profile traces {traces}")
+    with open(traces[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+    k1 = sorted(n for n in names if re.search(r"::(cluster_kernel|stats_kernel)", n))
+    k3 = sorted(n for n in names if "conv3x3_mma_kernel" in n or "conv3x3_stats_kernel" in n)
+    busy, span = _trace_idle(traces[0])
+    out = {"trace_mb": os.path.getsize(traces[0]) / 1e6, "trace_kernel_names": len(names),
+           "trace_device_busy_s": busy, "trace_window_s": span, "prefetch_idle_share": 1 - busy / span}
+    log(f"profile_steps {PROFILE_STEPS}: one trace of {out['trace_mb']:.1f} MB, {len(names)} kernel names, "
+        f"K1's {len(k1)}, K3's {len(k3)}; host-fed with prefetch in its window: device busy {busy * 1e3:.2f} of "
+        f"{span * 1e3:.2f} ms, idle share {1 - busy / span:.1%}")
+    require(k1 and k3, f"the profiler trace holds no K1 or K3 kernel: {sorted(names)[:20]}")
+    for tr in feeds.values():  # one trace per run: the timed epochs run unprofiled
+        tr.cfg = tr.cfg.replace(profile_steps=0)
+    for name in ("synchronous", "gather"):
+        epoch(feeds[name])  # warm-up (and the gather path's upload)
+    for name in list(feeds) + list(feeds)[::-1]:
+        wall = epoch(feeds[name])
+        out.setdefault(f"{name}_images_per_s", []).append(2 * cfg.batch_size * FEED_STEPS / wall)
+        log(f"{name} Trainer epoch of {FEED_STEPS} steps: {out[f'{name}_images_per_s'][-1]:.1f} images/s "
+            f"({wall:.3f} s, the synthetic batches' host generation included)")
+    return out
+
+
+def check_native_loader(root):
+    """(vi) The CelebA pipeline (its thread pool, cfg.threads) on the host
+    over LOADER_IMAGES synthetic JPEGs at 128x128 and at CelebA's 178x218,
+    with the native loader and with PIL: images/s and the decoder that ran.
+    A host without libjpeg (or g++) decodes with PIL, and the pipeline says
+    so."""
+    from littlegan_tpu_torch.data import native_loader
+
+    status = native_loader.available()
+    log(f"native loader on this host: {status}")
+    rates = native_loader.pipeline_rates(root, train_config(root), LOADER_IMAGES)
+    want = {"native", "PIL"} if status == "ok" else {"PIL"}
+    require({k.split()[1] for k in rates} == want, f"decoders that ran: {sorted(rates)} ({status})")
+    for key, vals in rates.items():
+        log(f"CelebA pipeline, {key} decoder, 8 threads: " + ", ".join(f"{v:.1f}" for v in vals)
+            + " images/s on the host")
+    return {"native": status, "rates": rates}
+
+
+def check_trainer_options():
+    """Phase (g): the gradient penalty, remat, the s2d-layout store,
+    profile_steps, the prefetched host feed and the native loader. Returns
+    (launches on the remat path, on the s2d-store path, the record)."""
+    import tempfile
+
+    import torch
+
+    record, walls = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as root:
+        imgs, conds = _store(train_config(root), torch.device("cuda"))
+        t0 = time.time()
+        record["gp"] = check_gp(root, imgs, conds)
+        walls["gp"], t0 = time.time() - t0, time.time()
+        remat_launches, record["remat"] = check_remat(root, imgs, conds)
+        walls["remat"], t0 = time.time() - t0, time.time()
+        s2d_launches, record["s2d_store"] = check_s2d_store(root, imgs, conds)
+        walls["s2d_store"], t0 = time.time() - t0, time.time()
+        del imgs, conds
+        record["profile_feed"] = check_profile_and_feed(root)
+        walls["profile_feed"], t0 = time.time() - t0, time.time()
+        record["loader"] = check_native_loader(root)
+        walls["loader"] = time.time() - t0
+    log("phase (g) walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return remat_launches, s2d_launches, record
+
+
+def summarize(records, serve_launches, train_launches, dispatch_launches, eval_launches, remat_launches,
+              s2d_launches):
     """One JSON record per kernel, bf16 (the working dtype): summed over the
     launches of one train step where phase (b) timed the train shapes, else
     over the shapes one /adjust call gives it ("per" says which; a kernel
     timed on both paths adds the /adjust sums as "serve_ms",
     "serve_plain_ms", "serve_bound_ms"); per-shape numbers under "shapes".
-    "launches" counts the four paths' runs (serve, host-fed train,
-    CUDA-graph dispatch, evaluate-sample), split in "launches_by_path"."""
+    "launches" counts the six paths' runs (serve, host-fed train,
+    CUDA-graph dispatch, evaluate-sample, the remat steps, the s2d-store
+    replay), split in "launches_by_path"."""
     meta = {
         "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
                                       "littlegan_tpu/ops/pallas/norm_lrelu.py:111"),
@@ -1805,7 +2234,8 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
         shapes = train or serve
         lib = None if shapes[0]["library_ms"] is None else tot("library_ms", shapes)
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
-                   "dispatch": dispatch_launches.get(name, 0), "eval": eval_launches.get(name, 0)}
+                   "dispatch": dispatch_launches.get(name, 0), "eval": eval_launches.get(name, 0),
+                   "remat": remat_launches.get(name, 0), "s2d_store": s2d_launches.get(name, 0)}
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1867,10 +2297,13 @@ def main() -> int:
     walls["e"], t0 = time.time() - t0, time.time()
     eval_launches, evaluation = check_eval()
     log("eval record: " + json.dumps(evaluation))
-    walls["f"] = time.time() - t0
+    walls["f"], t0 = time.time() - t0, time.time()
+    remat_launches, s2d_launches, options = check_trainer_options()
+    log("trainer options record: " + json.dumps(options))
+    walls["g"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
-                                         eval_launches)}))
+                                         eval_launches, remat_launches, s2d_launches)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -5,15 +5,16 @@
 - labels come from the CelebA attribute file filtered to ``cfg.attr``,
   joined on the file name when the file has the standard header, else
   paired by line order like the reference;
-- each image is decoded with PIL (center-cropped and resized when it is
-  not ``image_dim`` square) into uint8; the train step rescales it to
-  [-1, 1] on the card (``host_rescale`` does it here instead);
+- each image is decoded into uint8 (center-cropped and resized when it is
+  not ``image_dim`` square) by the native libjpeg loader
+  (``data/native_loader.py``) when ``use_native_loader`` is set and the
+  images are JPEGs, else by PIL; a loader that fails to build prints
+  ``native loader unavailable (...); using PIL`` and PIL decodes, as in the
+  JAX package (``celeba.py:214-233``). The train step rescales to [-1, 1]
+  on the card (``host_rescale`` does it here instead);
 - batch membership is fixed and batch ORDER is permuted per epoch by
   :func:`epoch_batch_order`, the (seed, epoch) stream the JAX package uses,
   so both packages see the same batch sequence.
-
-The JAX package's native libjpeg loader (``native/``) is not ported yet:
-this pipeline always decodes with PIL (``use_native_loader`` has no effect).
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ def _decode_pil(src, dim: int, channels: int) -> np.ndarray:
 
 
 class CelebA:
-    """File-backed dataset with threaded PIL decode and batch prefetch."""
+    """File-backed dataset with threaded batch decode and prefetch."""
 
     def __init__(self, cfg: Config):
         self.cfg = cfg
@@ -124,6 +125,7 @@ class CelebA:
         self.all_label = list(CELEBA_ATTR_NAMES)
         self.label = [CELEBA_ATTR_NAMES[i] for i in cfg.attr]
         self._cache: Optional[dict] = {} if cfg.cache_decoded else None
+        self._decoder = self._pick_decoder()
 
     def _read(self, name: str):
         if self._zip_path is None:
@@ -135,9 +137,27 @@ class CelebA:
             z = self._zip_local.zf = zipfile.ZipFile(self._zip_path)
         return z.read(name)
 
-    def _decode(self, idx) -> np.ndarray:
+    def _pick_decoder(self):
+        """Batch decoder: callable(file paths or zip member names) ->
+        (N, dim, dim, C) uint8."""
         dim, ch = self.cfg.image_dim, self.cfg.image_channel
-        return np.stack([_decode_pil(self._read(self._files[int(i)]), dim, ch) for i in idx])
+        native = None
+        if self.cfg.use_native_loader and self.cfg.image_ext.lower() in ("jpg", "jpeg"):
+            try:
+                from littlegan_tpu_torch.data.native_loader import NativeBatchLoader
+
+                native = NativeBatchLoader(dim, ch, threads=self.cfg.threads)
+            except Exception as e:  # no toolchain or no libjpeg: PIL
+                print(f"native loader unavailable ({type(e).__name__}); using PIL")
+        self.decoder_name = "PIL" if native is None else "native"
+        if native is None:
+            return lambda names: np.stack([_decode_pil(self._read(n), dim, ch) for n in names])
+        if self._zip_path is not None:
+            return lambda names: native.load_buffers([self._read(n) for n in names])
+        return native.load
+
+    def _decode(self, idx) -> np.ndarray:
+        return self._decoder([self._files[int(i)] for i in idx])
 
     def _load_batch(self, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         if self._cache is not None:

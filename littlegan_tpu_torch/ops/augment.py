@@ -22,7 +22,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from littlegan_tpu_torch.ops.s2d import space_to_depth
+from littlegan_tpu_torch.ops.s2d import depth_to_space, space_to_depth
 
 
 class AugmentDraws(NamedTuple):
@@ -102,7 +102,7 @@ def augment(x: torch.Tensor, draws: AugmentDraws) -> torch.Tensor:
 def augment_s2d(x: torch.Tensor, draws: AugmentDraws) -> torch.Tensor:
     """:func:`augment` on a space-to-depth batch [N, H/2, W/2, 4C]: the same
     math and draws (the noise is drawn in raw shape and rearranged), so a
-    raw pixel gets the same value in either layout."""
+    raw pixel gets the same value in either layout, bit for bit."""
     n, h, w, c4 = x.shape
     c = c4 // 4
     dtype = x.dtype
@@ -110,7 +110,8 @@ def augment_s2d(x: torch.Tensor, draws: AugmentDraws) -> torch.Tensor:
     # a raw-space flip of W reverses the column blocks and swaps the column phases
     v = torch.where(draws.flip.reshape(n, 1, 1, 1, 1, 1), v.flip((2, 4)), v)
     v = v + draws.delta_b
-    mean = v.mean((1, 2, 3, 4), keepdim=True)  # per image, per channel
+    # the mean over a raw-layout copy: the raw path's sum, in its order
+    mean = depth_to_space(v.reshape(n, h, w, c4)).mean((1, 2)).reshape(n, 1, 1, 1, 1, c)
     v = (v - mean) * draws.factor + mean
     v = adjust_hue(v, draws.delta_h)
     return (v.reshape(n, h, w, c4) + 0.1 * (0.2 * space_to_depth(draws.noise))).to(dtype)

@@ -22,7 +22,8 @@ counterpart of the JAX package's custom VJP ``boundary_conv_s2d``. Its
 backward folds the stats' cotangents into the output cotangent and sums it
 for the bias in one kernel (``conv3x3_bwd_fold``, ``csrc/boundary_conv_bwd.cu``),
 then takes dx and dw with PyTorch's convolution backward, as the JAX
-package leaves those two to XLA.
+package leaves those two to XLA. The backward is first order only: a gradient
+of its gradient raises.
 
 A CPU tensor takes the plain PyTorch versions below; a CUDA tensor launches
 the kernels or raises, and a raw wrapper asked for a result autograd would
@@ -38,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from littlegan_tpu_torch.ops.cuda import _build
-from littlegan_tpu_torch.ops.cuda.norm_lrelu import refuse_grad
+from littlegan_tpu_torch.ops.cuda.norm_lrelu import first_order_only, refuse_grad
 
 _MAX_CIN = 16
 _COUTS = (8, 16, 32, 64, 128)  # Cout/8 channel groups must divide 256 threads
@@ -208,6 +209,7 @@ class BoundaryConvS2D(torch.autograd.Function):
         return y, s1, s2
 
     @staticmethod
+    @first_order_only
     def backward(ctx, gy, gs1, gs2):
         x, w, y = ctx.saved_tensors
         need_dx = ctx.needs_input_grad[0]

@@ -37,12 +37,15 @@ the stats' cotangents.
 Functions the model calls. A CPU tensor takes the plain PyTorch versions
 below, forward and backward; a CUDA tensor launches the kernels or raises.
 A raw wrapper asked for a result that autograd would have to differentiate
-raises instead of returning it detached. Each wrapper counts its launches in
-``.launches``.
+raises instead of returning it detached. The Functions' backwards are first
+order only (:func:`first_order_only`): a gradient of their gradient (what a
+gradient penalty asks for) raises instead of dropping the second-order
+terms. Each wrapper counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -347,6 +350,27 @@ def refuse_grad(what: str, function: str, *tensors: Optional[torch.Tensor]) -> N
         )
 
 
+def first_order_only(backward):
+    """Decorate a kernel Function's ``backward``: raise when autograd runs it
+    to build a graph (``create_graph=True``, a gradient of a gradient). The
+    backward launches kernels autograd cannot trace, so a second
+    differentiation would drop the terms through it. ``once_differentiable``
+    alone raises only where the second backward reaches its outputs; a
+    penalty whose other terms reach the same parameters would lose these
+    silently."""
+
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{type(ctx).__name__.removesuffix('Backward')}: the kernel's backward is first order only; "
+                "a gradient of its gradient (create_graph=True, e.g. use_gp) is not supported"
+            )
+        return backward(ctx, *grads)
+
+    return wrapper
+
+
 def _check_inputs(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: expected a CPU or CUDA tensor, got {x.device}")
@@ -566,6 +590,7 @@ class FusedNormLReLU(torch.autograd.Function):
         return y
 
     @staticmethod
+    @first_order_only
     def backward(ctx, dy):
         x, gamma, beta, stats = ctx.saved_tensors  # stats: the forward's (mean, std)
         dx, dg, db = fused_instance_norm_lrelu_bwd(
@@ -586,6 +611,7 @@ class NormLReLUFromStats(torch.autograd.Function):
         return out
 
     @staticmethod
+    @first_order_only
     def backward(ctx, dout):
         y, s1, s2, gamma, beta = ctx.saved_tensors
         dy, ds1, ds2, dg, db = norm_lrelu_from_stats_bwd(

@@ -9,7 +9,8 @@ runs K updates from device tensors alone (``step.scan_updates``):
   ids and the schedule rows), copied to the card in one copy;
 - ``device_inputs``: tensors already on the card (the K updates' draws,
   drawn outside the graph so that K dispatched updates draw exactly what K
-  sequential steps draw), copied into the graph's own buffers;
+  sequential steps draw), copied into the graph's own buffers (a ``None``
+  leaf, a draw the config does not make, stays ``None``);
 - ``fixed``: what stays the same object from call to call (the train state,
   the device store). The state's tensors are updated in place, so they are
   the graph's own; a call with other tensors raises.
@@ -63,7 +64,7 @@ class GraphedUpdates:
         self._inputs = torch.from_numpy(inputs).to(dev)
         self._host = torch.empty(inputs.shape, dtype=torch.float32, pin_memory=True)
         leaves, spec = tree_flatten(device_inputs)
-        self._device_inputs = [x.clone() for x in leaves]
+        self._device_inputs = [None if x is None else x.clone() for x in leaves]
         static = tree_unflatten(self._device_inputs, spec)
         saved = [t.detach().clone() for t in state_tensors]
         stream = torch.cuda.Stream(dev)
@@ -102,16 +103,16 @@ class GraphedUpdates:
         if self._pointers(fixed, state_tensors) != self._ptrs:
             raise RuntimeError("GraphedUpdates: called with other state or store tensors than it captured")
         leaves, _ = tree_flatten(device_inputs)
-        if inputs.shape != tuple(self._inputs.shape) or [x.shape for x in leaves] != [
-            x.shape for x in self._device_inputs
-        ]:
+        shapes = lambda xs: [None if x is None else x.shape for x in xs]  # noqa: E731
+        if inputs.shape != tuple(self._inputs.shape) or shapes(leaves) != shapes(self._device_inputs):
             raise ValueError("GraphedUpdates: inputs of other shapes than the captured ones")
         self._copied.synchronize()  # the previous call's copy out of the staging buffer has run
         self._host.numpy()[...] = inputs
         self._inputs.copy_(self._host, non_blocking=True)
         self._copied.record()
         for static, x in zip(self._device_inputs, leaves):
-            static.copy_(x)
+            if static is not None:
+                static.copy_(x)
         self.graph.replay()
         for k, n in self.launches.items():
             _build.COUNTERS[k].add(n)

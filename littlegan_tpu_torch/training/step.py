@@ -24,11 +24,12 @@ loss with respect to the adjuster head's. A loss's gradient with respect to
 parameters it is not asked for is never formed, which is what JAX's
 ``stop_gradient`` on the frozen copies achieves.
 
-Random draws (latent noise, augmentation) are arguments (:class:`StepDraws`),
-drawn by :func:`draw_step` from a ``torch.Generator``: tests feed the JAX
-step's draws instead. With gradient accumulation (``grad_accum`` = M) an
-update takes M micro-pairs, their draws stacked over M, and applies the
-mean of their float32 gradients once (:func:`accum_train_step`).
+Random draws (latent noise, augmentation, the penalty's mix) are arguments
+(:class:`StepDraws`), drawn by :func:`draw_step` from a ``torch.Generator``:
+tests feed the JAX step's draws instead. With gradient accumulation
+(``grad_accum`` = M) an update takes M micro-pairs, their draws stacked
+over M, and applies the mean of their float32 gradients once
+(:func:`accum_train_step`).
 
 Two forms of the optimizer tail. The one-update steps (:func:`train_step`,
 the gather step, :func:`accum_train_step`) take ``batch_no`` as a host
@@ -40,9 +41,17 @@ as a row (:func:`schedule_rows`: masks, Adam step sizes, the
 ``adj_half_batch`` parity) and the updates read it on the device
 (:func:`scan_updates`). Both forms give the same result.
 
-Not ported yet, and refused with ``NotImplementedError``: ``use_gp`` (a
-grad-of-grad penalty) and ``remat`` (ROADMAP A5), and an s2d-layout store
-(``store_s2d``).
+``use_gp`` adds the WGAN-GP penalty on interpolates of the augmented real
+batch and ``fake`` to D's loss (:func:`gradient_penalty`): a third D pass
+with live parameters, differentiated twice. It runs on the plain ops only:
+with a kernel flag it is refused (:func:`check_supported`), since the
+kernels' backwards are first order only, and the JAX package's Pallas
+kernels cannot be differentiated twice either. ``remat`` recomputes each
+network application (G, each D pass, the adjuster) in its own backward
+(``torch.utils.checkpoint``), as the JAX step's ``jax.checkpoint``; the
+penalty's D pass is not wrapped, as in JAX. An s2d-layout store
+(``store_s2d``) holds the device store in block layout: the step skips its
+per-step ``space_to_depth`` and augments batch 1 with ``augment_s2d``.
 """
 
 from __future__ import annotations
@@ -52,10 +61,11 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.models.littlegan import s2d_active
-from littlegan_tpu_torch.ops.augment import AugmentDraws, augment, draw_augment
+from littlegan_tpu_torch.ops.augment import AugmentDraws, augment, augment_s2d, draw_augment
 from littlegan_tpu_torch.ops.losses import adjuster_loss, discriminator_loss, generator_loss
 from littlegan_tpu_torch.ops.s2d import depth_to_space, space_to_depth
 from littlegan_tpu_torch.training.dispatch import GraphedUpdates
@@ -73,6 +83,7 @@ _ADAMS = (("opt_g", "generator", G_KEYS), ("opt_d", "discriminator", D_KEYS), ("
 class StepDraws(NamedTuple):
     noise: torch.Tensor  # (B, noise_dim) f32 latent noise
     augment: AugmentDraws  # batch 1's augmentation draws
+    gp_eps: Optional[torch.Tensor] = None  # (B, 1, 1, 1) f32 U[0, 1): the penalty's mix, with use_gp only
 
 
 class StepOutput(NamedTuple):
@@ -83,24 +94,31 @@ class StepOutput(NamedTuple):
 
 
 def check_supported(cfg: Config) -> None:
-    """Refuse the step options the port does not have yet."""
-    for on, what in ((cfg.use_gp, "use_gp (the gradient penalty)"), (cfg.remat, "remat")):
-        if on:
-            raise NotImplementedError(f"{what} is not ported to littlegan_tpu_torch yet (ROADMAP A5)")
+    """Refuse what the step cannot run: the gradient penalty with a kernel
+    flag on."""
+    if cfg.use_gp and (cfg.use_pallas or cfg.use_pallas_boundary):
+        raise ValueError(
+            "use_gp needs use_pallas=False and use_pallas_boundary=False: the penalty differentiates D "
+            "twice, and the kernels' backwards are first order only (the JAX reference cannot "
+            "differentiate its Pallas kernels twice either)"
+        )
 
 
 def draw_step(generator: torch.Generator, cfg: Config, n: int, device) -> StepDraws:
     """One step's draws from ``generator`` (which lives on ``device``):
-    noise ~ N(0, 1), then the augmentation draws of an n-image batch."""
+    noise ~ N(0, 1), the augmentation draws of an n-image batch, and last,
+    with ``use_gp`` only, the penalty's mix ~ U[0, 1) per sample."""
     noise = torch.randn((n, cfg.noise_dim), generator=generator, device=device)
     aug = draw_augment(generator, n, (n, cfg.image_dim, cfg.image_dim, cfg.image_channel), device)
-    return StepDraws(noise, aug)
+    eps = torch.rand((n, 1, 1, 1), generator=generator, device=device) if cfg.use_gp else None
+    return StepDraws(noise, aug, eps)
 
 
 def map_draws(fn, *draws: StepDraws) -> StepDraws:
     """``fn`` applied field by field across ``draws``."""
     aug = AugmentDraws(*(fn(*fields) for fields in zip(*(d.augment for d in draws))))
-    return StepDraws(fn(*(d.noise for d in draws)), aug)
+    eps = None if draws[0].gp_eps is None else fn(*(d.gp_eps for d in draws))
+    return StepDraws(fn(*(d.noise for d in draws)), aug, eps)
 
 
 def stack_draws(draws: Sequence[StepDraws]) -> StepDraws:
@@ -115,26 +133,58 @@ def prep_images(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def gradient_penalty(model, real: torch.Tensor, fake: torch.Tensor, eps: torch.Tensor, s2: bool) -> torch.Tensor:
+    """WGAN-GP on ``eps * real + (1 - eps) * fake`` (JAX ``step.py:74-86``):
+    ``mean((||d sum(D_pr) / d inter||_2 - 1)^2)``, the norm per sample in
+    f32 with 1e-12 under the root. ``inter`` promotes to f32 (``eps`` is
+    f32) and D casts it, as in JAX. The gradient is taken with
+    ``create_graph``, so D's parameters get the penalty's second-order
+    gradient; ``fake`` comes detached."""
+    inter = (eps * real + (1.0 - eps) * fake).requires_grad_(True)
+    pr, _ = model.discriminator(inter, s2d_in=s2)
+    (g,) = torch.autograd.grad(pr.sum(), inter, create_graph=True)
+    norms = torch.sqrt(g.float().square().sum((1, 2, 3)) + 1e-12)
+    return (norms - 1.0).square().mean()
+
+
+def _remat(fn, on: bool):
+    """``fn`` recomputed in its own backward when ``on`` (``cfg.remat``).
+    Nothing inside a network draws, and CUDA-graph capture may not save the
+    card's RNG state, so no RNG state is kept."""
+    if not on:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
+
+
 def total_loss_fn(
     model, batch1, batch2, noise: torch.Tensor, new_image: torch.Tensor, cfg: Config,
-    adj_sel: Optional[torch.Tensor] = None,
+    adj_sel: Optional[torch.Tensor] = None, gp_eps: Optional[torch.Tensor] = None, inputs_s2d: bool = False,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(the three losses on one autograd graph, {"fake", "adj"} images in
     raw layout). ``adj_sel`` (``adj_half_batch`` only) is ``batch_no % 2``
     as a 0-dim tensor: the adjuster takes the real task on even steps, the
-    generated one on odd, chosen on the device (JAX ``step.py:185-193``)."""
+    generated one on odd, chosen on the device (JAX ``step.py:185-193``).
+    ``gp_eps``: the penalty's mix (``use_gp``). ``inputs_s2d``: the images
+    arrive in block layout already (an s2d-layout store)."""
     img1, cond1 = batch1
     img2, cond2 = batch2
     s2 = s2d_active(cfg)
-    if s2:
+    if s2 and not inputs_s2d:
         img1, img2, new_image = space_to_depth(img1), space_to_depth(img2), space_to_depth(new_image)
     dt = getattr(torch, cfg.compute_dtype)
     img1, img2, new_image = img1.to(dt), img2.to(dt), new_image.to(dt)
+    generator = _remat(model.generator, cfg.remat)
+    discriminator = _remat(model.discriminator, cfg.remat)
 
-    fake = model.generator(noise, cond2, s2d_out=s2)
-    real_pr, real_c = model.discriminator(new_image, s2d_in=s2)
-    fake_pr, fake_c = model.discriminator(fake, s2d_in=s2)
+    fake = generator(noise, cond2, s2d_out=s2)
+    real_pr, real_c = discriminator(new_image, s2d_in=s2)
+    fake_pr, fake_c = discriminator(fake, s2d_in=s2)
     d_loss = discriminator_loss(cond1, real_c, real_pr, fake_pr)
+    if cfg.use_gp:
+        if gp_eps is None:
+            raise ValueError("use_gp requires the penalty's draws (StepDraws.gp_eps)")
+        # from the augmented real batch, the sample D is trained on (JAX step.py:166-170)
+        d_loss = d_loss + cfg.gp_weight * gradient_penalty(model, new_image, fake.detach(), gp_eps, s2)
     g_loss = generator_loss(cond2, fake_c, fake_pr, img2, fake, cfg.l1_lambda)
 
     adj_image = torch.zeros((1, 1, 1, 1), device=fake.device)
@@ -152,8 +202,8 @@ def total_loss_fn(
             tgt_cond = torch.cat([cond2, cond1])
             in_img = torch.cat([img1, fake_data])
             tgt_img = torch.cat([img2, img1])
-        adj_image = model.adjuster(in_img, (tgt_cond + 1.0) * 0.5, s2d_in=s2, s2d_out=s2)
-        adj_pr, adj_c = model.discriminator(adj_image, s2d_in=s2)
+        adj_image = _remat(model.adjuster, cfg.remat)(in_img, (tgt_cond + 1.0) * 0.5, s2d_in=s2, s2d_out=s2)
+        adj_pr, adj_c = discriminator(adj_image, s2d_in=s2)
         a_loss = adjuster_loss(tgt_cond, adj_c, adj_pr, tgt_img, adj_image, cfg.l1_lambda)
 
     fake_out = depth_to_space(fake) if s2 else fake
@@ -163,17 +213,20 @@ def total_loss_fn(
 
 
 def micro_grads(
-    state: TrainState, batch1, batch2, draws: StepDraws, cfg: Config, adj_sel: Optional[torch.Tensor] = None
+    state: TrainState, batch1, batch2, draws: StepDraws, cfg: Config, adj_sel: Optional[torch.Tensor] = None,
+    inputs_s2d: bool = False,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(``name -> gradient`` for every parameter, aux with the detached
     losses and images) of one micro-pair: everything in a step before the
-    optimizer. Reads nothing from the host."""
+    optimizer. Reads nothing from the host. ``inputs_s2d``: both batches
+    are in block layout (an s2d-layout store), augmented as such."""
     check_supported(cfg)
     model = state.model
     batch1 = (prep_images(batch1[0]), batch1[1])
     batch2 = (prep_images(batch2[0]), batch2[1])
-    new_image = augment(batch1[0], draws.augment)
-    losses, aux = total_loss_fn(model, batch1, batch2, draws.noise, new_image, cfg, adj_sel)
+    new_image = (augment_s2d if inputs_s2d else augment)(batch1[0], draws.augment)
+    losses, aux = total_loss_fn(model, batch1, batch2, draws.noise, new_image, cfg, adj_sel, draws.gp_eps,
+                                inputs_s2d)
 
     grads: Dict[str, torch.Tensor] = {}
     routes = [("loss/disc", D_KEYS), ("loss/gen", G_KEYS)]
@@ -194,14 +247,15 @@ def _adj_sel(batch_no: int, cfg: Config, device) -> Optional[torch.Tensor]:
 
 
 def compute_grads(
-    state: TrainState, batch1, batch2, draws: StepDraws, batch_no: int, cfg: Config
+    state: TrainState, batch1, batch2, draws: StepDraws, batch_no: int, cfg: Config, inputs_s2d: bool = False
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """:func:`micro_grads` of the step at host ``batch_no``."""
-    return micro_grads(state, batch1, batch2, draws, cfg, _adj_sel(batch_no, cfg, batch1[0].device))
+    return micro_grads(state, batch1, batch2, draws, cfg, _adj_sel(batch_no, cfg, batch1[0].device), inputs_s2d)
 
 
 def accum_grads(
-    state: TrainState, batch1s, batch2s, draws: StepDraws, cfg: Config, adj_sel: Optional[torch.Tensor] = None
+    state: TrainState, batch1s, batch2s, draws: StepDraws, cfg: Config, adj_sel: Optional[torch.Tensor] = None,
+    inputs_s2d: bool = False,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(mean gradients over the M stacked micro-pairs, the last micro-step's
     aux), the port of JAX ``accum_grads`` (``step.py:370-403``).
@@ -214,7 +268,7 @@ def accum_grads(
     for j in range(m):
         grads, aux = micro_grads(
             state, (batch1s[0][j], batch1s[1][j]), (batch2s[0][j], batch2s[1][j]),
-            map_draws(lambda x: x[j], draws), cfg, adj_sel,
+            map_draws(lambda x: x[j], draws), cfg, adj_sel, inputs_s2d,
         )
         torch._foreach_add_(acc, [grads[n].float() for n in names])
     torch._foreach_div_(acc, float(m))
@@ -315,13 +369,15 @@ def partition_masks(model) -> dict:
 
 
 def train_step(
-    state: TrainState, batch1, batch2, draws: StepDraws, batch_no: int, cfg: Config, part_masks=None
+    state: TrainState, batch1, batch2, draws: StepDraws, batch_no: int, cfg: Config, part_masks=None,
+    inputs_s2d: bool = False,
 ) -> StepOutput:
     """One step, in place on ``state``. ``batch1``/``batch2``: (images
-    uint8 or [-1, 1] float NHWC, softened conditions) on the state's device."""
+    uint8 or [-1, 1] float NHWC, or in block layout with ``inputs_s2d``,
+    softened conditions) on the state's device."""
     if part_masks is None:
         part_masks = partition_masks(state.model)
-    grads, aux = compute_grads(state, batch1, batch2, draws, batch_no, cfg)
+    grads, aux = compute_grads(state, batch1, batch2, draws, batch_no, cfg, inputs_s2d)
     return apply_updates(state, grads, aux, batch_no, cfg, part_masks)
 
 
@@ -364,24 +420,23 @@ def take_batch(store: torch.Tensor, b) -> torch.Tensor:
 
 
 def _check_store_layout(cfg: Config, store_s2d: bool) -> None:
-    """An s2d-layout store needs the s2d step active; the port keeps a raw
-    store, as the JAX trainer does (``trainer.py:545-552``)."""
+    """An s2d-layout store needs the s2d step active, else its block-layout
+    images would meet the raw model. The trainer keeps a raw store, as the
+    JAX trainer does (``trainer.py:545-552``); only the step makers take
+    ``store_s2d``."""
     if store_s2d and not s2d_active(cfg):
         raise ValueError(
             "store_s2d=True but the s2d step is inactive for this config (s2d needs use_s2d, "
             "kernel_size=5 and an even image_dim) — upload a RAW-layout store instead"
-        )
-    if store_s2d:
-        raise NotImplementedError(
-            "an s2d-layout store (store_s2d) is not ported to littlegan_tpu_torch yet (ROADMAP A6); "
-            "the trainer keeps a raw store"
         )
 
 
 def make_gather_train_step(cfg: Config, state: TrainState, store_s2d: bool = False):
     """``step(state, images, conds, b1, b2, draws, batch_no)``: one train
     step whose two batches are ids into the (n_batches, B, ...) device store
-    (``cfg.device_data`` with one update per call)."""
+    (``cfg.device_data`` with one update per call). With ``store_s2d`` the
+    store is in block layout (``ops/s2d.py::space_to_depth`` of each
+    batch)."""
     check_supported(cfg)
     _check_store_layout(cfg, store_s2d)
     part_masks = partition_masks(state.model)
@@ -389,13 +444,13 @@ def make_gather_train_step(cfg: Config, state: TrainState, store_s2d: bool = Fal
     def step(state, images, conds, b1, b2, draws, batch_no):
         batch1 = (take_batch(images, b1), take_batch(conds, b1))
         batch2 = (take_batch(images, b2), take_batch(conds, b2))
-        return train_step(state, batch1, batch2, draws, batch_no, cfg, part_masks)
+        return train_step(state, batch1, batch2, draws, batch_no, cfg, part_masks, store_s2d)
 
     return step
 
 
 def scan_updates(state: TrainState, images, conds, ids1, ids2, draws: StepDraws, rows: torch.Tensor,
-                 cfg: Config):
+                 cfg: Config, inputs_s2d: bool = False):
     """K applied updates from the device store, in place, reading nothing
     from the host: ``ids1``/``ids2`` (K,) batch ids, or (K, M) for M
     accumulated micro-pairs per update; ``draws`` stacked over K (then M);
@@ -407,11 +462,11 @@ def scan_updates(state: TrainState, images, conds, ids1, ids2, draws: StepDraws,
         d = map_draws(lambda x: x[i], draws)
         if ids1.dim() == 2:
             gather = lambda ids: (images.index_select(0, ids), conds.index_select(0, ids))  # noqa: E731
-            grads, aux = accum_grads(state, gather(ids1[i]), gather(ids2[i]), d, cfg, adj_sel)
+            grads, aux = accum_grads(state, gather(ids1[i]), gather(ids2[i]), d, cfg, adj_sel, inputs_s2d)
         else:
             batch1 = (take_batch(images, ids1[i]), take_batch(conds, ids1[i]))
             batch2 = (take_batch(images, ids2[i]), take_batch(conds, ids2[i]))
-            grads, aux = micro_grads(state, batch1, batch2, d, cfg, adj_sel)
+            grads, aux = micro_grads(state, batch1, batch2, d, cfg, adj_sel, inputs_s2d)
         out = apply_updates_rows(state, grads, aux, rows[i], cfg)
         losses.append(torch.stack([out.metrics[k] for k in LOSS_KEYS]))
     return torch.stack(losses), out.fake_image, out.adj_image
@@ -431,7 +486,7 @@ def zero_draws(cfg: Config, n: int, device) -> StepDraws:
     z = lambda *shape: torch.zeros(shape, device=device)  # noqa: E731
     aug = AugmentDraws(torch.zeros((n,), dtype=torch.bool, device=device), z(), z() + 1.0, z(),
                        z(n, cfg.image_dim, cfg.image_dim, cfg.image_channel))
-    return StepDraws(z(n, cfg.noise_dim), aug)
+    return StepDraws(z(n, cfg.noise_dim), aug, z(n, 1, 1, 1) if cfg.use_gp else None)
 
 
 def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Optional[int], store_s2d: bool):
@@ -450,7 +505,7 @@ def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Opt
         ids1, ids2 = inputs[:, :m].long(), inputs[:, m:2 * m].long()
         if micro is None:
             ids1, ids2 = ids1[:, 0], ids2[:, 0]
-        return scan_updates(state, images, conds, ids1, ids2, draws, inputs[:, 2 * m:], cfg)
+        return scan_updates(state, images, conds, ids1, ids2, draws, inputs[:, 2 * m:], cfg, store_s2d)
 
     graphed = GraphedUpdates(body)
 
@@ -486,7 +541,8 @@ def make_scan_train_step(cfg: Config, state: TrainState, n_steps: int, store_s2d
     exactly as K sequential steps would. Returns the state (updated in
     place), (K,) metrics and the LAST update's images (cadence artifacts
     snap to the group). ``step.prepare(state, images, conds)`` captures the
-    graph ahead of the first call."""
+    graph ahead of the first call. ``store_s2d``: the store is in block
+    layout, as for :func:`make_gather_train_step`."""
     return _make_scan_dispatch(cfg, state, n_steps, None, store_s2d)
 
 

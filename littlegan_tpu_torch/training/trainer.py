@@ -5,7 +5,9 @@ littlegan_tpu/training/trainer.py.
 - the pinned eval fixture (noise, cond, image) in
   ``test_data_<env>.npz`` with the reference's reuse contract;
 - the epoch loop: two batches per step from the dataset's (seed, epoch)
-  order, per-step TensorBoard scalars (flushed every 16 calls in one copy
+  order, copied to the card two updates ahead (:class:`Prefetcher`: a ring
+  of pinned host buffers, the copies on a side stream), per-step
+  TensorBoard scalars (flushed every 16 calls in one copy
   from the card), train-sample grids every ``freq_gen`` batches, the
   fixture ``predict`` every ``freq_test``, the "Time usage ... images/s"
   line (2 x batch x grad_accum images per update), a checkpoint per epoch;
@@ -41,23 +43,29 @@ one): ``predict`` on the fixture, ``generate``/``adjust``, and
 uint8 images both in and out. ``plot`` writes ``models.txt`` and one
 ``.dot`` graph per network, ``export_model_checkpoint`` a weights-only npz.
 
+With ``profile_steps`` = n > 0 one ``torch.profiler`` trace (host
+activity, and the card's) of the first epoch is written under
+``result/<exp>/log/profile`` (:class:`ProfileWindow`): steps [10, 10 + n)
+on the one-update path; on the K-update path whole groups, from the second
+group until n steps are covered.
+
 It runs on the card unless ``device="cpu"`` is given; without a card and
-without that argument it raises. Not ported yet, and refused with
-``NotImplementedError``: the step options of ``step.check_supported``
-(ROADMAP A5), meshes and sharded state (ROADMAP A13) and the profiler
-window (``profile_steps``, ROADMAP A8).
+without that argument it raises. Refused: what ``step.check_supported``
+refuses (the gradient penalty with a kernel flag, ``ValueError``), and,
+with ``NotImplementedError``, meshes and sharded state (ROADMAP A13).
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+from collections import deque
 import os
 import signal
 import sys
 import threading
 import time
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,15 +92,15 @@ FLUSH_EVERY = 16  # calls whose losses stay on the card before one copy to the h
 
 
 def check_trainer_supported(cfg: Config) -> None:
-    """Refuse the trainer options the port does not have yet."""
+    """Refuse what the step refuses, and the multi-device options the port
+    does not have yet."""
     check_supported(cfg)
-    for on, what, item in (
-        (cfg.mesh_shape is not None or tuple(cfg.mesh_axes) != ("data",), "a device mesh", "A13"),
-        (cfg.shard_opt_state or cfg.shard_dense, "sharded train state", "A13"),
-        (cfg.profile_steps > 0, "profile_steps", "A8"),
+    for on, what in (
+        (cfg.mesh_shape is not None or tuple(cfg.mesh_axes) != ("data",), "a device mesh"),
+        (cfg.shard_opt_state or cfg.shard_dense, "sharded train state"),
     ):
         if on:
-            raise NotImplementedError(f"{what} is not ported to littlegan_tpu_torch yet (ROADMAP {item})")
+            raise NotImplementedError(f"{what} is not ported to littlegan_tpu_torch yet (ROADMAP A13)")
 
 
 def _pairwise(it):
@@ -114,6 +122,109 @@ def _accum_groups(pairs, m: int):
         if len(chunk) < m:
             return
         yield tuple(tuple(np.stack([np.asarray(c[i][j]) for c in chunk]) for j in range(2)) for i in range(2))
+
+
+class Prefetcher:
+    """Host batches onto the device ``depth`` updates ahead, the port of the
+    JAX trainer's ``_device_prefetch`` / ``_accum_prefetch``.
+
+    Each item is ((images, conds), (images, conds)) of numpy arrays: a
+    step's two batches, or two (M, B, ...) accumulation stacks. On the card
+    each array is written into a ring of ``depth`` pinned host buffers and
+    copied to a fresh device tensor with ``non_blocking`` on a side stream,
+    which records an event; the step's stream waits on that event when the
+    item is taken. A pinned buffer is written again only after the event of
+    its last copy has completed, since a copy still reading it would carry
+    the next batch's bytes. On the CPU the arrays become tensors without a
+    copy."""
+
+    def __init__(self, device: torch.device, depth: int = 2):
+        self.device, self.depth = device, depth
+        self.cuda = device.type == "cuda"
+        self._stream = torch.cuda.Stream(device) if self.cuda else None
+        self._slots: list = [None] * depth  # per ring slot: (pinned buffers, event of their last copy)
+
+    @staticmethod
+    def _arrays(item) -> list:
+        return [np.ascontiguousarray(a, np.float32 if j == 1 else None) for b in item for j, a in enumerate(b)]
+
+    def _put(self, item, slot: int):
+        arrays = self._arrays(item)
+        if not self.cuda:
+            return [torch.from_numpy(a) for a in arrays], None
+        pinned, event = self._slots[slot] or (None, None)
+        if event is not None:
+            event.synchronize()  # the slot's last copy has read its buffers
+        if pinned is None or [p.shape for p in pinned] != [a.shape for a in arrays] \
+                or [p.numpy().dtype for p in pinned] != [a.dtype for a in arrays]:
+            pinned = [torch.from_numpy(a).pin_memory() for a in arrays]
+        else:
+            for p, a in zip(pinned, arrays):
+                p.numpy()[...] = a
+        with torch.cuda.stream(self._stream):
+            out = [torch.empty(p.shape, dtype=p.dtype, device=self.device) for p in pinned]
+            for d, p in zip(out, pinned):
+                d.copy_(p, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        self._slots[slot] = (pinned, event)
+        return out, event
+
+    def _take(self, entry):
+        tensors, event = entry
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in tensors:  # allocated on the side stream, freed after the step's use
+                t.record_stream(stream)
+        return (tensors[0], tensors[1]), (tensors[2], tensors[3])
+
+    def __call__(self, items: Iterable) -> Iterator:
+        buf: deque = deque()
+        for i, item in enumerate(items):
+            buf.append(self._put(item, i % self.depth))
+            if len(buf) == self.depth:
+                yield self._take(buf.popleft())
+        while buf:
+            yield self._take(buf.popleft())
+
+
+class ProfileWindow:
+    """One ``torch.profiler`` trace per run, written under
+    ``result/<exp>/log/profile`` in TensorBoard's PyTorch profiler format
+    (JAX ``trainer.py:794-799``): host activity, and the card's on a CUDA
+    device. The device is synchronised before the start and the stop, so
+    the window holds the work of its own steps only."""
+
+    def __init__(self, cfg: Config, device: torch.device):
+        self.dir = os.path.join(cfg.result_dir, "log", "profile")
+        self.steps = cfg.profile_steps
+        self.device = device
+        self.started = False
+        self._prof = None
+
+    @property
+    def active(self) -> bool:
+        return self._prof is not None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        self._sync()
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        self._prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(self.dir))
+        self._prof.start()
+        self.started = True
+
+    def stop(self) -> None:
+        self._sync()
+        self._prof.stop()
+        self._prof = None
+        print("profiler trace written to", self.dir)
 
 
 def d_score_stats(cond, real_pr, real_c, fake_pr, fake_c) -> Dict:
@@ -180,6 +291,8 @@ class Trainer:
         self._accum_step = make_accum_train_step(cfg, self.state)
         self._gather_step = make_gather_train_step(cfg, self.state)
         self._generator = torch.Generator(device=self.device)
+        self._prefetch = Prefetcher(self.device)
+        self._profile: Optional[ProfileWindow] = None  # the run's window (profile_steps), made in train()
 
     # ---------------------------------------------------------- fixture ----
 
@@ -214,11 +327,6 @@ class Trainer:
             os.replace(tmp, npz)
 
     # ------------------------------------------------------------- train ----
-
-    def _put(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        img, cond = batch
-        return (torch.from_numpy(np.ascontiguousarray(img)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(cond, np.float32)).to(self.device))
 
     def draws(self, global_step: int, micro: Optional[int] = None):
         """The draws of step ``global_step`` (or of its micro-step ``micro``)."""
@@ -356,6 +464,7 @@ class Trainer:
         prev_handler = signal.signal(signal.SIGINT, self._request_interrupt) if main else None
         self._metrics_buffer = []
         first_epoch = self.global_epoch
+        self._profile = ProfileWindow(cfg, self.device) if cfg.profile_steps > 0 else None
         try:
             for epoch in range(self.global_epoch, cfg.epoch + 1):
                 self.global_epoch = epoch
@@ -366,7 +475,9 @@ class Trainer:
                     print(f"mid-epoch resume: continuing epoch {epoch} at batch {resume_b + 1} "
                           f"(skipping {resume_b} already-trained batches)")
                 run = self._scan_epoch if self._uses_scan() else self._step_epoch
-                images_done, dropped = run(epoch, resume_b)
+                images_done, dropped = run(epoch, resume_b, epoch == first_epoch)
+                if self._profile is not None and self._profile.active:  # a short first epoch: stop at its end
+                    self._profile.stop()
                 self._flush_buffered()
                 elapsed = time.time() - start
                 rate = images_done / elapsed if elapsed > 0 else 0.0
@@ -384,9 +495,10 @@ class Trainer:
             if self._writer is not None:
                 self._writer.flush()
 
-    def _step_epoch(self, epoch: int, resume_b: int) -> Tuple[int, int]:
+    def _step_epoch(self, epoch: int, resume_b: int, first: bool = False) -> Tuple[int, int]:
         """One applied update per call: host-fed, host-fed accumulation or
-        the gather step over the device store. Returns (images, 0)."""
+        the gather step over the device store; ``first``: the run's first
+        epoch, where the profile window lies. Returns (images, 0)."""
         cfg = self.cfg
         m = cfg.grad_accum
         if cfg.device_data:  # M == 1 here: accumulation over the store rides the scan path
@@ -399,30 +511,37 @@ class Trainer:
             def run(b1, b2, draws, batch_no):
                 return self._gather_step(self.state, imgs, conds, b1, b2, draws, batch_no)
         elif m > 1:
-            updates = _accum_groups(_pairwise(self.dataset.epoch_iterator(epoch, start_batch=2 * m * resume_b)), m)
+            updates = self._prefetch(
+                _accum_groups(_pairwise(self.dataset.epoch_iterator(epoch, start_batch=2 * m * resume_b)), m))
 
             def run(b1, b2, draws, batch_no):
-                return self._accum_step(self.state, self._put(b1), self._put(b2), draws, batch_no)
+                return self._accum_step(self.state, b1, b2, draws, batch_no)
         else:
-            updates = _pairwise(self.dataset.epoch_iterator(epoch, start_batch=2 * resume_b))
+            updates = self._prefetch(_pairwise(self.dataset.epoch_iterator(epoch, start_batch=2 * resume_b)))
 
             def run(b1, b2, draws, batch_no):
-                return self._train_step(self.state, self._put(b1), self._put(b2), draws, batch_no)
+                return self._train_step(self.state, b1, b2, draws, batch_no)
 
         batch_no = resume_b
         self._cur_batch_no = batch_no
         images_done = 0
+        prof = self._profile if first else None
         for b1, b2 in updates:
             batch_no += 1
             self._cur_batch_no = batch_no
             self.global_step += 1
+            if prof is not None:  # steps [10, 10 + n) of the first epoch
+                if batch_no == 10 and not prof.started:
+                    prof.start()
+                elif prof.active and batch_no == 10 + prof.steps:
+                    prof.stop()
             out = run(b1, b2, self.update_draws(self.global_step), batch_no)
             self._metrics_buffer.append((self.global_step, batch_no, out.metrics))
             images_done += 2 * cfg.batch_size * m
             self._after_dispatch(out, epoch, batch_no - 1, batch_no)
         return images_done, 0
 
-    def _scan_epoch(self, epoch: int, resume_b: int) -> Tuple[int, int]:
+    def _scan_epoch(self, epoch: int, resume_b: int, first: bool = False) -> Tuple[int, int]:
         """K applied updates per call over the device store, each of M
         micro-pairs; the trailing partial group runs as a smaller one.
         Returns (images, trailing batches dropped)."""
@@ -436,6 +555,7 @@ class Trainer:
         batch_no = resume_b
         self._cur_batch_no = batch_no
         images_done = dropped = 0
+        prof = self._profile if first else None
         while True:
             group = list(itertools.islice(ids, per_update * k))
             k_r = len(group) // per_update
@@ -444,6 +564,13 @@ class Trainer:
                 if k_r == 0:
                     break
                 group = group[: per_update * k_r]
+            if prof is not None:
+                # whole groups: skip the first (warm-up), trace until n steps are
+                # covered; an epoch whose second group is its remainder is traced
+                if not prof.started and (batch_no >= k or k_r < k):
+                    prof.start()
+                elif prof.active and batch_no >= k + prof.steps:
+                    prof.stop()
             # pair p = (group[2p], group[2p + 1]); update u takes pairs [u*M, (u+1)*M)
             b1 = np.asarray(group[0::2], np.int64).reshape(k_r, m)
             b2 = np.asarray(group[1::2], np.int64).reshape(k_r, m)

@@ -67,10 +67,12 @@ def jax_aug_draws(key, shape) -> taug.AugmentDraws:
 
 
 def jax_step_draws(rng, cfg, img_shape) -> tstep.StepDraws:
-    """``_micro_grads``' draws: split(rng, 3) -> noise, augment, (gp)."""
-    k_noise, k_aug, _ = jax.random.split(rng, 3)
+    """``_micro_grads``' draws: split(rng, 3) -> noise, augment, and with
+    ``use_gp`` the penalty's mix (``gradient_penalty``'s uniform)."""
+    k_noise, k_aug, k_gp = jax.random.split(rng, 3)
     noise = t(jax.random.normal(k_noise, (img_shape[0], cfg.noise_dim), jnp.float32))
-    return tstep.StepDraws(noise, jax_aug_draws(k_aug, img_shape))
+    eps = t(jax.random.uniform(k_gp, (img_shape[0], 1, 1, 1))) if cfg.use_gp else None
+    return tstep.StepDraws(noise, jax_aug_draws(k_aug, img_shape), eps)
 
 
 def batch(rng, cfg, n=None):
@@ -324,11 +326,18 @@ def test_encoder_grads_with_both_kernel_flags_match_jax(tiny_cfg):
     assert float(model.encoder.block1.conv.kernel.grad.abs().sum()) > 0
 
 
-def test_step_refuses_unported_options(tiny_cfg):
-    tc = tcfg_of(tiny_cfg)
-    for kw, item in ((dict(use_gp=True), "use_gp"), (dict(remat=True), "remat")):
-        with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP A5"):
-            tstep.check_supported(tc.replace(**kw))
+@pytest.mark.parametrize("flag", ["use_pallas", "use_pallas_boundary"])
+def test_step_refuses_unported_options(tiny_cfg, flag):
+    """The one step option refused: the gradient penalty with a kernel flag
+    (the kernels' backwards are first order only), at every step maker."""
+    tc = tcfg_of(tiny_cfg).replace(use_gp=True, **{flag: True})
+    state = create_train_state(tc.replace(use_gp=False), "cpu")
+    for check in (tstep.check_supported, lambda c: tstep.make_train_step(c, state),
+                  lambda c: tstep.make_accum_train_step(c, state), lambda c: tstep.make_gather_train_step(c, state),
+                  lambda c: tstep.make_scan_train_step(c, state, 2)):
+        with pytest.raises(ValueError, match="use_gp needs use_pallas=False and use_pallas_boundary=False"):
+            check(tc)
+    tstep.check_supported(tc.replace(**{flag: False}))  # GP on the plain ops is taken
 
 
 def test_prep_images_rescales_uint8_only():

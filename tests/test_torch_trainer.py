@@ -162,12 +162,18 @@ def test_trainer_raises_without_a_card(tiny_cfg, tmp_path):
         Trainer(tcfg_of(_cfg(tiny_cfg, tmp_path)), None)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(use_gp=True), "A5"), (dict(remat=True), "A5"), (dict(profile_steps=2), "A8"),
-    (dict(mesh_axes=["data", "model"]), "A13"), (dict(shard_opt_state=True), "A13"),
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(use_gp=True, use_pallas=True), ValueError, "use_gp needs use_pallas=False"),
+    (dict(use_gp=True, use_pallas_boundary=True), ValueError, "use_gp needs use_pallas=False"),
+    (dict(mesh_shape=[1]), NotImplementedError, "ROADMAP A13"),
+    (dict(mesh_axes=["data", "model"]), NotImplementedError, "ROADMAP A13"),
+    (dict(shard_opt_state=True), NotImplementedError, "ROADMAP A13"),
+    (dict(shard_dense=True), NotImplementedError, "ROADMAP A13"),
 ])
-def test_trainer_refuses_unported_options(tiny_cfg, tmp_path, kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+def test_trainer_refuses_unported_options(tiny_cfg, tmp_path, kw, exc, match):
+    """What the trainer still refuses: the gradient penalty with a kernel
+    flag, and the multi-device options (meshes, sharded state)."""
+    with pytest.raises(exc, match=match):
         Trainer(tcfg_of(_cfg(tiny_cfg, tmp_path, **kw)), None, device="cpu")
 
 
