@@ -91,13 +91,36 @@ Phases, each of which fails the run on any error:
       through the gather path, in turns (images/s); and the CelebA
       pipeline on synthetic JPEGs at 128x128 and 178x218 with the native
       loader and with PIL (images/s on the host, and which decoder ran: a
-      host without libjpeg decodes with PIL). Each phase's wall is printed
-      after (g).
+      host without libjpeg decodes with PIL);
+  (h) data parallelism (``littlegan_tpu_torch/parallel/``): every kernel
+      against its plain version at one rank's shapes (the train step's rows
+      split over ``DP_RANKS``); (i) NCCL at world size 1: a ``Trainer``
+      with the process group trains ``DP_STEPS`` updates over the device
+      store in ``DP_K``-update CUDA graph replays, the all-reduce captured
+      in each (launches per replay and per run counted), bit for bit with
+      the same run without a group, and the graph update's device busy
+      with and without the group, with the bytes reduced per update; then
+      ZeRO-1's reduce-scatter and all-gather over NCCL, eager and captured,
+      bit for bit with the run without a group;
+      (ii) ``DP_RANKS`` gloo ranks sharing the card, started by this
+      script (``--dp-rank``): ``DP_UPDATES`` updates of the global batch
+      (host-fed, host-fed, gather, ``grad_accum`` 2) with the kernels on,
+      in float32 and in bf16, replicated and with ZeRO-1, against one
+      process on the global batch (losses to ``TRAIN_TOL["loss_rtol"]``,
+      weights to ``DP_FLOOR_X`` times the gap that swapping the batch's
+      halves makes in one process), ZeRO-1 against replicated, the ranks'
+      losses equal, the K-update CUDA graph refused under gloo (its collectives
+      cannot be captured), and one ``Trainer`` epoch per rank in which rank
+      1 writes no file; (iii) an engine over ``[cuda:0, cuda:0]`` (two replicas on the
+      card) against the one-card engine at ``DP_INFER_ROWS`` rows
+      (``ENGINE_TOL``) and one ``--devices 1`` request through ``serve()``.
+      Each phase's wall is printed after (h).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
 is the kernels' JSON record. Without a CUDA device, or outside the
-repository, it exits non-zero and prints no result.
+repository, it exits non-zero and prints no result. ``--dp-rank RANK PORT
+OUT`` runs one rank of phase (h) (ii); phase (h) starts them.
 """
 
 from __future__ import annotations
@@ -1218,9 +1241,18 @@ def _snapshotting(step, model, box):
     return wrapped
 
 
-def _hold(what, losses, want_losses, params, want_params):
+def _lr_steps(got, want, lr) -> str:
+    """How two runs' flat weights differ in units of the learning rate."""
+    d = (got.float() - want.float()).abs()
+    return (f"{int((d > lr / 2).sum())} of {d.numel()} weights more than lr/2 apart, "
+            f"largest {float(d.max()) / lr:.3g} lr")
+
+
+def _hold(what, losses, want_losses, params, want_params, tol=(TRAIN_TOL["loss_rtol"], DISPATCH_PARAM_REL)):
     """Hold per-update losses (lists of (gen, disc, adj)) and per-group
-    weights against an eager run's; returns the record, raises on a miss."""
+    weights against a reference run's, to ``tol`` (the losses' relative
+    difference, the weights' relative norm error); returns the record,
+    raises on a miss."""
     import torch
 
     loss_rel = max(abs(a - b) / max(abs(b), 1e-12) for la, lb in zip(losses, want_losses) for a, b in zip(la, lb))
@@ -1229,10 +1261,9 @@ def _hold(what, losses, want_losses, params, want_params):
     log(f"{what}: largest loss difference {loss_rel:.3g} (relative), weights at the groups' ends "
         f"{param_rel:.3g} (relative norm); bitwise: {bitwise}")
     require(len(losses) == len(want_losses) and len(params) == len(want_params), (what, len(losses), len(params)))
-    if not loss_rel <= TRAIN_TOL["loss_rtol"] or not param_rel <= DISPATCH_PARAM_REL:
-        raise AssertionError(f"{what}: the graph run disagrees with the eager one (losses {loss_rel}, "
-                             f"weights {param_rel}; tolerance {TRAIN_TOL['loss_rtol']}, {DISPATCH_PARAM_REL})")
-    return {"loss_rel": loss_rel, "param_rel": param_rel, "bitwise": bitwise}
+    if not loss_rel <= tol[0] or not param_rel <= tol[1]:
+        raise AssertionError(f"{what}: the runs disagree (losses {loss_rel}, weights {param_rel}; tolerance {tol})")
+    return {"loss_rel": loss_rel, "param_rel": param_rel, "bitwise": bitwise, "tol": list(tol)}
 
 
 def check_dispatch():
@@ -2198,16 +2229,505 @@ def check_trainer_options():
     return remat_launches, s2d_launches, record
 
 
+# phase (h): data parallelism. (i) NCCL at world size 1 on the card: a
+# Trainer with the process group trains DP_STEPS updates over the device
+# store in DP_K-update CUDA graph replays, the all-reduce captured in each,
+# against the same run without a group (bit for bit); then ZeRO-1's
+# reduce-scatter and all-gather over NCCL, eager and captured, with every
+# leaf DP_RANKS ranks would shard sent through them (bit for bit);
+# (ii) DP_RANKS ranks sharing the card over gloo, spawned by this script,
+# run DP_UPDATES updates of the global batch (host-fed, host-fed, gather,
+# grad_accum 2) with the kernels on, in float32 and in bf16, replicated and
+# with ZeRO-1, against one process on the global batch; and one Trainer
+# epoch each (rank 1 writes no file); (iii) an engine over [cuda:0, cuda:0]
+# (two replicas on the card) against the one-card engine at DP_INFER_ROWS
+# rows (ENGINE_TOL), and one `--devices 1` request through serve().
+DP_K = 8
+DP_STEPS = 16
+DP_RANKS = 2
+DP_UPDATES = 4
+DP_INFER_ROWS = (BATCH, BATCH - 1)
+# (ii)'s tolerance. The ranks' updates differ from one process's only in the
+# order of the batch's sums, and Adam's first steps turn every gradient
+# element that is no more than rounding noise into a whole +-lr step, so any
+# change of order moves some weights by 2 lr. Its floor, measured in the
+# run in each dtype: one process with the batch's two halves swapped against
+# the same process in order. The DP weights must lie within DP_FLOOR_X times
+# it (relative norm), the losses within TRAIN_TOL["loss_rtol"]
+DP_FLOOR_X = 3.0
+
+
+def _rank_shapes(shapes):
+    """One rank's shapes of train-step shapes at DP_RANKS ranks: the rows split."""
+    return sorted({(s[0] // DP_RANKS,) + tuple(s[1:]) for s, _ in shapes})
+
+
+def _rows_of(draws, rows, lead: int = 0):
+    """``draws`` of a global batch with its per-sample draws (those
+    ``local_draws`` slices) taken in the order ``rows`` (None: as they are)."""
+    if rows is None:
+        return draws
+    pick = lambda x: None if x is None else x[(slice(None),) * lead + (rows,)]  # noqa: E731
+    aug = draws.augment._replace(flip=pick(draws.augment.flip), noise=pick(draws.augment.noise))
+    return draws._replace(noise=pick(draws.noise), augment=aug, gp_eps=pick(draws.gp_eps))
+
+
+def _dp_updates(cfg, state, dg, imgs, conds, sync, rows=None):
+    """The DP_UPDATES updates phase (h) (ii) runs from ``state``, each on this
+    rank's rows (all of them without ``dg``): two host-fed steps, one
+    gather step and one accumulation step of two micro-pairs; the global
+    batch's draws of each update, as the trainer makes them. ``rows``
+    (one process only): every batch's rows, and their draws, in this
+    order, which changes only the order of the batch's sums. Returns the
+    losses of each update."""
+    from littlegan_tpu_torch.parallel.train import local_draws, shard_local_batch
+    from littlegan_tpu_torch.training import step as tstep
+
+    if rows is not None:
+        imgs, conds = imgs[:, rows], conds[:, rows]
+    limgs, lconds = shard_local_batch(imgs, dg, 1), shard_local_batch(conds, dg, 1)
+
+    def draws(u):  # update u's draws, this rank's rows
+        one = tstep.map_draws(lambda x: x[0], _update_draws(cfg, u, 1, imgs.device))
+        return local_draws(_rows_of(one, rows), dg)
+
+    losses = []
+    train = tstep.make_train_step(cfg, state, sync)
+    for u in range(2):
+        out = train(state, (limgs[2 * u], lconds[2 * u]), (limgs[2 * u + 1], lconds[2 * u + 1]), draws(u + 1), 11 + u)
+        losses.append(_losses(out)[0])
+    out = tstep.make_gather_train_step(cfg, state, sync=sync)(state, limgs, lconds, 4, 5, draws(3), 13)
+    losses.append(_losses(out)[0])
+    acfg = cfg.replace(grad_accum=2)
+    pick = lambda ids: (limgs[list(ids)], lconds[list(ids)])  # noqa: E731
+    out = tstep.make_accum_train_step(acfg, state, sync)(
+        state, pick((6, 8)), pick((7, 9)), local_draws(_rows_of(_update_draws(acfg, 4, 2, imgs.device), rows, 1), dg, 1), 14)
+    losses.append(_losses(out)[0])
+    return losses
+
+
+def dp_rank_main(rank: int, port: int, out_path: str) -> int:
+    """One gloo rank of phase (h) (ii), on the one card: the DP updates
+    from the seeded init in float32, and in bf16 replicated (its launches
+    counted) and with ZeRO-1, the K-update graph refused under gloo, then
+    one Trainer epoch in ``<out_path>.r<rank>``; writes its record."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.models.littlegan import init_params
+    from littlegan_tpu_torch.ops.cuda import _build
+    from littlegan_tpu_torch.parallel.mesh import data_group
+    from littlegan_tpu_torch.parallel.train import GradSync
+    from littlegan_tpu_torch.parallel.zero import Zero1
+    from littlegan_tpu_torch.training.state import create_train_state
+    from littlegan_tpu_torch.training.step import make_scan_train_step
+    from littlegan_tpu_torch.training.trainer import Trainer
+
+    _build.lib()
+    torch.backends.cudnn.allow_tf32 = False  # as in the one-process run it is held against
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=DP_RANKS, rank=rank)
+    try:
+        dg = data_group(dev)
+        record = {}
+        root = out_path + f".r{rank}"
+        cfg = train_config(root).replace(exp_name="chip_smoke_dp_gloo")
+        imgs, conds = _store(cfg, dev)
+        counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+        for name, zero, dtype in (("f32", False, "float32"), ("replicated", False, "bfloat16"),
+                                  ("zero1", True, "bfloat16")):
+            run_cfg = cfg.replace(shard_opt_state=zero, compute_dtype=dtype)
+            state = create_train_state(run_cfg, dev, init_params(cfg, cfg.seed))
+            sync = Zero1(dg, state) if zero else GradSync(dg)
+            for c in counters.values():
+                c.reset()
+            losses = _dp_updates(run_cfg, state, dg, imgs, conds, sync)
+            torch.cuda.synchronize()
+            record[name] = {"losses": losses, "weights": _flat_params(state.model).cpu(),
+                            "launches": {k: c.value for k, c in counters.items()},
+                            "reduced_bytes": sync.reduced_bytes}
+            del state, sync
+        state = create_train_state(cfg, dev, init_params(cfg, cfg.seed))
+        try:  # gloo collectives cannot be captured: the K-update path must refuse, never run eagerly
+            make_scan_train_step(cfg, state, DP_K, sync=GradSync(dg)).prepare(state, imgs, conds)
+            record["graph_refused"] = None
+        except RuntimeError as e:
+            record["graph_refused"] = str(e)
+        del state
+        data = SyntheticDataset(cfg, num_items=4 * cfg.batch_size)
+        tr = Trainer(cfg.replace(freq_gen=2, epoch=1), data, device=dev, group=dg)
+        tr.train()
+        record["trainer_files"] = sorted(os.path.relpath(os.path.join(d, f), root)
+                                         for d, _, fs in os.walk(root) for f in fs)
+        record["trainer_weights"] = _flat_params(tr.state.model).cpu()
+        with open(out_path + f".{rank}.pkl", "wb") as f:
+            pickle.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def check_dp_nccl(root, port: int):
+    """Phase (h) (i). Returns (each kernel's launches in the DP run, the record)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.parallel.mesh import data_group
+    from littlegan_tpu_torch.training.trainer import Trainer
+    from littlegan_tpu_torch.utils.tensorboard import read_scalars
+
+    cfg = train_config(root).replace(device_data=True, steps_per_dispatch=DP_K, freq_gen=DP_STEPS,
+                                     exp_name="chip_smoke_dp")
+    pcfg = cfg.replace(exp_name="chip_smoke_dp_plain")
+    data = SyntheticDataset(cfg, num_items=2 * DP_STEPS * cfg.batch_size)
+    plain = Trainer(pcfg, data)  # before the group exists: no group
+    require(plain.dp is None, "the plain trainer found a process group")
+    plain.train()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        trainer = Trainer(cfg, data, group=data_group())
+        require(trainer.dp is not None and trainer.dp.backend == "nccl", "no NCCL group")
+        imgs, conds = trainer._ensure_device_store()
+        t0 = time.time()
+        trainer._scan_step(DP_K).prepare(trainer.state, imgs, conds)
+        torch.cuda.synchronize()
+        held = trainer._scan_steps[DP_K].graphed.launches
+        want = {k: v * DP_K for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+        require(held == want, f"the {DP_K}-update DP graph holds {held}, want {want}")
+        log(f"DP graph of {DP_K} updates (NCCL all-reduce inside) captured in {time.time() - t0:.1f} s; "
+            f"launches per replay {held}")
+        counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+        for c in counters.values():
+            c.reset()
+        t0 = time.time()
+        trainer.train()
+        torch.cuda.synchronize()
+        launches = {k: c.value for k, c in counters.items()}
+        want = {k: v * DP_STEPS for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+        require(launches == want, f"NCCL DP run launches {launches}, want {want}")
+        log(f"NCCL world-1 DP run: {DP_STEPS} updates in {DP_STEPS // DP_K} replays, {time.time() - t0:.1f} s, "
+            f"launches {launches}")
+        bitwise = _equal_state(trainer.state, plain.state)
+        got, ref = (read_scalars(os.path.join(c.result_dir, "log")) for c in (cfg, pcfg))
+        same_losses = got == ref
+        log(f"NCCL world-1 DP vs no group: state bit for bit {bitwise}, logged losses equal {same_losses}")
+        require(bitwise and same_losses, "the world-1 NCCL DP run differs from the run without a group")
+        require(all(np.isfinite(v) for series in got.values() for _, v in series), "non-finite DP losses")
+        reduced = trainer._sync.reduced_bytes
+        timing = {"dp": _time_graph(trainer._scan_steps[DP_K], trainer.state, imgs, conds, cfg),
+                  "plain": _time_graph(plain._scan_steps[DP_K], plain.state, *plain._ensure_device_store(), cfg)}
+        log(f"graph update with the NCCL group vs without: {json.dumps(timing)}; all-reduced per update "
+            f"{reduced} bytes")
+        record = {"bitwise": bitwise, "reduced_bytes_per_update": reduced, "timing": timing,
+                  "launches_per_replay": held}
+        del trainer
+        record["zero1"] = check_zero1_nccl(cfg, data_group())
+    finally:
+        dist.destroy_process_group()
+    return launches, record
+
+
+def check_zero1_nccl(cfg, dg):
+    """Phase (h) (i), ZeRO-1 on NCCL. One rank shards nothing (no axis of a
+    leaf is split by 1), so the moment axes are set to those of DP_RANKS
+    ranks: every leaf they would shard goes through the reduce-scatter, the
+    Adam update of its (here whole) shard and the all-gather, in the
+    DP_UPDATES eager updates of (ii) and one DP_K-update CUDA graph replay,
+    against the same updates without a group, bit for bit. Returns the
+    record."""
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.models.littlegan import init_params
+    from littlegan_tpu_torch.parallel.zero import Zero1, moment_axis
+    from littlegan_tpu_torch.training.state import create_train_state
+    from littlegan_tpu_torch.training.step import make_scan_train_step
+
+    imgs, conds = _store(cfg, dg.device)
+    states = [create_train_state(cfg, dg.device, init_params(cfg, cfg.seed)) for _ in range(2)]
+    zero = Zero1(dg, states[1])
+    zero.axes = {k: moment_axis(shape, DP_RANKS) for k, shape in zero.shapes.items()}
+    sharded = len(zero._sharded(zero.axes))
+    require(sharded > 0, f"no moment leaf shards over {DP_RANKS} ranks")
+    ids = np.arange(2 * DP_K) % imgs.shape[0]
+    draws = _draws_k(cfg, 1 + DP_UPDATES, DP_K, dg.device)[0]
+    losses = []
+    for state, sync, group in ((states[0], None, None), (states[1], zero, dg)):
+        losses.append(_dp_updates(cfg, state, group, imgs, conds, sync))
+        scan = make_scan_train_step(cfg, state, DP_K, sync=sync)
+        scan.prepare(state, imgs, conds)
+        out = scan(state, imgs, conds, ids[0::2], ids[1::2], draws, 1 + DP_UPDATES)
+        losses[-1] += _losses(out)
+    torch.cuda.synchronize()
+    bitwise = _equal_state(*states) and losses[0] == losses[1]
+    log(f"ZeRO-1 over NCCL at world size 1 ({sharded} leaves through the reduce-scatter and all-gather, "
+        f"{DP_UPDATES} eager updates and one {DP_K}-update graph replay) vs no group: bit for bit {bitwise}")
+    require(bitwise, "ZeRO-1 over NCCL differs from the run without a group")
+    return {"bitwise": bitwise, "sharded_leaves": sharded, "reduced_bytes_per_update": zero.reduced_bytes}
+
+
+def check_dp_gloo(root, port: int):
+    """Phase (h) (ii). Returns (the ranks' launches in their DP updates, the record)."""
+    import pickle
+
+    import torch
+
+    from littlegan_tpu_torch.models.littlegan import init_params
+    from littlegan_tpu_torch.training.state import create_train_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = train_config(os.path.join(root, "single")).replace(exp_name="chip_smoke_dp_single")
+    imgs, conds = _store(cfg, dev)
+    # dtype -> (losses, weights) of one process on the global batch, in its
+    # row order and with its two halves swapped
+    single, swapped = {}, {}
+    halves = list(range(cfg.batch_size // 2, cfg.batch_size)) + list(range(cfg.batch_size // 2))
+    for dtype in ("float32", "bfloat16"):
+        for box, rows in ((single, None), (swapped, halves)):
+            state = create_train_state(cfg.replace(compute_dtype=dtype), dev, init_params(cfg, cfg.seed))
+            box[dtype] = (_dp_updates(cfg.replace(compute_dtype=dtype), state, None, imgs, conds, None, rows),
+                          _flat_params(state.model).cpu())
+            del state
+    del imgs, conds
+    torch.cuda.empty_cache()
+    floor = {dtype: _rel_err(swapped[dtype][1], single[dtype][1]) for dtype in single}
+    for dtype in single:
+        log(f"one process, {DP_UPDATES} updates, {dtype}, the batch's halves swapped vs in order: "
+            f"weights {floor[dtype]:.3g} (relative norm); {_lr_steps(swapped[dtype][1], single[dtype][1], cfg.lr)}")
+    log(f"one process, bf16 vs float32: weights {_rel_err(single['bfloat16'][1], single['float32'][1]):.3g} "
+        f"(relative norm); {_lr_steps(single['bfloat16'][1], single['float32'][1], cfg.lr)}")
+    out = os.path.join(root, "gloo")
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    env.pop("LOCAL_RANK", None)
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), str(port), out],
+                              env=env) for r in range(DP_RANKS)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(codes == [0] * DP_RANKS, f"gloo ranks exited {codes}")
+    recs = []
+    for r in range(DP_RANKS):
+        with open(out + f".{r}.pkl", "rb") as f:
+            recs.append(pickle.load(f))
+    log(f"{DP_RANKS} gloo ranks on one card ran in {time.time() - t0:.1f} s")
+    rep = recs[0]["replicated"]
+    require(all(r[k]["losses"] == recs[0][k]["losses"] for r in recs for k in ("f32", "replicated")),
+            f"the ranks' losses differ: {[r['replicated']['losses'] for r in recs]}")
+    record = {"order_floor": floor}
+    for key, dtype in (("f32", "float32"), ("replicated", "bfloat16")):
+        run = recs[0][key]
+        log(f"{DP_RANKS} gloo ranks vs one process, {dtype}: "
+            f"{_lr_steps(run['weights'], single[dtype][1], cfg.lr)}")
+        record[f"vs_single_{dtype}"] = _hold(
+            f"{DP_RANKS} gloo ranks vs one process, {DP_UPDATES} updates, {dtype}", run["losses"],
+            single[dtype][0], [run["weights"]], [single[dtype][1]],
+            tol=(TRAIN_TOL["loss_rtol"], DP_FLOOR_X * floor[dtype]))
+    z = recs[0]["zero1"]
+    zero_rel = _rel_err(z["weights"], rep["weights"])
+    zero_bitwise = bool(torch.equal(z["weights"], rep["weights"])) and z["losses"] == rep["losses"]
+    log(f"ZeRO-1 vs replicated DP: weights {zero_rel:.3g} (relative norm), bitwise {zero_bitwise}; "
+        f"reduced per update {z['reduced_bytes']} vs {rep['reduced_bytes']} bytes")
+    require(bool(torch.allclose(z["weights"], rep["weights"], rtol=2e-4, atol=2e-5)), "ZeRO-1 != replicated DP")
+    refused = [r["graph_refused"] for r in recs]
+    require(all(m is not None and "cannot be captured" in m for m in refused),
+            f"the K-update path under gloo on the card did not refuse: {refused}")
+    log(f"K-update graph under gloo on the card refused on every rank: {refused[0]}")
+    files = [r["trainer_files"] for r in recs]
+    require(files[1] == [] and any(f.endswith("ckpt-1.npz") for f in files[0]),
+            f"rank 0 wrote {len(files[0])} files, rank 1 {files[1]}")
+    require(torch.equal(recs[0]["trainer_weights"], recs[1]["trainer_weights"]), "the ranks' trainer weights differ")
+    log(f"gloo Trainer epoch: rank 0 wrote {len(files[0])} files, rank 1 none; the ranks' weights equal")
+    launches = {k: sum(r["replicated"]["launches"][k] for r in recs) for k in rep["launches"]}
+    want_l = {k: v * (DP_UPDATES + 1) * DP_RANKS for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+    require(launches == want_l, f"gloo DP launches {launches}, want {want_l}")
+    record.update(zero_rel=zero_rel, zero_bitwise=zero_bitwise, rank_launches=launches)
+    return launches, record
+
+
+def check_dp_infer(root):
+    """Phase (h) (iii). Returns (each kernel's launches in the two-replica
+    engine's calls, the record)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.serving import InferenceEngine, serve
+
+    cfg = full_config()
+    one = InferenceEngine(cfg, batch_size=BATCH)
+    two = InferenceEngine(cfg, batch_size=BATCH, devices=["cuda:0", "cuda:0"])
+    rng = np.random.default_rng(5)
+    counters = _counters()
+    errs, launches, bitwise = {}, {k: 0 for k in counters}, True
+    for rows in DP_INFER_ROWS:
+        noise = rng.normal(size=(rows, cfg.noise_dim)).astype(np.float32)
+        cond = np.where(rng.random((rows, cfg.cond_dim)) < 0.5, 0.98, -0.94).astype(np.float32)
+        image = rng.uniform(-1, 1, (rows, cfg.image_dim, cfg.image_dim, 3)).astype(np.float32)
+        outs = {}
+        for name, eng in (("one", one), ("two", two)):
+            for c in counters.values():
+                c.reset()
+            outs[name] = [eng.generate(cond, noise), eng.adjust(image, cond), *eng.discriminate(image).values()]
+            if name == "two":
+                launches = {k: launches[k] + c.value for k, c in counters.items()}
+        for i, (a, b) in enumerate(zip(outs["two"], outs["one"])):
+            d = np.abs(a - b)
+            errs[f"{rows}:{i}"] = (float(d.max()), float(d.mean()))
+            bitwise &= bool((a == b).all())
+            lim = ENGINE_TOL["image_max"] if i < 2 else ENGINE_TOL["prob_max"]
+            require(a.shape == b.shape and d.max() <= lim and (i >= 2 or d.mean() <= ENGINE_TOL["image_mean"]),
+                    f"two replicas vs one card, {rows} rows, output {i}: max {d.max()}, mean {d.mean()}")
+    log(f"engine over [cuda:0, cuda:0] vs one card at {DP_INFER_ROWS} rows: bitwise {bitwise}; "
+        f"(max, mean) abs diff {errs}")
+    started, box = threading.Event(), {}
+
+    def on_start(server):
+        box["server"] = server
+        started.set()
+
+    thread = threading.Thread(target=serve, args=(cfg,), daemon=True, kwargs=dict(
+        host="127.0.0.1", port=0, batch_size=BATCH, max_wait_ms=0.0, devices=1, on_start=on_start))
+    thread.start()
+    require(started.wait(120), "serve(devices=1) did not start")
+    try:
+        status, body = _http(f"http://127.0.0.1:{box['server'].server_address[1]}/generate",
+                             {"cond": [[0.98] * cfg.cond_dim], "seed": 0})
+        require(status == 200 and len(json.loads(body)["images"]) == 1, body[:200])
+    finally:
+        box["server"].shutdown()
+        thread.join(60)
+    log("serve(devices=1): one /generate request answered")
+    del one, two
+    torch.cuda.empty_cache()
+    return launches, {"max_mean_abs": errs, "bitwise": bitwise}
+
+
+def check_rank_shapes():
+    """The kernels against their plain versions at one DP rank's shapes
+    (the train step's rows split over DP_RANKS), bf16, with phase (b)'s
+    tolerances; K2 leaves out the elements at LeakyReLU's kink as (b) does."""
+    import torch
+
+    from littlegan_tpu_torch.ops.cuda import boundary_conv as bc
+    from littlegan_tpu_torch.ops.cuda import norm_lrelu as nl
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gamma, beta = torch.tensor([1.3], device=dev), torch.tensor([-0.2], device=dev)
+    atol, rtol = TOL["bfloat16"]
+    batol, brtol = BWD_TOL["bfloat16"]
+    errs, failures = {}, []
+    for shape in _rank_shapes(K1_STEP):
+        x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).to(dt)
+        got = nl.fused_instance_norm_lrelu(x, gamma, beta, 0.3)
+        want = nl.fused_instance_norm_lrelu_plain(x, gamma, beta, 0.3)
+        errs[f"K1 {shape}"] = _max_err(got, want)
+        if not _within(got, want, atol, rtol):
+            failures.append(f"K1 {shape}")
+    for shape in _rank_shapes(K2_STEP):
+        x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).to(dt)
+        dy = torch.randn(shape, device=dev, generator=gen).to(dt)
+        got = nl.fused_instance_norm_lrelu_bwd(x, dy, gamma, beta, 0.3, 1e-3)
+        want = nl.fused_instance_norm_lrelu_bwd_plain(x, dy, gamma, beta, 0.3)
+        xf = x.float()
+        nrm = (xf - xf.mean((1, 2, 3), keepdim=True)) / (xf.var((1, 2, 3), unbiased=False, keepdim=True).sqrt() + 1e-3)
+        away = (nrm * gamma + beta).abs() > KINK
+        errs[f"K2 {shape}"] = _max_err(got[0][away], want[0][away])
+        if not _within(got[0][away], want[0][away], batol, brtol):
+            failures.append(f"K2 {shape}")
+    for xshape in _rank_shapes(K3_STEP + BLOCK1_STEP):
+        x = torch.randn(xshape, device=dev, generator=gen).to(dt)
+        w = (torch.randn((3, 3, xshape[3], 64), device=dev, generator=gen) * 0.2).to(dt)
+        b = (torch.randn((64,), device=dev, generator=gen) * 0.1).to(dt)
+        y, s1, s2 = bc.conv3x3_same_stats(x, w, b)
+        py, _, _ = bc.conv3x3_same_stats_plain(x, w, b)
+        errs[f"K3 {xshape}"] = _max_err(y, py)
+        if not _within(y, py, atol, rtol):
+            failures.append(f"K3 {xshape}")
+        got = nl.norm_lrelu_from_stats(y, s1, s2, gamma, beta, 0.3)
+        want = nl.norm_lrelu_from_stats_plain(y, s1, s2, gamma, beta, 0.3)
+        errs[f"K1' {xshape}"] = _max_err(got, want)
+        if not _within(got, want, atol, rtol):
+            failures.append(f"K1' {xshape}")
+        gy = torch.randn(y.shape, device=dev, generator=gen).to(dt)
+        gs1 = torch.randn((xshape[0],), device=dev, generator=gen) * 1e-3
+        gs2 = torch.randn((xshape[0],), device=dev, generator=gen) * 1e-4
+        fy, fdb = bc.conv3x3_bwd_fold(y, gy, gs1, gs2)
+        py, pdb = bc.conv3x3_bwd_fold_plain(y, gy, gs1, gs2)
+        errs[f"K3 fold {xshape}"] = _max_err(fy, py)
+        if not _within(fy, py, batol, brtol):
+            failures.append(f"K3 fold {xshape}")
+        yf = y.float()
+        s1, s2 = yf.sum((1, 2, 3)), yf.square().sum((1, 2, 3))
+        dout = torch.randn(y.shape, device=dev, generator=gen).to(dt)
+        got = nl.norm_lrelu_from_stats_bwd(y, s1, s2, gamma, beta, dout, 0.3)
+        want = nl.norm_lrelu_from_stats_bwd_plain(y, s1, s2, gamma, beta, dout, 0.3)
+        mean = (s1 / yf[0].numel()).reshape(-1, 1, 1, 1)
+        std = (s2 / yf[0].numel()).reshape(-1, 1, 1, 1) - mean.square()
+        away = (((yf - mean) / (std.clamp_min(0).sqrt() + 1e-3)) * gamma + beta).abs() > KINK
+        errs[f"K1' bwd {xshape}"] = _max_err(got[0][away], want[0][away])
+        if not _within(got[0][away], want[0][away], batol, brtol):
+            failures.append(f"K1' bwd {xshape}")
+    torch.cuda.synchronize()
+    log("kernels vs plain at one DP rank's shapes (bf16): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    if failures:
+        raise AssertionError("kernel/plain mismatch at the DP rank's shapes: " + ", ".join(failures))
+    return errs
+
+
+def check_data_parallel():
+    """Phase (h). Returns (each kernel's launches in (h)'s main paths, the record)."""
+    import tempfile
+
+    record, walls = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
+        t0 = time.time()
+        record["rank_shapes"] = check_rank_shapes()
+        walls["rank_shapes"], t0 = time.time() - t0, time.time()
+        nccl_launches, record["nccl"] = check_dp_nccl(root, _free_port())
+        walls["nccl"], t0 = time.time() - t0, time.time()
+        gloo_launches, record["gloo"] = check_dp_gloo(root, _free_port())
+        walls["gloo"], t0 = time.time() - t0, time.time()
+        infer_launches, record["infer"] = check_dp_infer(root)
+        walls["infer"] = time.time() - t0
+    log("phase (h) walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    launches = {k: nccl_launches.get(k, 0) + gloo_launches.get(k, 0) + infer_launches.get(k, 0)
+                for k in set(nccl_launches) | set(gloo_launches) | set(infer_launches)}
+    return launches, record
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def summarize(records, serve_launches, train_launches, dispatch_launches, eval_launches, remat_launches,
-              s2d_launches):
+              s2d_launches, dp_launches):
     """One JSON record per kernel, bf16 (the working dtype): summed over the
     launches of one train step where phase (b) timed the train shapes, else
     over the shapes one /adjust call gives it ("per" says which; a kernel
     timed on both paths adds the /adjust sums as "serve_ms",
     "serve_plain_ms", "serve_bound_ms"); per-shape numbers under "shapes".
-    "launches" counts the six paths' runs (serve, host-fed train,
+    "launches" counts the seven paths' runs (serve, host-fed train,
     CUDA-graph dispatch, evaluate-sample, the remat steps, the s2d-store
-    replay), split in "launches_by_path"."""
+    replay, phase (h)'s data-parallel runs), split in "launches_by_path"."""
     meta = {
         "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
                                       "littlegan_tpu/ops/pallas/norm_lrelu.py:111"),
@@ -2235,7 +2755,8 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
         lib = None if shapes[0]["library_ms"] is None else tot("library_ms", shapes)
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "dispatch": dispatch_launches.get(name, 0), "eval": eval_launches.get(name, 0),
-                   "remat": remat_launches.get(name, 0), "s2d_store": s2d_launches.get(name, 0)}
+                   "remat": remat_launches.get(name, 0), "s2d_store": s2d_launches.get(name, 0),
+                   "dp": dp_launches.get(name, 0)}
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2257,6 +2778,9 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 5 and sys.argv[1] == "--dp-rank":  # a rank of phase (h) (ii), started by phase (h)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2300,10 +2824,13 @@ def main() -> int:
     walls["f"], t0 = time.time() - t0, time.time()
     remat_launches, s2d_launches, options = check_trainer_options()
     log("trainer options record: " + json.dumps(options))
-    walls["g"] = time.time() - t0
+    walls["g"], t0 = time.time() - t0, time.time()
+    dp_launches, dp = check_data_parallel()
+    log("data-parallel record: " + json.dumps(dp))
+    walls["h"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
-                                         eval_launches, remat_launches, s2d_launches)}))
+                                         eval_launches, remat_launches, s2d_launches, dp_launches)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

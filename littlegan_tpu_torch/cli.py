@@ -6,8 +6,13 @@ modes: ``train``, ``plot``, ``visual``, ``random-sample``, ``evaluate``,
 ``condition-sample``, ``evaluate-sample``, ``export-model``,
 ``interpolate``, ``serve`` and ``report``. A mode runs on the card;
 ``--device cpu`` runs it on the CPU instead. ``evaluate`` runs in-process
-(the reference shells out to evaluate.py). One card only: ``--devices``
-above 1 (multi-GPU) exits 2.
+(the reference shells out to evaluate.py).
+
+Several cards: ``torchrun --nproc_per_node N -m littlegan_tpu_torch train
+<exp>`` trains data-parallel, one process per card (NCCL; gloo with
+``--device cpu``); the other modes run in one process, ``serve --devices
+N`` splitting each engine call over N cards and the sampling and evaluation
+modes every visible card (``eval_data_parallel``).
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--reload-every", type=float, default=0.0, dest="reload_every",
                    help="serve mode: poll + hot-swap new checkpoints every N seconds")
     p.add_argument("--devices", type=int, default=None, dest="serve_devices",
-                   help="serve mode: cards per device call (one card only: above 1 is refused)")
+                   help="serve mode: split each device call over N cards (0 = all)")
     return p
 
 
@@ -264,14 +269,21 @@ def _random_sample(cfg: Config, trainer, data) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = parse_config(argv)
-    devices = cfg.extra.get("serve_devices")
-    if devices is not None and devices > 1:
-        print(f"--devices {devices}: multi-GPU is not ported yet (ROADMAP A13); the port runs on one card",
-              file=sys.stderr)
+    device = cfg.extra.get("device")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and cfg.mode != "train":
+        print(f"{cfg.mode}: runs in one process (a process per card is for train); "
+              "start it without torchrun", file=sys.stderr)
         return 2
+    devices = cfg.extra.get("serve_devices")
+    if cfg.mode == "serve" and devices is not None and devices > 1:
+        import torch
+
+        if devices > torch.cuda.device_count():
+            print(f"--devices {devices}: this host has {torch.cuda.device_count()} visible CUDA card(s)",
+                  file=sys.stderr)
+            return 2
     print("Application Params:", json.dumps(cfg.to_json_dict(), default=str)[:500])
     print("Running Mode:", cfg.mode)
-    device = cfg.extra.get("device")
 
     if cfg.mode == "visual":
         _visual(cfg)
@@ -288,18 +300,27 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from littlegan_tpu_torch.serving import serve
 
         serve(cfg.replace(restore=True), port=int(cfg.extra.get("serve_port", 8600)), batch_size=cfg.batch_size,
-              reload_every_s=float(cfg.extra.get("serve_reload_every", 0.0)), device=device)
+              reload_every_s=float(cfg.extra.get("serve_reload_every", 0.0)), device=device,
+              devices=cfg.extra.get("serve_devices"))
         return 0
 
     from littlegan_tpu_torch.training.trainer import Trainer
 
     if cfg.mode == "train":
+        from littlegan_tpu_torch.parallel.mesh import initialize_distributed
         from littlegan_tpu_torch.utils.provenance import ensure_clean_tree
 
         ensure_clean_tree(cfg)
         data = make_dataset(cfg)
         print("Using Attribute:", data.label)
-        Trainer(cfg, data, device=device).train()
+        group = initialize_distributed(device=device)  # torchrun's ranks; None for one process
+        try:
+            Trainer(cfg, data, device=device, group=group).train()
+        finally:
+            if group is not None:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
         return 0
     cfg = cfg.replace(reuse=True, restore=True)
     if cfg.mode in ("random-sample", "evaluate-sample"):

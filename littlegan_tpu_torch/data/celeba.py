@@ -14,7 +14,9 @@
   on the card (``host_rescale`` does it here instead);
 - batch membership is fixed and batch ORDER is permuted per epoch by
   :func:`epoch_batch_order`, the (seed, epoch) stream the JAX package uses,
-  so both packages see the same batch sequence.
+  so both packages see the same batch sequence;
+- under data parallelism each rank decodes only its rows of every batch
+  (:meth:`CelebA.set_rows_per_batch`).
 """
 
 from __future__ import annotations
@@ -122,10 +124,22 @@ class CelebA:
         self._conds = np.asarray([p[1] for p in pairs], np.float32)
         self.num_items = len(self._files)
         self.batches = self.num_items // cfg.batch_size
+        self.rows = slice(0, cfg.batch_size)  # the rows of each batch this process decodes
         self.all_label = list(CELEBA_ATTR_NAMES)
         self.label = [CELEBA_ATTR_NAMES[i] for i in cfg.attr]
         self._cache: Optional[dict] = {} if cfg.cache_decoded else None
         self._decoder = self._pick_decoder()
+
+    def set_rows_per_batch(self, rows: int, index: int = 0) -> None:
+        """Decode only rows ``[index * rows, (index + 1) * rows)`` of every
+        batch: a data-parallel rank's part of the global batch, so the
+        ranks' parts make up the single-process batches and each image is
+        decoded once per epoch. The batch count stays that of the whole
+        file list on every rank (the JAX package's multi-host pipeline
+        gives each host a strided shard of the files instead)."""
+        if self.cfg.batch_size % rows or not 0 <= index < self.cfg.batch_size // rows:
+            raise ValueError(f"rows {rows} at index {index} do not split batch_size {self.cfg.batch_size}")
+        self.rows = slice(index * rows, (index + 1) * rows)
 
     def _read(self, name: str):
         if self._zip_path is None:
@@ -182,7 +196,7 @@ class CelebA:
         cfg = self.cfg
         order = epoch_batch_order(cfg.seed, epoch, self.batches) if shuffle else np.arange(self.batches)
         rows = cfg.batch_size
-        batch_indices = [np.arange(b * rows, (b + 1) * rows) for b in order][start_batch:]
+        batch_indices = [np.arange(b * rows, (b + 1) * rows)[self.rows] for b in order][start_batch:]
         depth = max(2, cfg.prefetch_batch)
         pool = ThreadPoolExecutor(max_workers=cfg.threads)
         try:

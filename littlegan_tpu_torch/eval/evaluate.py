@@ -14,9 +14,10 @@ Features come from the port's InceptionV3 (eval/inception.py) on the card,
 loaded once per source and kept on the device for the process (one slot:
 another source replaces them). Without ``fid_weights`` evaluation refuses
 unless ``allow_random_fid``; the random-init numbers are then labelled
-RANDOM-INIT in every line. ``eval_data_parallel`` has nothing to shard on
-one card and is ignored. The device is ``cfg.extra["device"]`` when set
-(the CLI's ``--device``), else the card.
+RANDOM-INIT in every line. With ``eval_data_parallel`` and more than one
+visible card, each call's images split over every card, one replica of the
+weights on each (``parallel/infer.py``). The device is ``cfg.extra["device"]``
+when set (the CLI's ``--device``), else the card.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.eval.fid import activation_statistics, frechet_distance
 from littlegan_tpu_torch.eval.inception import device_params, inception_features, init_inception_params
+from littlegan_tpu_torch.parallel.infer import data_parallel_infer, infer_mesh_devices
 from littlegan_tpu_torch.utils.device import resolve_device
 
 
@@ -151,6 +153,11 @@ def _featurizer(cfg: Config):
             file=sys.stderr,
         )
     params = _inception_params(cfg)[1]
+    if cfg.eval_data_parallel and infer_mesh_devices(dev) > 1:
+        if "dp" not in _WEIGHTS:  # one wrapper per weights slot: its replicas live as long as the slot
+            _WEIGHTS["dp"] = data_parallel_infer(inception_features, 1)
+        dp = _WEIGHTS["dp"]
+        return lambda chunk: dp(params, chunk).cpu().numpy()
     return lambda chunk: inception_features(params, torch.from_numpy(chunk).to(dev)).cpu().numpy()
 
 

@@ -5,7 +5,9 @@
   init), runs generator / adjuster / discriminator at a FIXED batch size
   (requests are padded to it) and returns f32 numpy arrays, the same
   contract as the JAX engine. It runs on the card unless the caller passes
-  ``device="cpu"``; with no card and no device it raises.
+  ``device="cpu"``; with no card and no device it raises. ``devices`` N > 1
+  (``--devices``; 0 = every visible card) splits each call's rows over N
+  cards, one replica of the weights on each (``parallel/infer.py``).
 - ``serve()``: a dependency-free stdlib HTTP JSON API:
     POST /generate      {"cond": [[...7 floats...], ...], "noise": optional, "seed": optional}
     POST /adjust        {"image_b64": <png/jpeg base64>, "cond": [[...]]}
@@ -19,7 +21,7 @@
   newly saved checkpoints.
 
 Run: ``python -m littlegan_tpu_torch.serving <exp> -e <env> --port 8600
---batch 8 --max-wait-ms 3 --reload-every 0``.
+--batch 8 --max-wait-ms 3 --reload-every 0 [--devices N]``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 from littlegan_tpu_torch.compat.jax_params import params_from_jax
 from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.models import LittleGAN, init_params
+from littlegan_tpu_torch.parallel.infer import data_parallel_infer, infer_mesh_devices
 from littlegan_tpu_torch.training.checkpoint import eval_params, make_checkpointer
 from littlegan_tpu_torch.utils.device import resolve_device
 from littlegan_tpu_torch.utils.image import data_rescale, inverse_rescale
@@ -50,18 +53,38 @@ class InferenceEngine:
         params: Optional[Mapping[str, np.ndarray]] = None,
         batch_size: Optional[int] = None,
         device=None,
+        devices=None,
     ):
         """``params``: JAX-keyed arrays (``encoder/block1/conv/kernel``, ...)
         to serve; None loads them as :meth:`maybe_reload` would (checkpoint,
-        else a seeded fresh init)."""
+        else a seeded fresh init). ``devices``: None or 1, one device
+        (``device``); 0, every visible card; N > 1, the first N cards; or a
+        sequence of devices. With more than one, each call's rows split
+        evenly over them (the engine batch must divide)."""
         self.cfg = cfg
         self.batch = batch_size or cfg.batch_size
-        self.device = resolve_device(device)
+        if devices is not None and not isinstance(devices, int):
+            self.devices = [torch.device(d) for d in devices]
+        elif devices is not None and devices != 1:
+            n = infer_mesh_devices() if devices == 0 else int(devices)
+            self.devices = [torch.device("cuda", i) for i in range(n)]
+        else:
+            self.devices = [resolve_device(device)]
+        self.device = self.devices[0]
+        self.n_devices = len(self.devices)
+        if self.batch % self.n_devices:
+            raise ValueError(f"engine batch {self.batch} must be divisible by devices {self.n_devices} "
+                             "(each card runs batch/N rows)")
         # hot-reload bookkeeping: which checkpoint the served weights came
         # from, so maybe_reload() acts only on genuinely new ones
         self._ckpt_token = self._latest_checkpoint(cfg) if cfg.restore else None
         model = self._load_model(cfg) if params is None else params_from_jax(params, LittleGAN(cfg))
         self.model = model.to(self.device).eval()
+        self._calls = {"generate": (lambda m, z, c: m.generator(z, c), 2),
+                       "adjust": (lambda m, x, c: m.adjuster(x, c), 2),
+                       "discriminate": (lambda m, x: m.discriminator(x), 1)}
+        for name, (fn, n) in self._calls.items():  # a wrapper keeps one replica per card, made again for a new model
+            self._calls[name] = data_parallel_infer(fn, n, self.devices) if self.n_devices > 1 else fn
 
     @staticmethod
     def _latest_checkpoint(cfg: Config):
@@ -123,6 +146,10 @@ class InferenceEngine:
             arr = np.concatenate([arr, np.zeros((self.batch - n, *arr.shape[1:]), np.float32)])
         return torch.from_numpy(arr).to(self.device)
 
+    def _call(self, name: str, model, *arrays: np.ndarray):
+        """One engine call of ``model``'s ``name`` network on the padded batch."""
+        return self._calls[name](model, *(self._pad(a) for a in arrays))
+
     @staticmethod
     def _out(t: torch.Tensor, n: int) -> np.ndarray:
         return t.float().cpu().numpy()[:n]
@@ -139,19 +166,19 @@ class InferenceEngine:
             raise ValueError(f"noise rows ({noise.shape[0]}) != cond rows ({n})")
         model = self.model
         with torch.inference_mode():
-            return self._out(model.generator(self._pad(noise), self._pad(cond)), n)
+            return self._out(self._call("generate", model, noise, cond), n)
 
     def adjust(self, image: np.ndarray, cond: np.ndarray) -> np.ndarray:
         n = image.shape[0]
         model = self.model
         with torch.inference_mode():
-            return self._out(model.adjuster(self._pad(image), self._pad(cond)), n)
+            return self._out(self._call("adjust", model, image, cond), n)
 
     def discriminate(self, image: np.ndarray) -> Dict[str, np.ndarray]:
         n = image.shape[0]
         model = self.model
         with torch.inference_mode():
-            pr, cond = model.discriminator(self._pad(image))
+            pr, cond = self._call("discriminate", model, image)
             return {"pr": self._out(pr, n), "cond": self._out(cond, n)}
 
 
@@ -604,6 +631,7 @@ def serve(
     device=None,
     engine: Optional[InferenceEngine] = None,
     on_start: Optional[Callable] = None,
+    devices=None,
 ):
     """Threaded HTTP server with dynamic batching on all three entry points
     (``max_wait_ms <= 0`` disables the batchers), ``/metrics``, a demo page,
@@ -611,14 +639,17 @@ def serve(
     hot-reload every ``reload_every_s`` seconds.
 
     ``engine``: serve this engine instead of building one from ``cfg`` on
-    ``device``. ``on_start(server)`` is called once the socket is bound
+    ``device`` (``devices``: as :class:`InferenceEngine` takes them).
+    ``on_start(server)`` is called once the socket is bound
     (``server.server_address`` has the port; ``server.shutdown()`` drains
     it from another thread)."""
     import signal
     from http.server import ThreadingHTTPServer
 
     if engine is None:
-        engine = InferenceEngine(cfg, batch_size=batch_size, device=device)
+        engine = InferenceEngine(cfg, batch_size=batch_size, device=device, devices=devices)
+    if engine.n_devices > 1:
+        print(f"littlegan-tpu-torch-serve: splitting each call over {engine.n_devices} devices")
     metrics = ServerMetrics(engine.batch)
     if engine._ckpt_token is not None:
         metrics.checkpoint_loaded(f"{engine._ckpt_token[0]}/{engine._ckpt_token[1]}", reload=False)
@@ -689,6 +720,8 @@ def main(argv=None) -> int:
         help="poll the checkpoint dirs and hot-swap newly saved weights (0 disables)",
     )
     p.add_argument("--device", default=None, help="torch device (default: the current CUDA device)")
+    p.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="split each engine call over N cards (0 = every visible card)")
     args = p.parse_args(argv)
     cfg = load_config(args.env, {"exp_name": args.exp_name, "mode": "serve"})
     serve(
@@ -698,6 +731,7 @@ def main(argv=None) -> int:
         max_wait_ms=args.max_wait_ms,
         reload_every_s=args.reload_every,
         device=args.device,
+        devices=args.devices,
     )
     return 0
 

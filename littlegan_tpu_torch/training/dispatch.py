@@ -76,6 +76,7 @@ class GraphedUpdates:
                     t.copy_(s)
         torch.cuda.current_stream(dev).wait_stream(stream)
         del saved
+        torch.cuda.synchronize(dev)  # the warm-up's work (collectives included) has finished before the capture
         before = _build.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream):

@@ -275,11 +275,17 @@ def accum_grads(
     return dict(zip(names, acc)), aux
 
 
-def _clip_d(grads: Dict[str, torch.Tensor], cfg: Config, d_names) -> Dict[str, torch.Tensor]:
-    """D's gradients clipped to ±clip_range (eager_trainer.py:146-148, D only)."""
-    if not cfg.use_clip:
-        return grads
-    return {**grads, **{k: grads[k].clamp(-cfg.clip_range, cfg.clip_range) for k in d_names}}
+def _reduce_clip(grads: Dict[str, torch.Tensor], aux, cfg: Config, d_names, sync):
+    """(gradients, aux) as the optimizer takes them: averaged over the
+    data-parallel ranks by ``sync`` (``parallel/train.py``; None on one
+    card), then D's clipped to ±clip_range (eager_trainer.py:146-148, D
+    only). The clamp sees the global gradient, as in the JAX package: a
+    clamp of each rank's before the mean would give another update."""
+    if sync is not None:
+        grads, aux = sync.reduce(grads, aux)
+    if cfg.use_clip:
+        grads = {**grads, **{k: grads[k].clamp(-cfg.clip_range, cfg.clip_range) for k in d_names}}
+    return grads, aux
 
 
 def _adam_args(cfg: Config, opt: str) -> Tuple[float, float, bool]:
@@ -299,24 +305,36 @@ def _update_ema(state: TrainState, cfg: Config) -> None:
             e.copy_(float(d) * e.float() + float(np.float32(1.0) - d) * g_params[k].float())
 
 
+def _adam_targets(model, sync) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(every parameter, the tensors the Adams update): the parameters
+    themselves, or under ZeRO-1 this rank's shards of them, which
+    ``sync.gather`` puts back after the update."""
+    whole = subtree(model, G_KEYS + D_KEYS + A_KEYS)
+    return whole, (whole if sync is None else sync.local_params(whole))
+
+
 def apply_updates(
-    state: TrainState, grads: Dict[str, torch.Tensor], aux, batch_no: int, cfg: Config, part_masks
+    state: TrainState, grads: Dict[str, torch.Tensor], aux, batch_no: int, cfg: Config, part_masks, sync=None
 ) -> StepOutput:
-    """D-gradient clipping, the partition masks, the adjuster's warm-up
-    gate and the three masked Adams, in place, decided on the host from
-    ``batch_no``; then the G-only EMA."""
+    """The gradients' reduction over the ranks (``sync``), D-gradient
+    clipping, the partition masks, the adjuster's warm-up gate and the
+    three masked Adams, in place, decided on the host from ``batch_no``;
+    then the G-only EMA."""
     model = state.model
-    grads = _clip_d(grads, cfg, subtree(model, D_KEYS))
+    grads, aux = _reduce_clip(grads, aux, cfg, subtree(model, D_KEYS), sync)
     lr_scale = lr_scale_from_config(cfg)
     gate = adjuster_gate(batch_no, cfg.train_adj)
+    whole, local = _adam_targets(model, sync)
     for opt, which, keys in _ADAMS:
         params = subtree(model, keys)
         mask = resolve_mask(part_masks[which], batch_no, cfg.use_partition, cfg.partition_interval)
         if opt == "opt_a":
             mask = {k: m * gate for k, m in mask.items()}
         b1, b2, tick_all = _adam_args(cfg, opt)
-        masked_adam_update({k: grads[k] for k in params}, getattr(state, opt), params, mask, cfg.lr, b1, b2,
-                           tick_all=tick_all, lr_scale=lr_scale)
+        masked_adam_update({k: grads[k] for k in params}, getattr(state, opt), {k: local[k] for k in params}, mask,
+                           cfg.lr, b1, b2, tick_all=tick_all, lr_scale=lr_scale)
+    if sync is not None:
+        sync.gather(whole, local)
     _update_ema(state, cfg)
     metrics = {k: aux[k] for k in LOSS_KEYS}
     return StepOutput(state=state, metrics=metrics, fake_image=aux["fake"], adj_image=aux["adj"])
@@ -343,20 +361,23 @@ def schedule_width(state: TrainState) -> int:
 
 
 def apply_updates_rows(state: TrainState, grads: Dict[str, torch.Tensor], aux, row: torch.Tensor,
-                       cfg: Config) -> StepOutput:
+                       cfg: Config, sync=None) -> StepOutput:
     """:func:`apply_updates` from one device row of :func:`schedule_rows`:
     the masks select with ``torch.where`` and the step sizes are tensors, so
     no value comes from the host."""
     model = state.model
-    grads = _clip_d(grads, cfg, subtree(model, D_KEYS))
+    grads, aux = _reduce_clip(grads, aux, cfg, subtree(model, D_KEYS), sync)
     off = 0
+    whole, local = _adam_targets(model, sync)
     for opt, _, keys in _ADAMS:
         params = subtree(model, keys)
         n = len(params)
         b1, b2, _ = _adam_args(cfg, opt)
-        masked_adam_update_rows({k: grads[k] for k in params}, getattr(state, opt), params,
+        masked_adam_update_rows({k: grads[k] for k in params}, getattr(state, opt), {k: local[k] for k in params},
                                 row[off:off + n], row[off + n:off + 2 * n], b1, b2)
         off += 2 * n
+    if sync is not None:
+        sync.gather(whole, local)
     _update_ema(state, cfg)
     metrics = {k: aux[k] for k in LOSS_KEYS}
     return StepOutput(state=state, metrics=metrics, fake_image=aux["fake"], adj_image=aux["adj"])
@@ -370,42 +391,48 @@ def partition_masks(model) -> dict:
 
 def train_step(
     state: TrainState, batch1, batch2, draws: StepDraws, batch_no: int, cfg: Config, part_masks=None,
-    inputs_s2d: bool = False,
+    inputs_s2d: bool = False, sync=None,
 ) -> StepOutput:
     """One step, in place on ``state``. ``batch1``/``batch2``: (images
     uint8 or [-1, 1] float NHWC, or in block layout with ``inputs_s2d``,
-    softened conditions) on the state's device."""
+    softened conditions) on the state's device; under data parallelism
+    this rank's rows, with ``draws`` of those rows and ``sync`` the
+    ranks' reduction (``parallel/train.py``)."""
     if part_masks is None:
         part_masks = partition_masks(state.model)
     grads, aux = compute_grads(state, batch1, batch2, draws, batch_no, cfg, inputs_s2d)
-    return apply_updates(state, grads, aux, batch_no, cfg, part_masks)
+    return apply_updates(state, grads, aux, batch_no, cfg, part_masks, sync)
 
 
-def make_train_step(cfg: Config, state: TrainState):
-    """``step(state, batch1, batch2, draws, batch_no)`` with ``cfg`` and the
-    partition masks bound."""
+def make_train_step(cfg: Config, state: TrainState, sync=None):
+    """``step(state, batch1, batch2, draws, batch_no)`` with ``cfg``, the
+    partition masks and the ranks' reduction ``sync`` (None on one card)
+    bound."""
     check_supported(cfg)
-    return functools.partial(train_step, cfg=cfg, part_masks=partition_masks(state.model))
+    return functools.partial(train_step, cfg=cfg, part_masks=partition_masks(state.model), sync=sync)
 
 
 def accum_train_step(
-    state: TrainState, batch1s, batch2s, draws: StepDraws, batch_no: int, cfg: Config, part_masks=None
+    state: TrainState, batch1s, batch2s, draws: StepDraws, batch_no: int, cfg: Config, part_masks=None, sync=None
 ) -> StepOutput:
     """Gradient accumulation, the port of JAX ``accum_train_step``: the mean
     gradient over M micro-pairs, then ONE optimizer apply at ``batch_no``
     (clipping applies to the mean). ``batch1s``/``batch2s`` and ``draws``
-    carry a leading (M,) axis; metrics and images are the last micro-step's."""
+    carry a leading (M,) axis; metrics and images are the last micro-step's.
+    Under data parallelism the ranks' mean gradients meet once per update,
+    after the micro-pairs are summed: the global batch's mean, as JAX's
+    accumulating DP step computes it."""
     if part_masks is None:
         part_masks = partition_masks(state.model)
     grads, aux = accum_grads(state, batch1s, batch2s, draws, cfg, _adj_sel(batch_no, cfg, batch1s[0].device))
-    return apply_updates(state, grads, aux, batch_no, cfg, part_masks)
+    return apply_updates(state, grads, aux, batch_no, cfg, part_masks, sync)
 
 
-def make_accum_train_step(cfg: Config, state: TrainState):
+def make_accum_train_step(cfg: Config, state: TrainState, sync=None):
     """``step(state, batch1s, batch2s, draws, batch_no)`` with (M, B, ...)
     stacked batches and draws."""
     check_supported(cfg)
-    return functools.partial(accum_train_step, cfg=cfg, part_masks=partition_masks(state.model))
+    return functools.partial(accum_train_step, cfg=cfg, part_masks=partition_masks(state.model), sync=sync)
 
 
 # ------------------------------------------------ the device-resident dataset --
@@ -431,7 +458,7 @@ def _check_store_layout(cfg: Config, store_s2d: bool) -> None:
         )
 
 
-def make_gather_train_step(cfg: Config, state: TrainState, store_s2d: bool = False):
+def make_gather_train_step(cfg: Config, state: TrainState, store_s2d: bool = False, sync=None):
     """``step(state, images, conds, b1, b2, draws, batch_no)``: one train
     step whose two batches are ids into the (n_batches, B, ...) device store
     (``cfg.device_data`` with one update per call). With ``store_s2d`` the
@@ -444,13 +471,13 @@ def make_gather_train_step(cfg: Config, state: TrainState, store_s2d: bool = Fal
     def step(state, images, conds, b1, b2, draws, batch_no):
         batch1 = (take_batch(images, b1), take_batch(conds, b1))
         batch2 = (take_batch(images, b2), take_batch(conds, b2))
-        return train_step(state, batch1, batch2, draws, batch_no, cfg, part_masks, store_s2d)
+        return train_step(state, batch1, batch2, draws, batch_no, cfg, part_masks, store_s2d, sync)
 
     return step
 
 
 def scan_updates(state: TrainState, images, conds, ids1, ids2, draws: StepDraws, rows: torch.Tensor,
-                 cfg: Config, inputs_s2d: bool = False):
+                 cfg: Config, inputs_s2d: bool = False, sync=None):
     """K applied updates from the device store, in place, reading nothing
     from the host: ``ids1``/``ids2`` (K,) batch ids, or (K, M) for M
     accumulated micro-pairs per update; ``draws`` stacked over K (then M);
@@ -467,7 +494,7 @@ def scan_updates(state: TrainState, images, conds, ids1, ids2, draws: StepDraws,
             batch1 = (take_batch(images, ids1[i]), take_batch(conds, ids1[i]))
             batch2 = (take_batch(images, ids2[i]), take_batch(conds, ids2[i]))
             grads, aux = micro_grads(state, batch1, batch2, d, cfg, adj_sel, inputs_s2d)
-        out = apply_updates_rows(state, grads, aux, rows[i], cfg)
+        out = apply_updates_rows(state, grads, aux, rows[i], cfg, sync)
         losses.append(torch.stack([out.metrics[k] for k in LOSS_KEYS]))
     return torch.stack(losses), out.fake_image, out.adj_image
 
@@ -489,7 +516,8 @@ def zero_draws(cfg: Config, n: int, device) -> StepDraws:
     return StepDraws(z(n, cfg.noise_dim), aug, z(n, 1, 1, 1) if cfg.use_gp else None)
 
 
-def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Optional[int], store_s2d: bool):
+def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Optional[int], store_s2d: bool,
+                        sync=None):
     """The K-update step over the device store, the port's counterpart of
     JAX ``_make_scan_dispatch`` (``step.py:554-611``): the host turns the
     batch ids and the schedule of updates ``batch_no0 … batch_no0+K-1`` into
@@ -505,7 +533,7 @@ def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Opt
         ids1, ids2 = inputs[:, :m].long(), inputs[:, m:2 * m].long()
         if micro is None:
             ids1, ids2 = ids1[:, 0], ids2[:, 0]
-        return scan_updates(state, images, conds, ids1, ids2, draws, inputs[:, 2 * m:], cfg, store_s2d)
+        return scan_updates(state, images, conds, ids1, ids2, draws, inputs[:, 2 * m:], cfg, store_s2d, sync)
 
     graphed = GraphedUpdates(body)
 
@@ -515,13 +543,23 @@ def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Opt
             raise ValueError("batch ids must stay below 2**24 (they travel as float32)")
         return np.concatenate([ids[0], ids[1], rows], axis=1).astype(np.float32)
 
+    def check_capturable(state):
+        if sync is not None and not sync.capturable and next(state.model.parameters()).is_cuda:
+            raise RuntimeError(
+                f"the K-update step captures its updates in one CUDA graph, and {sync.dg.backend} collectives "
+                "cannot be captured: run data parallelism on cards over NCCL, or with steps_per_dispatch 1 "
+                "and grad_accum 1"
+            )
+
     def step(state, images, conds, b1s, b2s, draws, batch_no0):
+        check_capturable(state)
         rows = schedule_rows(state, cfg, part_masks, range(batch_no0, batch_no0 + n_steps))
         losses, fake, adj = graphed(host_inputs(b1s, b2s, rows), draws, (state, images, conds), state_tensors(state))
         return StepOutput(state, {k: losses[:, i] for i, k in enumerate(LOSS_KEYS)}, fake, adj)
 
     def prepare(state, images, conds):
         """Capture the CUDA graph now (on a CPU state: nothing to do)."""
+        check_capturable(state)
         lead = (n_steps,) if micro is None else (n_steps, m)
         draws = zero_draws(cfg, images.shape[1], images.device)
         draws = map_draws(lambda x: x.expand(*lead, *x.shape).contiguous(), draws)
@@ -533,7 +571,7 @@ def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Opt
     return step
 
 
-def make_scan_train_step(cfg: Config, state: TrainState, n_steps: int, store_s2d: bool = False):
+def make_scan_train_step(cfg: Config, state: TrainState, n_steps: int, store_s2d: bool = False, sync=None):
     """K train steps per call over the device store:
     ``step(state, images, conds, b1s (K,), b2s (K,), draws, batch_no0)``,
     ``draws`` the K updates' :class:`StepDraws` stacked. Update i takes
@@ -542,13 +580,14 @@ def make_scan_train_step(cfg: Config, state: TrainState, n_steps: int, store_s2d
     place), (K,) metrics and the LAST update's images (cadence artifacts
     snap to the group). ``step.prepare(state, images, conds)`` captures the
     graph ahead of the first call. ``store_s2d``: the store is in block
-    layout, as for :func:`make_gather_train_step`."""
-    return _make_scan_dispatch(cfg, state, n_steps, None, store_s2d)
+    layout, as for :func:`make_gather_train_step`. ``sync``: the ranks'
+    reduction, captured in the graph with the updates (NCCL only)."""
+    return _make_scan_dispatch(cfg, state, n_steps, None, store_s2d, sync)
 
 
-def make_scan_accum_train_step(cfg: Config, state: TrainState, n_steps: int, store_s2d: bool = False):
+def make_scan_accum_train_step(cfg: Config, state: TrainState, n_steps: int, store_s2d: bool = False, sync=None):
     """``grad_accum`` x the device store: K applied updates per call, each
     the mean over ``cfg.grad_accum`` = M micro-pairs. As
     :func:`make_scan_train_step` with (K, M) batch ids and draws stacked
     over (K, M)."""
-    return _make_scan_dispatch(cfg, state, n_steps, cfg.grad_accum, store_s2d)
+    return _make_scan_dispatch(cfg, state, n_steps, cfg.grad_accum, store_s2d, sync)

@@ -52,11 +52,29 @@ group until n steps are covered.
 It runs on the card unless ``device="cpu"`` is given; without a card and
 without that argument it raises. Refused: what ``step.check_supported``
 refuses (the gradient penalty with a kernel flag, ``ValueError``), and,
-with ``NotImplementedError``, meshes and sharded state (ROADMAP A13).
+with ``NotImplementedError``, a spatial mesh and ``shard_dense`` (ROADMAP
+A13).
+
+Data parallelism (``parallel/``): under a ``torch.distributed`` process
+group (``torchrun --nproc_per_node N``; :class:`~littlegan_tpu_torch.parallel.mesh.DataGroup`)
+each rank trains ``batch_size / N`` rows of every global batch with the
+single-card step, and the ranks average their gradients before the
+optimizer (``shard_opt_state``: ZeRO-1, ``parallel/zero.py``). Every rank
+draws the global batch's draws from the same seeds and keeps its rows; a
+host-fed rank decodes only its rows (``set_rows_per_batch``); the device
+store holds each rank's rows of every batch. Rank 0 restores and its state
+is broadcast; only rank 0 writes (result tree, fixture, checkpoints,
+TensorBoard, images, traces). The fixture's reuse is agreed and the
+fixture broadcast from rank 0; a SIGINT is agreed at every dispatch, so
+the ranks save and stop together. Inference (``predict``, ``generate``,
+``adjust``, ``sample_u8``) spans every visible card in one process with
+``eval_data_parallel`` (``parallel/infer.py``), and each rank's own card
+under a group.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 from collections import deque
@@ -75,6 +93,10 @@ from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.data.celeba import epoch_batch_order
 from littlegan_tpu_torch.models.littlegan import LittleGAN
 from littlegan_tpu_torch.ops.losses import mean_squared_error
+from littlegan_tpu_torch.parallel.infer import data_parallel_infer, infer_mesh_devices
+from littlegan_tpu_torch.parallel.mesh import DataGroup, check_mesh, data_group, row_slice
+from littlegan_tpu_torch.parallel.train import GradSync, global_rows, local_draws, replicate_state
+from littlegan_tpu_torch.parallel.zero import Zero1, check_shard_dense, check_shard_opt_state
 from littlegan_tpu_torch.training.checkpoint import make_checkpointer
 from littlegan_tpu_torch.training.state import TrainState, create_train_state, eval_params
 from littlegan_tpu_torch.training.step import (
@@ -91,16 +113,57 @@ from littlegan_tpu_torch.utils.tensorboard import SummaryWriter
 FLUSH_EVERY = 16  # calls whose losses stay on the card before one copy to the host
 
 
-def check_trainer_supported(cfg: Config) -> None:
-    """Refuse what the step refuses, and the multi-device options the port
-    does not have yet."""
+def check_trainer_supported(cfg: Config, dp: Optional[DataGroup] = None) -> None:
+    """Refuse what the step refuses, a mesh other than the 1-D data mesh
+    over the ranks of ``dp`` and ``shard_dense`` (ROADMAP A13), and
+    ``shard_opt_state`` without ranks to shard over; the ranks must split
+    ``batch_size``."""
     check_supported(cfg)
-    for on, what in (
-        (cfg.mesh_shape is not None or tuple(cfg.mesh_axes) != ("data",), "a device mesh"),
-        (cfg.shard_opt_state or cfg.shard_dense, "sharded train state"),
-    ):
-        if on:
-            raise NotImplementedError(f"{what} is not ported to littlegan_tpu_torch yet (ROADMAP A13)")
+    world = 1 if dp is None else dp.world
+    check_mesh(cfg.mesh_axes, cfg.mesh_shape, world)
+    check_shard_dense(cfg)
+    check_shard_opt_state(cfg, dp)
+    if cfg.batch_size % world:
+        raise ValueError(
+            f"data-parallel training needs batch_size ({cfg.batch_size}) divisible by the {world} ranks: "
+            f"as configured, {world} processes would not split one global batch"
+        )
+
+
+def _on_device(fn, device: torch.device):
+    """``fn(model, *arrays)`` on one device, with the call signature of
+    :func:`data_parallel_infer`'s wrappers (a ``version`` it has no use for)."""
+    def call(model, *args, version=None):
+        with torch.inference_mode():
+            return fn(model, *((torch.from_numpy(a) if isinstance(a, np.ndarray) else a).to(device) for a in args))
+    return call
+
+
+def _generate(model, noise, cond):
+    return model.generator(noise, cond).float()
+
+
+def _discriminate(model, image):
+    return model.discriminator(image)
+
+
+def _adjust(model, image, cond):
+    return model.adjuster(image, cond).float()
+
+
+def _quantize(y: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] -> uint8 as ``clip(round((y + 1) * 127.5), 0, 255)`` (round half to even)."""
+    return torch.clamp(torch.round((y.float() + 1.0) * 127.5), 0, 255).to(torch.uint8)
+
+
+def _sample(model, noise, cond, image_u8, train_adj: bool):
+    """sample_u8's batch: (uint8 G images, D's four scores[, uint8 adjusted real, generated])."""
+    img = data_rescale(image_u8.float())
+    gen = model.generator(noise, cond).float()
+    out = (_quantize(gen), *model.discriminator(img), *model.discriminator(gen))
+    if train_adj:
+        out += (_quantize(model.adjuster(img, cond)), _quantize(model.adjuster(gen, cond)))
+    return out
 
 
 def _pairwise(it):
@@ -251,26 +314,39 @@ def step_seed(seed: int, global_step: int, micro: Optional[int] = None) -> int:
 
 
 class Trainer:
-    def __init__(self, cfg: Config, dataset=None, device=None):
-        check_trainer_supported(cfg)
+    def __init__(self, cfg: Config, dataset=None, device=None, group: Optional[DataGroup] = None):
+        """``group``: this rank's data-parallel group; default: the running
+        process group's (:func:`~littlegan_tpu_torch.parallel.mesh.data_group`,
+        on ``device``), None when none runs."""
+        self.dp = group if group is not None else data_group(device)
+        check_trainer_supported(cfg, self.dp)
         self.cfg = cfg
         self.dataset = dataset
-        self.device = resolve_device(device)
-        init_result_dirs(cfg)
-        snapshot_run(cfg)
+        self.device = self.dp.device if self.dp is not None else resolve_device(device)
+        self.writes = self.dp is None or self.dp.rank == 0  # only rank 0 writes files
+        if self.writes:
+            init_result_dirs(cfg)
+            snapshot_run(cfg)
         self.state: TrainState = create_train_state(cfg, self.device)
         self.global_epoch = 1
         self.global_step = 0
         self._resume_batch = 0  # mid-epoch resume point (interrupt checkpoints only)
         self._cur_batch_no = 0  # batches completed in the current epoch
         self.checkpointer = make_checkpointer(cfg, os.path.join(cfg.result_dir, "checkpoint"))
-        if cfg.restore:
+        status = {}
+        if cfg.restore and self.writes:
             restored, status = self.checkpointer.restore_latest(self.state)
             if restored is not None:
                 print("Restored checkpoint", self.checkpointer.latest_tag())
-                self.global_epoch = int(status.get("epoch", 1))
-                self.global_step = int(status.get("step", 0))
-                self._resume_batch = int(status.get("batch", 0))
+        if self.dp is not None:  # rank 0's restored (or fresh) state on every rank
+            status = self.dp.broadcast_object(status)
+            replicate_state(self.state, self.dp)
+        self.global_epoch = int(status.get("epoch", 1))
+        self.global_step = int(status.get("step", 0))
+        self._resume_batch = int(status.get("batch", 0))
+        self._sync: Optional[GradSync] = None
+        if self.dp is not None:
+            self._sync = Zero1(self.dp, self.state) if cfg.shard_opt_state else GradSync(self.dp)
         self._writer: Optional[SummaryWriter] = None
         self._metrics_buffer = []
         self._flushing = False
@@ -281,28 +357,73 @@ class Trainer:
         self._device_store: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._scan_steps: Dict[int, object] = {}  # K -> K-update step (one CUDA graph each)
         self._eval_model: Optional[LittleGAN] = None  # see eval_model
+        self._version = 0  # counts the weight updates: the inference replicas' cache key
         self._init_fixture()
+        if self.dp is not None and dataset is not None and not cfg.device_data:
+            if not hasattr(dataset, "set_rows_per_batch"):
+                raise ValueError("host-fed data parallelism needs a dataset with set_rows_per_batch (CelebA and "
+                                 "SyntheticDataset have it), or device_data=true")
+            rows = cfg.batch_size // self.dp.world
+            dataset.set_rows_per_batch(rows, self.dp.rank)
+            print(f"data-parallel host-fed: each rank decodes {rows}/{cfg.batch_size} rows per batch (its own slice)")
         if cfg.grad_accum > 1 and getattr(dataset, "batches", None) is not None \
                 and dataset.batches < 2 * cfg.grad_accum:
             print(f"WARNING: dataset has {dataset.batches} batches but one accumulation group consumes "
                   f"{2 * cfg.grad_accum}; every epoch would apply ZERO updates. Lower grad_accum or grow "
                   "the dataset.")
-        self._train_step = make_train_step(cfg, self.state)
-        self._accum_step = make_accum_train_step(cfg, self.state)
-        self._gather_step = make_gather_train_step(cfg, self.state)
+        self._train_step = make_train_step(cfg, self.state, self._sync)
+        self._accum_step = make_accum_train_step(cfg, self.state, self._sync)
+        self._gather_step = make_gather_train_step(cfg, self.state, sync=self._sync)
+        if self.dp is not None:
+            n = self.dp.world
+            if cfg.grad_accum > 1:
+                print(f"Data-parallel training over {n} devices with {cfg.grad_accum}-pair gradient accumulation "
+                      f"(effective batch {cfg.grad_accum * cfg.batch_size})")
+            else:
+                print(f"Data-parallel training over {n} devices")
         self._generator = torch.Generator(device=self.device)
         self._prefetch = Prefetcher(self.device)
         self._profile: Optional[ProfileWindow] = None  # the run's window (profile_steps), made in train()
+        if cfg.eval_data_parallel and self.dp is None and infer_mesh_devices(self.device) > 1:
+            wrap = data_parallel_infer  # every visible card
+        else:
+            wrap = lambda fn, n: _on_device(fn, self.device)  # noqa: E731
+        self._gen = wrap(_generate, 2)
+        self._disc = wrap(_discriminate, 1)
+        self._adj = wrap(_adjust, 2)
+        self._sample = wrap(functools.partial(_sample, train_adj=cfg.train_adj), 3)
 
     # ---------------------------------------------------------- fixture ----
 
     def _init_fixture(self) -> None:
         """The pinned (noise, cond, image) eval triplet, reused from
         ``test_data_<env>.npz`` when ``cfg.reuse`` and the file exists,
-        else made anew and written there atomically."""
+        else made anew and written there atomically. Under data
+        parallelism the ranks agree to reuse only if every rank sees the
+        file, rank 0 makes or reads the triplet and broadcasts it, and only
+        rank 0 writes."""
         cfg = self.cfg
         npz = os.path.join(cfg.test_data_dir, f"test_data_{cfg.env}.npz")
         reuse = cfg.reuse and os.path.isfile(npz)
+        if self.dp is not None:
+            reuse = self.dp.all(reuse)
+            triplet = self._fixture(npz, reuse) if self.dp.rank == 0 else None
+            noise, cond, image = self.dp.broadcast_object(triplet)
+        else:
+            noise, cond, image = self._fixture(npz, reuse)
+        self.test_noise, self.test_cond, self.test_image = noise, cond, image
+        if not reuse and self.writes:
+            os.makedirs(cfg.test_data_dir, exist_ok=True)
+            tmp = npz + ".tmp"
+            with open(tmp, "wb") as f:
+                np.savez_compressed(f, n=noise, c=cond, i=image)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, npz)
+
+    def _fixture(self, npz: str, reuse: bool):
+        """(noise, cond, image): read from ``npz``, or made anew."""
+        cfg = self.cfg
         if reuse:
             data = np.load(npz)
             noise, cond, image = (data[k].astype(np.float32) for k in ("n", "c", "i"))
@@ -316,22 +437,15 @@ class Trainer:
                 bits = np.random.default_rng(cfg.seed).random((cfg.batch_size, cfg.cond_dim)) < 0.5
                 cond = soft(np.where(bits, -1.0, 1.0)).astype(np.float32)
             noise = rng.standard_normal((cond.shape[0], cfg.noise_dim)).astype(np.float32)
-        self.test_noise, self.test_cond, self.test_image = noise, cond, image
-        if not reuse:
-            os.makedirs(cfg.test_data_dir, exist_ok=True)
-            tmp = npz + ".tmp"
-            with open(tmp, "wb") as f:
-                np.savez_compressed(f, n=noise, c=cond, i=image)
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp, npz)
+        return noise, cond, image
 
     # ------------------------------------------------------------- train ----
 
     def draws(self, global_step: int, micro: Optional[int] = None):
-        """The draws of step ``global_step`` (or of its micro-step ``micro``)."""
+        """The draws of step ``global_step`` (or of its micro-step ``micro``):
+        the global batch's, of which a data-parallel rank keeps its rows."""
         self._generator.manual_seed(step_seed(self.cfg.seed, global_step, micro))
-        return draw_step(self._generator, self.cfg, self.cfg.batch_size, self.device)
+        return local_draws(draw_step(self._generator, self.cfg, self.cfg.batch_size, self.device), self.dp)
 
     def update_draws(self, global_step: int):
         """The draws of the update at ``global_step``: today's step draws,
@@ -349,7 +463,9 @@ class Trainer:
         set) and f32 conditions, reshaped to (n_batches, B, ...). Row j is
         batch j of the canonical (unshuffled) order, so an epoch's
         :func:`epoch_batch_order` reproduces the host pipeline's batch
-        sequence."""
+        sequence. A data-parallel rank keeps its rows of every batch (the
+        JAX package's ``P(None, 'data')`` store), so the per-step gather
+        stays on its card."""
         if self._device_store is None:
             cache = getattr(self.dataset, "_cache", None)  # a decode cache is dead weight here
             if cache is not None:
@@ -364,8 +480,11 @@ class Trainer:
             n = imgs.shape[0] // b
             imgs = imgs[: n * b].reshape(n, b, *imgs.shape[1:])
             cs = cs[: n * b].reshape(n, b, -1)
+            rows = row_slice(b, self.dp)
+            imgs, cs = np.ascontiguousarray(imgs[:, rows]), np.ascontiguousarray(cs[:, rows])
             print(f"device_data: uploading {imgs.nbytes / 1e9:.2f} GB {imgs.dtype} dataset "
-                  f"({n} batches) to {self.device}")
+                  f"({n} batches{'' if self.dp is None else f', rows {rows.start}-{rows.stop - 1} of each'}) "
+                  f"to {self.device}")
             self._device_store = (torch.from_numpy(imgs).to(self.device), torch.from_numpy(cs).to(self.device))
         return self._device_store
 
@@ -381,12 +500,22 @@ class Trainer:
         captures its graph once)."""
         if k not in self._scan_steps:
             make = make_scan_accum_train_step if self.cfg.grad_accum > 1 else make_scan_train_step
-            self._scan_steps[k] = make(self.cfg, self.state, k)
+            self._scan_steps[k] = make(self.cfg, self.state, k, sync=self._sync)
         return self._scan_steps[k]
 
     def _uses_scan(self) -> bool:
         cfg = self.cfg
         return cfg.device_data and (cfg.steps_per_dispatch > 1 or cfg.grad_accum > 1)
+
+    def full_state(self) -> TrainState:
+        """The train state with every moment whole (ZeRO-1 gathers its
+        shards: every rank calls this at the same point)."""
+        return self._sync.full_state(self.state) if isinstance(self._sync, Zero1) else self.state
+
+    def _interrupted(self) -> bool:
+        """Whether a SIGINT arrived on this rank, or on any rank under data
+        parallelism (one host all-reduce: the ranks stop together)."""
+        return self._interrupt_requested if self.dp is None else self.dp.any(self._interrupt_requested)
 
     @property
     def writer(self) -> SummaryWriter:
@@ -406,11 +535,13 @@ class Trainer:
 
     def _save_interrupt(self):
         self._flush_buffered()
-        self.writer.flush()
-        self.checkpointer.save(
-            "interrupt", self.state,
-            {"epoch": self.global_epoch, "step": self.global_step, "batch": self._cur_batch_no},
-        )
+        state = self.full_state()
+        if self.writes:
+            self.writer.flush()
+            self.checkpointer.save(
+                "interrupt", state,
+                {"epoch": self.global_epoch, "step": self.global_step, "batch": self._cur_batch_no},
+            )
         print("\nCheckpoint has been saved (interrupt)")
         sys.exit(1)
 
@@ -418,7 +549,10 @@ class Trainer:
         cfg = self.cfg
         if cfg.ckpt_every > 1 and epoch % cfg.ckpt_every != 0 and epoch != cfg.epoch:
             return
-        self.checkpointer.save(str(epoch), self.state, {"epoch": epoch + 1, "step": self.global_step})
+        state = self.full_state()
+        if not self.writes:
+            return
+        self.checkpointer.save(str(epoch), state, {"epoch": epoch + 1, "step": self.global_step})
         if cfg.keep_checkpoints > 0:
             self._prune_checkpoints(cfg.keep_checkpoints)
 
@@ -464,7 +598,7 @@ class Trainer:
         prev_handler = signal.signal(signal.SIGINT, self._request_interrupt) if main else None
         self._metrics_buffer = []
         first_epoch = self.global_epoch
-        self._profile = ProfileWindow(cfg, self.device) if cfg.profile_steps > 0 else None
+        self._profile = ProfileWindow(cfg, self.device) if cfg.profile_steps > 0 and self.writes else None
         try:
             for epoch in range(self.global_epoch, cfg.epoch + 1):
                 self.global_epoch = epoch
@@ -484,7 +618,7 @@ class Trainer:
                 note = f"  [{dropped} trailing batch(es) dropped]" if dropped else ""
                 print(f"Time usage: {elapsed:.1f}s  ({rate:.1f} images/s){note}")
                 self._save_epoch_checkpoint(epoch)
-                if self._interrupt_requested:
+                if self._interrupted():
                     self._save_interrupt()
                 if epoch_callback is not None:
                     epoch_callback(epoch)
@@ -594,11 +728,12 @@ class Trainer:
         cadences (once if any update of the call crossed one: group-snapped
         on the scan path) and a deferred SIGINT."""
         cfg = self.cfg
+        self._version += 1
         if len(self._metrics_buffer) >= FLUSH_EVERY:
             self._flush_buffered()
         if cfg.freq_gen > 0 and batch_no // cfg.freq_gen > prev_batch // cfg.freq_gen:
             self._save_train_images(out, epoch, batch_no)
-        if cfg.freq_test > 0 and batch_no // cfg.freq_test > prev_batch // cfg.freq_test:
+        if self.writes and cfg.freq_test > 0 and batch_no // cfg.freq_test > prev_batch // cfg.freq_test:
             name = f"{epoch}-{batch_no}"
             self.predict(
                 self.test_noise, self.test_cond, self.test_image,
@@ -606,14 +741,21 @@ class Trainer:
                 os.path.join(cfg.result_dir, "test", "disc", f"{name}.json"),
                 os.path.join(cfg.result_dir, "test", "adj", f"{name}.jpg"),
             )
-        if self._interrupt_requested:
+        if self._interrupted():
             self._save_interrupt()
 
     def _save_train_images(self, out, epoch: int, batch_no: int) -> None:
-        base = os.path.join(self.cfg.result_dir, "train")
-        save_image(out.fake_image.float().cpu().numpy(), os.path.join(base, "gen", f"{epoch}-{batch_no}.jpg"))
-        if self.cfg.train_adj:
-            save_image(out.adj_image.float().cpu().numpy(), os.path.join(base, "adj", f"{epoch}-{batch_no}.jpg"))
+        """The last update's G (and adjuster) images as grids, the global
+        batch's rows gathered from every rank (a collective)."""
+        cfg = self.cfg
+        base = os.path.join(cfg.result_dir, "train")
+        fake = global_rows(out.fake_image, self.dp)
+        adj = global_rows(out.adj_image, self.dp, halves=not cfg.adj_half_batch) if cfg.train_adj else None
+        if not self.writes:
+            return
+        save_image(fake.float().cpu().numpy(), os.path.join(base, "gen", f"{epoch}-{batch_no}.jpg"))
+        if adj is not None:
+            save_image(adj.float().cpu().numpy(), os.path.join(base, "adj", f"{epoch}-{batch_no}.jpg"))
 
     def _flush_buffered(self) -> None:
         """Write the buffered losses to TensorBoard (one copy from the card)
@@ -631,7 +773,8 @@ class Trainer:
                 pairs = [("loss/gen", g), ("loss/disc", d)]
                 if self.cfg.train_adj and batch_no > 10:  # no adj loss in the warm-up window
                     pairs.append(("loss/adj", a))
-                self.writer.scalars(pairs, step)
+                if self.writes:
+                    self.writer.scalars(pairs, step)
                 if not self._nonfinite_warned and not all(np.isfinite(v) for v in (g, d, a)):
                     self._nonfinite_warned = True
                     print(f"WARNING: non-finite loss at step {step} (G={g} D={d} A={a}) — training has "
@@ -642,7 +785,8 @@ class Trainer:
         finally:
             self._flushing = False
         if self.cfg.halt_on_nonfinite and self._nonfinite_warned:
-            self.writer.flush()
+            if self.writes:
+                self.writer.flush()
             raise RuntimeError("halting: non-finite loss (halt_on_nonfinite=true); restore "
                                "a pre-divergence epoch checkpoint to recover")
 
@@ -663,8 +807,9 @@ class Trainer:
             self._eval_model = model.requires_grad_(False)
         return self._eval_model
 
-    def _tensor(self, a, dtype=np.float32) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(self.device)
+    def _call(self, fn, *arrays):
+        """An inference wrapper (``self._gen`` ...) on the eval weights."""
+        return fn(self.eval_model(), *arrays, version=self._version)
 
     def predict(
         self, noise, cond, image, gen_image_save_path: Optional[str] = None,
@@ -674,27 +819,26 @@ class Trainer:
         the adjuster on both; writes the grids and the score JSON. Returns
         (gen image, scores, adjusted real, adjusted generated) as numpy."""
         cfg = self.cfg
-        model = self.eval_model()
-        t = self._tensor
-        with torch.inference_mode():
-            start = time.time()
-            gen = model.generator(t(noise), t(cond)).float()
-            gen_np = gen.cpu().numpy()
-            print(f"Generate Time {time.time() - start:.4f}s")
-            if gen_image_save_path:
-                save_image(gen_np, gen_image_save_path)
-            real_pr, real_c = model.discriminator(t(image))
-            fake_pr, fake_c = model.discriminator(gen)
-            save = d_score_stats(cond, real_pr, real_c, fake_pr, fake_c)
-            if json_save_path:
-                with open(json_save_path, "w") as f:
-                    json.dump(save, f)
-            adj_real = adj_fake = None
-            if cfg.train_adj:
-                adj_real = model.adjuster(t(image), t(cond)).float().cpu().numpy()
-                adj_fake = model.adjuster(gen, t(cond)).float().cpu().numpy()
-                if adj_image_save_path:
-                    save_image(np.concatenate([adj_real, adj_fake]), adj_image_save_path)
+        f32 = lambda a: np.ascontiguousarray(a, np.float32)  # noqa: E731
+        noise, cond, image = f32(noise), f32(cond), f32(image)
+        start = time.time()
+        gen = self._call(self._gen, noise, cond)
+        gen_np = gen.cpu().numpy()
+        print(f"Generate Time {time.time() - start:.4f}s")
+        if gen_image_save_path:
+            save_image(gen_np, gen_image_save_path)
+        real_pr, real_c = self._call(self._disc, image)
+        fake_pr, fake_c = self._call(self._disc, gen)
+        save = d_score_stats(cond, real_pr, real_c, fake_pr, fake_c)
+        if json_save_path:
+            with open(json_save_path, "w") as f:
+                json.dump(save, f)
+        adj_real = adj_fake = None
+        if cfg.train_adj:
+            adj_real = self._call(self._adj, image, cond).cpu().numpy()
+            adj_fake = self._call(self._adj, gen, cond).cpu().numpy()
+            if adj_image_save_path:
+                save_image(np.concatenate([adj_real, adj_fake]), adj_image_save_path)
         if cfg.tb_images and self._in_train:
             grid = lambda b: to_grid(inverse_rescale(np.asarray(b)).astype(np.uint8))  # noqa: E731
             self.writer.image("test/gen", grid(gen_np), self.global_step)
@@ -704,13 +848,13 @@ class Trainer:
 
     def generate(self, noise, cond) -> np.ndarray:
         """G(noise, cond) with the eval weights, f32 [-1, 1] NHWC."""
-        with torch.inference_mode():
-            return self.eval_model().generator(self._tensor(noise), self._tensor(cond)).float().cpu().numpy()
+        return self._call(self._gen, np.ascontiguousarray(noise, np.float32),
+                          np.ascontiguousarray(cond, np.float32)).cpu().numpy()
 
     def adjust(self, image, cond) -> np.ndarray:
         """The adjuster on ``image`` ([-1, 1] NHWC) and ``cond``, eval weights."""
-        with torch.inference_mode():
-            return self.eval_model().adjuster(self._tensor(image), self._tensor(cond)).float().cpu().numpy()
+        return self._call(self._adj, np.ascontiguousarray(image, np.float32),
+                          np.ascontiguousarray(cond, np.float32)).cpu().numpy()
 
     def sample_u8(self, noise, cond, image) -> Tuple[np.ndarray, Dict, Optional[np.ndarray], Optional[np.ndarray]]:
         """evaluate-sample's batch in one ``inference_mode`` call, uint8
@@ -725,17 +869,11 @@ class Trainer:
         arr = np.asarray(image)
         if arr.dtype != np.uint8:
             arr = np.clip(inverse_rescale(arr), 0, 255).astype(np.uint8)
-        q = lambda y: torch.clamp(torch.round((y.float() + 1.0) * 127.5), 0, 255).to(torch.uint8)  # noqa: E731
-        model = self.eval_model()
+        out = self._call(self._sample, np.ascontiguousarray(noise, np.float32),
+                         np.ascontiguousarray(cond, np.float32), np.ascontiguousarray(arr))
         with torch.inference_mode():
-            c = self._tensor(cond)
-            img = data_rescale(self._tensor(arr, np.uint8).float())
-            gen = model.generator(self._tensor(noise), c).float()
-            scores = [*model.discriminator(img), *model.discriminator(gen)]
-            images = [q(gen)]
-            if self.cfg.train_adj:
-                images += [q(model.adjuster(img, c)), q(model.adjuster(gen, c))]
-            images = torch.stack(images).cpu().numpy()  # one copy of each kind back
+            images = torch.stack([out[0], *out[5:]]).cpu().numpy()  # one copy of each kind back
+            scores = out[1:5]
             widths = [t.shape[1] for t in scores]
             scores = np.split(torch.cat([t.float() for t in scores], 1).cpu().numpy(), np.cumsum(widths)[:-1], 1)
         stats = d_score_stats(np.asarray(cond, np.float32), *scores)

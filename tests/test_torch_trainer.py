@@ -148,11 +148,13 @@ def test_cli_trains_one_synthetic_epoch(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("mode", ["plot", "serve", "evaluate-sample"])
-def test_cli_other_modes_exit_2(mode, capsys):
-    """Every mode is ported (tests/test_torch_cli.py runs them); what still
-    exits 2 is a request for more than one card, in any mode."""
+def test_cli_other_modes_exit_2(mode, capsys, monkeypatch):
+    """Every mode is ported (tests/test_torch_cli.py runs them) and
+    ``--devices`` N spreads serving over N cards; what exits 2 is a mode
+    other than train started as one of several torchrun processes."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
     assert cli.main([mode, "exp1", "--device", "cpu", "--devices", "2"]) == 2
-    assert "multi-GPU is not ported yet (ROADMAP A13)" in capsys.readouterr().err
+    assert "runs in one process (a process per card is for train)" in capsys.readouterr().err
 
 
 def test_trainer_raises_without_a_card(tiny_cfg, tmp_path):
@@ -165,14 +167,15 @@ def test_trainer_raises_without_a_card(tiny_cfg, tmp_path):
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(use_gp=True, use_pallas=True), ValueError, "use_gp needs use_pallas=False"),
     (dict(use_gp=True, use_pallas_boundary=True), ValueError, "use_gp needs use_pallas=False"),
-    (dict(mesh_shape=[1]), NotImplementedError, "ROADMAP A13"),
-    (dict(mesh_axes=["data", "model"]), NotImplementedError, "ROADMAP A13"),
-    (dict(shard_opt_state=True), NotImplementedError, "ROADMAP A13"),
+    (dict(mesh_shape=[2]), NotImplementedError, "ROADMAP A13: spatial mesh"),
+    (dict(mesh_axes=["data", "model"]), NotImplementedError, "ROADMAP A13: spatial mesh"),
+    (dict(shard_opt_state=True), ValueError, "needs a device mesh"),
     (dict(shard_dense=True), NotImplementedError, "ROADMAP A13"),
 ])
 def test_trainer_refuses_unported_options(tiny_cfg, tmp_path, kw, exc, match):
     """What the trainer still refuses: the gradient penalty with a kernel
-    flag, and the multi-device options (meshes, sharded state)."""
+    flag, a mesh other than the data mesh over its ranks (one process: [1])
+    and shard_dense (ROADMAP A13), and ZeRO-1 without ranks to shard over."""
     with pytest.raises(exc, match=match):
         Trainer(tcfg_of(_cfg(tiny_cfg, tmp_path, **kw)), None, device="cpu")
 
