@@ -113,8 +113,21 @@ Phases, each of which fails the run on any error:
       cannot be captured), and one ``Trainer`` epoch per rank in which rank
       1 writes no file; (iii) an engine over ``[cuda:0, cuda:0]`` (two replicas on the
       card) against the one-card engine at ``DP_INFER_ROWS`` rows
-      (``ENGINE_TOL``) and one ``--devices 1`` request through ``serve()``.
-      Each phase's wall is printed after (h).
+      (``ENGINE_TOL``) and one ``--devices 1`` request through ``serve()``;
+  (i) compat (``littlegan_tpu_torch/compat/``): a state trained
+      ``COMPAT_STEPS`` updates with ``adam_tf_parity`` goes to the reference
+      checkpoint's variables (``state_to_variables``) and back
+      (``variables_to_train_state`` on the card), bit for bit; the
+      converter's npz writer stores it and ``COMPAT_RESUMED`` updates (bf16,
+      both kernel flags) resumed by a ``Trainer`` from it match the same
+      updates resumed from the unconverted state (``TRAIN_TOL["loss_rtol"]``,
+      launch counts per update); the three ``torch.export`` programs
+      (``compat/torch_export.py``) reloaded at ``PT2_BATCHES`` against the
+      f32 plain-op forward with TF32 off (``PT2_TOL``), and the reloaded
+      ``generate`` timed beside the ``InferenceEngine``. The card's host has
+      no TensorFlow, so the SavedModel and the TF file read and write are
+      left to tests/test_torch_compat.py. Each phase's wall is printed
+      after (i).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -2710,6 +2723,178 @@ def check_data_parallel():
     return launches, record
 
 
+# phase (i): compat (ROADMAP A12) at full width. A state trained COMPAT_STEPS
+# updates (adam_tf_parity: one apply count per optimizer, v1's shared beta
+# powers, so the reference format holds the state exactly) goes through the
+# reference-checkpoint mapping and back on the card; the converter's npz
+# writer stores it, and COMPAT_RESUMED updates resumed from it must match the
+# same updates resumed from the unconverted state (losses to
+# TRAIN_TOL["loss_rtol"]). The card's host has no TensorFlow: the SavedModel
+# export and the TF read and write of reference checkpoints run in
+# tests/test_torch_compat.py on a CPU host; here runs the numpy mapping both
+# ways, which is all of the conversion but the file format. Then the three
+# torch.export programs at PT2_BATCHES against the f32 plain-op forward with
+# TF32 off, within PT2_TOL (rtol, atol: tests/test_savedmodel.py's
+# same-package f32 bound), and the reloaded generate timed beside the engine.
+COMPAT_STEPS = 3
+COMPAT_RESUMED = 2
+PT2_BATCHES = (1, 7, 8)
+PT2_TOL = (1e-5, 1e-5)
+
+
+def _same_state(a, b) -> bool:
+    """Weights and moments bit for bit, and the same apply counts."""
+    from littlegan_tpu_torch.training.step import state_tensors
+
+    ta, tb = state_tensors(a), state_tensors(b)
+    counts = all(getattr(a, o).count == getattr(b, o).count for o in ("opt_g", "opt_d", "opt_a"))
+    return counts and len(ta) == len(tb) and _equal_state(a, b)
+
+
+def _resume(cfg, data):
+    """A Trainer for ``cfg`` restored from its checkpoint, trained through
+    ``cfg.epoch``. Returns (each kernel's launches, the logged (gen, disc)
+    losses per update)."""
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.training.trainer import Trainer
+    from littlegan_tpu_torch.utils.tensorboard import read_scalars
+
+    trainer = Trainer(cfg, data)
+    require((trainer.global_epoch, trainer.global_step) == (2, COMPAT_STEPS),
+            ("restored at", trainer.global_epoch, trainer.global_step))
+    counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+    for c in counters.values():
+        c.reset()
+    trainer.train()
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counters.items()}
+    want = {k: v * COMPAT_RESUMED for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+    require(launches == want, f"resumed-run launches {launches}, want {want}")
+    scalars = read_scalars(os.path.join(cfg.result_dir, "log"))
+    losses = [(g, d) for (_, g), (_, d) in zip(scalars["loss/gen"], scalars["loss/disc"])]
+    require(len(losses) == COMPAT_RESUMED and all(np.isfinite(losses).ravel()), f"resumed losses {scalars}")
+    return launches, losses
+
+
+def check_compat():
+    """Phase (i). Returns (each kernel's launches in the two resumed runs,
+    the record)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.compat import reference_checkpoint as ref
+    from littlegan_tpu_torch.compat import torch_export as te
+    from littlegan_tpu_torch.compat.jax_params import jax_key
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.serving import InferenceEngine
+    from littlegan_tpu_torch.training.checkpoint import Checkpointer, to_numpy
+    from littlegan_tpu_torch.training.state import eval_params
+    from littlegan_tpu_torch.training.trainer import Trainer
+
+    record = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compat_") as root:
+        cfg = train_config(root).replace(adam_tf_parity=True, exp_name="chip_smoke_compat")
+        trainer = Trainer(cfg, SyntheticDataset(cfg, num_items=2 * COMPAT_STEPS * cfg.batch_size))
+        trainer.train()
+        require(trainer.global_step == COMPAT_STEPS, trainer.global_step)
+        t0 = time.time()
+        variables, report = ref.state_to_variables(trainer.state, cfg.beta_1, cfg.beta_2)
+        conv, inferred, back = ref.variables_to_train_state(variables, cfg.beta_1, cfg.beta_2, device="cuda")
+        torch.cuda.synchronize()
+        record["convert_s"] = time.time() - t0
+        require(back == report, (report, back))
+        require((inferred["image_dim"], inferred["conv_filter"]) == (cfg.image_dim, cfg.conv_filter), inferred)
+        bitwise = _same_state(conv, trainer.state)
+        require(bitwise, "state_to_variables -> variables_to_train_state changed the state")
+        log(f"phase (i): {len(variables)} reference variables, counts {report}; the state converted there and "
+            f"back on the card in {record['convert_s']:.2f} s, bit for bit")
+
+        # the converted state through the converter's writer, the trained one through the same Checkpointer
+        status = {"epoch": 2, "step": trainer.global_step}
+        cfgs = {name: cfg.replace(epoch=2, all_result_dir=os.path.join(root, name)) for name in ("converted", "unconverted")}
+        ref.save_converted(conv, back, os.path.join(cfgs["converted"].result_dir, "checkpoint"), "1", "state_to_variables")
+        Checkpointer(os.path.join(cfgs["unconverted"].result_dir, "checkpoint")).save("1", trainer.state, status)
+        del trainer
+        data = SyntheticDataset(cfg, num_items=2 * COMPAT_RESUMED * cfg.batch_size)
+        launches, losses = {}, {}
+        for name, c in cfgs.items():
+            got, losses[name] = _resume(c, data)
+            launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        rel = max(abs(a - b) / max(abs(b), 1e-12) for la, lb in zip(losses["converted"], losses["unconverted"])
+                  for a, b in zip(la, lb))
+        log(f"resumed {COMPAT_RESUMED} updates (bf16, both kernel flags): (gen, disc) losses converted "
+            f"{losses['converted']}, unconverted {losses['unconverted']}; largest relative difference {rel:.3g} "
+            f"(tolerance {TRAIN_TOL['loss_rtol']})")
+        require(rel <= TRAIN_TOL["loss_rtol"], f"the resumed runs disagree: {rel}")
+        record.update(resumed_losses=losses, resumed_loss_rel=rel, resumed_launches=launches)
+
+        # torch.export of the converted weights on the card, against the f32 plain-op forward
+        params = eval_params(conv)
+        out_dir = os.path.join(root, "torch_export")
+        flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            t0 = time.time()
+            te.export_torch(cfg, params, out_dir, device="cuda")
+            record["export_s"] = time.time() - t0
+            progs = {n: torch.export.load(os.path.join(out_dir, f"{n}.pt2")).module() for n in te.ENTRY_POINTS}
+            eager = te.export_model(cfg, params, "cuda")
+            rng = np.random.default_rng(3)
+            errs = {}
+            for b in PT2_BATCHES:
+                z = torch.from_numpy(rng.normal(size=(b, cfg.noise_dim)).astype(np.float32)).cuda()
+                c = torch.from_numpy(rng.uniform(-1, 1, (b, cfg.cond_dim)).astype(np.float32)).cuda()
+                x = torch.from_numpy(rng.uniform(-1, 1, (b, 128, 128, 3)).astype(np.float32)).cuda()
+                with torch.no_grad():
+                    pr, cd = eager.discriminator(x)
+                    want = {"generate": eager.generator(z, c), "adjust": eager.adjuster(x, c), "pr": pr, "cond": cd}
+                    d = progs["discriminate"](x)
+                    got = {"generate": progs["generate"](z, c), "adjust": progs["adjust"](x, c),
+                           "pr": d["pr"], "cond": d["cond"]}
+                for k, w in want.items():
+                    require(got[k].shape == w.shape and got[k].dtype == torch.float32, (b, k, got[k].shape))
+                    require(_within(got[k], w, PT2_TOL[1], PT2_TOL[0]), f".pt2 {k} at batch {b}: {_max_err(got[k], w)}")
+                    errs[f"{k}@{b}"] = _max_err(got[k], w)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+        sizes = {n: os.path.getsize(os.path.join(out_dir, f"{n}.pt2")) for n in te.ENTRY_POINTS}
+        log(f"torch.export: 3 programs in {record['export_s']:.1f} s ({sizes} bytes); reloaded vs the f32 "
+            f"plain-op forward (TF32 off) at batches {PT2_BATCHES}: largest error {max(errs.values()):.3g} "
+            f"(bound rtol {PT2_TOL[0]}, atol {PT2_TOL[1]})")
+        record.update(pt2_max_err=errs, pt2_bytes=sizes)
+
+        # the reloaded generate beside the engine (bf16, both kernels) at batch 8, host arrays in and out
+        z8 = rng.normal(size=(BATCH, cfg.noise_dim)).astype(np.float32)
+        c8 = rng.uniform(-1, 1, (BATCH, cfg.cond_dim)).astype(np.float32)
+        engine = InferenceEngine(full_config(), params={jax_key(n): to_numpy(p) for n, p in params.items()},
+                                 batch_size=BATCH)
+        calls = {"pt2_generate": lambda: progs["generate"](torch.from_numpy(z8).cuda(), torch.from_numpy(c8).cuda()).cpu(),
+                 "engine_generate": lambda: engine.generate(c8, z8)}
+        times = {}
+        for name, fn in calls.items():
+            with torch.no_grad():
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t) * 1e3 / 20
+        zd, cd8 = torch.from_numpy(z8).cuda(), torch.from_numpy(c8).cuda()
+        with torch.no_grad():
+            times["pt2_generate_device"] = eager_ms(lambda: progs["generate"](zd, cd8), reps=20)
+        log(f"batch {BATCH} generate, host wall per call: reloaded .pt2 (f32, plain ops) "
+            f"{times['pt2_generate']:.3f} ms (device tensors in/out: {times['pt2_generate_device']:.3f} ms); "
+            f"InferenceEngine (bf16, kernels) {times['engine_generate']:.3f} ms ({nvidia_smi_line()})")
+        record["generate_ms"] = times
+    return launches, record
+
+
 def _free_port() -> int:
     import socket
 
@@ -2719,15 +2904,16 @@ def _free_port() -> int:
 
 
 def summarize(records, serve_launches, train_launches, dispatch_launches, eval_launches, remat_launches,
-              s2d_launches, dp_launches):
+              s2d_launches, dp_launches, compat_launches):
     """One JSON record per kernel, bf16 (the working dtype): summed over the
     launches of one train step where phase (b) timed the train shapes, else
     over the shapes one /adjust call gives it ("per" says which; a kernel
     timed on both paths adds the /adjust sums as "serve_ms",
     "serve_plain_ms", "serve_bound_ms"); per-shape numbers under "shapes".
-    "launches" counts the seven paths' runs (serve, host-fed train,
+    "launches" counts the eight paths' runs (serve, host-fed train,
     CUDA-graph dispatch, evaluate-sample, the remat steps, the s2d-store
-    replay, phase (h)'s data-parallel runs), split in "launches_by_path"."""
+    replay, phase (h)'s data-parallel runs, phase (i)'s resumed runs),
+    split in "launches_by_path"."""
     meta = {
         "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
                                       "littlegan_tpu/ops/pallas/norm_lrelu.py:111"),
@@ -2756,7 +2942,7 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "dispatch": dispatch_launches.get(name, 0), "eval": eval_launches.get(name, 0),
                    "remat": remat_launches.get(name, 0), "s2d_store": s2d_launches.get(name, 0),
-                   "dp": dp_launches.get(name, 0)}
+                   "dp": dp_launches.get(name, 0), "compat": compat_launches.get(name, 0)}
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2827,10 +3013,14 @@ def main() -> int:
     walls["g"], t0 = time.time() - t0, time.time()
     dp_launches, dp = check_data_parallel()
     log("data-parallel record: " + json.dumps(dp))
-    walls["h"] = time.time() - t0
+    walls["h"], t0 = time.time() - t0, time.time()
+    compat_launches, compat = check_compat()
+    log("compat record: " + json.dumps(compat))
+    walls["i"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
-                                         eval_launches, remat_launches, s2d_launches, dp_launches)}))
+                                         eval_launches, remat_launches, s2d_launches, dp_launches,
+                                         compat_launches)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

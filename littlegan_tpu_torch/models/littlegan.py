@@ -101,6 +101,7 @@ class Encoder(nn.Module):
         ch = [cfg.image_channel, cf[3], cf[2], cf[1], cf[0]]
         for i in range(1, 5):
             self.add_module(f"block{i}", Block((k, k, ch[i - 1], ch[i]), ch[i]))
+        s2d.register_index(self, "conv1")
 
     def forward(self, x: torch.Tensor, s2d_in: bool = False) -> List[torch.Tensor]:
         cfg = self.cfg
@@ -111,7 +112,7 @@ class Encoder(nn.Module):
         for i in range(1, 5):
             blk = getattr(self, f"block{i}")
             if i == 1 and s2d_active(cfg):
-                kern = s2d.s2d_conv1_kernel(blk.conv.kernel)
+                kern = s2d.s2d_conv1_kernel(blk.conv.kernel, s2d.module_index(self, "conv1"))
                 if cfg.use_pallas_boundary and boundary_conv.supports(x.shape):
                     y, s1, s2 = boundary_conv.BoundaryConvS2D.apply(
                         x.contiguous(), kern.to(x.dtype), blk.conv.bias
@@ -136,6 +137,7 @@ class Decoder(nn.Module):
         cf, k = cfg.conv_filter, cfg.kernel_size
         for i in range(1, 5):
             self.add_module(f"block{i}", Block((k, k, cf[i], cf[i - 1]), cf[i]))
+        s2d.register_index(self, "deconv")
 
     def forward(self, x: torch.Tensor, skips: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
         cfg = self.cfg
@@ -146,7 +148,8 @@ class Decoder(nn.Module):
                 x = x + skips[i - 1].to(x.dtype)
             if i == 4 and s2d_active(cfg):
                 x = conv2d(
-                    x, s2d.s2d_deconv_kernel(blk.conv.kernel), s2d.tile_bias(blk.conv.bias), stride=1
+                    x, s2d.s2d_deconv_kernel(blk.conv.kernel, s2d.module_index(self, "deconv")),
+                    s2d.tile_bias(blk.conv.bias), stride=1,
                 )
             else:
                 x = deconv2d(x, blk.conv.kernel, blk.conv.bias, stride=2)
@@ -203,11 +206,13 @@ class OutConv(nn.Module):
         self.bias = _param(cfg.image_channel)
         if cfg.cond_bias:
             self.cond_kernel = _param(cfg.cond_dim, cfg.image_channel)
+        s2d.register_index(self, "outconv")
 
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         if s2d_active(cfg):
-            y = conv2d(x, s2d.s2d_outconv_kernel(self.kernel), s2d.tile_bias(self.bias), stride=1)
+            kern = s2d.s2d_outconv_kernel(self.kernel, s2d.module_index(self, "outconv"))
+            y = conv2d(x, kern, s2d.tile_bias(self.bias), stride=1)
         else:
             y = deconv2d(x, self.kernel, self.bias, stride=1)
         if cfg.cond_bias and cond is not None:

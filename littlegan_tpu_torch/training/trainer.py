@@ -804,7 +804,8 @@ class Trainer:
             with torch.device("meta"):
                 model = LittleGAN(self.cfg)
             model.load_state_dict(eval_params(self.state), assign=True)
-            self._eval_model = model.requires_grad_(False)
+            # the parameters stay the state's; .to moves the s2d index buffers
+            self._eval_model = model.to(self.device).requires_grad_(False)
         return self._eval_model
 
     def _call(self, fn, *arrays):

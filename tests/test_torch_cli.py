@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 from littlegan_tpu_torch import cli
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GRID_LEVELS = 3
@@ -319,9 +320,9 @@ def test_serve_mode_end_to_end(workspace):
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     """No import of ``jax`` or ``littlegan_tpu`` anywhere in the port's
-    sources (``parallel/`` included), ``chip_smoke.py`` or the data-parallel
-    test workers (``tests/torch_dp_common.py``), lazy imports inside
-    functions included."""
+    sources (``parallel/`` and ``compat/`` included), ``chip_smoke.py`` or
+    the data-parallel test workers (``tests/torch_dp_common.py``), lazy
+    imports inside functions included."""
     pat = re.compile(r"^\s*(from\s+(jax|jaxlib|littlegan_tpu)(\.|\s)|import\s+(jax|jaxlib|littlegan_tpu)(\.|\s|$|,))")
     files = sorted((REPO / "littlegan_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
                                                                      REPO / "tests" / "torch_dp_common.py"]
@@ -329,3 +330,5 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
            for i, line in enumerate(f.read_text().splitlines(), 1) if pat.match(line)]
     assert len(files) > 30 and bad == []
     assert {"mesh.py", "train.py", "zero.py", "infer.py"} <= {f.name for f in files if f.parent.name == "parallel"}
+    assert {"jax_params.py", "reference_checkpoint.py", "savedmodel.py", "torch_export.py"} <= {
+        f.name for f in files if f.parent.name == "compat"}

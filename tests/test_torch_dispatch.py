@@ -49,6 +49,7 @@ from littlegan_tpu_torch.training.checkpoint import flatten_state
 from littlegan_tpu_torch.training.state import create_train_state
 from test_torch_step import GRAD_TOL
 from test_torch_train import jax_step_draws, port_state, t, tcfg_of
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 N_BATCHES = 10
 KERNELS = dict(use_pallas=True, use_pallas_boundary=True)

@@ -45,6 +45,7 @@ from littlegan_tpu_torch.eval.kid import kid
 from littlegan_tpu_torch.eval.prdc import prdc
 from test_torch_train import tcfg_of
 from tests.torch_inception_ref import Mutation, torch_inception_features
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 JAX_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -32,6 +32,7 @@ from littlegan_tpu_torch.training.state import create_train_state
 from test_torch_dispatch import _clone_state, _same_state
 from test_torch_step import GRAD_TOL
 from test_torch_train import batch, jax_step_draws, port_state, t
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 KERNELS = dict(use_pallas=True, use_pallas_boundary=True)
 BATCH_NO = 12  # past the adjuster gate; partition off

@@ -27,6 +27,7 @@ from littlegan_tpu_torch.compat.jax_params import params_from_jax
 from littlegan_tpu_torch.models.littlegan import LittleGAN, init_params
 from littlegan_tpu_torch.parallel import infer as tinfer
 from test_torch_train import tcfg_of
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 JAX_TOL = dict(rtol=1e-4, atol=1e-5)
 SAME = dict(rtol=1e-5, atol=1e-6)

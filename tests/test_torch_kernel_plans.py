@@ -19,6 +19,7 @@ import torch
 
 from littlegan_tpu_torch.ops.cuda import boundary_conv as tbc
 from littlegan_tpu_torch.ops.cuda import norm_lrelu as tnl
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 K2_SHAPES = [
     (32, 32, 32, 128), (32, 16, 16, 256), (32, 8, 8, 384), (32, 64, 64, 64), (32, 64, 64, 128),

@@ -23,6 +23,7 @@ from littlegan_tpu.ops.pallas import norm_lrelu as jnl
 from littlegan_tpu.ops.pallas.norm_lrelu import fused_instance_norm_lrelu as jfused
 from littlegan_tpu_torch.ops.cuda import boundary_conv as tbc
 from littlegan_tpu_torch.ops.cuda import norm_lrelu as tnl
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 Y_TOL = dict(rtol=1e-5, atol=1e-5)
 NORM_GRAD_TOL = dict(rtol=2e-4, atol=2e-5)

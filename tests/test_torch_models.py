@@ -20,6 +20,7 @@ from littlegan_tpu.training.checkpoint import _flatten
 from littlegan_tpu_torch.compat.jax_params import params_from_jax
 from littlegan_tpu_torch.config import Config as TConfig
 from littlegan_tpu_torch.models import littlegan as tm
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

@@ -19,6 +19,7 @@ from littlegan_tpu.data.native_loader import NativeBatchLoader as JNativeBatchLo
 from littlegan_tpu_torch.data import CelebA
 from littlegan_tpu_torch.data import native_loader
 from test_torch_train import tcfg_of
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 SIZES = [(16, 16), (218, 178), (16, 16), (218, 178), (20, 24)]
 

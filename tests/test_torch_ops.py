@@ -18,6 +18,7 @@ from littlegan_tpu_torch.ops import conv as tconv
 from littlegan_tpu_torch.ops import norm as tnorm
 from littlegan_tpu_torch.ops import s2d as ts2d
 from littlegan_tpu_torch.utils import image as timage
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -106,14 +107,17 @@ def test_s2d_kernel_rearrangements_match_jax(name, shape):
 
 @pytest.mark.parametrize("name", ["s2d_conv1_kernel", "s2d_deconv_kernel", "s2d_outconv_kernel"])
 def test_s2d_kernels_train_after_a_first_use_under_inference_mode(name):
-    """The rearrangements' index tensors are made once per device; made first
-    under ``inference_mode`` (a served model), they must still serve a
-    backward (the model trained next, in the same process)."""
-    ts2d._INDEX_CACHE.clear()
+    """The rearrangements' index tensors are buffers of the module that uses
+    them, made when it is built; built and first used under
+    ``inference_mode`` (a served model), they must still serve a backward
+    (the model trained next, in the same process)."""
     w = torch.from_numpy(_draw(np.random.default_rng(11), 5, 5, 3, 4)).requires_grad_()
+    key = name.split("_")[1]
     with torch.inference_mode():
-        getattr(ts2d, name)(w.detach())
-    getattr(ts2d, name)(w).square().sum().backward()
+        module = torch.nn.Module()
+        ts2d.register_index(module, key)
+        getattr(ts2d, name)(w.detach(), ts2d.module_index(module, key))
+    getattr(ts2d, name)(w, ts2d.module_index(module, key)).square().sum().backward()
     assert w.grad is not None and bool(w.grad.abs().sum() > 0)
 
 

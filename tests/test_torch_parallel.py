@@ -31,6 +31,7 @@ from littlegan_tpu_torch.training import optimizer as topt
 from littlegan_tpu_torch.training import step as tstep
 from test_torch_train import batch, jax_step_draws, port_state, t, tcfg_of
 from torch_dp_common import assert_state_matches_jax, assert_states_close, run_ranks, run_steps
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 DP_TOL = dict(rtol=2e-4, atol=2e-5)
 KERNELS = dict(use_pallas=True, use_pallas_boundary=True)

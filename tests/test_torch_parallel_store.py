@@ -34,6 +34,7 @@ from littlegan_tpu.training.checkpoint import _flatten
 from test_torch_dispatch import KERNELS, N_BATCHES, jax_update_draws, make_store
 from test_torch_parallel import DP_TOL, _cfg_dict
 from torch_dp_common import assert_state_matches_jax, assert_states_close, run_ranks, run_steps
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 from littlegan_tpu_torch.training import step as tstep
 
 GS0 = 40

@@ -33,6 +33,7 @@ from littlegan_tpu_torch.training.trainer import Trainer
 from littlegan_tpu_torch.utils.image import BatchImageWriter, save_image
 from littlegan_tpu_torch.utils.latent import slerp
 from test_torch_train import tcfg_of
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 U8_TIES = 4  # pixels of a batch that may differ by one level

@@ -33,6 +33,7 @@ from littlegan_tpu.training.checkpoint import _flatten, make_checkpointer as jma
 from littlegan_tpu_torch import serving as tserving
 from littlegan_tpu_torch.config import Config as TConfig
 from littlegan_tpu_torch.config import load_config as tload_config
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

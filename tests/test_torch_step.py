@@ -33,6 +33,7 @@ from littlegan_tpu_torch.training import optimizer as topt
 from littlegan_tpu_torch.training import step as tstep
 from littlegan_tpu_torch.training.checkpoint import flatten_state
 from test_torch_train import batch, jax_step_draws, port_state, t
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 GRAD_TOL = dict(rtol=1e-3, atol=1e-6)
 

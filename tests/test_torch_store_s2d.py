@@ -20,6 +20,7 @@ from littlegan_tpu_torch.training import step as tstep
 from littlegan_tpu_torch.training.state import create_train_state
 from test_torch_dispatch import _clone_state, _same_state
 from test_torch_train import tcfg_of
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 N_BATCHES = 6
 

@@ -38,6 +38,7 @@ from littlegan_tpu_torch.training import optimizer as topt
 from littlegan_tpu_torch.training import partition as tpart
 from littlegan_tpu_torch.training import step as tstep
 from littlegan_tpu_torch.training.state import create_train_state
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 jaug = importlib.import_module("littlegan_tpu.ops.augment")  # the package re-exports a function of that name
 

@@ -30,6 +30,7 @@ from littlegan_tpu_torch.training.checkpoint import flatten_state
 from littlegan_tpu_torch.training.state import create_train_state
 from littlegan_tpu_torch.training.trainer import Trainer
 from test_torch_train import tcfg_of
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 
 def _raw(a: np.ndarray) -> np.ndarray:

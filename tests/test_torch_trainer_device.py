@@ -36,6 +36,7 @@ from littlegan_tpu_torch.training.trainer import Trainer
 from littlegan_tpu_torch.utils.tensorboard import read_scalars
 from test_torch_train import tcfg_of
 from test_torch_trainer import _same_flat
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 
 def _cfg(tiny_cfg, tmp_path, name="exp", **kw):

@@ -30,6 +30,7 @@ from littlegan_tpu.training.checkpoint import _flatten
 from littlegan_tpu.training.trainer import Trainer as JTrainer
 from test_torch_parallel import DP_TOL
 from torch_dp_common import REPO, assert_states_close, run_ranks, train_epochs
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 ITEMS = 32  # 4 batches of 8: 2 updates, or 1 of 2 micro-pairs
 

@@ -28,6 +28,7 @@ from littlegan_tpu_torch.training.trainer import Trainer, _accum_groups, _pairwi
 from littlegan_tpu_torch.utils.tensorboard import read_scalars
 from test_torch_train import tcfg_of
 from test_torch_trainer_device import _cfg
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 
 def _profiled_run(tiny_cfg, tmp_path, monkeypatch, updates, **kw):

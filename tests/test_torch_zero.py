@@ -34,6 +34,7 @@ from test_torch_dispatch import N_BATCHES, make_store
 from test_torch_parallel import DP_TOL, _cfg_dict
 from test_torch_train import batch
 from torch_dp_common import assert_states_close, run_ranks
+from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
 
 MESHES = [{"data": 1}, {"data": 2}, {"data": 4}, {"data": 8}]
 

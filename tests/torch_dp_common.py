@@ -21,6 +21,7 @@ import tempfile
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import pytest
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -67,6 +68,28 @@ def run_ranks(name: str, world: int, case: Dict[str, Any], timeout: float = 120.
             with open(os.path.join(tmp, f"{r}.pkl"), "rb") as f:
                 out.append(pickle.load(f))
         return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_per_process():
+    """While a port test module runs, its process computes on one torch
+    thread and one BLAS thread (restored after the module). The suite runs
+    in several xdist processes on a host of few cores: a pool of a thread
+    per core in each process only oversubscribes the cores, and a
+    single-threaded job beside them runs several times slower (a 2048-d
+    ``scipy.linalg.sqrtm``, 15 s alone, took 68 s beside five 8-thread
+    torch processes on an 8-core host). The port's test modules import this
+    fixture, which makes it theirs."""
+    import torch
+    from threadpoolctl import threadpool_limits
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------- comparisons --
