@@ -126,14 +126,26 @@ Phases, each of which fails the run on any error:
       f32 plain-op forward with TF32 off (``PT2_TOL``), and the reloaded
       ``generate`` timed beside the ``InferenceEngine``. The card's host has
       no TensorFlow, so the SavedModel and the TF file read and write are
-      left to tests/test_torch_compat.py. Each phase's wall is printed
-      after (i).
+      left to tests/test_torch_compat.py;
+  (j) the spatial ``('data', 'model')`` mesh (``parallel/spatial.py``) at
+      full width (128², batch 32, s2d): ``SP_RANKS`` gloo ranks sharing the
+      card as a [1, ``SP_RANKS``] mesh (``--sp-rank``), each on its image
+      rows, run phase (h) (ii)'s updates in float32 and bf16, replicated,
+      with ZeRO-1, with ``shard_dense`` and both, the kernels off as the
+      spatial step turns them off (none may launch), against one process
+      with the kernel flags off (losses to ``TRAIN_TOL["loss_rtol"]``,
+      weights to ``DP_FLOOR_X`` times that process's halves-swapped gap);
+      the ``shard_dense`` state through rank 0's npz and back, bit for
+      bit; the K-update graph refused under gloo; a ``Trainer`` epoch over
+      the mesh (rank 1 writes nothing) with each rank's peak memory beside
+      one process's. Each phase's wall is printed after (j).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
 is the kernels' JSON record. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--dp-rank RANK PORT
-OUT`` runs one rank of phase (h) (ii); phase (h) starts them.
+OUT`` runs one rank of phase (h) (ii), ``--sp-rank RANK PORT OUT`` one of
+phase (j); those phases start them.
 """
 
 from __future__ import annotations
@@ -2895,6 +2907,241 @@ def check_compat():
     return launches, record
 
 
+# phase (j): the spatial ('data', 'model') mesh (littlegan_tpu_torch/parallel/
+# spatial.py) at full width: 128², Config() widths, batch 32, s2d on (block
+# height 64 tiles the model axis). SP_RANKS gloo ranks share the card as a
+# [1, SP_RANKS] mesh, spawned by this script (--sp-rank), each on its
+# 128 / SP_RANKS image rows: (i) the DP_UPDATES updates of phase (h) (ii)
+# (host-fed, host-fed, gather, grad_accum 2) in float32 and bf16, replicated
+# and with ZeRO-1 (over both ranks), the kernels off as the spatial step
+# turns them off (no kernel may launch on a rank), against one process with
+# the kernel flags off on the same global batches and draws: the losses to
+# TRAIN_TOL["loss_rtol"], the weights to DP_FLOOR_X times the gap that
+# swapping the batch's halves makes in that process; the K-update graph
+# refused under gloo; (ii) the same with shard_dense (bf16, replicated and
+# ZeRO-1), then that state through rank 0's npz: gathered, written, read
+# into a fresh whole state on rank 0, broadcast and sliced again, bit for
+# bit the live parts; (iii) one host-fed Trainer epoch of SP_EPOCH_BATCHES
+# batches over the mesh (rank 1 writes nothing), each rank's peak
+# max_memory_allocated beside one process's epoch with the kernel flags off
+# (each above what its process held before the epoch).
+SP_RANKS = 2
+SP_EPOCH_BATCHES = 4
+SP_RUNS = (("f32", "float32", False, False), ("replicated", "bfloat16", False, False),
+           ("zero1", "bfloat16", True, False), ("dense", "bfloat16", False, True),
+           ("dense_zero1", "bfloat16", True, True))  # name, dtype, shard_opt_state, shard_dense
+
+
+def _sp_config(root):
+    """Phase (j)'s configuration: ``train_config``'s, kernel flags as given
+    (the spatial step turns them off)."""
+    return train_config(root).replace(exp_name="chip_smoke_spatial")
+
+
+def sp_rank_main(rank: int, port: int, out_path: str) -> int:
+    """One gloo rank of phase (j) on the one card: the runs of SP_RUNS, the
+    npz round trip, the K-update refusal, a Trainer epoch; writes its
+    record."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.models.littlegan import init_params
+    from littlegan_tpu_torch.ops.cuda import _build
+    from littlegan_tpu_torch.parallel.mesh import data_group, spatial_group
+    from littlegan_tpu_torch.parallel.train import GradSync, replicate_state
+    from littlegan_tpu_torch.parallel.zero import Zero1, shard_dense_state
+    from littlegan_tpu_torch.training.checkpoint import Checkpointer
+    from littlegan_tpu_torch.training.state import create_train_state
+    from littlegan_tpu_torch.training.step import make_scan_train_step
+    from littlegan_tpu_torch.training.trainer import Trainer
+
+    _build.lib()
+    torch.backends.cudnn.allow_tf32 = False  # as in the one-process run it is held against
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=SP_RANKS, rank=rank)
+    try:
+        sg = spatial_group(data_group(dev), (1, SP_RANKS))
+        root = out_path + f".r{rank}"
+        cfg = _sp_config(root)
+        imgs, conds = _store(cfg, dev)
+        counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+        for c in counters.values():
+            c.reset()
+        record = {}
+        for name, dtype, zero, dense in SP_RUNS:
+            run_cfg = cfg.replace(compute_dtype=dtype, shard_opt_state=zero, shard_dense=dense)
+            state = create_train_state(run_cfg, dev, init_params(cfg, cfg.seed))
+            if dense:
+                shard_dense_state(state, sg)
+            sync = Zero1(sg, state, dense) if zero else GradSync(sg, dense)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            losses = _dp_updates(run_cfg, state, sg, imgs, conds, sync)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            full = sync.full_state(state)
+            record[name] = {"losses": losses, "weights": _flat_params(full.model).cpu(), "wall_s": wall,
+                            "reduced_bytes": sync.reduced_bytes,
+                            "dense_shape": tuple(state.model.g_head.dense.kernel.shape)}
+            if name == "dense_zero1":  # the state through rank 0's npz and back into the parts
+                ckpt = Checkpointer(out_path + ".npz_dir")
+                if rank == 0:
+                    os.makedirs(ckpt.directory, exist_ok=True)
+                    ckpt.save("1", full, {"epoch": 2})
+                dist.barrier(group=sg.control)
+                fresh = create_train_state(run_cfg, dev, init_params(cfg, cfg.seed + 1))
+                if rank == 0:
+                    ckpt.restore("1", fresh)
+                replicate_state(fresh, sg)
+                shard_dense_state(fresh, sg)
+                Zero1(sg, fresh, True)
+                record["npz_round_trip"] = _equal_state(fresh, state) and all(
+                    getattr(fresh, o).count == getattr(state, o).count for o in ("opt_g", "opt_d", "opt_a"))
+                del fresh
+            del state, sync, full
+        torch.cuda.synchronize()
+        record["launches"] = {k: c.value for k, c in counters.items()}
+        state = create_train_state(cfg, dev, init_params(cfg, cfg.seed))
+        try:  # gloo collectives cannot be captured: the K-update path must refuse, never run eagerly
+            make_scan_train_step(cfg, state, DP_K, sync=GradSync(sg)).prepare(state, imgs, conds)
+            record["graph_refused"] = None
+        except RuntimeError as e:
+            record["graph_refused"] = str(e)
+        del state, imgs, conds
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        data = SyntheticDataset(cfg, num_items=SP_EPOCH_BATCHES * cfg.batch_size)
+        tr = Trainer(cfg.replace(mesh_axes=["data", "model"], freq_gen=2, epoch=1), data, device=dev,
+                     group=data_group(dev))
+        t0 = time.time()
+        tr.train()
+        torch.cuda.synchronize()
+        record["trainer_wall_s"] = time.time() - t0
+        record["trainer_peak_mb"] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        record["trainer_files"] = sorted(os.path.relpath(os.path.join(d, f), root)
+                                         for d, _, fs in os.walk(root) for f in fs)
+        record["trainer_weights"] = _flat_params(tr.state.model).cpu()
+        with open(out_path + f".{rank}.pkl", "wb") as f:
+            pickle.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def check_spatial():
+    """Phase (j). Returns (each kernel's launches on the ranks: 0, the record)."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.models.littlegan import init_params
+    from littlegan_tpu_torch.training.state import create_train_state
+    from littlegan_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as root:
+        cfg = _sp_config(os.path.join(root, "single")).replace(use_pallas=False, use_pallas_boundary=False)
+        imgs, conds = _store(cfg, dev)
+        single, swapped = {}, {}
+        halves = list(range(cfg.batch_size // 2, cfg.batch_size)) + list(range(cfg.batch_size // 2))
+        for dtype in ("float32", "bfloat16"):
+            for box, rows in ((single, None), (swapped, halves)):
+                run_cfg = cfg.replace(compute_dtype=dtype)
+                state = create_train_state(run_cfg, dev, init_params(cfg, cfg.seed))
+                losses = _dp_updates(run_cfg, state, None, imgs, conds, None, rows)
+                box[dtype] = (losses, _flat_params(state.model).cpu())
+                del state
+        del imgs, conds
+        floor = {dtype: _rel_err(swapped[dtype][1], single[dtype][1]) for dtype in single}
+        for dtype in single:
+            log(f"(j) one process, kernel flags off, {DP_UPDATES} updates, {dtype}, the batch's halves swapped vs "
+                f"in order: weights {floor[dtype]:.3g} (relative norm); "
+                f"{_lr_steps(swapped[dtype][1], single[dtype][1], cfg.lr)}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)  # what earlier phases still hold
+        data = SyntheticDataset(cfg, num_items=SP_EPOCH_BATCHES * cfg.batch_size)
+        one = Trainer(cfg.replace(freq_gen=2, epoch=1), data, device=dev)
+        t0 = time.time()
+        one.train()
+        torch.cuda.synchronize()
+        one_wall, one_peak = time.time() - t0, (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        del one
+        torch.cuda.empty_cache()
+        out = os.path.join(root, "sp")
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        env.pop("LOCAL_RANK", None)
+        port = _free_port()
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sp-rank", str(r), str(port), out],
+                                  env=env) for r in range(SP_RANKS)]
+        try:
+            codes = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        require(codes == [0] * SP_RANKS, f"spatial gloo ranks exited {codes}")
+        recs = []
+        for r in range(SP_RANKS):
+            with open(out + f".{r}.pkl", "rb") as f:
+                recs.append(pickle.load(f))
+        ranks_wall = time.time() - t0
+    log(f"(j) {SP_RANKS} gloo ranks of a [1, {SP_RANKS}] mesh on one card ran in {ranks_wall:.1f} s")
+    record = {"order_floor": floor}
+    for name, dtype, _, _ in SP_RUNS:
+        run = recs[0][name]
+        require(all(r[name]["losses"] == run["losses"] and torch.equal(r[name]["weights"], run["weights"])
+                    for r in recs), f"the spatial ranks differ in {name}")
+        log(f"(j) spatial {name} vs one process, {dtype}: {_lr_steps(run['weights'], single[dtype][1], cfg.lr)}; "
+            f"{DP_UPDATES} updates in {run['wall_s']:.2f} s on rank 0 (gloo through the host), "
+            f"{run['reduced_bytes']} bytes reduced per update, g_head kernel {run['dense_shape']} on a rank")
+        record[name] = _hold(f"(j) [1, {SP_RANKS}] mesh, {name}, vs one process, {DP_UPDATES} updates, {dtype}",
+                             run["losses"], single[dtype][0], [run["weights"]], [single[dtype][1]],
+                             tol=(TRAIN_TOL["loss_rtol"], DP_FLOOR_X * floor[dtype]))
+    rep = recs[0]["replicated"]
+    for name in ("zero1", "dense", "dense_zero1"):  # the same sums in another layout: bit for bit expected
+        run = recs[0][name]
+        same = bool(torch.equal(run["weights"], rep["weights"])) and run["losses"] == rep["losses"]
+        log(f"(j) {name} vs replicated under the mesh: weights {_rel_err(run['weights'], rep['weights']):.3g} "
+            f"(relative norm), bitwise {same}")
+        record[name]["vs_replicated_bitwise"] = same
+        require(bool(torch.allclose(run["weights"], rep["weights"], rtol=2e-4, atol=2e-5)), f"{name} != replicated")
+    require(recs[0]["dense"]["dense_shape"][1] * SP_RANKS == recs[0]["f32"]["dense_shape"][1],
+            "shard_dense left the g_head kernel whole")
+    require(all(r["npz_round_trip"] for r in recs), "the shard_dense state did not come back from rank 0's npz")
+    log("(j) shard_dense + ZeRO-1 state -> rank 0's npz -> whole state -> parts: bit for bit on every rank")
+    launches = {k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]}
+    require(all(v == 0 for v in launches.values()), f"a kernel launched under the spatial mesh: {launches}")
+    refused = [r["graph_refused"] for r in recs]
+    require(all(m is not None and "cannot be captured" in m for m in refused),
+            f"the spatial K-update path under gloo did not refuse: {refused}")
+    files = [r["trainer_files"] for r in recs]
+    require(files[1] == [] and any(f.endswith("ckpt-1.npz") for f in files[0]),
+            f"spatial Trainer: rank 0 wrote {len(files[0])} files, rank 1 {files[1]}")
+    require(torch.equal(recs[0]["trainer_weights"], recs[1]["trainer_weights"]), "the ranks' trainer weights differ")
+    peaks = [r["trainer_peak_mb"] for r in recs]
+    log(f"(j) Trainer epoch of {SP_EPOCH_BATCHES} batches over the mesh: rank 0 wrote {len(files[0])} files, rank 1 "
+        f"none; peak max_memory_allocated above what the process held before the epoch, per rank "
+        f"{[round(p, 1) for p in peaks]} MiB vs one process {one_peak:.1f} MiB (kernel flags off); "
+        f"wall {recs[0]['trainer_wall_s']:.1f} s vs {one_wall:.1f} s")
+    record.update(launches=launches, trainer_peak_mb=peaks, one_process_peak_mb=one_peak,
+                  trainer_wall_s=recs[0]["trainer_wall_s"], one_process_wall_s=one_wall, ranks_wall_s=ranks_wall)
+    log(f"phase (j) wall: {time.time() - t_phase:.1f} s")
+    return launches, record
+
+
 def _free_port() -> int:
     import socket
 
@@ -2904,15 +3151,16 @@ def _free_port() -> int:
 
 
 def summarize(records, serve_launches, train_launches, dispatch_launches, eval_launches, remat_launches,
-              s2d_launches, dp_launches, compat_launches):
+              s2d_launches, dp_launches, compat_launches, spatial_launches):
     """One JSON record per kernel, bf16 (the working dtype): summed over the
     launches of one train step where phase (b) timed the train shapes, else
     over the shapes one /adjust call gives it ("per" says which; a kernel
     timed on both paths adds the /adjust sums as "serve_ms",
     "serve_plain_ms", "serve_bound_ms"); per-shape numbers under "shapes".
-    "launches" counts the eight paths' runs (serve, host-fed train,
+    "launches" counts the nine paths' runs (serve, host-fed train,
     CUDA-graph dispatch, evaluate-sample, the remat steps, the s2d-store
-    replay, phase (h)'s data-parallel runs, phase (i)'s resumed runs),
+    replay, phase (h)'s data-parallel runs, phase (i)'s resumed runs,
+    phase (j)'s spatial runs, where every kernel is off and reads 0),
     split in "launches_by_path"."""
     meta = {
         "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
@@ -2942,7 +3190,8 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "dispatch": dispatch_launches.get(name, 0), "eval": eval_launches.get(name, 0),
                    "remat": remat_launches.get(name, 0), "s2d_store": s2d_launches.get(name, 0),
-                   "dp": dp_launches.get(name, 0), "compat": compat_launches.get(name, 0)}
+                   "dp": dp_launches.get(name, 0), "compat": compat_launches.get(name, 0),
+                   "spatial": spatial_launches.get(name, 0)}
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2967,6 +3216,9 @@ def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--dp-rank":  # a rank of phase (h) (ii), started by phase (h)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if len(sys.argv) == 5 and sys.argv[1] == "--sp-rank":  # a rank of phase (j), started by phase (j)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return sp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3016,11 +3268,14 @@ def main() -> int:
     walls["h"], t0 = time.time() - t0, time.time()
     compat_launches, compat = check_compat()
     log("compat record: " + json.dumps(compat))
-    walls["i"] = time.time() - t0
+    walls["i"], t0 = time.time() - t0, time.time()
+    spatial_launches, spatial = check_spatial()
+    log("spatial record: " + json.dumps(spatial))
+    walls["j"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
                                          eval_launches, remat_launches, s2d_launches, dp_launches,
-                                         compat_launches)}))
+                                         compat_launches, spatial_launches)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

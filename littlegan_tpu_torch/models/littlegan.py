@@ -25,6 +25,13 @@ stats-in norm kernel. Both go through their autograd Functions
 backwards are kernels too, so the gradient reaches every parameter. On CPU
 tensors they take their plain versions. Dropout is the reference's inert
 one: the JAX train step passes no dropout key either.
+
+Each network takes ``sp``, a spatial mesh's model axis
+(``parallel/spatial.py``; None otherwise): its images are this rank's rows,
+each map is held H-sharded when its height (``cfg``'s, global) tiles the
+model axis and replicated otherwise, and the ops run in their sharded forms
+there, the kernels off (the act-sharding policy of JAX
+``models/littlegan.py:204-223,280-309``). Without ``sp`` nothing changes.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from littlegan_tpu_torch.ops.conv import conv2d, deconv2d, dense, leaky_relu
 from littlegan_tpu_torch.ops.cuda import boundary_conv
 from littlegan_tpu_torch.ops.cuda.norm_lrelu import FusedNormLReLU, NormLReLUFromStats
 from littlegan_tpu_torch.ops.norm import instance_norm
+from littlegan_tpu_torch.parallel import spatial
 
 
 def s2d_active(cfg: Config) -> bool:
@@ -82,9 +90,16 @@ class Block(nn.Module):
         self.norm = Norm()
 
 
-def _norm_lrelu(x: torch.Tensor, norm: Norm, cfg: Config) -> torch.Tensor:
+def _conv(x, kernel, bias, stride: int, sp, height: int) -> torch.Tensor:
+    return conv2d(x, kernel, bias, stride=stride) if sp is None else spatial.conv(x, kernel, bias, stride, sp, height)
+
+
+def _norm_lrelu(x: torch.Tensor, norm: Norm, cfg: Config, sp=None, height: int = 0) -> torch.Tensor:
     """InstanceNorm -> LeakyReLU block epilogue: the fused kernel when
-    ``cfg.use_pallas``, plain ops otherwise."""
+    ``cfg.use_pallas``, plain ops otherwise; under a spatial mesh ``sp`` the
+    sharded norm of a map ``height`` rows high."""
+    if sp is not None:
+        return leaky_relu(spatial.instance_norm(x, norm.gamma, norm.beta, sp, height), cfg.leaky_alpha)
     if cfg.use_pallas and x.dim() == 4:
         return FusedNormLReLU.apply(x.contiguous(), norm.gamma, norm.beta, cfg.leaky_alpha)
     return leaky_relu(instance_norm(x, norm.gamma, norm.beta), cfg.leaky_alpha)
@@ -103,25 +118,30 @@ class Encoder(nn.Module):
             self.add_module(f"block{i}", Block((k, k, ch[i - 1], ch[i]), ch[i]))
         s2d.register_index(self, "conv1")
 
-    def forward(self, x: torch.Tensor, s2d_in: bool = False) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, s2d_in: bool = False, sp=None) -> List[torch.Tensor]:
         cfg = self.cfg
         x = x.to(_dtype(cfg))
-        if s2d_active(cfg) and not s2d_in:
-            x = s2d.space_to_depth(x)
+        height = cfg.image_dim  # the map's global height, which decides its sharding under sp
+        if s2d_active(cfg):
+            height //= 2
+            if not s2d_in:
+                x = s2d.space_to_depth(x)
         outputs = []
         for i in range(1, 5):
             blk = getattr(self, f"block{i}")
             if i == 1 and s2d_active(cfg):
                 kern = s2d.s2d_conv1_kernel(blk.conv.kernel, s2d.module_index(self, "conv1"))
-                if cfg.use_pallas_boundary and boundary_conv.supports(x.shape):
+                if sp is None and cfg.use_pallas_boundary and boundary_conv.supports(x.shape):
                     y, s1, s2 = boundary_conv.BoundaryConvS2D.apply(
                         x.contiguous(), kern.to(x.dtype), blk.conv.bias
                     )
                     x = NormLReLUFromStats.apply(y, s1, s2, blk.norm.gamma, blk.norm.beta, cfg.leaky_alpha)
                 else:
-                    x = _norm_lrelu(conv2d(x, kern, blk.conv.bias, stride=1), blk.norm, cfg)
+                    x = _norm_lrelu(_conv(x, kern, blk.conv.bias, 1, sp, height), blk.norm, cfg, sp, height)
             else:
-                x = _norm_lrelu(conv2d(x, blk.conv.kernel, blk.conv.bias, stride=2), blk.norm, cfg)
+                x = _conv(x, blk.conv.kernel, blk.conv.bias, 2, sp, height)
+                height //= 2
+                x = _norm_lrelu(x, blk.norm, cfg, sp, height)
             outputs.append(x)
         return outputs
 
@@ -139,21 +159,26 @@ class Decoder(nn.Module):
             self.add_module(f"block{i}", Block((k, k, cf[i], cf[i - 1]), cf[i]))
         s2d.register_index(self, "deconv")
 
-    def forward(self, x: torch.Tensor, skips: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skips: Sequence[Optional[torch.Tensor]], sp=None) -> torch.Tensor:
         cfg = self.cfg
         x = x.to(_dtype(cfg))
+        height = cfg.init_dim
         for i in range(1, 5):
             blk = getattr(self, f"block{i}")
             if skips[i - 1] is not None:
                 x = x + skips[i - 1].to(x.dtype)
             if i == 4 and s2d_active(cfg):
-                x = conv2d(
+                x = _conv(
                     x, s2d.s2d_deconv_kernel(blk.conv.kernel, s2d.module_index(self, "deconv")),
-                    s2d.tile_bias(blk.conv.bias), stride=1,
+                    s2d.tile_bias(blk.conv.bias), 1, sp, height,
                 )
-            else:
+            elif sp is None:
                 x = deconv2d(x, blk.conv.kernel, blk.conv.bias, stride=2)
-            x = _norm_lrelu(x, blk.norm, cfg)
+                height *= 2
+            else:
+                x = spatial.deconv(x, blk.conv.kernel, blk.conv.bias, 2, sp, height)
+                height *= 2
+            x = _norm_lrelu(x, blk.norm, cfg, sp, height)
         return x
 
 
@@ -167,12 +192,17 @@ class GHead(nn.Module):
         self.dense = Affine((cfg.noise_dim + cfg.cond_dim, feat), feat)
         self.norm = Norm()
 
-    def forward(self, noise: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, noise: torch.Tensor, cond: torch.Tensor, sp=None) -> torch.Tensor:
         cfg = self.cfg
         x = torch.cat([noise, cond], dim=-1).to(_dtype(cfg))
-        x = leaky_relu(dense(x, self.dense.kernel, self.dense.bias), cfg.leaky_alpha)
-        x = x.reshape(-1, cfg.init_dim, cfg.init_dim, cfg.conv_filter[0])
-        return instance_norm(x, self.norm.gamma, self.norm.beta)
+        if sp is None:
+            x = leaky_relu(dense(x, self.dense.kernel, self.dense.bias), cfg.leaky_alpha)
+            x = x.reshape(-1, cfg.init_dim, cfg.init_dim, cfg.conv_filter[0])
+            return instance_norm(x, self.norm.gamma, self.norm.beta)
+        # this rank's columns are its rows of the row-major reshape
+        x = leaky_relu(spatial.head_dense(x, self.dense.kernel, self.dense.bias, sp, cfg.init_dim), cfg.leaky_alpha)
+        x = x.reshape(x.shape[0], -1, cfg.init_dim, cfg.conv_filter[0])
+        return spatial.instance_norm(x, self.norm.gamma, self.norm.beta, sp, cfg.init_dim)
 
 
 class AdjHead(nn.Module):
@@ -186,11 +216,15 @@ class AdjHead(nn.Module):
         self.dense = Affine((cfg.cond_dim, feat), feat)
         self.norm = Norm()
 
-    def forward(self, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, cond: torch.Tensor, sp=None) -> torch.Tensor:
         cfg = self.cfg
-        c = dense(cond.to(_dtype(cfg)), self.dense.kernel, self.dense.bias)
-        c = instance_norm(leaky_relu(c, cfg.leaky_alpha), self.norm.gamma, self.norm.beta)
-        return c.reshape(-1, cfg.init_dim, cfg.init_dim, cfg.conv_filter[0])
+        if sp is None:
+            c = dense(cond.to(_dtype(cfg)), self.dense.kernel, self.dense.bias)
+            c = instance_norm(leaky_relu(c, cfg.leaky_alpha), self.norm.gamma, self.norm.beta)
+            return c.reshape(-1, cfg.init_dim, cfg.init_dim, cfg.conv_filter[0])
+        c = spatial.head_dense(cond.to(_dtype(cfg)), self.dense.kernel, self.dense.bias, sp, cfg.init_dim)
+        c = spatial.instance_norm(leaky_relu(c, cfg.leaky_alpha), self.norm.gamma, self.norm.beta, sp, cfg.init_dim)
+        return c.reshape(c.shape[0], -1, cfg.init_dim, cfg.conv_filter[0])
 
 
 class OutConv(nn.Module):
@@ -208,14 +242,18 @@ class OutConv(nn.Module):
             self.cond_kernel = _param(cfg.cond_dim, cfg.image_channel)
         s2d.register_index(self, "outconv")
 
-    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None, sp=None) -> torch.Tensor:
         cfg = self.cfg
         if s2d_active(cfg):
             kern = s2d.s2d_outconv_kernel(self.kernel, s2d.module_index(self, "outconv"))
-            y = conv2d(x, kern, s2d.tile_bias(self.bias), stride=1)
-        else:
+            y = _conv(x, kern, s2d.tile_bias(self.bias), 1, sp, cfg.image_dim // 2)
+        elif sp is None:
             y = deconv2d(x, self.kernel, self.bias, stride=1)
+        else:
+            y = spatial.deconv(x, self.kernel, self.bias, 1, sp, cfg.image_dim)
         if cfg.cond_bias and cond is not None:
+            # under sp: made on each rank and added to its own rows only, so
+            # cond_kernel's gradient is this rank's share, as a sharded stage's
             b = dense(cond.to(y.dtype), self.cond_kernel)  # (N, C)
             if s2d_active(cfg):
                 b = b.repeat(1, 4)  # channel order (pi, pj, c)
@@ -229,14 +267,18 @@ class DHead(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
+        self.cfg = cfg
         feat = cfg.init_dim * cfg.init_dim * cfg.conv_filter[0]
         self.pr = Affine((feat, 1), 1)
         self.cond = Affine((feat, cfg.cond_dim), cfg.cond_dim)
 
-    def forward(self, fmap: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        flat = fmap.reshape(fmap.shape[0], -1)
-        pr = dense(flat, self.pr.kernel, self.pr.bias)
-        cond = dense(flat, self.cond.kernel, self.cond.bias)
+    def forward(self, fmap: torch.Tensor, sp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        if sp is None:
+            flat = fmap.reshape(fmap.shape[0], -1)
+            pr = dense(flat, self.pr.kernel, self.pr.bias)
+            cond = dense(flat, self.cond.kernel, self.cond.bias)
+        else:
+            pr, cond = spatial.d_head(fmap, self.pr, self.cond, sp, self.cfg.init_dim)
         return torch.sigmoid(pr.float()), torch.sigmoid(cond.float())
 
 
@@ -256,21 +298,21 @@ class LittleGAN(nn.Module):
     def _image_out(self, y: torch.Tensor, s2d_out: bool) -> torch.Tensor:
         return s2d.depth_to_space(y) if s2d_active(self.cfg) and not s2d_out else y
 
-    def generator(self, noise: torch.Tensor, cond: torch.Tensor, s2d_out: bool = False) -> torch.Tensor:
+    def generator(self, noise: torch.Tensor, cond: torch.Tensor, s2d_out: bool = False, sp=None) -> torch.Tensor:
         """Image in [-1, 1] in the compute dtype."""
-        x = self.decoder(self.g_head(noise, cond), [None] * 4)
-        return self._image_out(self.out_conv(x, cond), s2d_out)
+        x = self.decoder(self.g_head(noise, cond, sp=sp), [None] * 4, sp=sp)
+        return self._image_out(self.out_conv(x, cond, sp=sp), s2d_out)
 
-    def discriminator(self, image: torch.Tensor, s2d_in: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    def discriminator(self, image: torch.Tensor, s2d_in: bool = False, sp=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(pr, cond) sigmoid outputs in f32."""
-        return self.d_head(self.encoder(image, s2d_in=s2d_in)[-1])
+        return self.d_head(self.encoder(image, s2d_in=s2d_in, sp=sp)[-1], sp=sp)
 
     def adjuster(
-        self, image: torch.Tensor, cond: torch.Tensor, s2d_in: bool = False, s2d_out: bool = False
+        self, image: torch.Tensor, cond: torch.Tensor, s2d_in: bool = False, s2d_out: bool = False, sp=None
     ) -> torch.Tensor:
-        fmaps = self.encoder(image, s2d_in=s2d_in)
-        x = self.decoder(self.adj_head(cond), fmaps[::-1])
-        return self._image_out(self.out_conv(x, cond), s2d_out)
+        fmaps = self.encoder(image, s2d_in=s2d_in, sp=sp)
+        x = self.decoder(self.adj_head(cond, sp=sp), fmaps[::-1], sp=sp)
+        return self._image_out(self.out_conv(x, cond, sp=sp), s2d_out)
 
 
 def _glorot_(p: torch.Tensor, gen: torch.Generator) -> None:

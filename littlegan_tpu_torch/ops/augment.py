@@ -11,6 +11,11 @@ them from a ``torch.Generator`` with the JAX package's distributions:
   hue delta ~ U(-0.03, 0.03), one scalar each for the whole batch;
 - noise ~ N(0, 1) in the raw image shape, added as ``0.1 * 0.2 * noise``.
 
+Under a spatial mesh each rank holds its H-slice of the batch: the
+contrast's per-image mean over (H, W) is then the sum over the model
+ranks (``hw_mean``, ``parallel/spatial.py::Spatial.hw_mean``); the flip is
+along W and every other op is per pixel.
+
 ``adjust_hue`` is TF's chroma kernel (hue from ``v - m``, rebuilt as
 ``chroma * ramp + m``), defined on any value range, with its tie order:
 ``v == r`` first, then ``v == g``.
@@ -82,24 +87,25 @@ def adjust_brightness(x: torch.Tensor, delta) -> torch.Tensor:
     return x + delta
 
 
-def adjust_contrast(x: torch.Tensor, factor) -> torch.Tensor:
-    """tf.image.adjust_contrast: toward each image's per-channel mean over (H, W)."""
-    mean = x.mean((1, 2), keepdim=True)
+def adjust_contrast(x: torch.Tensor, factor, hw_mean=None) -> torch.Tensor:
+    """tf.image.adjust_contrast: toward each image's per-channel mean over
+    (H, W), or ``hw_mean(x)``'s."""
+    mean = x.mean((1, 2), keepdim=True) if hw_mean is None else hw_mean(x)
     return (x - mean) * factor + mean
 
 
-def augment(x: torch.Tensor, draws: AugmentDraws) -> torch.Tensor:
+def augment(x: torch.Tensor, draws: AugmentDraws, hw_mean=None) -> torch.Tensor:
     """The full chain on an NHWC [-1, 1] batch; result in x's dtype."""
     dtype = x.dtype
     x = x.float()
     x = torch.where(draws.flip[:, None, None, None], x.flip(2), x)
     x = adjust_brightness(x, draws.delta_b)
-    x = adjust_contrast(x, draws.factor)
+    x = adjust_contrast(x, draws.factor, hw_mean)
     x = adjust_hue(x, draws.delta_h)
     return (x + 0.1 * (0.2 * draws.noise)).to(dtype)
 
 
-def augment_s2d(x: torch.Tensor, draws: AugmentDraws) -> torch.Tensor:
+def augment_s2d(x: torch.Tensor, draws: AugmentDraws, hw_mean=None) -> torch.Tensor:
     """:func:`augment` on a space-to-depth batch [N, H/2, W/2, 4C]: the same
     math and draws (the noise is drawn in raw shape and rearranged), so a
     raw pixel gets the same value in either layout, bit for bit."""
@@ -111,7 +117,8 @@ def augment_s2d(x: torch.Tensor, draws: AugmentDraws) -> torch.Tensor:
     v = torch.where(draws.flip.reshape(n, 1, 1, 1, 1, 1), v.flip((2, 4)), v)
     v = v + draws.delta_b
     # the mean over a raw-layout copy: the raw path's sum, in its order
-    mean = depth_to_space(v.reshape(n, h, w, c4)).mean((1, 2)).reshape(n, 1, 1, 1, 1, c)
+    raw = depth_to_space(v.reshape(n, h, w, c4))
+    mean = (raw.mean((1, 2)) if hw_mean is None else hw_mean(raw)).reshape(n, 1, 1, 1, 1, c)
     v = (v - mean) * draws.factor + mean
     v = adjust_hue(v, draws.delta_h)
     return (v.reshape(n, h, w, c4) + 0.1 * (0.2 * space_to_depth(draws.noise))).to(dtype)

@@ -33,11 +33,14 @@ def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 def conv2d(
-    x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, stride: int = 2
+    x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, stride: int = 2,
+    pad_h: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """SAME-padded strided conv. x: NHWC; kernel: HWIO."""
+    """SAME-padded strided conv. x: NHWC; kernel: HWIO. ``pad_h``: H's
+    (pad_lo, pad_hi) instead of SAME's (an H-sharded map's rows arrive
+    with their halo: ``(0, 0)``)."""
     kh, kw = kernel.shape[:2]
-    ph = same_pads(x.shape[1], kh, stride)
+    ph = same_pads(x.shape[1], kh, stride) if pad_h is None else pad_h
     pw = same_pads(x.shape[2], kw, stride)
     xt = x.permute(0, 3, 1, 2)
     w = kernel.to(x.dtype).permute(3, 2, 0, 1)
@@ -50,11 +53,14 @@ def conv2d(
 
 
 def deconv2d(
-    x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, stride: int = 2
+    x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, stride: int = 2,
+    crop_h: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """SAME-padded transposed conv with TF semantics: the exact transpose of
     ``conv2d(., kernel, stride)`` on an input ``stride`` times larger.
-    x: NHWC; kernel: ``(kh, kw, out, in)``."""
+    x: NHWC; kernel: ``(kh, kw, out, in)``. ``crop_h``: (start, rows) of
+    the full output's H to keep instead of SAME's (an H-sharded map's rows
+    with their halo)."""
     kh, kw = kernel.shape[:2]
     oh, ow = x.shape[1] * stride, x.shape[2] * stride
     ph = same_pads(oh, kh, stride)
@@ -63,11 +69,12 @@ def deconv2d(
     w = kernel.to(x.dtype).permute(3, 2, 0, 1)
     b = None if bias is None else bias.to(x.dtype)
     xt = x.permute(0, 3, 1, 2)
-    if ph[0] == ph[1] and pw[0] == pw[1]:
+    if crop_h is None and ph[0] == ph[1] and pw[0] == pw[1]:
         y = F.conv_transpose2d(xt, w, b, stride=stride, padding=(ph[0], pw[0]))
     else:
+        h0, hn = (ph[0], oh) if crop_h is None else crop_h
         y = F.conv_transpose2d(xt, w, b, stride=stride)
-        y = y[:, :, ph[0] : ph[0] + oh, pw[0] : pw[0] + ow]
+        y = y[:, :, h0 : h0 + hn, pw[0] : pw[0] + ow]
     return y.permute(0, 2, 3, 1)
 
 

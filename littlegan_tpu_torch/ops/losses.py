@@ -42,12 +42,15 @@ def discriminator_loss(real_true_c, real_pred_c, real_pred_pr, fake_pred_pr) -> 
     return 2.0 * _bce_mean(real_true_c, real_pred_c) + _bce_mean(ones, real_pred_pr) + _bce_mean(zeros, fake_pred_pr)
 
 
-def generator_loss(cond_ori, cond_disc, pr_disc, image_ori, image_gen, l1_lambda: float) -> torch.Tensor:
-    """The L1 target is the batch whose conditions G consumed (image 2)."""
+def generator_loss(cond_ori, cond_disc, pr_disc, image_ori, image_gen, l1_lambda: float, mean=None) -> torch.Tensor:
+    """The L1 target is the batch whose conditions G consumed (image 2).
+    ``mean``: the L1's mean over H-sharded images (a spatial mesh's
+    ``Spatial.mean``)."""
     ones = torch.full_like(pr_disc, soft(1.0))
-    l1 = (image_ori.float() - image_gen.float()).abs().mean()
+    diff = (image_ori.float() - image_gen.float()).abs()
+    l1 = diff.mean() if mean is None else mean(diff)
     return _bce_mean(ones, pr_disc) + _bce_mean(cond_ori, cond_disc) + l1_lambda * l1
 
 
-def adjuster_loss(cond_ori, cond_disc, pr_disc, image_ori, image_adj, l1_lambda: float) -> torch.Tensor:
-    return generator_loss(cond_ori, cond_disc, pr_disc, image_ori, image_adj, l1_lambda)
+def adjuster_loss(cond_ori, cond_disc, pr_disc, image_ori, image_adj, l1_lambda: float, mean=None) -> torch.Tensor:
+    return generator_loss(cond_ori, cond_disc, pr_disc, image_ori, image_adj, l1_lambda, mean)

@@ -1,12 +1,16 @@
 """Process groups, the port's counterpart of littlegan_tpu/parallel/mesh.py.
 
-The JAX package scales over a ``jax.sharding.Mesh`` with a ``data`` axis and
-lets XLA's SPMD partitioner insert the collectives. The port runs one
-process per card, as PyTorch programs do: ``torchrun --nproc_per_node N``
-starts the processes, :func:`initialize_distributed` joins them into a
-``torch.distributed`` process group (NCCL between cards, gloo on the CPU),
-and :class:`DataGroup`, the counterpart of a 1-D ``('data',)`` mesh, says
-which rank a process is, how many there are and which card it drives.
+The JAX package scales over a ``jax.sharding.Mesh`` with a ``data`` axis (or
+``('data', 'model')`` axes) and lets XLA's SPMD partitioner insert the
+collectives. The port runs one process per card, as PyTorch programs do:
+``torchrun --nproc_per_node N`` starts the processes,
+:func:`initialize_distributed` joins them into a ``torch.distributed``
+process group (NCCL between cards, gloo on the CPU), and :class:`DataGroup`,
+the counterpart of a 1-D ``('data',)`` mesh, says which rank a process is,
+how many there are and which card it drives. :class:`SpatialGroup` is the
+counterpart of the 2-D ``('data', 'model')`` mesh (``make_mesh``'s row-major
+reshape: rank = data index x model size + model index), with a subgroup
+along each axis (:func:`spatial_group`).
 
 The collectives the train step needs are methods of :class:`DataGroup`. A
 CUDA tensor under gloo goes through host memory, since gloo moves host
@@ -21,18 +25,15 @@ for the card.
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from littlegan_tpu_torch.utils.device import resolve_device
-
-SPATIAL_TODO = ("ROADMAP A13: spatial mesh (H-sharded convs with a halo exchange) is not ported to "
-                "littlegan_tpu_torch yet")
-
 
 @dataclass(frozen=True)
 class DataGroup:
@@ -44,6 +45,23 @@ class DataGroup:
     device: torch.device
     group: Any  # the process group of the gradients' collectives
     control: Any  # a gloo group for host values
+
+    # the coordinates of the (data, model) mesh: a 1-D data mesh has one model index
+    @property
+    def data_rank(self) -> int:
+        return self.rank
+
+    @property
+    def data_size(self) -> int:
+        return self.world
+
+    @property
+    def model_rank(self) -> int:
+        return 0
+
+    @property
+    def model_size(self) -> int:
+        return 1
 
     @property
     def backend(self) -> str:
@@ -147,23 +165,136 @@ def data_group(device=None) -> Optional[DataGroup]:
     return dg
 
 
+@dataclass(frozen=True)
+class SpatialGroup(DataGroup):
+    """One rank of a ``('data', 'model')`` mesh of ``data_size x
+    model_size`` ranks: the group's collectives span every rank (the
+    gradients'), ``data`` is the subgroup of the ranks holding the same
+    H-slice of other rows, ``model`` the subgroup of the ranks holding
+    other H-slices of the same rows (the halo exchanges' and the norm
+    moments'). A subgroup is a :class:`DataGroup` whose ``rank`` and
+    ``world`` are the index and size along its axis; it has no control
+    group."""
+
+    data: Optional[DataGroup] = None
+    model: Optional[DataGroup] = None
+
+    @property
+    def data_rank(self) -> int:
+        return self.data.rank
+
+    @property
+    def data_size(self) -> int:
+        return self.data.world
+
+    @property
+    def model_rank(self) -> int:
+        return self.model.rank
+
+    @property
+    def model_size(self) -> int:
+        return self.model.world
+
+
+def mesh_shape_of(mesh_shape: Optional[Sequence[int]], world: int) -> Tuple[int, int]:
+    """The ``(data, model)`` sizes of a 2-D mesh over ``world`` ranks, as
+    ``make_mesh`` sizes it: ``mesh_shape`` when given (its product must be
+    the world), else ``(world // 2, 2)`` for an even world."""
+    if mesh_shape is None:
+        if world % 2:
+            raise ValueError(f"pass an explicit shape for a 2-axis mesh over {world} devices")
+        return world // 2, 2
+    shape = tuple(int(n) for n in mesh_shape)
+    if len(shape) != 2 or math.prod(shape) != world:
+        raise ValueError(f"mesh shape {list(mesh_shape)} != {world} devices")
+    return shape
+
+
+def spatial_group(dg: DataGroup, shape: Optional[Sequence[int]] = None) -> SpatialGroup:
+    """``dg`` (every rank) as one rank of a ``(data, model)`` mesh of
+    ``shape`` (:func:`mesh_shape_of`'s). Collective: every rank makes every
+    subgroup, in the same order (``torch.distributed.new_group``), and
+    under NCCL runs one all-reduce on each of its own, so that their
+    communicators exist before a CUDA graph captures a collective."""
+    n_data, n_model = mesh_shape_of(shape, dg.world)
+    di, mi = divmod(dg.rank, n_model)
+    backend = dist.get_backend(dg.group)
+    model_group = data_group_ = None
+    for d in range(n_data):
+        g = dist.new_group([d * n_model + m for m in range(n_model)], backend=backend)
+        if d == di:
+            model_group = g
+    for m in range(n_model):
+        g = dist.new_group([d * n_model + m for d in range(n_data)], backend=backend)
+        if m == mi:
+            data_group_ = g
+    data = DataGroup(di, n_data, dg.device, data_group_, None)
+    model = DataGroup(mi, n_model, dg.device, model_group, None)
+    if backend == "nccl":
+        for sub in (data, model):
+            sub.all_reduce_sum_(torch.zeros(1, device=dg.device))
+        torch.cuda.synchronize(dg.device)
+    return SpatialGroup(dg.rank, dg.world, dg.device, dg.group, dg.control, data, model)
+
+
+def model_groups_within_node(n_model: int, world: int, local_world: Optional[int] = None) -> bool:
+    """Whether the model ranks of every data index share one node: the
+    port's ``model_groups_within_process``, the layout condition of host-fed
+    feeding over several nodes. torchrun numbers a node's ranks
+    contiguously, so it holds when the model size divides the ranks per node
+    (``LOCAL_WORLD_SIZE``; all of ``world`` on one node when unset)."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world)) if local_world is None else int(local_world)
+    return local % n_model == 0
+
+
+MESH_AXES = (("data",), ("data", "model"))
+
+
 def check_mesh(mesh_axes: Sequence[str], mesh_shape: Optional[Sequence[int]], world: int) -> None:
-    """``make_mesh``'s checks on the config's mesh: the port has the 1-D
-    data mesh over every rank and nothing else."""
-    if tuple(mesh_axes) != ("data",):
-        raise NotImplementedError(f"mesh_axes {list(mesh_axes)}: {SPATIAL_TODO}; only ['data'] runs")
-    if mesh_shape is not None and list(mesh_shape) != [world]:
-        raise NotImplementedError(
-            f"mesh_shape {list(mesh_shape)} over {world} rank(s): {SPATIAL_TODO}; the data mesh is [{world}]"
-        )
+    """``make_mesh``'s checks on the config's mesh over ``world`` ranks:
+    the axes are ``['data']`` or ``['data', 'model']``; a 1-D mesh's shape,
+    when given, is ``[world]``; a 2-D mesh's shape multiplies to the world
+    (:func:`mesh_shape_of`). With one rank nothing is built: the JAX trainer
+    makes a mesh only over more than one device, so there a
+    ``('data', 'model')`` config trains unsharded."""
+    if tuple(mesh_axes) not in MESH_AXES:
+        raise ValueError(f"mesh_axes {list(mesh_axes)}: the mesh is ['data'] or ['data', 'model']")
+    if len(mesh_axes) == 1:
+        if mesh_shape is not None and [int(n) for n in mesh_shape] != [world]:
+            raise ValueError(f"mesh shape {list(mesh_shape)} != {world} devices")
+    elif world > 1:
+        mesh_shape_of(mesh_shape, world)
+
+
+def check_spatial(cfg, shape: Sequence[int]) -> None:
+    """``make_spatial_train_step``'s checks (JAX ``spatial.py:45-52``): the
+    data axis splits the batch, the model axis the image height."""
+    n_data, n_model = shape
+    if cfg.batch_size % n_data != 0:
+        raise ValueError(f"batch_size {cfg.batch_size} must be divisible by the data-axis size ({n_data})")
+    if cfg.image_dim % n_model != 0:
+        raise ValueError(f"image_dim {cfg.image_dim} must be divisible by the model-axis size ({n_model})")
 
 
 def row_slice(rows: int, dg: Optional[DataGroup]) -> slice:
-    """This rank's rows of a global batch of ``rows`` (all of them without a group)."""
+    """This rank's rows of a global batch of ``rows`` (all of them without
+    a group): its share along the data axis."""
     if dg is None:
         return slice(0, rows)
-    if rows % dg.world:
-        raise ValueError(f"batch of {rows} rows does not split over {dg.world} ranks")
-    per = rows // dg.world
-    return slice(dg.rank * per, (dg.rank + 1) * per)
+    rank, world = getattr(dg, "data_rank", dg.rank), getattr(dg, "data_size", dg.world)
+    if rows % world:
+        raise ValueError(f"batch of {rows} rows does not split over {world} ranks")
+    per = rows // world
+    return slice(rank * per, (rank + 1) * per)
 
+
+def h_slice(height: int, dg: Optional[DataGroup]) -> slice:
+    """This rank's rows of an image ``height`` rows high: its share along
+    the model axis (all of them without one)."""
+    n = 1 if dg is None else dg.model_size
+    if n == 1:
+        return slice(0, height)
+    if height % n:
+        raise ValueError(f"height {height} does not split over {n} model ranks")
+    per = height // n
+    return slice(dg.model_rank * per, (dg.model_rank + 1) * per)

@@ -52,6 +52,14 @@ network application (G, each D pass, the adjuster) in its own backward
 penalty's D pass is not wrapped, as in JAX. An s2d-layout store
 (``store_s2d``) holds the device store in block layout: the step skips its
 per-step ``space_to_depth`` and augments batch 1 with ``augment_s2d``.
+
+Under a spatial ``('data', 'model')`` mesh the ranks' reduction ``sync``
+carries the model axis (``sync.spatial``, ``parallel/spatial.py``): each
+rank's batches and draws are its rows and H-slices, the networks, the
+contrast's mean, the L1 terms and the penalty's norms run in their sharded
+forms, and the step makers run the config :func:`spatial_config` gives
+(the kernels off, s2d off where block space does not tile the model axis),
+as JAX ``make_spatial_train_step`` does.
 """
 
 from __future__ import annotations
@@ -68,6 +76,8 @@ from littlegan_tpu_torch.models.littlegan import s2d_active
 from littlegan_tpu_torch.ops.augment import AugmentDraws, augment, augment_s2d, draw_augment
 from littlegan_tpu_torch.ops.losses import adjuster_loss, discriminator_loss, generator_loss
 from littlegan_tpu_torch.ops.s2d import depth_to_space, space_to_depth
+from littlegan_tpu_torch.parallel.halo import all_reduce
+from littlegan_tpu_torch.parallel.spatial import resolve_config
 from littlegan_tpu_torch.training.dispatch import GraphedUpdates
 from littlegan_tpu_torch.training.optimizer import (
     advance_counts, lr_scale_from_config, masked_adam_update, masked_adam_update_rows,
@@ -91,6 +101,19 @@ class StepOutput(NamedTuple):
     metrics: Dict[str, torch.Tensor]  # the three losses, f32 on the device: 0-dim, or (K,) from K updates
     fake_image: torch.Tensor  # raw layout, compute dtype (the last update's)
     adj_image: torch.Tensor  # (1, 1, 1, 1) zeros when train_adj is off
+
+
+def spatial_of(sync):
+    """The model axis the step shards its maps over (``parallel/spatial.py``), or None."""
+    return getattr(sync, "spatial", None)
+
+
+def spatial_config(cfg: Config, sync) -> Config:
+    """The config the step runs under ``sync``: under a model axis the
+    kernels off and s2d off where block space does not tile it (JAX
+    ``spatial.py:53-58``); unchanged otherwise."""
+    sp = spatial_of(sync)
+    return cfg if sp is None else resolve_config(cfg, sp.m)[0]
 
 
 def check_supported(cfg: Config) -> None:
@@ -133,17 +156,20 @@ def prep_images(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def gradient_penalty(model, real: torch.Tensor, fake: torch.Tensor, eps: torch.Tensor, s2: bool) -> torch.Tensor:
+def gradient_penalty(model, real: torch.Tensor, fake: torch.Tensor, eps: torch.Tensor, s2: bool,
+                     sp=None) -> torch.Tensor:
     """WGAN-GP on ``eps * real + (1 - eps) * fake`` (JAX ``step.py:74-86``):
     ``mean((||d sum(D_pr) / d inter||_2 - 1)^2)``, the norm per sample in
     f32 with 1e-12 under the root. ``inter`` promotes to f32 (``eps`` is
     f32) and D casts it, as in JAX. The gradient is taken with
     ``create_graph``, so D's parameters get the penalty's second-order
-    gradient; ``fake`` comes detached."""
+    gradient; ``fake`` comes detached. Under a model axis ``sp`` the
+    squared norms are summed over the ranks' H-slices."""
     inter = (eps * real + (1.0 - eps) * fake).requires_grad_(True)
-    pr, _ = model.discriminator(inter, s2d_in=s2)
+    pr, _ = model.discriminator(inter, s2d_in=s2, sp=sp)
     (g,) = torch.autograd.grad(pr.sum(), inter, create_graph=True)
-    norms = torch.sqrt(g.float().square().sum((1, 2, 3)) + 1e-12)
+    sq = g.float().square().sum((1, 2, 3))
+    norms = torch.sqrt((sq if sp is None else all_reduce(sq, sp.mg)) + 1e-12)
     return (norms - 1.0).square().mean()
 
 
@@ -159,13 +185,15 @@ def _remat(fn, on: bool):
 def total_loss_fn(
     model, batch1, batch2, noise: torch.Tensor, new_image: torch.Tensor, cfg: Config,
     adj_sel: Optional[torch.Tensor] = None, gp_eps: Optional[torch.Tensor] = None, inputs_s2d: bool = False,
+    sp=None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(the three losses on one autograd graph, {"fake", "adj"} images in
     raw layout). ``adj_sel`` (``adj_half_batch`` only) is ``batch_no % 2``
     as a 0-dim tensor: the adjuster takes the real task on even steps, the
     generated one on odd, chosen on the device (JAX ``step.py:185-193``).
     ``gp_eps``: the penalty's mix (``use_gp``). ``inputs_s2d``: the images
-    arrive in block layout already (an s2d-layout store)."""
+    arrive in block layout already (an s2d-layout store). ``sp``: a
+    spatial mesh's model axis (the images are this rank's H-slices)."""
     img1, cond1 = batch1
     img2, cond2 = batch2
     s2 = s2d_active(cfg)
@@ -176,16 +204,17 @@ def total_loss_fn(
     generator = _remat(model.generator, cfg.remat)
     discriminator = _remat(model.discriminator, cfg.remat)
 
-    fake = generator(noise, cond2, s2d_out=s2)
-    real_pr, real_c = discriminator(new_image, s2d_in=s2)
-    fake_pr, fake_c = discriminator(fake, s2d_in=s2)
+    mean = None if sp is None else sp.mean
+    fake = generator(noise, cond2, s2d_out=s2, sp=sp)
+    real_pr, real_c = discriminator(new_image, s2d_in=s2, sp=sp)
+    fake_pr, fake_c = discriminator(fake, s2d_in=s2, sp=sp)
     d_loss = discriminator_loss(cond1, real_c, real_pr, fake_pr)
     if cfg.use_gp:
         if gp_eps is None:
             raise ValueError("use_gp requires the penalty's draws (StepDraws.gp_eps)")
         # from the augmented real batch, the sample D is trained on (JAX step.py:166-170)
-        d_loss = d_loss + cfg.gp_weight * gradient_penalty(model, new_image, fake.detach(), gp_eps, s2)
-    g_loss = generator_loss(cond2, fake_c, fake_pr, img2, fake, cfg.l1_lambda)
+        d_loss = d_loss + cfg.gp_weight * gradient_penalty(model, new_image, fake.detach(), gp_eps, s2, sp)
+    g_loss = generator_loss(cond2, fake_c, fake_pr, img2, fake, cfg.l1_lambda, mean)
 
     adj_image = torch.zeros((1, 1, 1, 1), device=fake.device)
     a_loss = torch.zeros((), device=fake.device)
@@ -202,9 +231,10 @@ def total_loss_fn(
             tgt_cond = torch.cat([cond2, cond1])
             in_img = torch.cat([img1, fake_data])
             tgt_img = torch.cat([img2, img1])
-        adj_image = _remat(model.adjuster, cfg.remat)(in_img, (tgt_cond + 1.0) * 0.5, s2d_in=s2, s2d_out=s2)
-        adj_pr, adj_c = discriminator(adj_image, s2d_in=s2)
-        a_loss = adjuster_loss(tgt_cond, adj_c, adj_pr, tgt_img, adj_image, cfg.l1_lambda)
+        adj_image = _remat(model.adjuster, cfg.remat)(in_img, (tgt_cond + 1.0) * 0.5, s2d_in=s2, s2d_out=s2,
+                                                      sp=sp)
+        adj_pr, adj_c = discriminator(adj_image, s2d_in=s2, sp=sp)
+        a_loss = adjuster_loss(tgt_cond, adj_c, adj_pr, tgt_img, adj_image, cfg.l1_lambda, mean)
 
     fake_out = depth_to_space(fake) if s2 else fake
     adj_out = depth_to_space(adj_image) if s2 and cfg.train_adj else adj_image
@@ -214,19 +244,21 @@ def total_loss_fn(
 
 def micro_grads(
     state: TrainState, batch1, batch2, draws: StepDraws, cfg: Config, adj_sel: Optional[torch.Tensor] = None,
-    inputs_s2d: bool = False,
+    inputs_s2d: bool = False, sp=None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(``name -> gradient`` for every parameter, aux with the detached
     losses and images) of one micro-pair: everything in a step before the
     optimizer. Reads nothing from the host. ``inputs_s2d``: both batches
-    are in block layout (an s2d-layout store), augmented as such."""
+    are in block layout (an s2d-layout store), augmented as such. ``sp``:
+    a spatial mesh's model axis; each gradient is then this rank's share."""
     check_supported(cfg)
     model = state.model
     batch1 = (prep_images(batch1[0]), batch1[1])
     batch2 = (prep_images(batch2[0]), batch2[1])
-    new_image = (augment_s2d if inputs_s2d else augment)(batch1[0], draws.augment)
+    hw_mean = None if sp is None else sp.hw_mean
+    new_image = (augment_s2d if inputs_s2d else augment)(batch1[0], draws.augment, hw_mean)
     losses, aux = total_loss_fn(model, batch1, batch2, draws.noise, new_image, cfg, adj_sel, draws.gp_eps,
-                                inputs_s2d)
+                                inputs_s2d, sp)
 
     grads: Dict[str, torch.Tensor] = {}
     routes = [("loss/disc", D_KEYS), ("loss/gen", G_KEYS)]
@@ -247,15 +279,17 @@ def _adj_sel(batch_no: int, cfg: Config, device) -> Optional[torch.Tensor]:
 
 
 def compute_grads(
-    state: TrainState, batch1, batch2, draws: StepDraws, batch_no: int, cfg: Config, inputs_s2d: bool = False
+    state: TrainState, batch1, batch2, draws: StepDraws, batch_no: int, cfg: Config, inputs_s2d: bool = False,
+    sp=None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """:func:`micro_grads` of the step at host ``batch_no``."""
-    return micro_grads(state, batch1, batch2, draws, cfg, _adj_sel(batch_no, cfg, batch1[0].device), inputs_s2d)
+    return micro_grads(state, batch1, batch2, draws, cfg, _adj_sel(batch_no, cfg, batch1[0].device), inputs_s2d,
+                       sp)
 
 
 def accum_grads(
     state: TrainState, batch1s, batch2s, draws: StepDraws, cfg: Config, adj_sel: Optional[torch.Tensor] = None,
-    inputs_s2d: bool = False,
+    inputs_s2d: bool = False, sp=None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(mean gradients over the M stacked micro-pairs, the last micro-step's
     aux), the port of JAX ``accum_grads`` (``step.py:370-403``).
@@ -268,7 +302,7 @@ def accum_grads(
     for j in range(m):
         grads, aux = micro_grads(
             state, (batch1s[0][j], batch1s[1][j]), (batch2s[0][j], batch2s[1][j]),
-            map_draws(lambda x: x[j], draws), cfg, adj_sel, inputs_s2d,
+            map_draws(lambda x: x[j], draws), cfg, adj_sel, inputs_s2d, sp,
         )
         torch._foreach_add_(acc, [grads[n].float() for n in names])
     torch._foreach_div_(acc, float(m))
@@ -400,14 +434,15 @@ def train_step(
     ranks' reduction (``parallel/train.py``)."""
     if part_masks is None:
         part_masks = partition_masks(state.model)
-    grads, aux = compute_grads(state, batch1, batch2, draws, batch_no, cfg, inputs_s2d)
+    grads, aux = compute_grads(state, batch1, batch2, draws, batch_no, cfg, inputs_s2d, spatial_of(sync))
     return apply_updates(state, grads, aux, batch_no, cfg, part_masks, sync)
 
 
 def make_train_step(cfg: Config, state: TrainState, sync=None):
-    """``step(state, batch1, batch2, draws, batch_no)`` with ``cfg``, the
-    partition masks and the ranks' reduction ``sync`` (None on one card)
-    bound."""
+    """``step(state, batch1, batch2, draws, batch_no)`` with ``cfg`` (as
+    :func:`spatial_config` resolves it), the partition masks and the ranks'
+    reduction ``sync`` (None on one card) bound."""
+    cfg = spatial_config(cfg, sync)
     check_supported(cfg)
     return functools.partial(train_step, cfg=cfg, part_masks=partition_masks(state.model), sync=sync)
 
@@ -424,13 +459,15 @@ def accum_train_step(
     accumulating DP step computes it."""
     if part_masks is None:
         part_masks = partition_masks(state.model)
-    grads, aux = accum_grads(state, batch1s, batch2s, draws, cfg, _adj_sel(batch_no, cfg, batch1s[0].device))
+    grads, aux = accum_grads(state, batch1s, batch2s, draws, cfg, _adj_sel(batch_no, cfg, batch1s[0].device),
+                             sp=spatial_of(sync))
     return apply_updates(state, grads, aux, batch_no, cfg, part_masks, sync)
 
 
 def make_accum_train_step(cfg: Config, state: TrainState, sync=None):
     """``step(state, batch1s, batch2s, draws, batch_no)`` with (M, B, ...)
     stacked batches and draws."""
+    cfg = spatial_config(cfg, sync)
     check_supported(cfg)
     return functools.partial(accum_train_step, cfg=cfg, part_masks=partition_masks(state.model), sync=sync)
 
@@ -464,6 +501,7 @@ def make_gather_train_step(cfg: Config, state: TrainState, store_s2d: bool = Fal
     (``cfg.device_data`` with one update per call). With ``store_s2d`` the
     store is in block layout (``ops/s2d.py::space_to_depth`` of each
     batch)."""
+    cfg = spatial_config(cfg, sync)
     check_supported(cfg)
     _check_store_layout(cfg, store_s2d)
     part_masks = partition_masks(state.model)
@@ -484,16 +522,17 @@ def scan_updates(state: TrainState, images, conds, ids1, ids2, draws: StepDraws,
     ``rows`` the (K, width) :func:`schedule_rows`. Returns the (K, 3)
     losses and the last update's fake and adj images."""
     losses = []
+    sp = spatial_of(sync)
     for i in range(ids1.shape[0]):
         adj_sel = rows[i, -1] if cfg.adj_half_batch else None
         d = map_draws(lambda x: x[i], draws)
         if ids1.dim() == 2:
             gather = lambda ids: (images.index_select(0, ids), conds.index_select(0, ids))  # noqa: E731
-            grads, aux = accum_grads(state, gather(ids1[i]), gather(ids2[i]), d, cfg, adj_sel, inputs_s2d)
+            grads, aux = accum_grads(state, gather(ids1[i]), gather(ids2[i]), d, cfg, adj_sel, inputs_s2d, sp)
         else:
             batch1 = (take_batch(images, ids1[i]), take_batch(conds, ids1[i]))
             batch2 = (take_batch(images, ids2[i]), take_batch(conds, ids2[i]))
-            grads, aux = micro_grads(state, batch1, batch2, d, cfg, adj_sel, inputs_s2d)
+            grads, aux = micro_grads(state, batch1, batch2, d, cfg, adj_sel, inputs_s2d, sp)
         out = apply_updates_rows(state, grads, aux, rows[i], cfg, sync)
         losses.append(torch.stack([out.metrics[k] for k in LOSS_KEYS]))
     return torch.stack(losses), out.fake_image, out.adj_image
@@ -508,11 +547,12 @@ def state_tensors(state: TrainState) -> List[torch.Tensor]:
     return out + (list(state.ema.values()) if state.ema is not None else [])
 
 
-def zero_draws(cfg: Config, n: int, device) -> StepDraws:
-    """Draws of an n-image batch, all zero but a contrast factor of 1."""
+def zero_draws(cfg: Config, n: int, device, height: Optional[int] = None) -> StepDraws:
+    """Draws of an n-image batch (of images ``height`` rows high: a
+    spatial rank's H-slice), all zero but a contrast factor of 1."""
     z = lambda *shape: torch.zeros(shape, device=device)  # noqa: E731
     aug = AugmentDraws(torch.zeros((n,), dtype=torch.bool, device=device), z(), z() + 1.0, z(),
-                       z(n, cfg.image_dim, cfg.image_dim, cfg.image_channel))
+                       z(n, height or cfg.image_dim, cfg.image_dim, cfg.image_channel))
     return StepDraws(z(n, cfg.noise_dim), aug, z(n, 1, 1, 1) if cfg.use_gp else None)
 
 
@@ -524,6 +564,7 @@ def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Opt
     one (K, width) float32 array, and ``GraphedUpdates``
     (``training/dispatch.py``) runs :func:`scan_updates` on it (one CUDA
     graph replay on the card). ``micro``: M for (K, M) ids, None for (K,)."""
+    cfg = spatial_config(cfg, sync)
     check_supported(cfg)
     _check_store_layout(cfg, store_s2d)
     part_masks = partition_masks(state.model)
@@ -561,7 +602,7 @@ def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Opt
         """Capture the CUDA graph now (on a CPU state: nothing to do)."""
         check_capturable(state)
         lead = (n_steps,) if micro is None else (n_steps, m)
-        draws = zero_draws(cfg, images.shape[1], images.device)
+        draws = zero_draws(cfg, images.shape[1], images.device, images.shape[2] * (2 if store_s2d else 1))
         draws = map_draws(lambda x: x.expand(*lead, *x.shape).contiguous(), draws)
         zeros = np.zeros((n_steps, 2 * m + schedule_width(state)), np.float32)
         graphed.prepare(zeros, draws, (state, images, conds), state_tensors(state))

@@ -50,10 +50,10 @@ on the one-update path; on the K-update path whole groups, from the second
 group until n steps are covered.
 
 It runs on the card unless ``device="cpu"`` is given; without a card and
-without that argument it raises. Refused: what ``step.check_supported``
-refuses (the gradient penalty with a kernel flag, ``ValueError``), and,
-with ``NotImplementedError``, a spatial mesh and ``shard_dense`` (ROADMAP
-A13).
+without that argument it raises. Refused (``ValueError``): what
+``step.check_supported`` refuses (the gradient penalty with a kernel flag),
+and the meshes, ``shard_opt_state`` and ``shard_dense`` settings the JAX
+trainer refuses (:func:`check_trainer_supported`).
 
 Data parallelism (``parallel/``): under a ``torch.distributed`` process
 group (``torchrun --nproc_per_node N``; :class:`~littlegan_tpu_torch.parallel.mesh.DataGroup`)
@@ -70,6 +70,18 @@ the ranks save and stop together. Inference (``predict``, ``generate``,
 ``adjust``, ``sample_u8``) spans every visible card in one process with
 ``eval_data_parallel`` (``parallel/infer.py``), and each rank's own card
 under a group.
+
+A spatial mesh (``mesh_axes = ['data', 'model']``, ``mesh_shape`` [D, M],
+by default [world / 2, 2]; ``parallel/spatial.py``): the ranks form a
+:class:`~littlegan_tpu_torch.parallel.mesh.SpatialGroup`, each trains its
+rows of every global batch and of those its H-slice, the kernels off (and
+s2d where block space does not tile M), as the log line says. A host-fed
+rank decodes its data index's rows whole and keeps its H-slice; the store
+holds each rank's rows and H-slice of every batch. With ``shard_dense`` the
+dense heads keep this rank's part (``parallel/zero.py``): a checkpoint and
+the predict cadence gather them (every rank calls :meth:`gather_eval`).
+With one process a ``('data', 'model')`` config trains unsharded, as the
+JAX trainer builds a mesh only over more than one device.
 """
 
 from __future__ import annotations
@@ -94,9 +106,15 @@ from littlegan_tpu_torch.data.celeba import epoch_batch_order
 from littlegan_tpu_torch.models.littlegan import LittleGAN
 from littlegan_tpu_torch.ops.losses import mean_squared_error
 from littlegan_tpu_torch.parallel.infer import data_parallel_infer, infer_mesh_devices
-from littlegan_tpu_torch.parallel.mesh import DataGroup, check_mesh, data_group, row_slice
+from littlegan_tpu_torch.parallel.mesh import (
+    DataGroup, SpatialGroup, check_mesh, check_spatial, data_group, h_slice, model_groups_within_node,
+    row_slice, spatial_group,
+)
+from littlegan_tpu_torch.parallel.spatial import resolve_config
 from littlegan_tpu_torch.parallel.train import GradSync, global_rows, local_draws, replicate_state
-from littlegan_tpu_torch.parallel.zero import Zero1, check_shard_dense, check_shard_opt_state
+from littlegan_tpu_torch.parallel.zero import (
+    Zero1, check_shard_dense, check_shard_opt_state, dense_whole_state, shard_dense_state,
+)
 from littlegan_tpu_torch.training.checkpoint import make_checkpointer
 from littlegan_tpu_torch.training.state import TrainState, create_train_state, eval_params
 from littlegan_tpu_torch.training.step import (
@@ -114,16 +132,20 @@ FLUSH_EVERY = 16  # calls whose losses stay on the card before one copy to the h
 
 
 def check_trainer_supported(cfg: Config, dp: Optional[DataGroup] = None) -> None:
-    """Refuse what the step refuses, a mesh other than the 1-D data mesh
-    over the ranks of ``dp`` and ``shard_dense`` (ROADMAP A13), and
-    ``shard_opt_state`` without ranks to shard over; the ranks must split
-    ``batch_size``."""
-    check_supported(cfg)
+    """Refuse what the step refuses (under a spatial mesh, with its kernels
+    off), a mesh the JAX trainer's ``make_mesh`` refuses over the ranks of
+    ``dp`` (a :class:`SpatialGroup` for ``['data', 'model']``),
+    ``shard_dense`` without a model axis dividing ``init_dim``, and
+    ``shard_opt_state`` without ranks to shard over; the data ranks must
+    split ``batch_size`` and the model ranks ``image_dim``."""
     world = 1 if dp is None else dp.world
     check_mesh(cfg.mesh_axes, cfg.mesh_shape, world)
-    check_shard_dense(cfg)
+    check_supported(resolve_config(cfg, 1 if dp is None else dp.model_size)[0])
+    check_shard_dense(cfg, dp)
     check_shard_opt_state(cfg, dp)
-    if cfg.batch_size % world:
+    if isinstance(dp, SpatialGroup):
+        check_spatial(cfg, (dp.data_size, dp.model_size))
+    elif cfg.batch_size % world:
         raise ValueError(
             f"data-parallel training needs batch_size ({cfg.batch_size}) divisible by the {world} ranks: "
             f"as configured, {world} processes would not split one global batch"
@@ -317,8 +339,12 @@ class Trainer:
     def __init__(self, cfg: Config, dataset=None, device=None, group: Optional[DataGroup] = None):
         """``group``: this rank's data-parallel group; default: the running
         process group's (:func:`~littlegan_tpu_torch.parallel.mesh.data_group`,
-        on ``device``), None when none runs."""
+        on ``device``), None when none runs. With ``mesh_axes =
+        ['data', 'model']`` the group's ranks are made a spatial mesh of
+        ``mesh_shape`` (a collective)."""
         self.dp = group if group is not None else data_group(device)
+        if self.dp is not None and tuple(cfg.mesh_axes) == ("data", "model") and not isinstance(self.dp, SpatialGroup):
+            self.dp = spatial_group(self.dp, cfg.mesh_shape)
         check_trainer_supported(cfg, self.dp)
         self.cfg = cfg
         self.dataset = dataset
@@ -346,7 +372,10 @@ class Trainer:
         self._resume_batch = int(status.get("batch", 0))
         self._sync: Optional[GradSync] = None
         if self.dp is not None:
-            self._sync = Zero1(self.dp, self.state) if cfg.shard_opt_state else GradSync(self.dp)
+            if cfg.shard_dense:  # after the restore and the broadcast of the whole state
+                shard_dense_state(self.state, self.dp)
+            self._sync = (Zero1(self.dp, self.state, cfg.shard_dense) if cfg.shard_opt_state
+                          else GradSync(self.dp, cfg.shard_dense))
         self._writer: Optional[SummaryWriter] = None
         self._metrics_buffer = []
         self._flushing = False
@@ -357,15 +386,26 @@ class Trainer:
         self._device_store: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._scan_steps: Dict[int, object] = {}  # K -> K-update step (one CUDA graph each)
         self._eval_model: Optional[LittleGAN] = None  # see eval_model
+        self._dense_eval: Optional[Tuple[int, LittleGAN]] = None  # shard_dense: (version, whole eval model)
         self._version = 0  # counts the weight updates: the inference replicas' cache key
         self._init_fixture()
         if self.dp is not None and dataset is not None and not cfg.device_data:
             if not hasattr(dataset, "set_rows_per_batch"):
                 raise ValueError("host-fed data parallelism needs a dataset with set_rows_per_batch (CelebA and "
                                  "SyntheticDataset have it), or device_data=true")
-            rows = cfg.batch_size // self.dp.world
-            dataset.set_rows_per_batch(rows, self.dp.rank)
-            print(f"data-parallel host-fed: each rank decodes {rows}/{cfg.batch_size} rows per batch (its own slice)")
+            rows = cfg.batch_size // self.dp.data_size
+            dataset.set_rows_per_batch(rows, self.dp.data_rank)
+            if self.dp.model_size > 1:
+                if not model_groups_within_node(self.dp.model_size, self.dp.world):
+                    raise ValueError(
+                        "host-fed spatial training over several nodes needs the model ranks of each data index on "
+                        "one node (the model size dividing LOCAL_WORLD_SIZE: mesh_shape = (n_nodes * k, "
+                        "ranks_per_node / k)), or device_data=true")
+                print(f"spatial host-fed: the {self.dp.model_size} model ranks of a data index each decode its "
+                      f"{rows}/{cfg.batch_size} rows per batch and keep their H-slice")
+            else:
+                print(f"data-parallel host-fed: each rank decodes {rows}/{cfg.batch_size} rows per batch "
+                      "(its own slice)")
         if cfg.grad_accum > 1 and getattr(dataset, "batches", None) is not None \
                 and dataset.batches < 2 * cfg.grad_accum:
             print(f"WARNING: dataset has {dataset.batches} batches but one accumulation group consumes "
@@ -374,7 +414,16 @@ class Trainer:
         self._train_step = make_train_step(cfg, self.state, self._sync)
         self._accum_step = make_accum_train_step(cfg, self.state, self._sync)
         self._gather_step = make_gather_train_step(cfg, self.state, sync=self._sync)
-        if self.dp is not None:
+        if isinstance(self.dp, SpatialGroup):
+            shape = {"data": self.dp.data_size, "model": self.dp.model_size}
+            note = resolve_config(cfg, self.dp.model_size)[1]
+            if self.dp.model_size == 1:
+                note = "a model axis of 1 holds whole maps: the data-parallel step"
+            if cfg.grad_accum > 1:
+                print(f"Spatially-sharded training with {cfg.grad_accum}-pair gradient accumulation (effective batch "
+                      f"{cfg.grad_accum * cfg.batch_size})")
+            print(f"Spatially-sharded training over a {shape} mesh" + (f" ({note})" if note else ""))
+        elif self.dp is not None:
             n = self.dp.world
             if cfg.grad_accum > 1:
                 print(f"Data-parallel training over {n} devices with {cfg.grad_accum}-pair gradient accumulation "
@@ -464,7 +513,8 @@ class Trainer:
         batch j of the canonical (unshuffled) order, so an epoch's
         :func:`epoch_batch_order` reproduces the host pipeline's batch
         sequence. A data-parallel rank keeps its rows of every batch (the
-        JAX package's ``P(None, 'data')`` store), so the per-step gather
+        JAX package's ``P(None, 'data')`` store), a spatial rank its rows'
+        H-slice (``P(None, 'data', 'model')``), so the per-step gather
         stays on its card."""
         if self._device_store is None:
             cache = getattr(self.dataset, "_cache", None)  # a decode cache is dead weight here
@@ -480,8 +530,8 @@ class Trainer:
             n = imgs.shape[0] // b
             imgs = imgs[: n * b].reshape(n, b, *imgs.shape[1:])
             cs = cs[: n * b].reshape(n, b, -1)
-            rows = row_slice(b, self.dp)
-            imgs, cs = np.ascontiguousarray(imgs[:, rows]), np.ascontiguousarray(cs[:, rows])
+            rows, hs = row_slice(b, self.dp), h_slice(imgs.shape[2], self.dp)
+            imgs, cs = np.ascontiguousarray(imgs[:, rows, hs]), np.ascontiguousarray(cs[:, rows])
             print(f"device_data: uploading {imgs.nbytes / 1e9:.2f} GB {imgs.dtype} dataset "
                   f"({n} batches{'' if self.dp is None else f', rows {rows.start}-{rows.stop - 1} of each'}) "
                   f"to {self.device}")
@@ -508,9 +558,10 @@ class Trainer:
         return cfg.device_data and (cfg.steps_per_dispatch > 1 or cfg.grad_accum > 1)
 
     def full_state(self) -> TrainState:
-        """The train state with every moment whole (ZeRO-1 gathers its
-        shards: every rank calls this at the same point)."""
-        return self._sync.full_state(self.state) if isinstance(self._sync, Zero1) else self.state
+        """The train state with every moment and dense head whole (ZeRO-1
+        and ``shard_dense`` gather their parts: every rank calls this at the
+        same point)."""
+        return self.state if self._sync is None else self._sync.full_state(self.state)
 
     def _interrupted(self) -> bool:
         """Whether a SIGINT arrived on this rank, or on any rank under data
@@ -629,6 +680,14 @@ class Trainer:
             if self._writer is not None:
                 self._writer.flush()
 
+    def _host_batches(self, epoch: int, start_batch: int) -> Iterator:
+        """The dataset's (images, conds) batches of ``epoch`` (this rank's
+        rows), under a spatial mesh each cut to this rank's H-slice."""
+        it = self.dataset.epoch_iterator(epoch, start_batch=start_batch)
+        if self.dp is None or self.dp.model_size == 1:
+            return it
+        return ((img[:, h_slice(img.shape[1], self.dp)], cond) for img, cond in it)
+
     def _step_epoch(self, epoch: int, resume_b: int, first: bool = False) -> Tuple[int, int]:
         """One applied update per call: host-fed, host-fed accumulation or
         the gather step over the device store; ``first``: the run's first
@@ -646,12 +705,12 @@ class Trainer:
                 return self._gather_step(self.state, imgs, conds, b1, b2, draws, batch_no)
         elif m > 1:
             updates = self._prefetch(
-                _accum_groups(_pairwise(self.dataset.epoch_iterator(epoch, start_batch=2 * m * resume_b)), m))
+                _accum_groups(_pairwise(self._host_batches(epoch, 2 * m * resume_b)), m))
 
             def run(b1, b2, draws, batch_no):
                 return self._accum_step(self.state, b1, b2, draws, batch_no)
         else:
-            updates = self._prefetch(_pairwise(self.dataset.epoch_iterator(epoch, start_batch=2 * resume_b)))
+            updates = self._prefetch(_pairwise(self._host_batches(epoch, 2 * resume_b)))
 
             def run(b1, b2, draws, batch_no):
                 return self._train_step(self.state, b1, b2, draws, batch_no)
@@ -733,6 +792,8 @@ class Trainer:
             self._flush_buffered()
         if cfg.freq_gen > 0 and batch_no // cfg.freq_gen > prev_batch // cfg.freq_gen:
             self._save_train_images(out, epoch, batch_no)
+        if cfg.freq_test > 0 and batch_no // cfg.freq_test > prev_batch // cfg.freq_test:
+            self.gather_eval()
         if self.writes and cfg.freq_test > 0 and batch_no // cfg.freq_test > prev_batch // cfg.freq_test:
             name = f"{epoch}-{batch_no}"
             self.predict(
@@ -792,20 +853,40 @@ class Trainer:
 
     # ----------------------------------------------------------- predict ----
 
+    def _ema_model(self, state: TrainState) -> LittleGAN:
+        """A model over ``state``'s storage with the EMA in G's place."""
+        with torch.device("meta"):
+            model = LittleGAN(self.cfg)
+        model.load_state_dict(eval_params(state), assign=True)
+        # the parameters stay the state's; .to moves the s2d index buffers
+        return model.to(self.device).requires_grad_(False)
+
+    def gather_eval(self) -> None:
+        """With ``shard_dense``: the eval weights with the dense heads
+        gathered whole, for :meth:`eval_model` until the next update (a
+        collective: every rank calls it). Nothing to do otherwise."""
+        if self._sync is None or not self._sync.dense:
+            return
+        whole = dense_whole_state(self.state, self.dp, moments=False)
+        model = whole.model if whole.ema is None else self._ema_model(whole)
+        self._dense_eval = (self._version, model.requires_grad_(False))
+
     def eval_model(self) -> LittleGAN:
         """The model inference uses: the live one, or, when the run keeps an
         EMA of G's parts, a second model over the same storage with the EMA
         in G's place. That one is built once: the step and ``restore``
         update both the parameters and the EMA in place, so it stays current
-        without a copy."""
+        without a copy. With ``shard_dense`` the one :meth:`gather_eval`
+        made since the last update."""
+        if self._sync is not None and self._sync.dense:
+            if self._dense_eval is None or self._dense_eval[0] != self._version:
+                raise RuntimeError("shard_dense holds a part of each dense head per rank: call gather_eval() on "
+                                   "every rank after the last update, before inference")
+            return self._dense_eval[1]
         if self.state.ema is None:
             return self.state.model
         if self._eval_model is None:
-            with torch.device("meta"):
-                model = LittleGAN(self.cfg)
-            model.load_state_dict(eval_params(self.state), assign=True)
-            # the parameters stay the state's; .to moves the s2d index buffers
-            self._eval_model = model.to(self.device).requires_grad_(False)
+            self._eval_model = self._ema_model(self.state)
         return self._eval_model
 
     def _call(self, fn, *arrays):

@@ -168,17 +168,37 @@ def test_trainer_raises_without_a_card(tiny_cfg, tmp_path):
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(use_gp=True, use_pallas=True), ValueError, "use_gp needs use_pallas=False"),
     (dict(use_gp=True, use_pallas_boundary=True), ValueError, "use_gp needs use_pallas=False"),
-    (dict(mesh_shape=[2]), NotImplementedError, "ROADMAP A13: spatial mesh"),
-    (dict(mesh_axes=["data", "model"]), NotImplementedError, "ROADMAP A13: spatial mesh"),
+    (dict(mesh_shape=[2]), ValueError, r"mesh shape \[2\] != 1 devices"),
+    (dict(mesh_axes=["model", "data"]), ValueError, r"the mesh is \['data'\] or \['data', 'model'\]"),
     (dict(shard_opt_state=True), ValueError, "needs a device mesh"),
-    (dict(shard_dense=True), NotImplementedError, "ROADMAP A13"),
+    (dict(shard_dense=True, mesh_axes=["data", "model"]), ValueError, r"needs a \('data','model'\) mesh"),
 ])
 def test_trainer_refuses_unported_options(tiny_cfg, tmp_path, kw, exc, match):
-    """What the trainer still refuses: the gradient penalty with a kernel
-    flag, a mesh other than the data mesh over its ranks (one process: [1])
-    and shard_dense (ROADMAP A13), and ZeRO-1 without ranks to shard over."""
+    """What the trainer refuses in one process, as the JAX trainer does: the
+    gradient penalty with a kernel flag, a data mesh's shape other than
+    [1] (``make_mesh``'s error), axes other than ['data'] or ['data',
+    'model'], ZeRO-1 without ranks to shard over, and shard_dense without a
+    mesh (JAX builds no mesh over one device, so not even a ('data',
+    'model') config has one). Meshes over several ranks:
+    tests/test_torch_spatial_ops.py and tests/test_torch_shard_dense.py."""
     with pytest.raises(exc, match=match):
         Trainer(tcfg_of(_cfg(tiny_cfg, tmp_path, **kw)), None, device="cpu")
+
+
+def test_trainer_spatial_config_trains_unsharded_in_one_process(tiny_cfg, tmp_path):
+    """``mesh_axes = ['data', 'model']`` (any ``mesh_shape``) in one process
+    trains unsharded, as the JAX trainer does over one device
+    (``trainer.py:167``): bit for bit the data-mesh run, kernels and s2d as
+    configured."""
+    flats = []
+    for name, kw in (("data", {}), ("spatial", dict(mesh_axes=["data", "model"], mesh_shape=[4, 2]))):
+        cfg = tcfg_of(_cfg(tiny_cfg, tmp_path, name=name, **kw))
+        tr = Trainer(cfg, SyntheticDataset(cfg, num_items=4 * cfg.batch_size), device="cpu")
+        assert tr.dp is None and tr._sync is None
+        tr.train()
+        flats.append(flatten_state(tr.full_state()))
+    assert sorted(flats[0]) == sorted(flats[1])
+    assert all(np.array_equal(flats[0][k], flats[1][k]) for k in flats[0])
 
 
 def test_synthetic_dataset_matches_jax(tiny_cfg):

@@ -16,6 +16,7 @@ and its memory report against the JAX package's ``parallel/zero.py``.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -77,15 +78,21 @@ def test_state_bytes_report_equals_jax(mesh, flags):
 
 
 def test_shard_checks():
-    """shard_opt_state needs ranks; shard_dense is refused: not ported
-    (NotImplementedError) and, as in the JAX package, no 'model' axis (ValueError)."""
+    """shard_opt_state needs ranks; shard_dense, as in the JAX package, a
+    ('data', 'model') mesh (not a data mesh) whose model axis divides
+    init_dim (8 at 128²). Against JAX's messages:
+    tests/test_torch_shard_dense.py."""
     with pytest.raises(ValueError, match="needs a device mesh"):
         tzero.check_shard_opt_state(Config(shard_opt_state=True), None)
     tzero.check_shard_opt_state(Config(), None)
-    for exc in (NotImplementedError, ValueError):
-        with pytest.raises(exc, match="ROADMAP A13"):
-            tzero.check_shard_dense(Config(shard_dense=True))
-    tzero.check_shard_dense(Config())
+    spatial = lambda m: types.SimpleNamespace(model=None, model_size=m)  # noqa: E731
+    for dg in (None, types.SimpleNamespace(world=2)):
+        with pytest.raises(ValueError, match=r"needs a \('data','model'\) mesh"):
+            tzero.check_shard_dense(Config(shard_dense=True), dg)
+    with pytest.raises(ValueError, match=r"needs init_dim \(8\) divisible by the model-axis size \(16\)"):
+        tzero.check_shard_dense(Config(shard_dense=True), spatial(16))
+    tzero.check_shard_dense(Config(shard_dense=True), spatial(4))
+    tzero.check_shard_dense(Config(), None)
 
 
 @pytest.fixture(scope="module")

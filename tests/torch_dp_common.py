@@ -149,12 +149,16 @@ def port_state(cfg, flat: Dict[str, np.ndarray]):
 
 
 def make_sync(dg, cfg, state):
+    """The ranks' reduction for ``cfg`` over ``dg`` (None: one process);
+    with ``shard_dense`` the state's dense heads are sharded first."""
     from littlegan_tpu_torch.parallel.train import GradSync
-    from littlegan_tpu_torch.parallel.zero import Zero1
+    from littlegan_tpu_torch.parallel.zero import Zero1, shard_dense_state
 
     if dg is None:
         return None
-    return Zero1(dg, state) if cfg.shard_opt_state else GradSync(dg)
+    if cfg.shard_dense:
+        shard_dense_state(state, dg)
+    return Zero1(dg, state, cfg.shard_dense) if cfg.shard_opt_state else GradSync(dg, cfg.shard_dense)
 
 
 def run_steps(dg, case):
@@ -169,13 +173,17 @@ def run_steps(dg, case):
 
     Returns {"flat": the whole state flat under the JAX keys, "losses":
     each call's, "reduced": the bytes the last update reduced, "sharded":
-    the moment leaves ZeRO-1 shards}. ``dg`` None: one process.
-    ``case["min_shard_elems"]``: ZeRO-1's size threshold, when given (the
-    tiny test model's leaves all fall under the real one)."""
+    the moment leaves ZeRO-1 shards, "local_shapes": the shape of each
+    parameter, first moment and EMA leaf this rank holds, by port name}.
+    ``dg`` None: one process. ``case["min_shard_elems"]``: ZeRO-1's size
+    threshold, when given (the tiny test model's leaves all fall under the
+    real one). ``case["mesh"]``
+    (data, model): the ranks as a spatial mesh of that shape."""
     import torch
 
     from littlegan_tpu_torch.config import Config
     from littlegan_tpu_torch.parallel import zero
+    from littlegan_tpu_torch.parallel.mesh import spatial_group
     from littlegan_tpu_torch.parallel.train import local_draws, shard_local_batch
     from littlegan_tpu_torch.training import step as tstep
     from littlegan_tpu_torch.training.checkpoint import flatten_state
@@ -183,6 +191,8 @@ def run_steps(dg, case):
     if "min_shard_elems" in case:
         zero._MIN_SHARD_ELEMS = case["min_shard_elems"]
     cfg = Config(**case["cfg"])
+    if dg is not None and case.get("mesh"):
+        dg = spatial_group(dg, case["mesh"])
     state = port_state(cfg, case["flat"])
     sync = make_sync(dg, cfg, state)
     t = lambda x: torch.as_tensor(np.asarray(x))  # noqa: E731
@@ -208,9 +218,13 @@ def run_steps(dg, case):
                 out = make(cfg, state, k, sync=sync)(state, imgs, conds, ids1, ids2,
                                                       local_draws(draws, dg, lead), batch_no)
         losses.append({k: np.atleast_1d(out.metrics[k].numpy()) for k in tstep.LOSS_KEYS})
-    full = sync.full_state(state) if hasattr(sync, "full_state") else state
+    full = state if sync is None else sync.full_state(state)
+    local = {f".params/{k}": tuple(p.shape) for k, p in state.model.named_parameters()}
+    local.update({f".{o}/.mu/{k}": tuple(v.shape) for o in ("opt_g", "opt_d", "opt_a")
+                  for k, v in getattr(state, o).mu.items()})
+    local.update({f".ema/{k}": tuple(v.shape) for k, v in (state.ema or {}).items()})
     return {"flat": flatten_state(full), "losses": losses, "reduced": None if sync is None else sync.reduced_bytes,
-            "sharded": sum(a is not None for a in getattr(sync, "axes", {}).values())}
+            "sharded": sum(a is not None for a in getattr(sync, "axes", {}).values()), "local_shapes": local}
 
 
 def run_many(dg, cases):
@@ -267,6 +281,79 @@ def train_epochs(dg, case):
     except SystemExit as e:
         code = e.code
     return flatten_state(tr.full_state()), logged, code
+
+
+def trainer_error(dg, case):
+    """The message of the error a ``Trainer`` of ``case["cfg"]`` raises on
+    this rank (None if it is built)."""
+    from littlegan_tpu_torch.config import Config
+    from littlegan_tpu_torch.training.trainer import Trainer
+
+    root = os.path.join(case["root"], f"r{dg.rank}")
+    cfg = Config(**{**case["cfg"], "all_result_dir": os.path.join(root, "result"),
+                    "test_data_dir": os.path.join(root, "test-data")})
+    try:
+        Trainer(cfg, None, device="cpu", group=dg)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def spatial_ops(dg, case):
+    """Each op of ``case["ops"]`` on this rank's part of its global inputs,
+    over a spatial mesh of ``case["mesh"]``: {"y": the output, "grads":
+    the gradients of the inputs and parameters} per op, the backward seeded
+    with the rank's part of the op's output weights ``w`` (all of them for a
+    replicated output), so that the ranks' losses add up to the global
+    <w, y>. An op: (name, inputs, w, args); with "2nd" in its args the
+    gradient penalty's pattern instead: g = d<w, y>/dx with create_graph,
+    then the gradient of the global sum of g^2 (over the ranks)."""
+    import torch
+
+    from littlegan_tpu_torch.parallel import halo, spatial
+    from littlegan_tpu_torch.parallel.mesh import spatial_group
+
+    sg = spatial_group(dg, case["mesh"])
+    sp = spatial.Spatial(sg.model)
+    m, j = sp.m, sp.rank
+    rows = lambda a, n: a[:, j * (a.shape[1] // n):(j + 1) * (a.shape[1] // n)]  # noqa: E731
+    out = []
+    for name, inputs, w, args in case["ops"]:
+        t = {k: torch.tensor(v, dtype=torch.float64, requires_grad=True) for k, v in inputs.items()}
+        if name in ("halo", "gather"):
+            t["x"] = rows(t["x"].detach(), m).clone().requires_grad_(True)
+        if name == "halo":
+            y = halo.halo_h(t["x"], args["lo"], args["hi"], sg.model)
+        elif name == "gather":
+            y = halo.gather_h(t["x"], sg.model)
+        elif name == "slice":
+            y = halo.slice_h(t["x"], sg.model)
+        elif name == "all_reduce":
+            y = halo.all_reduce(t["p"][j], sg.model)
+        elif name == "sum_moments":
+            y = halo.sum_moments(t["p"][j], sg.model) * t["c"][j]
+        else:
+            h = args["height"]
+            if sp.tiles(h):
+                t["x"] = rows(t["x"].detach(), m).clone().requires_grad_(True)
+            if name == "conv":
+                y = spatial.conv(t["x"], t["k"], t["b"], args["stride"], sp, h)
+            elif name == "deconv":
+                y = spatial.deconv(t["x"], t["k"], t["b"], args["stride"], sp, h)
+            else:
+                y = spatial.instance_norm(t["x"], t["g"], t["b"], sp, h)
+        wt = torch.tensor(w[j] if isinstance(w, list) else w, dtype=torch.float64)
+        if wt.shape != y.shape:
+            wt = rows(wt, m)
+        if args.get("2nd"):
+            (g,) = torch.autograd.grad((wt * y).sum(), t["x"], create_graph=True)
+            loss = halo.all_reduce(g.square().sum(), sg.model) if sp.tiles(args["height"]) else g.square().sum()
+            grads = torch.autograd.grad(loss, [t[k] for k in args["2nd"]])
+            out.append({"y": y.detach().numpy(), "grads": dict(zip(args["2nd"], (x.numpy() for x in grads)))})
+            continue
+        (wt * y).sum().backward()
+        out.append({"y": y.detach().numpy(), "grads": {k: v.grad.numpy() for k, v in t.items() if v.grad is not None}})
+    return out
 
 
 if __name__ == "__main__":
