@@ -138,14 +138,28 @@ Phases, each of which fails the run on any error:
       the ``shard_dense`` state through rank 0's npz and back, bit for
       bit; the K-update graph refused under gloo; a ``Trainer`` epoch over
       the mesh (rank 1 writes nothing) with each rank's peak memory beside
-      one process's. Each phase's wall is printed after (j).
+      one process's;
+  (k) the port's last modules at full width: a two-epoch ``Trainer`` run
+      over the card store at K = ``PARITY_K`` on the orbax backend
+      (``training/checkpoint.py::OrbaxCheckpointer``, DCP underneath)
+      against the same run on the npz backend, and a run resumed from the
+      orbax run's epoch-1 checkpoint (saved asynchronously while epoch 2
+      trained) against the unbroken run, both bit for bit, with each
+      save's blocking host time; ``memory_report --measure --kernels``
+      (one update's peak beside the analytic state bytes); the doctor on
+      the card (its tiny step must launch the kernels); the conditioning
+      check on the orbax run's checkpoint over a synthetic structured set
+      of JPEGs (finite deltas, K1, K1' and K3 launched); ``C2_RANKS`` gloo
+      ranks with ``device_data`` (``--c2-rank``), each decoding only its
+      half of every batch. Each phase's wall is printed after (k).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
 is the kernels' JSON record. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--dp-rank RANK PORT
 OUT`` runs one rank of phase (h) (ii), ``--sp-rank RANK PORT OUT`` one of
-phase (j); those phases start them.
+phase (j), ``--c2-rank RANK PORT OUT`` one of phase (k); those phases start
+them.
 """
 
 from __future__ import annotations
@@ -3142,6 +3156,295 @@ def check_spatial():
     return launches, record
 
 
+PARITY_BATCHES = 16  # one epoch: 8 updates, one K = 8 replay
+PARITY_K = 8
+C2_RANKS = 2
+C2_BATCHES = 4  # of the store each rank builds
+CONDITIONING_IMAGES = 64  # one engine batch of the conditioning check
+
+
+def _parity_config(root, backend):
+    """Phase (k)'s run: ``train_config``'s full width over the card store,
+    K = 8 updates per replay, two epochs, on ``backend``."""
+    return train_config(root).replace(
+        exp_name="chip_smoke_parity", device_data=True, steps_per_dispatch=PARITY_K, epoch=2, freq_gen=0,
+        extra={"checkpoint_backend": backend})
+
+
+def _timed(trainer, box):
+    """The host wall of each call of the trainer's checkpointer ``save``
+    and ``wait`` into ``box``: a save's own time without the wait for the
+    save before it, which it makes first (listed under "wait")."""
+    ck = trainer.checkpointer
+    waits = box.setdefault("wait", [])
+    for name in ("save", "wait"):
+        fn = getattr(ck, name)
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            n = len(waits)
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            box.setdefault(_name, []).append(time.perf_counter() - t0 - sum(waits[n:]))
+            return out
+
+        setattr(ck, name, timed)
+
+
+def _parity_run(cfg, data, box=None):
+    """A Trainer of ``cfg`` trained to its last epoch; (its state flat, the
+    launches, the checkpointer's save/wait times)."""
+    import torch
+
+    from littlegan_tpu_torch.training.checkpoint import flatten_state
+    from littlegan_tpu_torch.training.trainer import Trainer
+
+    counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+    for c in counters.values():
+        c.reset()
+    tr = Trainer(cfg, data)
+    times = {}
+    _timed(tr, times)
+    tr.train()
+    torch.cuda.synchronize()
+    flat = {k: v.copy() for k, v in flatten_state(tr.state).items()}
+    return flat, {k: c.value for k, c in counters.items()}, times, tr.global_epoch
+
+
+def _structured_jpegs(root, n, dim, attrs, seed=0):
+    """A CelebA-shaped tree of ``n`` JPEGs in which each attribute bit
+    brightens the region the conditioning check's ``stat`` reads, with its
+    attribute file (the attributes ``attrs`` set, the others -1)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "img"), exist_ok=True)
+    d = dim
+    regions = [(slice(None), slice(None), [0]), (slice(None), slice(d // 4, d // 2), [1]),
+               (slice(d // 2, None), slice(None), [2]), (slice(d // 3, 2 * d // 3), slice(d // 3, 2 * d // 3), None),
+               (slice(d // 8, d // 4), slice(None), None), (slice(0, d // 4), slice(0, d // 4), None)]
+    lines = [str(n), " ".join(f"A{i}" for i in range(40))]
+    for i in range(n):
+        bits = np.where(rng.random(len(attrs)) < 0.5, -1, 1)
+        img = rng.uniform(40, 120, (d, d, 3))
+        for j, on in enumerate(bits):
+            if on > 0:
+                if j < len(regions):
+                    rows, cols, ch = regions[j]
+                    img[rows, cols, slice(None) if ch is None else ch] += 90
+                else:
+                    img += 40
+        name = f"{i:06d}.jpg"
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(os.path.join(root, "img", name), quality=95)
+        row = np.full(40, -1, np.int64)
+        row[list(attrs)] = bits
+        lines.append(name + " " + " ".join(str(v) for v in row))
+    with open(os.path.join(root, "attrs.txt"), "w") as f:
+        f.write("\n".join(lines))
+
+
+def _call_main(fn, argv, cwd):
+    """``fn(argv)`` in ``cwd``: (its exit code, its standard output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(buf):
+            code = fn(argv)
+    finally:
+        os.chdir(here)
+    return code, buf.getvalue()
+
+
+def c2_rank_main(rank: int, port: int, out_path: str) -> int:
+    """One gloo rank of phase (k)'s C2 check on the one card: a Trainer
+    with ``device_data`` over a dataset that counts the rows it yields
+    builds its store; writes the rows it decoded and the store's rows per
+    batch."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.parallel.mesh import data_group
+    from littlegan_tpu_torch.training.trainer import Trainer
+
+    class Spy(SyntheticDataset):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.yielded = []
+
+        def epoch_iterator(self, *a, **k):
+            for img, cond in super().epoch_iterator(*a, **k):
+                self.yielded.append(img.shape[0])
+                yield img, cond
+
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=C2_RANKS, rank=rank)
+    try:
+        cfg = train_config(out_path + f".r{rank}").replace(exp_name="chip_smoke_c2", device_data=True)
+        data = Spy(cfg, num_items=C2_BATCHES * cfg.batch_size)
+        tr = Trainer(cfg, data, device=dev, group=data_group(dev))
+        data.yielded.clear()  # rank 0's fixture batch
+        imgs, _ = tr._ensure_device_store()
+        record = {"yielded": data.yielded, "store_rows": int(imgs.shape[1]), "store_batches": int(imgs.shape[0])}
+        with open(out_path + f".{rank}.pkl", "wb") as f:
+            pickle.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def check_parity():
+    """Phase (k). Returns (each kernel's launches in the phase, the record)."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.scripts import doctor, memory_report, verify_conditioning
+
+    t_phase = time.time()
+    record, launches = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parity_") as root:
+        # --- the orbax backend: unbroken, resumed from epoch 1's async save, and the npz backend's run
+        runs = {}
+        for name, backend in (("orbax", "orbax"), ("npz", "npz")):
+            cfg = _parity_config(os.path.join(root, name), backend)
+            data = SyntheticDataset(cfg, num_items=PARITY_BATCHES * cfg.batch_size)
+            flat, counts, times, _ = _parity_run(cfg, data)
+            runs[name] = (flat, times)
+            add(counts)
+            # 2 epochs of PARITY_BATCHES / 2 updates, and the graph's capture first runs its K updates eagerly
+            want = {k: v * (PARITY_BATCHES + PARITY_K) for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+            require(counts == want, f"(k) {name} run launches {counts}, want {want}")
+        src = os.path.join(_parity_config(os.path.join(root, "orbax"), "orbax").result_dir, "checkpoint")
+        require(sorted(os.listdir(src)) == ["ocp-1", "ocp-2", "status.json"], f"(k) orbax tree {os.listdir(src)}")
+        cfg = _parity_config(os.path.join(root, "resumed"), "orbax")
+        dst = os.path.join(cfg.result_dir, "checkpoint")
+        os.makedirs(dst)
+        shutil.copytree(os.path.join(src, "ocp-1"), os.path.join(dst, "ocp-1"))
+        with open(os.path.join(dst, "status.json"), "w") as f:
+            json.dump({"epoch": 2, "step": PARITY_BATCHES // 2}, f)
+        flat, counts, _, epoch = _parity_run(cfg, SyntheticDataset(cfg, num_items=PARITY_BATCHES * cfg.batch_size))
+        add(counts)
+        want = {k: v * (PARITY_BATCHES // 2 + PARITY_K) for k, v in EXPECTED_TRAIN_LAUNCHES.items()}  # epoch 2
+        require(counts == want and epoch == 2, f"(k) resumed run launches {counts}, want {want}; epoch {epoch}")
+        runs["resumed"] = (flat, None)
+        for a, b in (("orbax", "npz"), ("resumed", "orbax")):
+            fa, fb = runs[a][0], runs[b][0]
+            same = fa.keys() == fb.keys() and all(np.array_equal(fa[k], fb[k]) for k in fa)
+            log(f"(k) {a} vs {b} after 2 epochs ({PARITY_BATCHES} updates, K = {PARITY_K}): bit for bit {same}")
+            require(same, f"(k) {a} != {b}")
+        save = {name: runs[name][1]["save"] for name in ("orbax", "npz")}
+        wait = runs["orbax"][1]["wait"]
+        state_mb = sum(v.nbytes for v in runs["npz"][0].values()) / 1e6
+        log(f"(k) checkpoint save, host time blocking the loop per epoch save (s): orbax {save['orbax']} "
+            f"(async; the loop's waits for a save in flight {wait}), npz {save['npz']}; state {state_mb:.1f} MB; "
+            f"an epoch of {PARITY_BATCHES // 2} updates here is shorter than a save's write")
+        record["orbax"] = {"bitwise_vs_npz": True, "resume_bitwise": True, "save_s": save["orbax"],
+                           "wait_s": wait, "npz_save_s": save["npz"], "state_mb": state_mb,
+                           "torch": torch.__version__}
+
+        # --- memory report: one update's peak on the card beside the analytic bytes
+        code, out = _call_main(memory_report.main, ["--dim", "128", "--batch", "32", "--measure", "--kernels"], root)
+        require(code == 0, f"(k) memory_report --measure exited {code}: {out[-2000:]}")
+        rep = json.loads(out.strip().splitlines()[-1])
+        meas = rep["measured"]
+        require(meas["losses_finite"] and all(meas["launches"].get(k, 0) > 0 for k in EXPECTED_TRAIN_LAUNCHES),
+                f"(k) --measure: {meas}")
+        add(meas["launches"])
+        log(f"(k) memory_report --measure (128², batch 32, kernels on): peak {meas['peak_bytes'] / 2 ** 20:.1f} MiB, "
+            f"{meas['before_bytes'] / 2 ** 20:.1f} MiB allocated before the update; analytic train state "
+            f"{rep['total_per_chip_bytes'] / 2 ** 20:.1f} MiB; launches {meas['launches']}")
+        record["memory"] = {"peak_bytes": meas["peak_bytes"], "before_bytes": meas["before_bytes"],
+                            "analytic_state_bytes": rep["total_per_chip_bytes"], "launches": meas["launches"]}
+
+        # --- the structured set, the doctor, the conditioning check
+        struct = os.path.join(root, "struct")
+        cfg = _parity_config(os.path.join(root, "orbax"), "orbax")
+        _structured_jpegs(struct, CONDITIONING_IMAGES, cfg.image_dim, cfg.attr)
+        cwd = os.path.join(root, "cwd")
+        os.makedirs(cwd)
+        base = {f: getattr(cfg, f) for f in ("all_result_dir", "test_data_dir", "use_pallas", "use_pallas_boundary",
+                                              "extra", "image_dim", "init_dim", "noise_dim", "conv_filter",
+                                              "compute_dtype", "attr")}
+        with open(os.path.join(cwd, "sample.config.json"), "w") as f:
+            json.dump({**base, "batch_size": CONDITIONING_IMAGES, "image_path": os.path.join(struct, "img"),
+                       "attr_path": os.path.join(struct, "attrs.txt")}, f)
+        code, out = _call_main(doctor.main, [], cwd)
+        summary = json.loads(out.strip().splitlines()[-1])
+        levels = {r["check"]: r["level"] for r in summary["results"]}
+        log("(k) doctor on the card: " + "; ".join(f"{r['level']} {r['check']}: {r['detail']}"
+                                                      for r in summary["results"]))
+        require(code == 0 and all(levels[k] == "PASS" for k in ("devices", "cuda-build", "train-step",
+                                                                 "image_path", "attr_path")),
+                f"(k) doctor exited {code}: {levels}")
+        step_launches = re.findall(r"(\w+) (\d+)", summary["results"][2]["detail"].split("launches", 1)[1])
+        add({k: int(v) for k, v in step_launches})
+        record["doctor"] = levels
+        counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+        for c in counters.values():
+            c.reset()
+        code, out = _call_main(verify_conditioning.main, [cfg.exp_name], cwd)
+        counts = {k: c.value for k, c in counters.items()}
+        add(counts)
+        deltas = [float(v) for v in re.findall(r"attr\d+: ([+-][0-9.]+)", out)]
+        acc = re.search(r"accuracy on real images: ([0-9.]+)", out)
+        require(code == 0 and len(deltas) == 2 * len(cfg.attr) and all(np.isfinite(deltas)) and acc,
+                f"(k) verify_conditioning exited {code}: {out[-2000:]}")
+        require(all(counts[k] > 0 for k in ("fused_instance_norm_lrelu", "norm_lrelu_from_stats",
+                                            "conv3x3_same_stats")), f"(k) conditioning launches {counts}")
+        log(f"(k) verify_conditioning on the orbax run's checkpoint (ocp-2): generator "
+            f"deltas {deltas[:len(cfg.attr)]}, adjuster deltas {deltas[len(cfg.attr):]}, D cond-head accuracy "
+            f"{acc.group(1)}; launches {counts}")
+        record["conditioning"] = {"deltas": deltas, "accuracy": float(acc.group(1)), "launches": counts}
+
+        # --- C2: two gloo ranks sharing the card, each decoding half the rows
+        out_base = os.path.join(root, "c2")
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        env.pop("LOCAL_RANK", None)
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--c2-rank", str(r), str(port),
+                                   out_base], env=env) for r in range(C2_RANKS)]
+        try:
+            codes = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        require(codes == [0] * C2_RANKS, f"(k) C2 gloo ranks exited {codes}")
+        recs = []
+        for r in range(C2_RANKS):
+            with open(out_base + f".{r}.pkl", "rb") as f:
+                recs.append(pickle.load(f))
+        half = TRAIN_BATCH // C2_RANKS
+        for r, rec in enumerate(recs):
+            log(f"(k) C2 rank {r}: its dataset yielded {sum(rec['yielded'])} rows in {len(rec['yielded'])} batches "
+                f"({rec['yielded']}); its store holds {rec['store_rows']} of each batch's {TRAIN_BATCH} rows, "
+                f"{rec['store_batches']} batches")
+            require(rec["yielded"] == [half] * C2_BATCHES and rec["store_rows"] == half
+                    and rec["store_batches"] == C2_BATCHES, f"(k) C2 rank {r} decoded {rec['yielded']}")
+        record["c2"] = [rec["yielded"] for rec in recs]
+    record["launches"] = launches
+    record["wall_s"] = time.time() - t_phase
+    log(f"phase (k) wall: {record['wall_s']:.1f} s")
+    return launches, record
+
+
 def _free_port() -> int:
     import socket
 
@@ -3151,17 +3454,19 @@ def _free_port() -> int:
 
 
 def summarize(records, serve_launches, train_launches, dispatch_launches, eval_launches, remat_launches,
-              s2d_launches, dp_launches, compat_launches, spatial_launches):
+              s2d_launches, dp_launches, compat_launches, spatial_launches, parity_launches):
     """One JSON record per kernel, bf16 (the working dtype): summed over the
     launches of one train step where phase (b) timed the train shapes, else
     over the shapes one /adjust call gives it ("per" says which; a kernel
     timed on both paths adds the /adjust sums as "serve_ms",
     "serve_plain_ms", "serve_bound_ms"); per-shape numbers under "shapes".
-    "launches" counts the nine paths' runs (serve, host-fed train,
+    "launches" counts the ten paths' runs (serve, host-fed train,
     CUDA-graph dispatch, evaluate-sample, the remat steps, the s2d-store
     replay, phase (h)'s data-parallel runs, phase (i)'s resumed runs,
-    phase (j)'s spatial runs, where every kernel is off and reads 0),
-    split in "launches_by_path"."""
+    phase (j)'s spatial runs, where every kernel is off and reads 0, and
+    phase (k)'s: the orbax and npz runs, ``--measure``'s update, the
+    doctor's step and the conditioning check), split in
+    "launches_by_path"."""
     meta = {
         "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
                                       "littlegan_tpu/ops/pallas/norm_lrelu.py:111"),
@@ -3191,7 +3496,7 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
                    "dispatch": dispatch_launches.get(name, 0), "eval": eval_launches.get(name, 0),
                    "remat": remat_launches.get(name, 0), "s2d_store": s2d_launches.get(name, 0),
                    "dp": dp_launches.get(name, 0), "compat": compat_launches.get(name, 0),
-                   "spatial": spatial_launches.get(name, 0)}
+                   "spatial": spatial_launches.get(name, 0), "parity": parity_launches.get(name, 0)}
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3219,6 +3524,9 @@ def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--sp-rank":  # a rank of phase (j), started by phase (j)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if len(sys.argv) == 5 and sys.argv[1] == "--c2-rank":  # a rank of phase (k)'s C2 check, started by phase (k)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return c2_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3271,11 +3579,14 @@ def main() -> int:
     walls["i"], t0 = time.time() - t0, time.time()
     spatial_launches, spatial = check_spatial()
     log("spatial record: " + json.dumps(spatial))
-    walls["j"] = time.time() - t0
+    walls["j"], t0 = time.time() - t0, time.time()
+    parity_launches, parity = check_parity()
+    log("parity record: " + json.dumps(parity))
+    walls["k"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
                                          eval_launches, remat_launches, s2d_launches, dp_launches,
-                                         compat_launches, spatial_launches)}))
+                                         compat_launches, spatial_launches, parity_launches)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

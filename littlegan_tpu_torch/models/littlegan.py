@@ -24,7 +24,13 @@ stats-in norm kernel. Both go through their autograd Functions
 (``FusedNormLReLU``, ``BoundaryConvS2D``, ``NormLReLUFromStats``), whose
 backwards are kernels too, so the gradient reaches every parameter. On CPU
 tensors they take their plain versions. Dropout is the reference's inert
-one: the JAX train step passes no dropout key either.
+one unless a caller passes ``dropout_masks`` to the encoder (through
+``discriminator`` or ``adjuster``): one keep-mask per encoder block, of
+the block's output shape, applied as JAX ``encoder_apply`` does with a
+``dropout_rng`` (``where(mask, x / keep, 0)``, ``keep = 1 -
+cfg.dropout_rate``). No train step passes masks, as the JAX train step
+passes no dropout key: torch cannot draw ``jax.random``'s masks, so a
+caller that wants the JAX package's dropout hands its masks over.
 
 Each network takes ``sp``, a spatial mesh's model axis
 (``parallel/spatial.py``; None otherwise): its images are this rank's rows,
@@ -118,7 +124,12 @@ class Encoder(nn.Module):
             self.add_module(f"block{i}", Block((k, k, ch[i - 1], ch[i]), ch[i]))
         s2d.register_index(self, "conv1")
 
-    def forward(self, x: torch.Tensor, s2d_in: bool = False, sp=None) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, s2d_in: bool = False, sp=None,
+                dropout_masks: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
+        """``dropout_masks``: None (the reference's inert dropout), or one
+        bool keep-mask per block of the block's output shape for the whole
+        map; under a spatial mesh ``sp`` a rank applies the H-slice of it
+        that its H-sharded map holds."""
         cfg = self.cfg
         x = x.to(_dtype(cfg))
         height = cfg.image_dim  # the map's global height, which decides its sharding under sp
@@ -142,6 +153,12 @@ class Encoder(nn.Module):
                 x = _conv(x, blk.conv.kernel, blk.conv.bias, 2, sp, height)
                 height //= 2
                 x = _norm_lrelu(x, blk.norm, cfg, sp, height)
+            if dropout_masks is not None:
+                mask = dropout_masks[i - 1].to(x.device)
+                if sp is not None and sp.tiles(height):
+                    mask = mask[:, sp.part(height)]
+                keep = 1.0 - cfg.dropout_rate
+                x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
             outputs.append(x)
         return outputs
 
@@ -303,14 +320,17 @@ class LittleGAN(nn.Module):
         x = self.decoder(self.g_head(noise, cond, sp=sp), [None] * 4, sp=sp)
         return self._image_out(self.out_conv(x, cond, sp=sp), s2d_out)
 
-    def discriminator(self, image: torch.Tensor, s2d_in: bool = False, sp=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(pr, cond) sigmoid outputs in f32."""
-        return self.d_head(self.encoder(image, s2d_in=s2d_in, sp=sp)[-1], sp=sp)
+    def discriminator(self, image: torch.Tensor, s2d_in: bool = False, sp=None,
+                      dropout_masks: Optional[Sequence[torch.Tensor]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(pr, cond) sigmoid outputs in f32; ``dropout_masks``: the
+        encoder's (:meth:`Encoder.forward`)."""
+        return self.d_head(self.encoder(image, s2d_in=s2d_in, sp=sp, dropout_masks=dropout_masks)[-1], sp=sp)
 
     def adjuster(
-        self, image: torch.Tensor, cond: torch.Tensor, s2d_in: bool = False, s2d_out: bool = False, sp=None
+        self, image: torch.Tensor, cond: torch.Tensor, s2d_in: bool = False, s2d_out: bool = False, sp=None,
+        dropout_masks: Optional[Sequence[torch.Tensor]] = None,
     ) -> torch.Tensor:
-        fmaps = self.encoder(image, s2d_in=s2d_in, sp=sp)
+        fmaps = self.encoder(image, s2d_in=s2d_in, sp=sp, dropout_masks=dropout_masks)
         x = self.decoder(self.adj_head(cond, sp=sp), fmaps[::-1], sp=sp)
         return self._image_out(self.out_conv(x, cond, sp=sp), s2d_out)
 

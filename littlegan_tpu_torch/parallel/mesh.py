@@ -20,7 +20,10 @@ rank gives its input back bit for bit.
 
 Host values (the interrupt flag, the fixture, the restore status) travel on
 a second, gloo group (``control``), so that agreeing on them never waits
-for the card.
+for the card. Under a spatial mesh the decoded batches travel on a third,
+one gloo group per data index (``SpatialGroup.feed``): model rank 0 of a
+data index decodes its rows and sends each model rank its H-slice
+(:meth:`SpatialGroup.feed_batch`), so that an image is decoded once.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import os
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -110,6 +114,10 @@ class DataGroup:
     def all(self, flag: bool) -> bool:
         return not self.any(not flag)
 
+    def barrier(self) -> None:
+        """Every rank reaches this point before any leaves it (over ``control``)."""
+        dist.barrier(group=self.control)
+
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's rows of ``t`` (the same shape on each rank),
         concatenated in rank order on the leading axis."""
@@ -174,10 +182,13 @@ class SpatialGroup(DataGroup):
     other H-slices of the same rows (the halo exchanges' and the norm
     moments'). A subgroup is a :class:`DataGroup` whose ``rank`` and
     ``world`` are the index and size along its axis; it has no control
-    group."""
+    group. ``feed`` is a gloo group of the same ranks as ``model``, for
+    the decoded batches on the host (:meth:`feed_batch`): its collectives
+    never meet the training group's."""
 
     data: Optional[DataGroup] = None
     model: Optional[DataGroup] = None
+    feed: Any = None
 
     @property
     def data_rank(self) -> int:
@@ -194,6 +205,29 @@ class SpatialGroup(DataGroup):
     @property
     def model_size(self) -> int:
         return self.model.world
+
+    def feed_batch(self, batch: Optional[Tuple[np.ndarray, np.ndarray]]):
+        """This rank's part of ``batch`` = (images (rows, H, W, C), conds),
+        which model rank 0 of this data index holds (the other model ranks
+        pass None): the images' H-slice (a scatter) and the conds whole (a
+        broadcast). Model rank 0 passing None ends the feed: every model
+        rank gets None. A header of the arrays' shapes and dtypes goes
+        first, so the other ranks need not know them. Collective over the
+        model ranks of the data index, on ``feed``."""
+        src = self.data_rank * self.model_size  # model rank 0's global rank
+        header = [None if batch is None else [(a.shape, a.dtype.str) for a in batch]]
+        dist.broadcast_object_list(header, src=src, group=self.feed)
+        if header[0] is None:
+            return None
+        (shape, dtype), (cond_shape, cond_dtype) = header[0]
+        per = shape[1] // self.model_size
+        images = torch.from_numpy(np.empty((shape[0], per, *shape[2:]), dtype))
+        chunks = None if batch is None else [torch.from_numpy(np.ascontiguousarray(batch[0][:, m * per:(m + 1) * per]))
+                                             for m in range(self.model_size)]
+        dist.scatter(images, chunks, src=src, group=self.feed)
+        cond = torch.from_numpy(np.empty(cond_shape, cond_dtype) if batch is None else np.ascontiguousarray(batch[1]))
+        dist.broadcast(cond, src, group=self.feed)
+        return images.numpy(), cond.numpy()
 
 
 def mesh_shape_of(mesh_shape: Optional[Sequence[int]], world: int) -> Tuple[int, int]:
@@ -219,11 +253,13 @@ def spatial_group(dg: DataGroup, shape: Optional[Sequence[int]] = None) -> Spati
     n_data, n_model = mesh_shape_of(shape, dg.world)
     di, mi = divmod(dg.rank, n_model)
     backend = dist.get_backend(dg.group)
-    model_group = data_group_ = None
+    model_group = data_group_ = feed = None
     for d in range(n_data):
-        g = dist.new_group([d * n_model + m for m in range(n_model)], backend=backend)
+        ranks = [d * n_model + m for m in range(n_model)]
+        g = dist.new_group(ranks, backend=backend)
+        f = dist.new_group(ranks, backend="gloo")
         if d == di:
-            model_group = g
+            model_group, feed = g, f
     for m in range(n_model):
         g = dist.new_group([d * n_model + m for d in range(n_data)], backend=backend)
         if m == mi:
@@ -234,17 +270,7 @@ def spatial_group(dg: DataGroup, shape: Optional[Sequence[int]] = None) -> Spati
         for sub in (data, model):
             sub.all_reduce_sum_(torch.zeros(1, device=dg.device))
         torch.cuda.synchronize(dg.device)
-    return SpatialGroup(dg.rank, dg.world, dg.device, dg.group, dg.control, data, model)
-
-
-def model_groups_within_node(n_model: int, world: int, local_world: Optional[int] = None) -> bool:
-    """Whether the model ranks of every data index share one node: the
-    port's ``model_groups_within_process``, the layout condition of host-fed
-    feeding over several nodes. torchrun numbers a node's ranks
-    contiguously, so it holds when the model size divides the ranks per node
-    (``LOCAL_WORLD_SIZE``; all of ``world`` on one node when unset)."""
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", world)) if local_world is None else int(local_world)
-    return local % n_model == 0
+    return SpatialGroup(dg.rank, dg.world, dg.device, dg.group, dg.control, data, model, feed)
 
 
 MESH_AXES = (("data",), ("data", "model"))

@@ -247,6 +247,38 @@ def dense_whole_state(state, dg, moments: bool = True):
     return state._replace(model=model, ema=ema, **opts)
 
 
+def state_parts(sync: Optional[GradSync], state) -> Dict[str, Tuple[int, int, int]]:
+    """The flat checkpoint keys (``training/checkpoint.py``) of the leaves
+    of which this rank holds a part, each with (axis, index, count): with
+    ``shard_dense`` the dense heads' parameters, moments and EMA (along
+    their model axis, index the model rank), with ZeRO-1 the sharded
+    moments (index the rank in the leaf's group). What the orbax backend's
+    ranks each save of their own."""
+    from littlegan_tpu_torch.compat.jax_params import jax_key  # it imports the model, which imports this
+
+    out: Dict[str, Tuple[int, int, int]] = {}
+    if sync is None:
+        return out
+
+    def put(k: str, part: Tuple[int, int, int], weights: bool) -> None:
+        key = jax_key(k)
+        for opt in _OPTS:
+            if k in getattr(state, opt).mu:
+                out[f".{opt}/.mu/{key}"] = out[f".{opt}/.nu/{key}"] = part
+        if weights:
+            out[f".params/{key}"] = part
+            if state.ema is not None and k in state.ema:
+                out[f".ema/{key}"] = part
+
+    for k in sync.dense:
+        put(k, (DENSE_AXES[k], sync.dg.model.rank, sync.dg.model.world), True)
+    for k, axis in getattr(sync, "axes", {}).items():
+        if axis is not None:
+            g = sync._group(k)
+            put(k, (axis, g.rank, g.world), False)
+    return out
+
+
 def _split(shape: Sequence[int], axis: int, n: int) -> Tuple[int, int, int]:
     """(elements before ``axis``, its size / n, elements after)."""
     return math.prod(shape[:axis]), shape[axis] // n, math.prod(shape[axis + 1:])

@@ -61,10 +61,16 @@ each rank trains ``batch_size / N`` rows of every global batch with the
 single-card step, and the ranks average their gradients before the
 optimizer (``shard_opt_state``: ZeRO-1, ``parallel/zero.py``). Every rank
 draws the global batch's draws from the same seeds and keeps its rows; a
-host-fed rank decodes only its rows (``set_rows_per_batch``); the device
-store holds each rank's rows of every batch. Rank 0 restores and its state
+rank decodes only its rows of every batch (``set_rows_per_batch``),
+host-fed and for the device store, which holds each rank's rows of every
+batch. Rank 0 restores and its state
 is broadcast; only rank 0 writes (result tree, fixture, checkpoints,
-TensorBoard, images, traces). The fixture's reuse is agreed and the
+TensorBoard, images, traces). On the orbax backend
+(``extra.checkpoint_backend = 'orbax'``, ``training/checkpoint.py::
+OrbaxCheckpointer``) every rank instead saves and restores its own parts
+(ZeRO-1's moment shards, ``shard_dense``'s heads) asynchronously, and the
+loop waits for a save in flight before an interrupt exit, an
+``epoch_callback`` and the end of ``train``. The fixture's reuse is agreed and the
 fixture broadcast from rank 0; a SIGINT is agreed at every dispatch, so
 the ranks save and stop together. Inference (``predict``, ``generate``,
 ``adjust``, ``sample_u8``) spans every visible card in one process with
@@ -75,9 +81,11 @@ A spatial mesh (``mesh_axes = ['data', 'model']``, ``mesh_shape`` [D, M],
 by default [world / 2, 2]; ``parallel/spatial.py``): the ranks form a
 :class:`~littlegan_tpu_torch.parallel.mesh.SpatialGroup`, each trains its
 rows of every global batch and of those its H-slice, the kernels off (and
-s2d where block space does not tile M), as the log line says. A host-fed
-rank decodes its data index's rows whole and keeps its H-slice; the store
-holds each rank's rows and H-slice of every batch. With ``shard_dense`` the
+s2d where block space does not tile M), as the log line says. Model rank 0
+of each data index decodes the index's rows and sends each model rank its
+H-slice over a gloo group of their own (``SpatialGroup.feed_batch``),
+host-fed and for the store, which holds each rank's rows and H-slice of
+every batch. With ``shard_dense`` the
 dense heads keep this rank's part (``parallel/zero.py``): a checkpoint and
 the predict cadence gather them (every rank calls :meth:`gather_eval`).
 With one process a ``('data', 'model')`` config trains unsharded, as the
@@ -107,15 +115,15 @@ from littlegan_tpu_torch.models.littlegan import LittleGAN
 from littlegan_tpu_torch.ops.losses import mean_squared_error
 from littlegan_tpu_torch.parallel.infer import data_parallel_infer, infer_mesh_devices
 from littlegan_tpu_torch.parallel.mesh import (
-    DataGroup, SpatialGroup, check_mesh, check_spatial, data_group, h_slice, model_groups_within_node,
-    row_slice, spatial_group,
+    DataGroup, SpatialGroup, check_mesh, check_spatial, data_group, row_slice,
+    spatial_group,
 )
 from littlegan_tpu_torch.parallel.spatial import resolve_config
 from littlegan_tpu_torch.parallel.train import GradSync, global_rows, local_draws, replicate_state
 from littlegan_tpu_torch.parallel.zero import (
-    Zero1, check_shard_dense, check_shard_opt_state, dense_whole_state, shard_dense_state,
+    Zero1, check_shard_dense, check_shard_opt_state, dense_whole_state, shard_dense_state, state_parts,
 )
-from littlegan_tpu_torch.training.checkpoint import make_checkpointer
+from littlegan_tpu_torch.training.checkpoint import OrbaxCheckpointer, make_checkpointer
 from littlegan_tpu_torch.training.state import TrainState, create_train_state, eval_params
 from littlegan_tpu_torch.training.step import (
     LOSS_KEYS, check_supported, draw_step, make_accum_train_step, make_gather_train_step,
@@ -358,24 +366,31 @@ class Trainer:
         self.global_step = 0
         self._resume_batch = 0  # mid-epoch resume point (interrupt checkpoints only)
         self._cur_batch_no = 0  # batches completed in the current epoch
-        self.checkpointer = make_checkpointer(cfg, os.path.join(cfg.result_dir, "checkpoint"))
+        self.checkpointer = make_checkpointer(cfg, os.path.join(cfg.result_dir, "checkpoint"), self.dp)
+        # the orbax backend: every rank saves and restores its own parts; npz: rank 0 the whole state
+        self._rank_saves = isinstance(self.checkpointer, OrbaxCheckpointer)
         status = {}
-        if cfg.restore and self.writes:
+        if cfg.restore and self.writes and not self._rank_saves:
             restored, status = self.checkpointer.restore_latest(self.state)
             if restored is not None:
                 print("Restored checkpoint", self.checkpointer.latest_tag())
         if self.dp is not None:  # rank 0's restored (or fresh) state on every rank
             status = self.dp.broadcast_object(status)
             replicate_state(self.state, self.dp)
-        self.global_epoch = int(status.get("epoch", 1))
-        self.global_step = int(status.get("step", 0))
-        self._resume_batch = int(status.get("batch", 0))
         self._sync: Optional[GradSync] = None
         if self.dp is not None:
             if cfg.shard_dense:  # after the restore and the broadcast of the whole state
                 shard_dense_state(self.state, self.dp)
             self._sync = (Zero1(self.dp, self.state, cfg.shard_dense) if cfg.shard_opt_state
                           else GradSync(self.dp, cfg.shard_dense))
+        self._parts = state_parts(self._sync, self.state)  # the leaves this rank holds a part of
+        if cfg.restore and self._rank_saves:  # into the parts, on every rank
+            restored, status = self.checkpointer.restore_latest(self.state, self._parts)
+            if restored is not None and self.writes:
+                print("Restored checkpoint", self.checkpointer.latest_tag())
+        self.global_epoch = int(status.get("epoch", 1))
+        self.global_step = int(status.get("step", 0))
+        self._resume_batch = int(status.get("batch", 0))
         self._writer: Optional[SummaryWriter] = None
         self._metrics_buffer = []
         self._flushing = False
@@ -389,23 +404,8 @@ class Trainer:
         self._dense_eval: Optional[Tuple[int, LittleGAN]] = None  # shard_dense: (version, whole eval model)
         self._version = 0  # counts the weight updates: the inference replicas' cache key
         self._init_fixture()
-        if self.dp is not None and dataset is not None and not cfg.device_data:
-            if not hasattr(dataset, "set_rows_per_batch"):
-                raise ValueError("host-fed data parallelism needs a dataset with set_rows_per_batch (CelebA and "
-                                 "SyntheticDataset have it), or device_data=true")
-            rows = cfg.batch_size // self.dp.data_size
-            dataset.set_rows_per_batch(rows, self.dp.data_rank)
-            if self.dp.model_size > 1:
-                if not model_groups_within_node(self.dp.model_size, self.dp.world):
-                    raise ValueError(
-                        "host-fed spatial training over several nodes needs the model ranks of each data index on "
-                        "one node (the model size dividing LOCAL_WORLD_SIZE: mesh_shape = (n_nodes * k, "
-                        "ranks_per_node / k)), or device_data=true")
-                print(f"spatial host-fed: the {self.dp.model_size} model ranks of a data index each decode its "
-                      f"{rows}/{cfg.batch_size} rows per batch and keep their H-slice")
-            else:
-                print(f"data-parallel host-fed: each rank decodes {rows}/{cfg.batch_size} rows per batch "
-                      "(its own slice)")
+        if self.dp is not None and dataset is not None:
+            self._decode_rows_only(dataset)
         if cfg.grad_accum > 1 and getattr(dataset, "batches", None) is not None \
                 and dataset.batches < 2 * cfg.grad_accum:
             print(f"WARNING: dataset has {dataset.batches} batches but one accumulation group consumes "
@@ -441,6 +441,26 @@ class Trainer:
         self._disc = wrap(_discriminate, 1)
         self._adj = wrap(_adjust, 2)
         self._sample = wrap(functools.partial(_sample, train_adj=cfg.train_adj), 3)
+
+    def _decode_rows_only(self, dataset) -> None:
+        """Under a group, a rank decodes only its data index's rows of every
+        batch (``set_rows_per_batch``), host-fed and for the device store
+        alike; under a spatial mesh only model rank 0 of each data index
+        decodes, and sends each model rank its H-slice (:meth:`_fed`)."""
+        cfg, dp = self.cfg, self.dp
+        if not hasattr(dataset, "set_rows_per_batch"):
+            raise ValueError("data parallelism needs a dataset with set_rows_per_batch (CelebA and "
+                             "SyntheticDataset have it): each rank decodes its own rows of every batch")
+        rows = cfg.batch_size // dp.data_size
+        where = "device_data" if cfg.device_data else "host-fed"
+        if dp.model_size == 1:
+            dataset.set_rows_per_batch(rows, dp.data_rank)
+            print(f"data-parallel {where}: each rank decodes {rows}/{cfg.batch_size} rows per batch (its own slice)")
+            return
+        if dp.model_rank == 0:
+            dataset.set_rows_per_batch(rows, dp.data_rank)
+        print(f"spatial {where}: model rank 0 of each data index decodes its {rows}/{cfg.batch_size} rows per "
+              f"batch and sends each of the {dp.model_size} model ranks its H-slice")
 
     # ---------------------------------------------------------- fixture ----
 
@@ -512,31 +532,55 @@ class Trainer:
         set) and f32 conditions, reshaped to (n_batches, B, ...). Row j is
         batch j of the canonical (unshuffled) order, so an epoch's
         :func:`epoch_batch_order` reproduces the host pipeline's batch
-        sequence. A data-parallel rank keeps its rows of every batch (the
-        JAX package's ``P(None, 'data')`` store), a spatial rank its rows'
-        H-slice (``P(None, 'data', 'model')``), so the per-step gather
-        stays on its card."""
+        sequence. A data-parallel rank holds its rows of every batch (the
+        JAX package's ``P(None, 'data')`` store), which its dataset alone
+        decodes; a spatial rank its rows' H-slice (``P(None, 'data',
+        'model')``), sent by model rank 0 of its data index, so the
+        per-step gather stays on its card. Every rank must hold the
+        dataset's global batch count (``dataset.batches``) of its rows: the
+        ranks agree on it before the first collective of a step, and raise
+        together where one differs."""
         if self._device_store is None:
             cache = getattr(self.dataset, "_cache", None)  # a decode cache is dead weight here
             if cache is not None:
                 self.dataset._cache = None
             try:
-                images, conds = zip(*self.dataset.epoch_iterator(0, shuffle=False))
+                batches = list(self._batches(0, 0, shuffle=False))
             finally:
                 if cache is not None:
                     self.dataset._cache = cache
-            b = self.cfg.batch_size
-            imgs, cs = np.concatenate(images), np.concatenate(conds).astype(np.float32)
-            n = imgs.shape[0] // b
-            imgs = imgs[: n * b].reshape(n, b, *imgs.shape[1:])
-            cs = cs[: n * b].reshape(n, b, -1)
-            rows, hs = row_slice(b, self.dp), h_slice(imgs.shape[2], self.dp)
-            imgs, cs = np.ascontiguousarray(imgs[:, rows, hs]), np.ascontiguousarray(cs[:, rows])
+            rows = row_slice(self.cfg.batch_size, self.dp)
+            n = len(batches)
+            imgs = np.stack([b[0] for b in batches]) if n else np.zeros((0, 0), np.float32)
+            cs = np.stack([b[1] for b in batches]).astype(np.float32) if n else np.zeros((0, 0), np.float32)
+            del batches
+            self._check_store(imgs, rows.stop - rows.start)
             print(f"device_data: uploading {imgs.nbytes / 1e9:.2f} GB {imgs.dtype} dataset "
                   f"({n} batches{'' if self.dp is None else f', rows {rows.start}-{rows.stop - 1} of each'}) "
                   f"to {self.device}")
             self._device_store = (torch.from_numpy(imgs).to(self.device), torch.from_numpy(cs).to(self.device))
         return self._device_store
+
+    def _check_store(self, imgs: np.ndarray, rows: int) -> None:
+        """The store's (n_batches, rows, ...) against the dataset's global
+        batch count (JAX ``trainer.py:560-575``), and under a group against
+        rank 0's: a rank that differs raises on every rank, before any step
+        could wait for it in a collective."""
+        n = imgs.shape[0]
+        ok = imgs.ndim > 1 and imgs.shape[1] == rows
+        expected = getattr(self.dataset, "batches", None)
+        if expected is not None:
+            ok = ok and n == expected
+        if self.dp is None:
+            if not ok:
+                raise ValueError(f"device_data: the dataset yielded {n} batches of {rows} rows, expected "
+                                 f"{expected} (dataset.batches)")
+            return
+        n0 = self.dp.broadcast_object(n)
+        if self.dp.any(not ok or n != n0):
+            raise ValueError(f"device_data: rank {self.dp.rank} holds {n} batches of its {rows} rows, rank 0 {n0}, "
+                             f"expected {expected} (dataset.batches): every rank's dataset must yield the global "
+                             "batch count")
 
     def _device_epoch(self, epoch: int) -> Iterator[int]:
         """Batch ids into the store, in the epoch's order: the same
@@ -584,15 +628,22 @@ class Trainer:
         os.write(2, b"\nSIGINT: checkpointing at the next step boundary "
                     b"(Ctrl-C again to abort without a checkpoint)\n")
 
-    def _save_interrupt(self):
-        self._flush_buffered()
+    def _save(self, tag: str, status: Dict) -> None:
+        """Checkpoint ``tag``: on the orbax backend every rank saves its own
+        parts (asynchronously); on npz rank 0 the whole state, gathered."""
+        if self._rank_saves:
+            self.checkpointer.save(tag, self.state, status, parts=self._parts)
+            return
         state = self.full_state()
         if self.writes:
+            self.checkpointer.save(tag, state, status)
+
+    def _save_interrupt(self):
+        self._flush_buffered()
+        if self.writes:
             self.writer.flush()
-            self.checkpointer.save(
-                "interrupt", state,
-                {"epoch": self.global_epoch, "step": self.global_step, "batch": self._cur_batch_no},
-            )
+        self._save("interrupt", {"epoch": self.global_epoch, "step": self.global_step, "batch": self._cur_batch_no})
+        self.checkpointer.wait()
         print("\nCheckpoint has been saved (interrupt)")
         sys.exit(1)
 
@@ -600,12 +651,12 @@ class Trainer:
         cfg = self.cfg
         if cfg.ckpt_every > 1 and epoch % cfg.ckpt_every != 0 and epoch != cfg.epoch:
             return
-        state = self.full_state()
-        if not self.writes:
-            return
-        self.checkpointer.save(str(epoch), state, {"epoch": epoch + 1, "step": self.global_step})
+        self._save(str(epoch), {"epoch": epoch + 1, "step": self.global_step})
         if cfg.keep_checkpoints > 0:
-            self._prune_checkpoints(cfg.keep_checkpoints)
+            if self._rank_saves and self.dp is not None:  # no rank still reads what rank 0 deletes
+                self.dp.barrier()
+            if self.writes:
+                self._prune_checkpoints(cfg.keep_checkpoints)
 
     def _prune_checkpoints(self, keep: int) -> None:
         """Drop all but the newest ``keep`` epoch checkpoints, except pinned
@@ -672,21 +723,37 @@ class Trainer:
                 if self._interrupted():
                     self._save_interrupt()
                 if epoch_callback is not None:
+                    self.checkpointer.wait()  # the callback sees the epoch's checkpoint complete
                     epoch_callback(epoch)
         finally:
+            self.checkpointer.wait()  # the save in flight, and the status with it
             self._in_train = False
             if main:
                 signal.signal(signal.SIGINT, prev_handler)
             if self._writer is not None:
                 self._writer.flush()
 
-    def _host_batches(self, epoch: int, start_batch: int) -> Iterator:
+    def _batches(self, epoch: int, start_batch: int, shuffle: bool = True) -> Iterator:
         """The dataset's (images, conds) batches of ``epoch`` (this rank's
-        rows), under a spatial mesh each cut to this rank's H-slice."""
-        it = self.dataset.epoch_iterator(epoch, start_batch=start_batch)
+        rows); under a spatial mesh model rank 0 of the data index decodes
+        them and each model rank receives its H-slice (:meth:`_fed`)."""
         if self.dp is None or self.dp.model_size == 1:
-            return it
-        return ((img[:, h_slice(img.shape[1], self.dp)], cond) for img, cond in it)
+            return self.dataset.epoch_iterator(epoch, shuffle=shuffle, start_batch=start_batch)
+        it = self.dataset.epoch_iterator(epoch, shuffle=shuffle, start_batch=start_batch) \
+            if self.dp.model_rank == 0 else None
+        return self._fed(it)
+
+    def _fed(self, it: Optional[Iterator]) -> Iterator:
+        """Each batch of ``it`` (model rank 0's; None on the other model
+        ranks) as this rank's H-slice of the images and the whole conds,
+        over the data index's feed group. Every rank takes as many items
+        as the others (the steps are the same), and model rank 0 ends the
+        feed for all when ``it`` is done."""
+        while True:
+            got = self.dp.feed_batch(None if it is None else next(it, None))
+            if got is None:
+                return
+            yield got
 
     def _step_epoch(self, epoch: int, resume_b: int, first: bool = False) -> Tuple[int, int]:
         """One applied update per call: host-fed, host-fed accumulation or
@@ -705,12 +772,12 @@ class Trainer:
                 return self._gather_step(self.state, imgs, conds, b1, b2, draws, batch_no)
         elif m > 1:
             updates = self._prefetch(
-                _accum_groups(_pairwise(self._host_batches(epoch, 2 * m * resume_b)), m))
+                _accum_groups(_pairwise(self._batches(epoch, 2 * m * resume_b)), m))
 
             def run(b1, b2, draws, batch_no):
                 return self._accum_step(self.state, b1, b2, draws, batch_no)
         else:
-            updates = self._prefetch(_pairwise(self._host_batches(epoch, 2 * resume_b)))
+            updates = self._prefetch(_pairwise(self._batches(epoch, 2 * resume_b)))
 
             def run(b1, b2, draws, batch_no):
                 return self._train_step(self.state, b1, b2, draws, batch_no)
@@ -1031,4 +1098,7 @@ class Trainer:
         from littlegan_tpu_torch.training.checkpoint import to_numpy
 
         flat = {jax_key(k): to_numpy(v) for k, v in eval_params(self.state).items()}
-        return make_checkpointer(self.cfg, os.path.join(self.cfg.result_dir, "model")).save_flat("model", flat)
+        ck = make_checkpointer(self.cfg, os.path.join(self.cfg.result_dir, "model"))
+        path = ck.save_flat("model", flat)
+        ck.wait()
+        return path

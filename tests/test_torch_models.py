@@ -5,7 +5,12 @@ the port's ``LittleGAN``. Inputs come from numpy. Both run in f32 on the
 CPU, for s2d on and off and with the kernel flags (``use_pallas``,
 ``use_pallas_boundary``) on and off: the JAX side then runs its Pallas
 kernels in interpret mode, the port its kernels' plain versions.
-Tolerance rtol 1e-4 / atol 1e-5, as tests/test_pallas.py:75-81."""
+Tolerance rtol 1e-4 / atol 1e-5, as tests/test_pallas.py:75-81.
+
+Active encoder dropout: JAX's keep-masks, drawn through the same
+``jax.random.split`` chain as ``encoder_apply``, handed to the port's D and
+A agree with JAX's forwards given the key within 1e-5; under a [1, 2]
+spatial mesh each rank applies its H-slice of the masks."""
 
 import math
 
@@ -166,3 +171,59 @@ def test_params_from_jax_rejects_missing_and_misshapen(tiny_cfg):
     np.testing.assert_array_equal(
         loaded.encoder.block1.conv.kernel.detach().numpy(), np.asarray(flat["encoder/block1/conv/kernel"])
     )
+
+
+# ---------------------------------------------------------- active dropout --
+
+def _jax_dropout_masks(jcfg, params, image, key):
+    """The keep-masks JAX ``encoder_apply`` draws from ``key``: one
+    ``jax.random.split`` per block, then ``bernoulli(sub, keep, shape)``."""
+    shapes = [x.shape for x in jm.encoder_apply(params["encoder"], image, jcfg)]
+    keep = 1.0 - jcfg.dropout_rate
+    masks = []
+    for shape in shapes:
+        key, sub = jax.random.split(key)
+        masks.append(torch.from_numpy(np.array(jax.random.bernoulli(sub, keep, shape))))
+    return masks
+
+
+@pytest.mark.parametrize("flags", ["plain", "s2d", "s2d+kernels"])
+def test_active_dropout_matches_jax(tiny_cfg, flags):
+    """D and A with JAX's masks handed to the port agree with JAX's forwards
+    given the key, within 1e-5 (float32); the masks do drop units."""
+    jcfg = tiny_cfg.replace(dropout_rate=0.3, **FLAGS[flags])
+    params, model, _ = _pair(jcfg)
+    _, cond, image = _inputs(jcfg)
+    key = jax.random.PRNGKey(7)
+    masks = _jax_dropout_masks(jcfg, params, image, key)
+    assert all(0 < float(m.float().mean()) < 1 for m in masks)
+    x, c = torch.from_numpy(image), torch.from_numpy(cond)
+    with torch.no_grad():
+        got = [*model.discriminator(x, dropout_masks=masks), model.adjuster(x, c, dropout_masks=masks)]
+        inert = [*model.discriminator(x), model.adjuster(x, c)]
+    want = [*jm.discriminator_apply(params, image, jcfg, key), jm.adjuster_apply(params, image, cond, jcfg, key)]
+    for g, w, n in zip(got, want, inert):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5)
+        assert not np.allclose(g.numpy(), n.numpy(), rtol=0, atol=1e-5)  # dropout moved the output
+
+
+def test_dropout_masks_under_the_spatial_mesh(tiny_cfg):
+    """Two gloo ranks of a [1, 2] mesh, each on its H-slice of the image,
+    apply their H-slice of each global mask: D and A equal one process's
+    forward with the whole masks."""
+    from torch_dp_common import run_ranks
+
+    jcfg = tiny_cfg.replace(dropout_rate=0.3, **FLAGS["plain"])
+    params, model, tcfg = _pair(jcfg)
+    _, cond, image = _inputs(jcfg, n=2)
+    masks = _jax_dropout_masks(jcfg, params, image, jax.random.PRNGKey(3))
+    x, c = torch.from_numpy(image), torch.from_numpy(cond)
+    with torch.no_grad():
+        want = [*model.discriminator(x, dropout_masks=masks), model.adjuster(x, c, dropout_masks=masks)]
+    case = dict(cfg={f: getattr(tcfg, f) for f in tcfg.__dataclass_fields__}, flat=_flatten(params),
+                image=image, cond=cond, masks=[m.numpy() for m in masks])
+    for j, (pr, cd, adj) in enumerate(run_ranks("torch_rank_workers:dropout_forward", 2, case)):
+        h = image.shape[1] // 2
+        np.testing.assert_allclose(pr, want[0].numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(cd, want[1].numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(adj, want[2].numpy()[:, j * h:(j + 1) * h], rtol=1e-5, atol=1e-6)

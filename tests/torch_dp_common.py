@@ -2,7 +2,8 @@
 
 ``run_ranks(name, world, case)`` starts ``world`` Python processes of this
 file, each a rank of one gloo process group on the CPU (an ephemeral
-localhost port), runs the function ``name`` of this module on each as
+localhost port), runs the function ``name`` of this module (or
+``"module:function"`` of another module of ``tests/``) on each as
 ``fn(DataGroup, case)`` and returns their results in rank order. A process
 start costs seconds of CPU, so a test module runs its cases of one world
 size in one start (:func:`run_many`). The
@@ -12,6 +13,7 @@ the JAX side, and the two meet in numpy arrays and torch tensors (pickled).
 
 from __future__ import annotations
 
+import importlib
 import os
 import pickle
 import socket
@@ -367,8 +369,10 @@ if __name__ == "__main__":
 
     with open(case_path, "rb") as f:
         case = pickle.load(f)
+    module, _, fn = name.rpartition(":")  # "module:function" names a function of another module here
     try:
-        result = globals()[name](data_group("cpu"), case)
+        result = getattr(importlib.import_module(module), fn) if module else globals()[fn]
+        result = result(data_group("cpu"), case)
         with open(out_path, "wb") as f:
             pickle.dump(result, f)
     finally:
