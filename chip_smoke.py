@@ -151,7 +151,19 @@ Phases, each of which fails the run on any error:
       check on the orbax run's checkpoint over a synthetic structured set
       of JPEGs (finite deltas, K1, K1' and K3 launched); ``C2_RANKS`` gloo
       ranks with ``device_data`` (``--c2-rank``), each decoding only its
-      half of every batch. Each phase's wall is printed after (k).
+      half of every batch;
+  (l) kernel coverage, the shapes the JAX package's Pallas kernels take
+      beyond the reference's widths: K3 on both routes and its fold at
+      every Cout of ``COVER_K3_COUTS`` (one or two padded Cout tiles, the
+      fold's 16-byte and element layouts) over block1's 128² s2d input at
+      ``COVER_K3_BATCHES`` and at 256 x 256 x 12 (``COVER_K3_WIDE``), with
+      the host's plan held to the library's shared memory and partial
+      counts; K1 (the three-launch two-pass route), K2 and K1' bwd at the
+      whole-sample maps beyond 16 blocks' shared memory (``COVER_K1``);
+      each against its plain version with phase (b)'s tolerances, once
+      launched, timed beside its bound; then the doctor's tiny train step
+      at the JAX doctor's block1 width 6, every kernel launched. Each
+      phase's wall is printed after (l).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -165,6 +177,7 @@ them.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -460,7 +473,7 @@ def check_kernels():
             x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).to(dt)
             err = k1_check(x, f"K1 {dtype_name} {shape}")
             pms = time_ms(lambda: fused_instance_norm_lrelu_plain(x, gamma, beta, 0.3))
-            plan = nl.fwd_plan(shape[0], x[0].numel(), item, nl._sms(dev), nl.holds_whole_sample(shape))
+            plan = nl.fwd_plan(shape[0], x[0].numel(), item, nl._sms(dev), nl.holds_whole_sample(shape, item))
             rec("fused_instance_norm_lrelu", dtype_name, shape, err,
                 lambda: fused_instance_norm_lrelu(x, gamma, beta, 0.3), pms, None,
                 bound(2 * x.numel() * item + 8 * shape[0] + 8, 7 * x.numel(), dtype_name), per_step,
@@ -473,7 +486,7 @@ def check_kernels():
                 f"{k1_check(x, f'K1 float32 {shape} offset {offset}'):.3g}")
         for shape in K1_OFF_PATH:
             x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).to(dt)
-            plan = nl.fwd_plan(shape[0], x[0].numel(), item, nl._sms(dev), nl.holds_whole_sample(shape))
+            plan = nl.fwd_plan(shape[0], x[0].numel(), item, nl._sms(dev), nl.holds_whole_sample(shape, item))
             log(f"  K1 {dtype_name} {shape} off the main path, {plan}: max_abs_err "
                 f"{k1_check(x, f'K1 {dtype_name} {shape}'):.3g}")
             del x
@@ -757,7 +770,7 @@ def compare_fwd_routes():
     for shape, per_step in [(s, None) for s in dict.fromkeys(K1_SHAPES)] + K1_STEP:
         x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).bfloat16()
         n, m, sms = shape[0], x[0].numel(), nl._sms(dev)
-        whole = nl.holds_whole_sample(shape)
+        whole = nl.holds_whole_sample(shape, 2)
         plans = {}
         for b in FWD_BLOCKS:
             try:
@@ -3445,6 +3458,190 @@ def check_parity():
     return launches, record
 
 
+# phase (l): kernel coverage. K3 (both routes) and its fold at every
+# COVER_K3_COUTS width over block1's s2d input at 128² (64 x 64 x 12) at
+# COVER_K3_BATCHES, and at 256 x 256 x 12 (512², the tightest shared memory
+# the sweep's widths reach) at COVER_K3_WIDE; K1, K2 and K1' bwd at the
+# whole-sample maps beyond 16 blocks' shared memory (heights not a multiple
+# of 8, two-pass moments: the three-launch route); then the doctor's tiny
+# step with the JAX doctor's block1 width 6 on the card
+COVER_K3_COUTS = (6, 12, 24, 48, 96, 192, 256)
+COVER_K3_BATCHES = (1, 8, 32)
+COVER_K3_WIDE = [((n, 256, 256, 12), c) for c in (64, 256) for n in (1, 8)]
+COVER_K1 = [((32, 92, 92, 128), "float32"), ((32, 124, 124, 128), "bfloat16"), ((8, 86, 86, 256), "bfloat16")]
+
+
+def check_coverage():
+    """Phase (l). Every new route on the card against its plain version with
+    phase (b)'s tolerances, its device time beside its bound; K3's host
+    plan (``conv_plan``) against the library's own shared memory and
+    partial counts. Returns (each kernel's launches in the doctor's step,
+    the record)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from littlegan_tpu_torch.ops.cuda import _build
+    from littlegan_tpu_torch.ops.cuda import boundary_conv as bc
+    from littlegan_tpu_torch.ops.cuda import norm_lrelu as nl
+    from littlegan_tpu_torch.scripts import doctor
+
+    t_phase = time.time()
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    gamma = torch.tensor([1.3], device=dev)
+    beta = torch.tensor([-0.2], device=dev)
+    lib = _build.lib()
+    counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+    failures, rows = [], []
+
+    def launched(name, fn):
+        """fn()'s result, and whether the wrapper ``name`` launched once."""
+        before = counters[name].value
+        out = fn()
+        torch.cuda.synchronize()
+        return out, counters[name].value - before == 1
+
+    def row(name, dtype, shape, err, ok_launch, fn, bnd, reps=20, **extra):
+        ms = time_ms(fn, reps)
+        rows.append({"kernel": name, "shape": list(shape), "dtype": dtype, "max_abs_err": err,
+                     "launched": ok_launch, "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1], **extra})
+        if not ok_launch:
+            failures.append(f"{name} {dtype} {shape}: the wrapper did not launch its kernel once")
+        log(f"  (l) {name} {dtype} {tuple(shape)}: max_abs_err {err:.3g}  launches 1: {ok_launch}  "
+            f"kernel {ms:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]}, {bnd[0] / ms:.0%})"
+            + "".join(f"  {k} {v}" for k, v in extra.items()))
+
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        atol, rtol = TOL[dtype_name]
+        srtol = GRAD_SUM_RTOL[dtype_name]
+        item = torch.tensor([], dtype=dt).element_size()
+        code = _build.dtype_code(torch.empty(0, dtype=dt))
+        log(f"(l) K3 conv3x3_same_stats ({bc.kernel_route(dt)}) and its fold, {dtype_name}, "
+            f"Cout {COVER_K3_COUTS} at batches {COVER_K3_BATCHES} of 64x64x12, and 256x256x12")
+        cases = [((n, 64, 64, 12), c) for c in COVER_K3_COUTS for n in COVER_K3_BATCHES] + COVER_K3_WIDE
+        for xshape, cout in cases:
+            plan = bc.conv_plan(dt, xshape, cout)
+            lib_plan = (lib.lg_conv3x3_smem_bytes(code, xshape[2], xshape[3], plan.cout_tile),
+                        lib.lg_conv3x3_partials(code, xshape[1], xshape[2], cout, plan.cout_tile))
+            if (plan.smem, plan.parts) != lib_plan or not bc.supports(xshape, cout, dt):
+                failures.append(f"K3 {dtype_name} {xshape} -> {cout}: {plan} vs the library's (smem, parts) "
+                                f"{lib_plan}, supports {bc.supports(xshape, cout, dt)}")
+                continue
+            x = torch.randn(xshape, device=dev, generator=gen).to(dt)
+            w = (torch.randn((3, 3, xshape[3], cout), device=dev, generator=gen) * 0.2).to(dt)
+            b = (torch.randn((cout,), device=dev, generator=gen) * 0.1).to(dt)
+            (y, s1, s2), ok = launched("conv3x3_same_stats", lambda: bc.conv3x3_same_stats(x, w, b))
+            py, ps1, ps2 = bc.conv3x3_same_stats_plain(x, w, b)
+            scale = py.float().abs().sum((1, 2, 3))
+            if not (_within(y, py, atol, rtol) and bool(((s1 - ps1).abs() <= STATS_RTOL * scale).all())
+                    and bool(((s2 - ps2).abs() <= STATS_RTOL * ps2.abs()).all())):
+                failures.append(f"K3 {dtype_name} {xshape} -> {cout}: max_abs_err {_max_err(y, py):.3g}, "
+                                f"s1 {_max_err(s1, ps1):.3g}, s2 {_max_err(s2, ps2):.3g}")
+            n_out = y.numel()
+            reps = 20 if n_out * item <= 64 << 20 else 5
+            row("conv3x3_same_stats", dtype_name, xshape + (cout,), _max_err(y, py), ok,
+                lambda: bc.conv3x3_same_stats(x, w, b),
+                bound((x.numel() + w.numel() + b.numel() + n_out) * item + 8 * xshape[0],
+                      2 * n_out * 9 * xshape[3] + 3 * n_out, dtype_name), reps,
+                route=plan.route, cout_tile=plan.cout_tile, cout_tiles=plan.cout_tiles, nbuf=plan.nbuf)
+            del py, ps1, ps2, x
+            gy = torch.randn(y.shape, device=dev, generator=gen).to(dt)
+            gs1 = torch.randn((xshape[0],), device=dev, generator=gen) * 1e-3
+            gs2 = torch.randn((xshape[0],), device=dev, generator=gen) * 1e-4
+            (fy, fdb), ok = launched("conv3x3_bwd_fold", lambda: bc.conv3x3_bwd_fold(y, gy, gs1, gs2))
+            py, pdb = bc.conv3x3_bwd_fold_plain(y, gy, gs1, gs2)
+            if not (_within(fy, py, atol, rtol)
+                    and bool(((fdb - pdb).abs() <= srtol * pdb.abs().max().clamp_min(1e-30)).all())):
+                failures.append(f"K3 fold {dtype_name} {y.shape}: max_abs_err {_max_err(fy, py):.3g}, "
+                                f"db {_max_err(fdb, pdb):.3g}")
+            row("conv3x3_bwd_fold", dtype_name, tuple(y.shape), _max_err(fy, py), ok,
+                lambda: bc.conv3x3_bwd_fold(y, gy, gs1, gs2),
+                bound(3 * n_out * item + 8 * xshape[0] + 4 * cout, 4 * n_out, dtype_name), reps,
+                layout="16-byte" if bc.fold_vectorised(cout, item) else "element")
+            del y, gy, fy, py
+
+    log(f"(l) K1, K2 and K1' bwd at whole-sample maps beyond 16 blocks' shared memory: {COVER_K1}")
+    for shape, dtype_name in COVER_K1:
+        dt = getattr(torch, dtype_name)
+        atol, rtol = TOL[dtype_name]
+        batol, brtol = BWD_TOL[dtype_name]
+        srtol = GRAD_SUM_RTOL[dtype_name]
+        item = torch.tensor([], dtype=dt).element_size()
+        n, m = shape[0], math.prod(shape[1:])
+        plan = nl.fwd_plan(n, m, item, nl._sms(dev), nl.holds_whole_sample(shape, item))
+        if not (plan.two_pass and not plan.cluster):
+            failures.append(f"K1 {dtype_name} {shape}: {plan} is not the three-launch two-pass route")
+        reps = 5
+        x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).to(dt)
+        (y, stats), ok = launched("fused_instance_norm_lrelu", lambda: nl._fused_forward(x, gamma, beta, 0.3, 1e-3))
+        want = nl.fused_instance_norm_lrelu_plain(x, gamma, beta, 0.3)
+        mo = nl.instance_norm_moments_plain(x)
+        if not (_within(y, want, atol, rtol)
+                and bool(((stats[0] - mo[0]).abs() <= 1e-6 * (mo[0].abs() + mo[1])).all())
+                and bool(((stats[1] - mo[1]).abs() <= 1e-5 * mo[1]).all())):
+            failures.append(f"K1 {dtype_name} {shape}: max_abs_err {_max_err(y, want):.3g}, (mean, std) "
+                            f"{stats[:, :2].tolist()} vs {mo[:, :2].tolist()}")
+        row("fused_instance_norm_lrelu", dtype_name, shape, _max_err(y, want), ok,
+            lambda: nl.fused_instance_norm_lrelu(x, gamma, beta, 0.3),
+            bound(2 * x.numel() * item + 8 * n + 8, 7 * x.numel(), dtype_name), reps, plan=tuple(plan))
+        del y, want
+        dy = torch.randn(shape, device=dev, generator=gen).to(dt)
+        got, ok = launched("fused_instance_norm_lrelu_bwd",
+                           lambda: nl.fused_instance_norm_lrelu_bwd(x, dy, gamma, beta, 0.3, 1e-3, stats))
+        want = nl.fused_instance_norm_lrelu_bwd_plain(x, dy, gamma, beta, 0.3, stats=mo)
+        nrm = (x.float() - mo[0].reshape(-1, 1, 1, 1)) / (mo[1].reshape(-1, 1, 1, 1) + 1e-3)
+        away = (nrm * gamma + beta).abs() > KINK
+        scales = (float((dy.float() * nrm).abs().sum()), float(dy.float().abs().sum()))
+        if not (_within(got[0][away], want[0][away], batol, brtol)
+                and float((got[1] - want[1]).abs()) <= srtol * scales[0]
+                and float((got[2] - want[2]).abs()) <= srtol * scales[1]):
+            failures.append(f"K2 {dtype_name} {shape}: dx {_max_err(got[0][away], want[0][away]):.3g}, "
+                            f"dgamma {float(got[1])} vs {float(want[1])}, dbeta {float(got[2])} vs {float(want[2])}")
+        row("fused_instance_norm_lrelu_bwd", dtype_name, shape, _max_err(got[0][away], want[0][away]), ok,
+            lambda: nl.fused_instance_norm_lrelu_bwd(x, dy, gamma, beta, 0.3, 1e-3, stats),
+            bound(3 * x.numel() * item + 8 * n + 16, 14 * x.numel(), dtype_name), reps,
+            plan=tuple(nl.bwd_plan(n, m, item, nl._sms(dev))), kink_elements=int((~away).sum()))
+        del got, want, nrm, away
+        yv = (x.float() + 0.3).to(dt)
+        yf = yv.float()
+        s1, s2 = yf.sum((1, 2, 3)), yf.square().sum((1, 2, 3))
+        got, ok = launched("norm_lrelu_from_stats_bwd",
+                           lambda: nl.norm_lrelu_from_stats_bwd(yv, s1, s2, gamma, beta, dy, 0.3))
+        want = nl.norm_lrelu_from_stats_bwd_plain(yv, s1, s2, gamma, beta, dy, 0.3)
+        mean = (s1 / m).reshape(-1, 1, 1, 1)
+        std = ((s2 / m).reshape(-1, 1, 1, 1) - mean.square()).clamp_min(0).sqrt()
+        away = (((yf - mean) / (std + 1e-3)) * gamma + beta).abs() > KINK
+        sums_ok = all(bool(((got[i] - want[i]).abs() <= srtol * want[i].abs().max().clamp_min(1e-30)).all())
+                      for i in (1, 2))
+        nrm_scale = float((dy.float() * (yf - mean) / (std + 1e-3)).abs().sum())
+        if not (_within(got[0][away], want[0][away], batol, brtol) and sums_ok
+                and float((got[3] - want[3]).abs()) <= srtol * nrm_scale
+                and float((got[4] - want[4]).abs()) <= srtol * float(dy.float().abs().sum())):
+            failures.append(f"K1' bwd {dtype_name} {shape}: dy {_max_err(got[0][away], want[0][away]):.3g}, "
+                            f"ds1 {_max_err(got[1], want[1]):.3g}, ds2 {_max_err(got[2], want[2]):.3g}")
+        row("norm_lrelu_from_stats_bwd", dtype_name, shape, _max_err(got[0][away], want[0][away]), ok,
+            lambda: nl.norm_lrelu_from_stats_bwd(yv, s1, s2, gamma, beta, dy, 0.3),
+            bound(3 * yv.numel() * item + 16 * n + 16, 12 * yv.numel(), dtype_name), reps)
+        del x, dy, yv, yf, got, want, away, mean, std
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("(l) kernel coverage:\n  " + "\n  ".join(failures))
+
+    # --- the doctor's tiny step, block1 at the JAX doctor's width 6, both kernel flags
+    for c in counters.values():
+        c.reset()
+    detail = doctor.train_step(SimpleNamespace(use_pallas=True, use_pallas_boundary=True), "cuda")
+    launches = {k: c.value for k, c in counters.items()}
+    log(f"(l) doctor train-step (conv_filter [16, 12, 8, 6, 4], both kernel flags) on the card: PASS {detail}")
+    require(all(v > 0 for v in launches.values()), f"(l) doctor step launches {launches}")
+    record = {"rows": rows, "doctor": {"detail": detail, "launches": launches}, "wall_s": time.time() - t_phase}
+    log(f"phase (l) wall: {record['wall_s']:.1f} s")
+    return launches, record
+
+
 def _free_port() -> int:
     import socket
 
@@ -3454,7 +3651,7 @@ def _free_port() -> int:
 
 
 def summarize(records, serve_launches, train_launches, dispatch_launches, eval_launches, remat_launches,
-              s2d_launches, dp_launches, compat_launches, spatial_launches, parity_launches):
+              s2d_launches, dp_launches, compat_launches, spatial_launches, parity_launches, coverage):
     """One JSON record per kernel, bf16 (the working dtype): summed over the
     launches of one train step where phase (b) timed the train shapes, else
     over the shapes one /adjust call gives it ("per" says which; a kernel
@@ -3465,8 +3662,11 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
     replay, phase (h)'s data-parallel runs, phase (i)'s resumed runs,
     phase (j)'s spatial runs, where every kernel is off and reads 0, and
     phase (k)'s: the orbax and npz runs, ``--measure``'s update, the
-    doctor's step and the conditioning check), split in
-    "launches_by_path"."""
+    doctor's step and the conditioning check; phase (l)'s doctor step at
+    block1 width 6), split in "launches_by_path". Phase (l)'s rows, the
+    kernel at the shapes the reference's widths do not reach, are under
+    "coverage"."""
+    coverage_launches, coverage_record = coverage
     meta = {
         "fused_instance_norm_lrelu": ("littlegan_tpu_torch/csrc/norm_lrelu.cu",
                                       "littlegan_tpu/ops/pallas/norm_lrelu.py:111"),
@@ -3496,7 +3696,8 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
                    "dispatch": dispatch_launches.get(name, 0), "eval": eval_launches.get(name, 0),
                    "remat": remat_launches.get(name, 0), "s2d_store": s2d_launches.get(name, 0),
                    "dp": dp_launches.get(name, 0), "compat": compat_launches.get(name, 0),
-                   "spatial": spatial_launches.get(name, 0), "parity": parity_launches.get(name, 0)}
+                   "spatial": spatial_launches.get(name, 0), "parity": parity_launches.get(name, 0),
+                   "coverage": coverage_launches.get(name, 0)}
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3511,6 +3712,8 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
         if routes:
             entry["kernel_route"] = routes
         entry["shapes"] = records[name]["shapes"]
+        entry["coverage"] = [{k: r[k] for k in ("shape", "dtype", "ms", "bound_ms", "max_abs_err")}
+                             for r in coverage_record["rows"] if r["kernel"] == name]
         out.append(entry)
     return out
 
@@ -3582,11 +3785,13 @@ def main() -> int:
     walls["j"], t0 = time.time() - t0, time.time()
     parity_launches, parity = check_parity()
     log("parity record: " + json.dumps(parity))
-    walls["k"] = time.time() - t0
+    walls["k"], t0 = time.time() - t0, time.time()
+    coverage = check_coverage()
+    walls["l"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
                                          eval_launches, remat_launches, s2d_launches, dp_launches,
-                                         compat_launches, spatial_launches, parity_launches)}))
+                                         compat_launches, spatial_launches, parity_launches, coverage)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel littlegan_tpu/ops/pallas/boundary_conv.py
 // (_conv3x3_kernel / conv3x3_same_stats): encoder block1 in space-to-depth
-// form, x (N, H, W, Cin<=16) NHWC, w (3, 3, Cin, Cout) HWIO, bias (Cout,).
+// form, x (N, H, W, Cin<=16) NHWC, w (3, 3, Cin, Cout) HWIO, bias (Cout,),
+// any Cout >= 1, as the Pallas kernel takes any.
 // It writes y = conv(x, w) + bias in x's type and, from the f32 values
 // before that cast, each sample's sum(y) and sum(y^2), which the instance
 // norm that follows takes instead of a stats pass over y
@@ -50,8 +51,19 @@
 // 4 pixels x 8 channels and stores them as 16-byte vectors, and the block
 // reduces its stats to one partial.
 //
-// Both end with a second launch that reduces each sample's tile partials
-// in a fixed order (no float atomics, so s1 and s2 are deterministic).
+// Any Cout, in both: a block computes one Cout tile of ct = 8, 16, 32, 64
+// or 128 channels (the least of these that holds Cout, or tiles of 128 for
+// a Cout above 128 over a grid dimension of Cout tiles; the host picks ct,
+// ops/cuda/boundary_conv.py::conv_plan). A tile's channels past Cout get
+// zero weights and bias in shared memory; they stay out of the stores and
+// of the stats. Where the one tile is the whole of Cout (8 ... 128, the
+// model's 64 among them) the bf16 kernel is instantiated with every mask
+// folded away (kExact); y's rows take 16-byte stores where Cout is a
+// multiple of 8 (4 in f32), element stores elsewhere.
+//
+// Both end with a second launch that reduces each sample's partials (per
+// pixel tile and Cout tile) in a fixed order (no float atomics, so s1 and
+// s2 are deterministic).
 //
 // C interface for ctypes: pointers and the stream are void*, the function
 // returns cudaGetLastError() as an int.
@@ -74,14 +86,15 @@ __device__ __forceinline__ void store8(float* dst, const float* v) {
   reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// Block geometry for a given Cout: Cout/8 channel groups, the rest of the
-// 256 threads are pixel groups of kPixPerThread pixels each.
+// Block geometry for a Cout tile of `ct` channels (8, 16, 32, 64 or 128):
+// ct/8 channel groups, the rest of the 256 threads are pixel groups of
+// kPixPerThread pixels each.
 struct Tile {
   int ch_groups, pix_groups, pixels;
 };
 
-__host__ __device__ inline Tile tile_for(int cout) {
-  const int cg = cout / kChPerThread;
+__host__ __device__ inline Tile tile_for(int ct) {
+  const int cg = ct / kChPerThread;
   const int pg = kThreads / cg;
   return {cg, pg, pg * kPixPerThread};
 }
@@ -92,23 +105,30 @@ __host__ __device__ inline int staged_rows(int pixels, int wd) {
   return spanned + 2;
 }
 
+// grid (pixel tiles, n, Cout tiles): block (i, n, j) owns output pixels
+// [i*pixels, +pixels) of sample n and channels [j*ct, +ct), the channels
+// past cout zero weights and bias, kept out of y and of the stats.
 __global__ void __launch_bounds__(kThreads)
     conv3x3_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
                          const float* __restrict__ bias, float* __restrict__ y, float* __restrict__ psum,
-                         float* __restrict__ psq, int h, int wd, int cin, int cout) {
+                         float* __restrict__ psq, int h, int wd, int cin, int cout, int ct) {
   extern __shared__ float smem[];
-  const Tile tile = tile_for(cout);
+  const Tile tile = tile_for(ct);
   const int rows = staged_rows(tile.pixels, wd);
   const int taps = 9 * cin;
-  float* ws = smem;                 // [taps][cout]
-  float* xs = smem + taps * cout;   // [rows][wd + 2][cin]
+  float* ws = smem;               // [taps][ct]
+  float* xs = smem + taps * ct;   // [rows][wd + 2][cin]
 
   const int64_t n = blockIdx.y;
   const int hw = h * wd;
   const int p0 = blockIdx.x * tile.pixels;
   const int r0 = p0 / wd - 1;  // global row of staged row 0
+  const int cbase = blockIdx.z * ct;  // this block's first output channel
 
-  for (int i = threadIdx.x; i < taps * cout; i += kThreads) ws[i] = w[i];
+  for (int i = threadIdx.x; i < taps * ct; i += kThreads) {
+    const int k = i / ct, c = cbase + i - (i / ct) * ct;
+    ws[i] = c < cout ? w[k * cout + c] : 0.f;
+  }
   const int row_elems = (wd + 2) * cin;
   const float* xn = x + n * hw * cin;
   for (int i = threadIdx.x; i < rows * row_elems; i += kThreads) {
@@ -146,10 +166,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int ky = 0; ky < 3; ++ky) {
     for (int kx = 0; kx < 3; ++kx) {
       const int xoff = (ky * (wd + 2) + kx) * cin;
-      const float* wt = ws + ((ky * 3 + kx) * cin) * cout + co0;
+      const float* wt = ws + ((ky * 3 + kx) * cin) * ct + co0;
       for (int ci = 0; ci < cin; ++ci) {
-        const float4 w0 = *reinterpret_cast<const float4*>(wt + ci * cout);
-        const float4 w1 = *reinterpret_cast<const float4*>(wt + ci * cout + 4);
+        const float4 w0 = *reinterpret_cast<const float4*>(wt + ci * ct);
+        const float4 w1 = *reinterpret_cast<const float4*>(wt + ci * ct + 4);
         const float wv[kChPerThread] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
         for (int k = 0; k < kPixPerThread; ++k) {
@@ -161,9 +181,12 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  const int gco = cbase + co0;  // this thread's first output channel
   float bv[kChPerThread];
 #pragma unroll
-  for (int j = 0; j < kChPerThread; ++j) bv[j] = bias[co0 + j];
+  for (int j = 0; j < kChPerThread; ++j) bv[j] = gco + j < cout ? bias[gco + j] : 0.f;
+  // 16-byte stores where the thread's 8 channels are all real and aligned
+  const bool vec = (cout % 4 == 0) && gco + kChPerThread <= cout;
   float s = 0.f, q = 0.f;
   float* yn = y + n * hw * cout;
 #pragma unroll
@@ -173,11 +196,20 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kChPerThread; ++j) {
       v[j] = acc[k][j] + bv[j];
-      s += v[j];
-      q += v[j] * v[j];
+      if (gco + j < cout) {
+        s += v[j];
+        q += v[j] * v[j];
+      }
     }
     const int p = p0 + pg + k * tile.pix_groups;
-    store8(yn + static_cast<int64_t>(p) * cout + co0, v);
+    float* dst = yn + static_cast<int64_t>(p) * cout + gco;
+    if (vec) {
+      store8(dst, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kChPerThread; ++j)
+        if (gco + j < cout) dst[j] = v[j];
+    }
   }
 
   __shared__ float red_s[kThreads / 32], red_q[kThreads / 32];
@@ -197,8 +229,10 @@ __global__ void __launch_bounds__(kThreads)
       ts += red_s[i];
       tq += red_q[i];
     }
-    psum[n * gridDim.x + blockIdx.x] = ts;
-    psq[n * gridDim.x + blockIdx.x] = tq;
+    // (sample, Cout tile, pixel tile) row-major: a sample's partials are contiguous
+    const int64_t part = (n * gridDim.z + blockIdx.z) * gridDim.x + blockIdx.x;
+    psum[part] = ts;
+    psq[part] = tq;
   }
 }
 
@@ -224,21 +258,26 @@ __global__ void reduce_partials_kernel(const float* __restrict__ psum,
   }
 }
 
+__host__ __device__ inline int fma_smem_bytes(int wd, int cin, int ct) {
+  return static_cast<int>(sizeof(float)) *
+         (9 * cin * ct + staged_rows(tile_for(ct).pixels, wd) * (wd + 2) * cin);
+}
+
 cudaError_t launch_fma(const float* x, const float* w, const float* b, float* y, float* psum,
                        float* psq, float* s1, float* s2, int n, int h, int wd, int cin, int cout,
-                       cudaStream_t stream) {
-  const Tile tile = tile_for(cout);
+                       int ct, cudaStream_t stream) {
+  const Tile tile = tile_for(ct);
   const int tiles = (h * wd + tile.pixels - 1) / tile.pixels;
-  const size_t smem =
-      sizeof(float) * (9 * cin * cout + staged_rows(tile.pixels, wd) * (wd + 2) * cin);
+  const int ctiles = (cout + ct - 1) / ct;
+  const int smem = fma_smem_bytes(wd, cin, ct);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv3x3_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t e =
+        cudaFuncSetAttribute(conv3x3_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  conv3x3_stats_kernel<<<dim3(tiles, n), kThreads, smem, stream>>>(x, w, b, y, psum, psq, h, wd, cin,
-                                                                   cout);
-  reduce_partials_kernel<<<n, 32, 0, stream>>>(psum, psq, tiles, s1, s2);
+  conv3x3_stats_kernel<<<dim3(tiles, n, ctiles), kThreads, smem, stream>>>(x, w, b, y, psum, psq, h, wd,
+                                                                           cin, cout, ct);
+  reduce_partials_kernel<<<n, 32, 0, stream>>>(psum, psq, tiles * ctiles, s1, s2);
   return cudaGetLastError();
 }
 
@@ -252,6 +291,7 @@ constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory a block can have
 // Warps along Cout: a warp holds at most 64 output channels.
 __host__ __device__ constexpr int mma_warps_n(int cout) { return cout > 64 ? 2 : 1; }
 
+// A block computes one Cout tile of COUT channels (8, 16, 32, 64 or 128).
 template <int COUT>
 struct MmaCfg {
   static constexpr int kWarpsN = mma_warps_n(COUT);
@@ -326,13 +366,20 @@ __device__ __forceinline__ void load_pixel(const __nv_bfloat16* src, int cin, ui
   hi = make_uint4(v[4], v[5], v[6], v[7]);
 }
 
-template <int COUT>
+// COUT: the Cout tile, blockIdx.y which one. kExact: the tile is the whole
+// of Cout (cout == COUT, grid.y 1), and every mask below folds away; else
+// channels cbase + [0, COUT) past cout have zero weights and bias and stay
+// out of y and the stats, and y's rows are cout wide.
+template <int COUT, bool kExact>
 __global__ void __launch_bounds__(MmaCfg<COUT>::kThreads)
     conv3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                        const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
                        float* __restrict__ psum, float* __restrict__ psq, int n, int h, int wd,
-                       int cin, int tiles_per_sample, int nbuf) {
+                       int cin, int cout_arg, int tiles_per_sample, int nbuf) {
   using C = MmaCfg<COUT>;
+  const int cout = kExact ? COUT : cout_arg;  // y's row length and w's
+  const int cbase = kExact ? 0 : static_cast<int>(blockIdx.y) * COUT;
+  auto real = [&](int c) { return kExact || cbase + c < cout; };
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int cols = mma_cols(wd);
   const int rows = staged_rows(kMmaPixels, wd);
@@ -351,8 +398,8 @@ __global__ void __launch_bounds__(MmaCfg<COUT>::kThreads)
 #pragma unroll
   for (int nt = 0; nt < C::kNT; ++nt) {
     const int co = warp_n * C::kWarpCout + nt * 8 + 2 * tq;
-    b0[nt] = __bfloat162float(bias[co]);
-    b1[nt] = __bfloat162float(bias[co + 1]);
+    b0[nt] = real(co) ? __bfloat162float(bias[cbase + co]) : 0.f;
+    b1[nt] = real(co + 1) ? __bfloat162float(bias[cbase + co + 1]) : 0.f;
   }
   // ldmatrix row addresses of the B operand: matrices (n 0-7, k 0-7),
   // (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15) from lanes 0-7,
@@ -404,16 +451,18 @@ __global__ void __launch_bounds__(MmaCfg<COUT>::kThreads)
   if (blockIdx.x < total) stage(blockIdx.x, xs0);
   cp_async_commit();
   // Weights, once per block, while the first rows load: ws[tap][co][k] =
-  // w[tap][k][co] (w is (9*cin, COUT) row-major), zero for k >= cin.
+  // w[tap][k][cbase + co] (w is (9*cin, cout) row-major), zero for k >= cin
+  // and for channels past cout.
   {
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
     for (int row = tid; row < 9 * COUT; row += C::kThreads) {
       const int tap = row / COUT, co = row - tap * COUT;
-      const __nv_bfloat16* wt = w + tap * cin * COUT + co;
+      const int kin = real(co) ? cin : 0;
+      const __nv_bfloat16* wt = w + tap * cin * cout + cbase + co;
       uint32_t v[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        v[j] = pack_bf16(2 * j < cin ? wt[2 * j * COUT] : zero, 2 * j + 1 < cin ? wt[(2 * j + 1) * COUT] : zero);
+        v[j] = pack_bf16(2 * j < kin ? wt[2 * j * cout] : zero, 2 * j + 1 < kin ? wt[(2 * j + 1) * cout] : zero);
       uint4* d = reinterpret_cast<uint4*>(ws + row * kRowStride);
       d[0] = make_uint4(v[0], v[1], v[2], v[3]);
       d[1] = make_uint4(v[4], v[5], v[6], v[7]);
@@ -504,33 +553,50 @@ __global__ void __launch_bounds__(MmaCfg<COUT>::kThreads)
         for (int nt = 0; nt < C::kNT; ++nt) {
           const float v0 = acc[mt][nt][2 * half] + b0[nt];
           const float v1 = acc[mt][nt][2 * half + 1] + b1[nt];
-          if (valid) {
-            s += v0 + v1;
-            q += v0 * v0 + v1 * v1;
-          }
           const int co = warp_n * C::kWarpCout + nt * 8 + 2 * tq;
+          if (kExact) {
+            if (valid) {
+              s += v0 + v1;
+              q += v0 * v0 + v1 * v1;
+            }
+          } else {
+            if (valid && real(co)) {
+              s += v0;
+              q += v0 * v0;
+            }
+            if (valid && real(co + 1)) {
+              s += v1;
+              q += v1 * v1;
+            }
+          }
           *reinterpret_cast<__nv_bfloat162*>(ys + pl * C::kYStride + co) = __floats2bfloat162_rn(v0, v1);
         }
       }
     }
     __syncwarp();
     constexpr int kVecs = C::kWarpCout / 8;  // 16-byte vectors of a pixel's warp share
-    __nv_bfloat16* yt = y + (static_cast<int64_t>(sample) * hw + p0) * COUT;
+    __nv_bfloat16* yt = y + (static_cast<int64_t>(sample) * hw + p0) * cout + cbase;
     for (int i = lane; i < C::kWarpPixels * kVecs; i += 32) {
       const int pl = warp_m * C::kWarpPixels + i / kVecs;
       const int c8 = warp_n * C::kWarpCout + (i % kVecs) * 8;
-      if (p0 + pl < hw)
-        *reinterpret_cast<uint4*>(yt + pl * COUT + c8) =
+      if (p0 + pl >= hw || !real(c8)) continue;
+      if (kExact || cout % 8 == 0) {  // whole, 16-byte aligned vectors
+        *reinterpret_cast<uint4*>(yt + static_cast<int64_t>(pl) * cout + c8) =
             *reinterpret_cast<const uint4*>(ys + pl * C::kYStride + c8);
+      } else {
+        for (int j = 0; j < 8 && real(c8 + j); ++j)
+          yt[static_cast<int64_t>(pl) * cout + c8 + j] = ys[pl * C::kYStride + c8 + j];
+      }
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       s += __shfl_down_sync(0xffffffffu, s, o);
       q += __shfl_down_sync(0xffffffffu, q, o);
     }
-    if (lane == 0) {  // (sample, tile, warp) row-major
-      psum[t * C::kWarps + warp] = s;
-      psq[t * C::kWarps + warp] = q;
+    if (lane == 0) {  // (sample, pixel tile, Cout tile, warp) row-major
+      const int64_t part = (static_cast<int64_t>(t) * gridDim.y + blockIdx.y) * C::kWarps + warp;
+      psum[part] = s;
+      psq[part] = q;
     }
   }
   cp_async_wait_all();
@@ -538,16 +604,20 @@ __global__ void __launch_bounds__(MmaCfg<COUT>::kThreads)
 
 int g_sms = 0;  // SMs of the device, read once
 
-template <int COUT>
+// Staging buffers of the bf16 kernel: two where they fit beside the rest.
+__host__ __device__ inline int mma_nbuf(int wd, int ct) { return mma_smem_bytes(wd, ct, 2) <= kMaxSmem ? 2 : 1; }
+
+template <int COUT, bool kExact>
 cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const __nv_bfloat16* b,
                        __nv_bfloat16* y, float* psum, float* psq, float* s1, float* s2, int n, int h,
-                       int wd, int cin, cudaStream_t stream) {
+                       int wd, int cin, int cout, cudaStream_t stream) {
   using C = MmaCfg<COUT>;
+  const auto kernel = conv3x3_mma_kernel<COUT, kExact>;
   const int tiles = (h * wd + kMmaPixels - 1) / kMmaPixels;
-  const int nbuf = mma_smem_bytes(wd, COUT, 2) <= kMaxSmem ? 2 : 1;
+  const int ctiles = (cout + COUT - 1) / COUT;
+  const int nbuf = mma_nbuf(wd, COUT);
   const int smem = mma_smem_bytes(wd, COUT, nbuf);
-  cudaError_t e = cudaFuncSetAttribute(conv3x3_mma_kernel<COUT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   if (g_sms == 0) {
     int dev = 0;
@@ -555,69 +625,84 @@ cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const __n
     if ((e = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return e;
   }
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv3x3_mma_kernel<COUT>, C::kThreads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, C::kThreads, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int grid = std::min(n * tiles, g_sms * per_sm);
-  conv3x3_mma_kernel<COUT><<<grid, C::kThreads, smem, stream>>>(x, w, b, y, psum, psq, n, h, wd, cin,
-                                                                 tiles, nbuf);
-  reduce_partials_kernel<<<n, 32, 0, stream>>>(psum, psq, tiles * C::kWarps, s1, s2);
+  // persistent blocks, as many as fit on the SMs, shared out over the Cout tiles
+  const int grid = std::min(n * tiles, std::max(1, g_sms * per_sm / ctiles));
+  kernel<<<dim3(grid, ctiles), C::kThreads, smem, stream>>>(x, w, b, y, psum, psq, n, h, wd, cin, cout,
+                                                            tiles, nbuf);
+  reduce_partials_kernel<<<n, 32, 0, stream>>>(psum, psq, tiles * ctiles * C::kWarps, s1, s2);
   return cudaGetLastError();
 }
 
+template <int COUT>
+cudaError_t launch_tile(const __nv_bfloat16* x, const __nv_bfloat16* w, const __nv_bfloat16* b,
+                        __nv_bfloat16* y, float* psum, float* psq, float* s1, float* s2, int n, int h,
+                        int wd, int cin, int cout, cudaStream_t stream) {
+  return cout == COUT ? launch_mma<COUT, true>(x, w, b, y, psum, psq, s1, s2, n, h, wd, cin, cout, stream)
+                      : launch_mma<COUT, false>(x, w, b, y, psum, psq, s1, s2, n, h, wd, cin, cout, stream);
+}
+
 cudaError_t launch_bf16(const void* x, const void* w, const void* b, void* y, float* psum, float* psq,
-                        float* s1, float* s2, int n, int h, int wd, int cin, int cout,
+                        float* s1, float* s2, int n, int h, int wd, int cin, int cout, int ct,
                         cudaStream_t stream) {
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const __nv_bfloat16*>(w);
   const auto* bb = static_cast<const __nv_bfloat16*>(b);
   auto* yb = static_cast<__nv_bfloat16*>(y);
-  switch (cout) {
-    case 8: return launch_mma<8>(xb, wb, bb, yb, psum, psq, s1, s2, n, h, wd, cin, stream);
-    case 16: return launch_mma<16>(xb, wb, bb, yb, psum, psq, s1, s2, n, h, wd, cin, stream);
-    case 32: return launch_mma<32>(xb, wb, bb, yb, psum, psq, s1, s2, n, h, wd, cin, stream);
-    case 64: return launch_mma<64>(xb, wb, bb, yb, psum, psq, s1, s2, n, h, wd, cin, stream);
-    case 128: return launch_mma<128>(xb, wb, bb, yb, psum, psq, s1, s2, n, h, wd, cin, stream);
+  switch (ct) {
+    case 8: return launch_tile<8>(xb, wb, bb, yb, psum, psq, s1, s2, n, h, wd, cin, cout, stream);
+    case 16: return launch_tile<16>(xb, wb, bb, yb, psum, psq, s1, s2, n, h, wd, cin, cout, stream);
+    case 32: return launch_tile<32>(xb, wb, bb, yb, psum, psq, s1, s2, n, h, wd, cin, cout, stream);
+    case 64: return launch_tile<64>(xb, wb, bb, yb, psum, psq, s1, s2, n, h, wd, cin, cout, stream);
+    case 128: return launch_tile<128>(xb, wb, bb, yb, psum, psq, s1, s2, n, h, wd, cin, cout, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+bool tile_ok(int cout, int ct) {
+  return (ct == 8 || ct == 16 || ct == 32 || ct == 64 || ct == 128) && cout >= 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Stats partials per sample for (dtype, h, w, cout): the size of the
-// partial buffers. dtype: 0 = float32 (FMA kernel: one per tile),
-// 1 = bfloat16 (tensor cores: one per tile and warp).
-int lg_conv3x3_partials(int dtype, int h, int wd, int cout) {
-  if (dtype == 1) {
-    return (h * wd + kMmaPixels - 1) / kMmaPixels * 4 * mma_warps_n(cout);  // MmaCfg::kWarps
-  }
-  const int pixels = tile_for(cout).pixels;
-  return (h * wd + pixels - 1) / pixels;
+// The host side's plan (ops/cuda/boundary_conv.py::conv_plan) computes
+// these two as well; chip_smoke.py holds it to them.
+// Stats partials per sample for (dtype, h, w, cout, Cout tile ct): the
+// size of the partial buffers. dtype: 0 = float32 (FMA kernel: one per
+// pixel tile and Cout tile), 1 = bfloat16 (tensor cores: one per pixel
+// tile, Cout tile and warp).
+int lg_conv3x3_partials(int dtype, int h, int wd, int cout, int ct) {
+  const int ctiles = (cout + ct - 1) / ct;
+  if (dtype == 1) return (h * wd + kMmaPixels - 1) / kMmaPixels * ctiles * 4 * mma_warps_n(ct);  // kWarps
+  const int pixels = tile_for(ct).pixels;
+  return (h * wd + pixels - 1) / pixels * ctiles;
 }
 
-// Dynamic shared memory one block needs, in bytes.
-int lg_conv3x3_smem_bytes(int dtype, int wd, int cin, int cout) {
-  if (dtype == 1) return mma_smem_bytes(wd, cout, 1);
-  const Tile tile = tile_for(cout);
-  return static_cast<int>(sizeof(float) *
-                          (9 * cin * cout + staged_rows(tile.pixels, wd) * (wd + 2) * cin));
+// Dynamic shared memory one block of a launch takes, in bytes.
+int lg_conv3x3_smem_bytes(int dtype, int wd, int cin, int ct) {
+  if (dtype == 1) return mma_smem_bytes(wd, ct, mma_nbuf(wd, ct));
+  return fma_smem_bytes(wd, cin, ct);
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w, b and y share it). cin <= 16;
-// cout must be 8, 16, 32, 64 or 128; psum/psq: (n, tiles) f32 scratch;
-// s1/s2: (n,) f32. bfloat16 needs y 16-byte aligned.
+// dtype: 0 = float32, 1 = bfloat16 (x, w, b and y share it). cin <= 16,
+// any cout >= 1, computed in Cout tiles of ct (8, 16, 32, 64 or 128)
+// channels; psum/psq: (n, lg_conv3x3_partials) f32 scratch; s1/s2: (n,)
+// f32. bfloat16 needs y 16-byte aligned.
 int lg_conv3x3_same_stats(int dtype, const void* x, const void* w, const void* b, void* y,
                           float* psum, float* psq, float* s1, float* s2, int n, int h, int wd,
-                          int cin, int cout, void* stream) {
+                          int cin, int cout, int ct, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!tile_ok(cout, ct)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return static_cast<int>(launch_fma(static_cast<const float*>(x), static_cast<const float*>(w),
                                        static_cast<const float*>(b), static_cast<float*>(y), psum, psq,
-                                       s1, s2, n, h, wd, cin, cout, s));
+                                       s1, s2, n, h, wd, cin, cout, ct, s));
   if (dtype == 1)
-    return static_cast<int>(launch_bf16(x, w, b, y, psum, psq, s1, s2, n, h, wd, cin, cout, s));
+    return static_cast<int>(launch_bf16(x, w, b, y, psum, psq, s1, s2, n, h, wd, cin, cout, ct, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -22,6 +22,16 @@
 // memory to one partial row; a second launch reduces the rows per channel
 // in a fixed order. No float atomics: db is deterministic.
 //
+// That layout needs Cout a multiple of the vector's elements (8 bf16, 4
+// f32) and at most 256 vectors; where a pixel's vectors do not divide 256,
+// the threads past the last whole pixel idle. Any other Cout (the Pallas
+// kernel takes any; 6 and 12 in bf16, say) takes fold_scalar_kernel: the same pass
+// element by element, the block's threads laid over a slab of up to 256
+// channels and as many pixels as fill it, so that neighbouring threads
+// still touch neighbouring addresses; a Cout above 256 takes several slabs
+// one after another. The host picks the layout (fold_vectorised in
+// ops/cuda/boundary_conv.py).
+//
 // C interface for ctypes: pointers and the stream are void*, the function
 // returns cudaGetLastError() as an int.
 
@@ -55,7 +65,7 @@ __global__ void __launch_bounds__(kThreads)
                 int64_t pixels, int hw, int cout, int block_pixels) {
   constexpr int V = vec_elems<T>();
   __shared__ float red[kThreads * V];
-  const int groups = cout / V;          // vectors per pixel
+  const int groups = cout / V;          // vectors per pixel (at most kThreads)
   const int lanes = kThreads / groups;  // pixels in flight per block
   const int g = threadIdx.x % groups;
   const int lane = threadIdx.x / groups;
@@ -64,7 +74,8 @@ __global__ void __launch_bounds__(kThreads)
   float acc[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) acc[k] = 0.f;
-  for (int64_t p = p0 + lane; p < p1; p += lanes) {
+  // threads past lanes * groups (where groups does not divide kThreads) idle
+  for (int64_t p = lane < lanes ? p0 + lane : p1; p < p1; p += lanes) {
     const int64_t n = p / hw;
     const float a = gs1[n], b2 = 2.f * gs2[n];
     const int64_t off = p * groups + g;
@@ -85,12 +96,47 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < V; ++k) red[threadIdx.x * V + k] = acc[k];
   __syncthreads();
-  if (threadIdx.x < cout) {
-    // channel c sits at vector position c / V, element c % V of each lane
-    const int c = threadIdx.x, cg = c / V, k = c % V;
+  // channel c sits at vector position c / V, element c % V of each lane
+  for (int c = threadIdx.x; c < cout; c += kThreads) {
+    const int cg = c / V, k = c % V;
     float s = 0.f;
     for (int l = 0; l < lanes; ++l) s += red[(l * groups + cg) * V + k];
     part[static_cast<int64_t>(blockIdx.x) * cout + c] = s;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fold_scalar_kernel(const T* __restrict__ y, const T* __restrict__ gy, const float* __restrict__ gs1,
+                       const float* __restrict__ gs2, T* __restrict__ out, float* __restrict__ part,
+                       int64_t pixels, int hw, int cout, int block_pixels) {
+  __shared__ float red[kThreads];
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * block_pixels;
+  const int64_t p1 = p0 + block_pixels < pixels ? p0 + block_pixels : pixels;
+  for (int c0 = 0; c0 < cout; c0 += kThreads) {
+    // a slab of cw channels; thread t takes channel c0 + t % cw of every
+    // lanes-th pixel from p0 + t / cw: element p * cout + c0 + t of a row
+    const int cw = cout - c0 < kThreads ? cout - c0 : kThreads;
+    const int lanes = kThreads / cw;
+    const int c = c0 + threadIdx.x % cw, lane = threadIdx.x / cw;
+    float acc = 0.f;
+    if (lane < lanes) {
+      for (int64_t p = p0 + lane; p < p1; p += lanes) {
+        const int64_t n = p / hw;
+        const int64_t i = p * cout + c;
+        const float v = to_f32(gy[i]) + gs1[n] + 2.f * gs2[n] * to_f32(y[i]);
+        acc += v;
+        out[i] = from_f32<T>(v);
+      }
+    }
+    red[threadIdx.x] = acc;
+    __syncthreads();
+    if (threadIdx.x < cw) {
+      float s = 0.f;
+      for (int l = 0; l < lanes; ++l) s += red[l * cw + threadIdx.x];
+      part[static_cast<int64_t>(blockIdx.x) * cout + c0 + threadIdx.x] = s;
+    }
+    __syncthreads();
   }
 }
 
@@ -105,14 +151,27 @@ __global__ void bias_grad_kernel(const float* __restrict__ part, int blocks, int
 }
 
 template <typename T>
-void launch(const void* y, const void* gy, const float* gs1, const float* gs2, void* out,
-            float* part, float* db, int64_t pixels, int hw, int cout, int block_pixels,
-            int blocks, cudaStream_t stream) {
-  fold_kernel<T><<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(y),
-                                                  static_cast<const T*>(gy), gs1, gs2,
-                                                  static_cast<T*>(out), part, pixels, hw, cout,
-                                                  block_pixels);
+bool vector_layout_ok(int cout) {
+  constexpr int V = vec_elems<T>();
+  return cout % V == 0 && cout / V <= kThreads;
+}
+
+template <typename T>
+cudaError_t launch(const void* y, const void* gy, const float* gs1, const float* gs2, void* out,
+                   float* part, float* db, int64_t pixels, int hw, int cout, int block_pixels,
+                   int blocks, int vec, cudaStream_t stream) {
+  if (cout < 1 || (vec && !vector_layout_ok<T>(cout))) return cudaErrorInvalidValue;
+  if (vec)
+    fold_kernel<T><<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(y), static_cast<const T*>(gy),
+                                                    gs1, gs2, static_cast<T*>(out), part, pixels, hw,
+                                                    cout, block_pixels);
+  else
+    fold_scalar_kernel<T><<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(y),
+                                                           static_cast<const T*>(gy), gs1, gs2,
+                                                           static_cast<T*>(out), part, pixels, hw,
+                                                           cout, block_pixels);
   bias_grad_kernel<<<(cout + 127) / 128, 128, 0, stream>>>(part, blocks, cout, db);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -120,21 +179,23 @@ void launch(const void* y, const void* gy, const float* gs1, const float* gs2, v
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (y, gy and out share it). y, gy, out:
-// (pixels = N*H*W, cout) contiguous and 16-byte aligned; cout a multiple
-// of 16/sizeof(T) with cout/(16/sizeof(T)) dividing 256 and cout <= 256;
-// gs1/gs2: (N,) f32; part: (blocks, cout) f32 scratch, blocks =
+// (pixels = N*H*W, cout) contiguous and 16-byte aligned, any cout >= 1;
+// vec: the 16-byte layout (cout a multiple of 16/sizeof(T), at most 256
+// vectors), else element by element; gs1/gs2: (N,) f32; part: (blocks, cout) f32 scratch, blocks =
 // ceil(pixels / block_pixels); db: (cout,) f32.
 int lg_conv3x3_bwd_fold(int dtype, const void* y, const void* gy, const float* gs1,
                         const float* gs2, void* out, float* part, float* db, int64_t pixels,
-                        int hw, int cout, int block_pixels, int blocks, void* stream) {
+                        int hw, int cout, int block_pixels, int blocks, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (dtype == 0)
-    launch<float>(y, gy, gs1, gs2, out, part, db, pixels, hw, cout, block_pixels, blocks, s);
+    e = launch<float>(y, gy, gs1, gs2, out, part, db, pixels, hw, cout, block_pixels, blocks, vec, s);
   else if (dtype == 1)
-    launch<__nv_bfloat16>(y, gy, gs1, gs2, out, part, db, pixels, hw, cout, block_pixels, blocks,
-                          s);
+    e = launch<__nv_bfloat16>(y, gy, gs1, gs2, out, part, db, pixels, hw, cout, block_pixels, blocks,
+                              vec, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

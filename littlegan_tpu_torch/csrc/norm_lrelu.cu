@@ -7,7 +7,8 @@
 //
 //     two_pass (where it holds the sample whole):
 //         mean = sum(x)/M,  std = sqrt(sum((x - mean)^2)/M)
-//     else (the chunked maps):
+//     else (the maps it chunks, and those above its 8 MiB, which the JAX
+//     model sends to its one-pass instance_norm):
 //         mean = sum(x)/M,  std = sqrt(max(sum(x^2)/M - mean^2, 0))
 //     z = (x - mean) * gamma/(std + eps) + beta          (scalar gamma, beta)
 //     y = z >= 0 ? z : alpha*z                           (stored in x's type)
@@ -49,8 +50,15 @@
 //   pass 2 (apply_kernel): each block reduces its sample's partials in a
 //       fixed order (every block of a sample sees bit-identical stats), then
 //       normalises, applies LeakyReLU and writes its chunk, rereading x;
-//       block 0 of each sample writes its (mean, std). One-pass moments
-//       only: a two-pass shape never takes this route.
+//       block 0 of each sample writes its (mean, std).
+//   two_pass (a sample the Pallas op holds whole that does not fit 16
+//   blocks' shared memory: 3.5 to 8 MiB with rows not a multiple of 8,
+//   (92, 92, 128) f32 say) adds a launch between the two, dev_kernel: each
+//   block reduces its sample's sum(x) partials in the same fixed order to
+//   the mean and writes its chunk's sum((x - mean)^2) over the sum(x^2)
+//   partial, which pass 2 then reads as the sample's squared deviations.
+//   x is read three times; such a batch (tens of MB) outgrows L2, so this
+//   costs two more reads of x than the bound (PERF.md).
 //
 // Both routes write the per-sample moments as a (2, N) f32 array, means
 // then stds; the backward (norm_lrelu_bwd.cu) reads them, so it sees the
@@ -163,6 +171,66 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The sum of sample n's `parts` partials, lane-strided, then a shuffle
+// tree: in lane 0 of the calling warp, in one fixed order, so every block
+// of the sample gets it bit for bit.
+__device__ __forceinline__ float sample_sum(const float* __restrict__ p, int64_t n, int parts) {
+  float s = 0.f;
+  for (int i = threadIdx.x & 31; i < parts; i += 32) s += p[n * parts + i];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// The two-pass route's middle launch: grid (chunks, n) as stats_kernel;
+// block (c, n) writes sum((x - mean)^2) over its chunk to psq[n, c], the
+// mean taken from the sample's psum partials.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dev_kernel(const T* __restrict__ x, const float* __restrict__ psum, float* __restrict__ psq,
+               int64_t m, int64_t chunk, int vec_ok) {
+  const int64_t n = blockIdx.y;
+  __shared__ float smean;
+  __shared__ float wq[kWarps];
+  if (threadIdx.x < 32) {
+    const float s = sample_sum(psum, n, gridDim.x);
+    if (threadIdx.x == 0) smean = s / static_cast<float>(m);
+  }
+  __syncthreads();
+  const float mean = smean;
+  const Chunk c = chunk_of(m, chunk);
+  const T* xs = x + n * m;
+  float q = 0.f;
+  if (vec_ok) {
+    constexpr int V = vec_elems<T>();
+    const uint4* xv = reinterpret_cast<const uint4*>(xs);
+    for (int64_t i = c.begin / V + threadIdx.x; i < c.end / V; i += kThreads) {
+      const uint4 raw = __ldg(xv + i);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float d = to_f32(e[k]) - mean;
+        q += d * d;
+      }
+    }
+  } else {
+    for (int64_t i = c.begin + threadIdx.x; i < c.end; i += kThreads) {
+      const float d = to_f32(xs[i]) - mean;
+      q += d * d;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) q += __shfl_down_sync(0xffffffffu, q, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) wq[warp] = q;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float tq = 0.f;
+    for (int w = 0; w < kWarps; ++w) tq += wq[w];
+    psq[n * gridDim.x + blockIdx.x] = tq;
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ T lrelu_norm(float v, float mean, float inv, float beta, float alpha) {
   const float z = (v - mean) * inv + beta;
@@ -171,27 +239,24 @@ __device__ __forceinline__ T lrelu_norm(float v, float mean, float inv, float be
 
 // y null: block 0 of each sample writes the moments and no block writes y
 // (the grid may then be (1, n)). moments null: no moments written.
+// two_pass: psq holds sum((x - mean)^2) partials (dev_kernel), else sum(x^2).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     apply_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ psum,
                  const float* __restrict__ psq, int parts, float* __restrict__ moments,
                  const float* __restrict__ gamma, const float* __restrict__ beta, int64_t m,
-                 int64_t chunk, float alpha, float eps, int vec_ok) {
+                 int64_t chunk, float alpha, float eps, int vec_ok, int two_pass) {
   const int64_t n = blockIdx.y;
   __shared__ float stat[2];  // mean, gamma / (std + eps)
   if (threadIdx.x < 32) {
-    // fixed-order reduce of this sample's partials: lane-strided sums, then
-    // a shuffle tree; identical in every block of the sample
-    float s = 0.f, q = 0.f;
-    for (int p = threadIdx.x; p < parts; p += 32) {
-      s += psum[n * parts + p];
-      q += psq[n * parts + p];
-    }
-    warp_sum2(s, q);
+    // fixed-order reduce of this sample's partials; identical in every
+    // block of the sample, and in dev_kernel's
+    const float s = sample_sum(psum, n, parts);
+    const float q = sample_sum(psq, n, parts);
     if (threadIdx.x == 0) {
       const float fm = static_cast<float>(m);
       const float mean = s / fm;
-      const float sd = sqrtf(fmaxf(q / fm - mean * mean, 0.f));
+      const float sd = two_pass ? sqrtf(q / fm) : sqrtf(fmaxf(q / fm - mean * mean, 0.f));
       stat[0] = mean;
       stat[1] = gamma[0] / (sd + eps);
       if (moments != nullptr && blockIdx.x == 0) {
@@ -396,21 +461,23 @@ int can_vectorize(const void* x, const void* y, int64_t m, int64_t chunk) {
 template <typename T>
 void launch_apply(const void* x, void* y, const float* s1, const float* s2, int parts,
                   float* moments, const float* gamma, const float* beta, int64_t n, int64_t m,
-                  int64_t chunk, int chunks, float alpha, float eps, cudaStream_t stream) {
+                  int64_t chunk, int chunks, float alpha, float eps, int two_pass, cudaStream_t stream) {
   const dim3 grid(y == nullptr ? 1 : chunks, static_cast<unsigned>(n));
   apply_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), s1, s2, parts, moments, gamma, beta, m, chunk,
-      alpha, eps, can_vectorize(x, y == nullptr ? x : y, m, chunk));
+      alpha, eps, can_vectorize(x, y == nullptr ? x : y, m, chunk), two_pass);
 }
 
 template <typename T>
 void launch_two(const void* x, void* y, float* psum, float* psq, float* moments, const float* gamma,
-                const float* beta, int64_t n, int64_t m, int64_t chunk, int chunks, float alpha,
-                float eps, cudaStream_t stream) {
-  stats_kernel<T><<<dim3(chunks, static_cast<unsigned>(n)), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), psum, psq, m, chunk, can_vectorize(x, x, m, chunk));
+                const float* beta, int64_t n, int64_t m, int64_t chunk, int chunks, int two_pass,
+                float alpha, float eps, cudaStream_t stream) {
+  const dim3 grid(chunks, static_cast<unsigned>(n));
+  const int vec_ok = can_vectorize(x, x, m, chunk);
+  stats_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), psum, psq, m, chunk, vec_ok);
+  if (two_pass) dev_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), psum, psq, m, chunk, vec_ok);
   launch_apply<T>(x, y, psum, psq, chunks, moments, gamma, beta, n, m, chunk, chunks, alpha, eps,
-                  stream);
+                  two_pass, stream);
 }
 
 template <typename T, bool kTwoPass>
@@ -453,16 +520,17 @@ extern "C" {
 // The two-launch route. dtype: 0 = float32, 1 = bfloat16. psum/psq:
 // (n, chunks) f32 scratch; moments: (2, n) f32 out (means, then stds). Each
 // of the `chunks` blocks of a sample covers `chunk` elements (a multiple of
-// 8) of its m = H*W*C. y null: the moments alone.
+// 8) of its m = H*W*C. two_pass: the mean of squared deviations (a third
+// launch between the two), else one pass. y null: the moments alone.
 int lg_norm_lrelu(int dtype, const void* x, void* y, float* psum, float* psq, float* moments,
                   const float* gamma, const float* beta, int64_t n, int64_t m, int64_t chunk,
-                  int chunks, float alpha, float eps, void* stream) {
+                  int chunks, int two_pass, float alpha, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch_two<float>(x, y, psum, psq, moments, gamma, beta, n, m, chunk, chunks, alpha, eps, s);
+    launch_two<float>(x, y, psum, psq, moments, gamma, beta, n, m, chunk, chunks, two_pass, alpha, eps, s);
   else if (dtype == 1)
-    launch_two<__nv_bfloat16>(x, y, psum, psq, moments, gamma, beta, n, m, chunk, chunks, alpha,
-                              eps, s);
+    launch_two<__nv_bfloat16>(x, y, psum, psq, moments, gamma, beta, n, m, chunk, chunks, two_pass,
+                              alpha, eps, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -497,10 +565,10 @@ int lg_norm_lrelu_apply(int dtype, const void* x, void* y, const float* s1, cons
                         int chunks, float alpha, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch_apply<float>(x, y, s1, s2, 1, nullptr, gamma, beta, n, m, chunk, chunks, alpha, eps, s);
+    launch_apply<float>(x, y, s1, s2, 1, nullptr, gamma, beta, n, m, chunk, chunks, alpha, eps, 0, s);
   else if (dtype == 1)
     launch_apply<__nv_bfloat16>(x, y, s1, s2, 1, nullptr, gamma, beta, n, m, chunk, chunks, alpha,
-                                eps, s);
+                                eps, 0, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

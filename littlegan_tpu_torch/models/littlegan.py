@@ -20,7 +20,9 @@ All compute is NHWC in ``cfg.compute_dtype``; instance-norm stats are f32.
 With ``cfg.use_pallas`` every encoder/decoder block epilogue runs the fused
 norm + LeakyReLU CUDA kernel; with ``cfg.use_pallas_boundary`` encoder
 block1 (s2d form) runs the boundary conv kernel with fused stats, then the
-stats-in norm kernel. Both go through their autograd Functions
+stats-in norm kernel, where its ``supports`` takes the shape (else the
+plain conv and the block epilogue above, as the JAX model does where its
+predicate says False). Both go through their autograd Functions
 (``FusedNormLReLU``, ``BoundaryConvS2D``, ``NormLReLUFromStats``), whose
 backwards are kernels too, so the gradient reaches every parameter. On CPU
 tensors they take their plain versions. Dropout is the reference's inert
@@ -142,7 +144,8 @@ class Encoder(nn.Module):
             blk = getattr(self, f"block{i}")
             if i == 1 and s2d_active(cfg):
                 kern = s2d.s2d_conv1_kernel(blk.conv.kernel, s2d.module_index(self, "conv1"))
-                if sp is None and cfg.use_pallas_boundary and boundary_conv.supports(x.shape):
+                if (sp is None and cfg.use_pallas_boundary
+                        and boundary_conv.supports(x.shape, kern.shape[3], x.dtype)):
                     y, s1, s2 = boundary_conv.BoundaryConvS2D.apply(
                         x.contiguous(), kern.to(x.dtype), blk.conv.bias
                     )

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
-    "lg_norm_lrelu": (_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _P),
+    "lg_norm_lrelu": (_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _F, _F, _P),
     "lg_norm_lrelu_cluster": (_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _F, _F, _P),
     "lg_norm_lrelu_apply": (_I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _P),
     "lg_norm_lrelu_bwd": (
@@ -46,10 +46,10 @@ _SIGNATURES = {
     "lg_norm_lrelu_from_stats_bwd": (
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64, _F, _F, _P,
     ),
-    "lg_conv3x3_same_stats": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "lg_conv3x3_partials": (_I, _I, _I, _I),
+    "lg_conv3x3_same_stats": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "lg_conv3x3_partials": (_I, _I, _I, _I, _I),
     "lg_conv3x3_smem_bytes": (_I, _I, _I, _I),
-    "lg_conv3x3_bwd_fold": (_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
+    "lg_conv3x3_bwd_fold": (_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

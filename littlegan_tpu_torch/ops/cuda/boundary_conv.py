@@ -15,7 +15,13 @@ bf16 runs an implicit GEMM on the tensor cores (``mma.sync`` m16n8k16, K =
 128 output pixels, y staged in shared memory and written as 16-byte
 vectors); f32 keeps a plain FMA loop, since TF32 would miss its 1e-5
 tolerance. Each block writes one f32 stats partial per tile and a second
-launch reduces the partials per sample in a fixed order.
+launch reduces the partials per sample in a fixed order. Both take any Cout,
+as the Pallas kernel does: a block computes a Cout tile of 8, 16, 32, 64 or
+128 channels, the channels past Cout zero in shared memory and kept out of
+y and the stats (:func:`conv_plan`). Whether a shape fits a block's shared
+memory is decided from the shape alone, before any launch: ``supports``
+says False where it does not, and the model then runs block1 on the plain
+ops, as the JAX model does where its predicate says False.
 
 :class:`BoundaryConvS2D` is the autograd Function the model calls, the
 counterpart of the JAX package's custom VJP ``boundary_conv_s2d``. Its
@@ -33,7 +39,7 @@ have to differentiate raises. Each wrapper counts its launches in
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,23 +48,95 @@ from littlegan_tpu_torch.ops.cuda import _build
 from littlegan_tpu_torch.ops.cuda.norm_lrelu import first_order_only, refuse_grad
 
 _MAX_CIN = 16
-_COUTS = (8, 16, 32, 64, 128)  # Cout/8 channel groups must divide 256 threads
 _MAX_SMEM = 227 * 1024
 _FOLD_BLOCK_PIXELS = 512  # pixels per block of the fold kernel
+# csrc/boundary_conv.cu's geometry, which conv_plan mirrors: the Cout tiles
+# a block computes; the bf16 kernel's output pixels per tile and bf16 per
+# staged pixel and packed weight row; the f32 kernel's threads, each
+# computing _PIX_PER_THREAD pixels x _CH_PER_THREAD channels
+_COUT_TILES = (8, 16, 32, 64, 128)
+_MMA_PIXELS = 128
+_ROW_STRIDE = 24
+_THREADS = 256
+_PIX_PER_THREAD = 4
+_CH_PER_THREAD = 8
 
 
-def supports(x_shape) -> bool:
-    """When the model routes encoder block1 through this kernel (the JAX
-    package's predicate without its TPU memory clause): narrow input
-    channels and 8-aligned spatial dims."""
+class ConvPlan(NamedTuple):
+    """How ``csrc/boundary_conv.cu`` runs one shape: ``route`` "mma" (bf16)
+    or "fma" (f32); Cout in ``cout_tiles`` tiles of ``cout_tile`` channels;
+    the bf16 kernel's staging buffers ``nbuf``; ``smem`` bytes of dynamic
+    shared memory per block; ``parts`` stats partials per sample."""
+
+    route: str
+    cout_tile: int
+    cout_tiles: int
+    nbuf: int
+    smem: int
+    parts: int
+
+    @property
+    def fits(self) -> bool:
+        """Whether a block's shared memory holds what the plan asks."""
+        return self.smem <= _MAX_SMEM
+
+
+def _staged_rows(pixels: int, wd: int) -> int:
+    """Input rows a tile of ``pixels`` flat output pixels touches, halo included."""
+    return (pixels // wd if pixels % wd == 0 else (pixels - 1) // wd + 2) + 2
+
+
+def cout_tiling(cout: int) -> Tuple[int, int]:
+    """(tile, tiles): Cout in tiles of at most 128 channels, each the least
+    of ``_COUT_TILES`` that holds its share."""
+    tiles = -(-cout // _COUT_TILES[-1])
+    share = -(-cout // tiles)
+    return next(t for t in _COUT_TILES if t >= share), tiles
+
+
+def conv_plan(dtype: torch.dtype, x_shape, cout: int) -> ConvPlan:
+    """The kernel's plan for x of ``x_shape`` (NHWC) in ``dtype`` and
+    ``cout`` output channels, from the shape alone (the CPU can ask). The
+    bf16 kernel keeps two staging buffers where they fit and one where
+    not; ``fits`` says whether the least it needs fits a block."""
+    _, h, wd, cin = x_shape
+    tile, tiles = cout_tiling(cout)
+    if kernel_route(dtype) == "mma":
+        def smem(nbuf: int) -> int:
+            staged = nbuf * _staged_rows(_MMA_PIXELS, wd) * (wd + 2) * _ROW_STRIDE
+            return 2 * (9 * tile * _ROW_STRIDE + staged + _MMA_PIXELS * (tile + 8))
+
+        nbuf = 2 if smem(2) <= _MAX_SMEM else 1
+        warps = 4 * (2 if tile > 64 else 1)
+        return ConvPlan("mma", tile, tiles, nbuf, smem(nbuf), -(-h * wd // _MMA_PIXELS) * tiles * warps)
+    pixels = _THREADS // (tile // _CH_PER_THREAD) * _PIX_PER_THREAD
+    smem = 4 * (9 * cin * tile + _staged_rows(pixels, wd) * (wd + 2) * cin)
+    return ConvPlan("fma", tile, tiles, 1, smem, -(-h * wd // pixels) * tiles)
+
+
+def supports(x_shape, cout: Optional[int] = None, dtype: Optional[torch.dtype] = None) -> bool:
+    """When the model routes encoder block1 through this kernel: the JAX
+    package's predicate without its TPU memory clause (narrow input
+    channels, 8-aligned spatial dims) and, given ``cout`` and ``dtype``,
+    a plan that fits a block's shared memory (:func:`conv_plan`)."""
     _, h, w, c = x_shape
-    return c <= _MAX_CIN and h % 8 == 0 and w % 8 == 0
+    if c > _MAX_CIN or h % 8 or w % 8:
+        return False
+    return cout is None or conv_plan(dtype, x_shape, cout).fits
 
 
 def kernel_route(dtype: torch.dtype) -> str:
     """Which kernel of ``csrc/boundary_conv.cu`` a CUDA tensor of this dtype
     launches: "mma" (bf16, tensor cores) or "fma" (f32, CUDA cores)."""
     return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def fold_vectorised(cout: int, itemsize: int) -> bool:
+    """Whether the fold kernel takes its 16-byte layout for this Cout (a
+    multiple of a vector's elements, at most one vector per thread of its
+    256), else its element-by-element one."""
+    vec = 16 // itemsize
+    return cout % vec == 0 and cout // vec <= _THREADS
 
 
 def conv3x3_same_stats_plain(
@@ -89,9 +167,9 @@ def conv3x3_same_stats(
         )
     n, h, wd, cin = x.shape
     cout = w.shape[3]
-    if cin > _MAX_CIN or cout not in _COUTS or tuple(b.shape) != (cout,):
+    if cin > _MAX_CIN or cout < 1 or tuple(b.shape) != (cout,):
         raise ValueError(
-            f"conv3x3_same_stats: takes Cin <= {_MAX_CIN}, Cout in {_COUTS} and a ({cout},) bias; "
+            f"conv3x3_same_stats: takes Cin <= {_MAX_CIN} and a (Cout,) bias; "
             f"got Cin {cin}, Cout {cout}, bias {tuple(b.shape)}"
         )
     if w.device != x.device or b.device != x.device:
@@ -99,19 +177,19 @@ def conv3x3_same_stats(
     if not x.is_contiguous():
         raise ValueError("conv3x3_same_stats: x must be contiguous (NHWC)")
     code = _build.dtype_code(x)
-    lib = _build.lib()
-    if lib.lg_conv3x3_smem_bytes(code, wd, cin, cout) > _MAX_SMEM:
-        raise ValueError(f"conv3x3_same_stats: width {wd} needs more shared memory than a block has")
+    plan = conv_plan(x.dtype, x.shape, cout)
+    if not plan.fits:
+        raise ValueError(f"conv3x3_same_stats: {plan} needs more shared memory than a block has "
+                         "(supports() says False for this shape)")
     wc = w.to(x.dtype).contiguous()
     bc = b.to(x.dtype).contiguous()
-    parts = lib.lg_conv3x3_partials(code, h, wd, cout)
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, n, parts), dtype=torch.float32, device=x.device)
+    part = torch.empty((2, n, plan.parts), dtype=torch.float32, device=x.device)
     stats = torch.empty((2, n), dtype=torch.float32, device=x.device)
-    err = lib.lg_conv3x3_same_stats(
+    err = _build.lib().lg_conv3x3_same_stats(
         code, x.data_ptr(), wc.data_ptr(), bc.data_ptr(), y.data_ptr(),
         part[0].data_ptr(), part[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-        n, h, wd, cin, cout, _build.stream_ptr(x.device),
+        n, h, wd, cin, cout, plan.cout_tile, _build.stream_ptr(x.device),
     )
     _build.check(err, "conv3x3_same_stats")
     conv3x3_same_stats.launches.add()
@@ -143,16 +221,14 @@ def conv3x3_bwd_fold(
         raise ValueError(f"{what}: y must be a contiguous NHWC tensor, got {tuple(y.shape)}")
     if gy.shape != y.shape or gy.dtype != y.dtype or gy.device != y.device or not gy.is_contiguous():
         raise ValueError(f"{what}: gy must be contiguous {y.dtype} {tuple(y.shape)} on {y.device}")
-    if y.data_ptr() % 16 or gy.data_ptr() % 16:
-        raise ValueError(f"{what}: y and gy must be 16-byte aligned (the kernel moves 16-byte vectors)")
     n, h, wd, cout = y.shape
+    vec = fold_vectorised(cout, y.element_size())
+    if vec and (y.data_ptr() % 16 or gy.data_ptr() % 16):
+        raise ValueError(f"{what}: y and gy must be 16-byte aligned (the kernel moves 16-byte vectors)")
     for name, t in (("gs1", gs1), ("gs2", gs2)):
         if t.shape != (n,) or t.dtype != torch.float32 or t.device != y.device or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous f32 ({n},) on {y.device}")
     code = _build.dtype_code(y)
-    vec = 16 // y.element_size()
-    if cout % vec or 256 % (cout // vec) or cout > 256:
-        raise ValueError(f"{what}: takes Cout a multiple of {vec} with Cout/{vec} dividing 256, got {cout}")
     pixels = n * h * wd
     blocks = -(-pixels // _FOLD_BLOCK_PIXELS)
     out = torch.empty_like(y)
@@ -160,7 +236,7 @@ def conv3x3_bwd_fold(
     db = torch.empty((cout,), dtype=torch.float32, device=y.device)
     err = _build.lib().lg_conv3x3_bwd_fold(
         code, y.data_ptr(), gy.data_ptr(), gs1.data_ptr(), gs2.data_ptr(), out.data_ptr(), part.data_ptr(),
-        db.data_ptr(), pixels, h * wd, cout, _FOLD_BLOCK_PIXELS, blocks, _build.stream_ptr(y.device),
+        db.data_ptr(), pixels, h * wd, cout, _FOLD_BLOCK_PIXELS, blocks, int(vec), _build.stream_ptr(y.device),
     )
     _build.check(err, what)
     conv3x3_bwd_fold.launches.add()

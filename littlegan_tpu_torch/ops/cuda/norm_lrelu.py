@@ -4,10 +4,12 @@ Replaces ``littlegan_tpu/ops/pallas/norm_lrelu.py::fused_instance_norm_lrelu``:
 the forward (``_fwd_kernel`` / ``_fwd_pallas``) and its custom VJP's backward
 (``_bwd_kernel`` / ``_bwd_pallas``). It closes every encoder and decoder
 block: ``leaky_relu(instance_norm(x, gamma, beta), alpha)`` per sample over
-all of (H, W, C), with f32 stats and scalar gamma, beta. The moments are the
-Pallas op's (``_moments``): two passes (the mean, then the mean of squared
-deviations) where it holds the sample whole (:func:`holds_whole_sample`),
-one pass (sum and sum of squares, variance clamped at 0) elsewhere.
+all of (H, W, C), with f32 stats and scalar gamma, beta. The moments are
+the JAX model's: two passes (the mean, then the mean of squared deviations)
+where its Pallas op holds the sample whole (:func:`holds_whole_sample`),
+one pass (sum and sum of squares, variance clamped at 0) where the op
+chunks it and above the op's 8 MiB a sample, where the JAX model runs its
+one-pass ``instance_norm`` instead (the port runs this kernel there too).
 
 What bounds it on the H100 is bytes: a few operations per element, so the
 least time is one read of x and one write of y forward, and a read of x and
@@ -18,7 +20,8 @@ their sums through distributed shared memory (a second exchange for the
 two-pass variance) and write y from shared memory: x is read once, in one
 launch. Samples too large for the cluster's shared memory, and one-pass
 batches whose x the second launch finds in L2, take two launches
-(per-chunk partials, then a fixed-order reduce and the write, rereading x).
+(per-chunk partials, then a fixed-order reduce and the write, rereading x;
+two-pass moments add a launch between them for the squared deviations).
 Either route writes the sample's f32 (mean, std), shape (2, N), which the
 backward reads, so it sees the forward's moments bit for bit. The backward
 (``csrc/norm_lrelu_bwd.cu``) writes per-chunk partials of sum(dz) and
@@ -57,9 +60,12 @@ from littlegan_tpu_torch.ops.norm import instance_norm_from_stats
 
 _MIN_CHUNK = 2048  # elements per block at the least: 8 vectors of 8 bf16 per thread
 _BLOCKS_PER_SM = 4  # aim for this many blocks per SM over the whole batch
-# The Pallas op holds a sample whole, and takes two-pass moments, where its
-# f32 copy takes at most _WHOLE_SAMPLE_F32_LIMIT bytes or its rows do not
-# split into _CHUNK_ROWS-row chunks (``_pick_chunk``).
+# The JAX model sends a norm to its Pallas op where a sample takes at most
+# _VMEM_SAMPLE_LIMIT bytes (in the input's dtype; its one-pass plain
+# instance_norm above). The op holds a sample whole, and takes two-pass
+# moments, where its f32 copy takes at most _WHOLE_SAMPLE_F32_LIMIT bytes or
+# its rows do not split into _CHUNK_ROWS-row chunks (``_pick_chunk``).
+_VMEM_SAMPLE_LIMIT = 8 * 1024 * 1024
 _WHOLE_SAMPLE_F32_LIMIT = 512 * 1024
 _CHUNK_ROWS = 8
 # The forward's cluster route: one thread block cluster per sample, of a
@@ -71,7 +77,8 @@ _CHUNK_ROWS = 8
 # everywhere else (PERF.md, the K1 route table). A block keeps its whole
 # share in shared memory, at most _FWD_SMEM_MAX bytes (the H100's 227 KB
 # less the kernel's static arrays); a sample that does not fit 16 such
-# shares takes the two-launch route. So does a one-pass batch of at least _FWD_BIG_BATCH
+# shares takes the two-launch route (three launches for two-pass moments).
+# So does a one-pass batch of at least _FWD_BIG_BATCH
 # samples whose x takes at most _FWD_TWO_LAUNCH_BYTES: its second launch
 # finds x in L2, while the cluster route's one wave loads, synchronises and
 # writes in lock step (tied or faster at (32, 64, 64, 64): PERF.md).
@@ -107,22 +114,26 @@ def _per_sample(t: torch.Tensor, ndim: int) -> torch.Tensor:
     return t.reshape((-1,) + (1,) * (ndim - 1))
 
 
-def holds_whole_sample(shape) -> bool:
-    """Whether the Pallas op holds an (N, H, W, C) tensor's sample whole and
-    takes its moments in two passes: the port's copy of ``_pick_chunk``'s
-    rule (``littlegan_tpu/ops/pallas/norm_lrelu.py:57-61``)."""
+def holds_whole_sample(shape, itemsize: int) -> bool:
+    """Whether the JAX model takes two-pass moments for an (N, H, W, C)
+    tensor of ``itemsize``-byte elements: its Pallas op takes the tensor
+    (``supports``, ``littlegan_tpu/ops/pallas/norm_lrelu.py:249-254``) and
+    holds its sample whole (``_pick_chunk``, ``:57-61``)."""
     _, h, w, c = shape
+    if h * w * c * itemsize > _VMEM_SAMPLE_LIMIT:
+        return False
     return h * w * c * 4 <= _WHOLE_SAMPLE_F32_LIMIT or h % _CHUNK_ROWS != 0
 
 
 def instance_norm_moments_plain(x: torch.Tensor) -> torch.Tensor:
     """The per-sample f32 (mean, std) of an NHWC tensor, shape (2, N), as the
-    Pallas op's ``_moments`` takes them: two-pass where it holds the sample
-    whole, else one-pass with the variance clamped at 0."""
+    JAX model takes them: two-pass where its Pallas op holds the sample
+    whole, else one-pass with the variance clamped at 0 (the op's chunked
+    ``_moments``, and its plain ``instance_norm`` above 8 MiB a sample)."""
     red = tuple(range(1, x.ndim))
     xf = x.float()
     mean = xf.mean(red, keepdim=True)
-    if holds_whole_sample(x.shape):
+    if holds_whole_sample(x.shape, x.element_size()):
         var = (xf - mean).square().mean(red)
     else:
         var = (xf.square().mean(red) - mean.reshape(-1).square()).clamp_min(0.0)
@@ -235,7 +246,8 @@ class FwdPlan(NamedTuple):
     blocks form one thread block cluster that keeps the sample in shared
     memory (x read once, one launch); else two launches over (sample x
     chunk) blocks, the second rereading x. ``two_pass``: the Pallas op's
-    whole-sample moments, which only the cluster route computes."""
+    whole-sample moments (on the two-launch route a third launch between
+    the two, a second read of x for the squared deviations)."""
 
     chunk: int
     chunks: int
@@ -251,14 +263,13 @@ def fwd_plan(
     cluster route, blocks per sample as the constants above say, where a
     sample fits 16 blocks' shared memory; else, and for a one-pass batch
     that fits ``_FWD_TWO_LAUNCH_BYTES``, two launches chunked by
-    :func:`chunking`, which two-pass moments cannot take (ValueError).
-    ``blocks`` forces a cluster of that many blocks, or with 0 the
-    two-launch route: the wrappers take the default, the argument is for
-    measuring the routes against each other (``chip_smoke.py``)."""
-    two_launches = FwdPlan(*chunking(n, m, sms), False, False)
+    :func:`chunking` (three for two-pass moments). ``blocks`` forces a
+    cluster of that many blocks (ValueError where a share does not fit), or
+    with 0 the two-launch route: the wrappers take the default, the
+    argument is for measuring the routes against each other
+    (``chip_smoke.py``)."""
+    two_launches = FwdPlan(*chunking(n, m, sms), False, two_pass)
     if blocks == 0:
-        if two_pass:
-            raise ValueError("the two-launch route takes one-pass moments only")
         return two_launches
     forced = blocks is not None
     if not forced:
@@ -272,11 +283,8 @@ def fwd_plan(
     chunk = 8 * -(-m // (8 * blocks))
     if chunk * itemsize <= _FWD_SMEM_MAX:
         return FwdPlan(chunk, -(-m // chunk), True, two_pass)
-    if forced or two_pass:
-        raise ValueError(
-            f"a sample of {m} elements does not fit {blocks} blocks' shared memory"
-            + (", and the two-launch route does not take two-pass moments" if two_pass else "")
-        )
+    if forced:
+        raise ValueError(f"a sample of {m} elements does not fit {blocks} blocks' shared memory")
     return two_launches
 
 
@@ -417,10 +425,8 @@ def _fused_forward(
     code = _build.dtype_code(x)
     n, m = x.shape[0], x[0].numel()
     if plan is None:
-        plan = fwd_plan(n, m, x.element_size(), _sms(x.device), holds_whole_sample(x.shape))
+        plan = fwd_plan(n, m, x.element_size(), _sms(x.device), holds_whole_sample(x.shape, x.element_size()))
     _check_plan(plan, m, what)
-    if plan.two_pass and not plan.cluster:
-        raise ValueError(f"{what}: {plan}: only the cluster route takes two-pass moments")
     y = torch.empty_like(x) if write_y else None
     y_ptr = y.data_ptr() if write_y else None
     stats = torch.empty((2, n), dtype=torch.float32, device=x.device)
@@ -435,7 +441,7 @@ def _fused_forward(
         part = torch.empty((2, n, plan.chunks), dtype=torch.float32, device=x.device)
         err = lib.lg_norm_lrelu(
             code, x.data_ptr(), y_ptr, part[0].data_ptr(), part[1].data_ptr(), stats.data_ptr(),
-            g.data_ptr(), b.data_ptr(), n, m, plan.chunk, plan.chunks, alpha, eps, stream,
+            g.data_ptr(), b.data_ptr(), n, m, plan.chunk, plan.chunks, int(plan.two_pass), alpha, eps, stream,
         )
     _build.check(err, what)
     if write_y:

@@ -70,10 +70,8 @@ def _kernel_names(cfg) -> List[str]:
 
 def train_step(flags, device) -> str:
     """One tiny train step with ``flags``' kernel settings on ``device``;
-    on a card every flagged kernel must launch. The JAX script's shapes,
-    but for encoder block1's 8 output channels (JAX's 6 is no width the
-    boundary conv kernel takes: ``ops/cuda/boundary_conv.py``). Returns
-    the detail line; raises on a failure."""
+    on a card every flagged kernel must launch. The JAX script's shapes.
+    Returns the detail line; raises on a failure."""
     import numpy as np
     import torch
 
@@ -83,7 +81,7 @@ def train_step(flags, device) -> str:
     from littlegan_tpu_torch.training.step import draw_step, make_train_step
 
     t0 = time.perf_counter()
-    cfg = Config(batch_size=2, image_dim=16, init_dim=1, noise_dim=8, conv_filter=[16, 12, 8, 8, 4],
+    cfg = Config(batch_size=2, image_dim=16, init_dim=1, noise_dim=8, conv_filter=[16, 12, 8, 6, 4],
                  compute_dtype="float32", debug=True, use_pallas=flags.use_pallas,
                  use_pallas_boundary=flags.use_pallas_boundary)
     state = create_train_state(cfg, device)

@@ -156,7 +156,7 @@ K1_SHAPES = [pytest.param((n,) + hwc, id=f"K1-{n}x{'x'.join(map(str, hwc))}") fo
 def _fwd(shape, dtype, **kw):
     n, m = shape[0], math.prod(shape[1:])
     item = torch.tensor([], dtype=dtype).element_size()
-    return n, m, item, tnl.fwd_plan(n, m, item, SMS, tnl.holds_whole_sample(shape), **kw)
+    return n, m, item, tnl.fwd_plan(n, m, item, SMS, tnl.holds_whole_sample(shape, item), **kw)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -179,16 +179,17 @@ def test_fwd_cluster_fits_the_card(shape, dtype):
         assert plan.chunk * item <= tnl._FWD_SMEM_MAX <= 227 << 10
         assert plan.chunks <= 8 or m * item >= 1 << 20
     else:
-        assert plan == (*tnl.chunking(n, m, SMS), False, False)
+        assert plan == (*tnl.chunking(n, m, SMS), False, plan.two_pass)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", K1_SHAPES)
 def test_whole_sample_shapes_take_the_cluster_route(shape, dtype):
-    """Only the cluster route computes the Pallas op's two-pass moments;
-    the plan says two-pass exactly where the Pallas op holds the sample."""
-    _, _, _, plan = _fwd(shape, dtype)
-    assert plan.two_pass == tnl.holds_whole_sample(shape)
+    """The plan says two-pass exactly where the Pallas op holds the sample;
+    at the reference's shapes such a sample fits a cluster (larger ones
+    take three launches: :func:`test_a_sample_beyond_16_blocks_of_shared_memory_takes_two_launches`)."""
+    _, _, item, plan = _fwd(shape, dtype)
+    assert plan.two_pass == tnl.holds_whole_sample(shape, item)
     if plan.two_pass:
         assert plan.cluster
 
@@ -226,9 +227,12 @@ def test_a_forced_cluster_has_the_blocks_asked(blocks):
 
 
 def test_a_sample_beyond_16_blocks_of_shared_memory_takes_two_launches():
+    """Beyond 16 blocks' shared memory the two-launch route, with two-pass
+    moments too (a third launch for the squared deviations); a forced
+    two-launch plan keeps the moments asked for."""
     n, m = 4, 256 * 256 * 64  # 8 MiB of bf16 per sample, 512 KiB per block
     assert tnl.fwd_plan(n, m, 2, SMS) == (*tnl.chunking(n, m, SMS), False, False)
-    with pytest.raises(ValueError, match="two-pass"):
-        tnl.fwd_plan(n, m, 2, SMS, two_pass=True)
-    with pytest.raises(ValueError, match="one-pass"):
-        tnl.fwd_plan(n, 1024, 2, SMS, two_pass=True, blocks=0)
+    assert tnl.fwd_plan(n, m, 2, SMS, two_pass=True) == (*tnl.chunking(n, m, SMS), False, True)
+    assert tnl.fwd_plan(n, 1024, 2, SMS, two_pass=True, blocks=0) == (*tnl.chunking(n, 1024, SMS), False, True)
+    with pytest.raises(ValueError, match="does not fit 16 blocks"):
+        tnl.fwd_plan(n, m, 2, SMS, blocks=16)

@@ -61,8 +61,14 @@ def test_norm_lrelu_from_stats_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **Y_TOL)
 
 
-@pytest.mark.parametrize("shape,cout", [((3, 16, 16, 12), 24), ((2, 8, 8, 12), 64), ((2, 8, 16, 16), 8)])
+@pytest.mark.parametrize("shape,cout", [
+    ((3, 16, 16, 12), 24), ((2, 8, 8, 12), 64), ((2, 8, 16, 16), 8),
+    ((2, 8, 8, 12), 6), ((2, 16, 8, 16), 12), ((2, 8, 8, 12), 96), ((1, 8, 8, 12), 256),
+])
 def test_conv3x3_same_stats_matches_pallas(shape, cout):
+    """Any Cout, as the Pallas kernel takes any: the model's 64, widths the
+    kernel computes in one padded Cout tile (6, 12, 24, 96) and in two
+    (256)."""
     rng = np.random.default_rng(shape[0] + cout)
     x = rng.normal(size=shape).astype(np.float32)
     w = (rng.normal(size=(3, 3, shape[3], cout)) * 0.2).astype(np.float32)
@@ -153,7 +159,7 @@ def test_fused_norm_lrelu_takes_the_pallas_moments(shape, offset):
     x = _paired_sample(rng, shape, offset)
     gout = rng.normal(size=shape).astype(np.float32)
     g, b = _gb()
-    assert tnl.holds_whole_sample(shape) == (offset == 30.0)
+    assert tnl.holds_whole_sample(shape, 4) == (offset == 30.0)
 
     def f(x, g, b):
         y = jfused(x, g, b, 0.3)
@@ -180,7 +186,7 @@ def test_fused_norm_lrelu_takes_the_pallas_moments(shape, offset):
 def test_whole_sample_rule_is_the_pallas_ops(shape):
     """The port's copy of ``_pick_chunk``'s rule: whole (two-pass moments)
     at 512 KiB of f32 or less, or where the rows do not split by 8."""
-    assert tnl.holds_whole_sample(shape) == (jnl._pick_chunk(*shape[1:]) is None)
+    assert tnl.holds_whole_sample(shape, 4) == (jnl._pick_chunk(*shape[1:]) is None)
 
 
 def test_backward_reads_the_forwards_moments():

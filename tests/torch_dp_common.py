@@ -13,6 +13,7 @@ the JAX side, and the two meet in numpy arrays and torch tensors (pickled).
 
 from __future__ import annotations
 
+import functools
 import importlib
 import os
 import pickle
@@ -94,6 +95,28 @@ def one_thread_per_process():
         torch.set_num_threads(n)
 
 
+def with_shard_threshold(fn):
+    """Run ``fn(dg, case)`` with ZeRO-1's size threshold
+    (``zero._MIN_SHARD_ELEMS``) set to ``case["min_shard_elems"]`` when the
+    case gives one (the tiny test model's leaves all fall under the real
+    one), and put the module's value back after: a case run in the test's
+    own process (``dg`` None) must leave no threshold to the tests that
+    follow in that process."""
+
+    @functools.wraps(fn)
+    def wrapper(dg, case):
+        from littlegan_tpu_torch.parallel import zero
+
+        old = zero._MIN_SHARD_ELEMS
+        zero._MIN_SHARD_ELEMS = case.get("min_shard_elems", old)
+        try:
+            return fn(dg, case)
+        finally:
+            zero._MIN_SHARD_ELEMS = old
+
+    return wrapper
+
+
 # ------------------------------------------------------------- comparisons --
 
 
@@ -163,6 +186,7 @@ def make_sync(dg, cfg, state):
     return Zero1(dg, state, cfg.shard_dense) if cfg.shard_opt_state else GradSync(dg, cfg.shard_dense)
 
 
+@with_shard_threshold
 def run_steps(dg, case):
     """Port updates from one init (``case["flat"]``) under ``case["cfg"]``,
     each rank on its rows of the global inputs of ``case["steps"]``:
@@ -184,14 +208,11 @@ def run_steps(dg, case):
     import torch
 
     from littlegan_tpu_torch.config import Config
-    from littlegan_tpu_torch.parallel import zero
     from littlegan_tpu_torch.parallel.mesh import spatial_group
     from littlegan_tpu_torch.parallel.train import local_draws, shard_local_batch
     from littlegan_tpu_torch.training import step as tstep
     from littlegan_tpu_torch.training.checkpoint import flatten_state
 
-    if "min_shard_elems" in case:
-        zero._MIN_SHARD_ELEMS = case["min_shard_elems"]
     cfg = Config(**case["cfg"])
     if dg is not None and case.get("mesh"):
         dg = spatial_group(dg, case["mesh"])
@@ -240,6 +261,7 @@ def train_many(dg, cases):
     return [train_epochs(dg, case) for case in cases]
 
 
+@with_shard_threshold
 def train_epochs(dg, case):
     """A ``Trainer`` run on the synthetic dataset: ``case["cfg"]`` with this
     rank's result directories (``case["root"]/r<rank>``, so that what a rank
@@ -249,12 +271,9 @@ def train_epochs(dg, case):
     trainer's logged losses, the exit code: 1 after an interrupt save)."""
     from littlegan_tpu_torch.config import Config
     from littlegan_tpu_torch.data.synthetic import SyntheticDataset
-    from littlegan_tpu_torch.parallel import zero
     from littlegan_tpu_torch.training.checkpoint import flatten_state
     from littlegan_tpu_torch.training.trainer import Trainer
 
-    if "min_shard_elems" in case:
-        zero._MIN_SHARD_ELEMS = case["min_shard_elems"]
     rank = 0 if dg is None else dg.rank
     root = os.path.join(case["root"], f"r{rank}")
     cfg = Config(**{**case["cfg"], "all_result_dir": os.path.join(root, "result"),

@@ -28,6 +28,7 @@ import numpy as np
 
 from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.data.synthetic import SyntheticDataset
+from torch_dp_common import with_shard_threshold
 
 
 class SpyDataset(SyntheticDataset):
@@ -160,15 +161,12 @@ def _train(dg, cfg: Config, items: int):
     return {k: np.array(v) for k, v in flatten_state(tr.full_state()).items()}, tr.logged, restored, start
 
 
+@with_shard_threshold
 def ckpt_runs(dg, case):
     """On ``case["backend"]``: an unbroken run of ``case["cfg"]["epoch"]``
     epochs; the same run stopped after epoch 1 and resumed by a new
     Trainer. Returns {"unbroken", "first", "resumed": (flat, logged,
     restored flat, start epoch)}."""
-    from littlegan_tpu_torch.parallel import zero
-
-    if "min_shard_elems" in case:
-        zero._MIN_SHARD_ELEMS = case["min_shard_elems"]
     extra = {"checkpoint_backend": case["backend"]}
     epochs = case["cfg"]["epoch"]
     out = {"unbroken": _train(dg, shared_cfg(case, "unbroken", extra=extra), case["items"]),
@@ -177,15 +175,13 @@ def ckpt_runs(dg, case):
     return out
 
 
+@with_shard_threshold
 def ckpt_restore(dg, case):
     """The whole state flat and the resume epoch of a Trainer of
     ``case["cfg"]`` that restores the orbax checkpoint under
     ``case["root"]/restore`` (written by another layout of ranks)."""
-    from littlegan_tpu_torch.parallel import zero
     from littlegan_tpu_torch.training.checkpoint import flatten_state
 
-    if "min_shard_elems" in case:
-        zero._MIN_SHARD_ELEMS = case["min_shard_elems"]
     cfg = shared_cfg(case, "restore", extra={"checkpoint_backend": "orbax"})
     tr = logging_trainer(cfg, SyntheticDataset(cfg, case["items"]), dg)
     return {k: np.array(v) for k, v in flatten_state(tr.full_state()).items()}, tr.global_epoch
