@@ -162,8 +162,20 @@ Phases, each of which fails the run on any error:
       whole-sample maps beyond 16 blocks' shared memory (``COVER_K1``);
       each against its plain version with phase (b)'s tolerances, once
       launched, timed beside its bound; then the doctor's tiny train step
-      at the JAX doctor's block1 width 6, every kernel launched. Each
-      phase's wall is printed after (l).
+      at the JAX doctor's block1 width 6, every kernel launched;
+  (m) the measurement and campaign tools as a user runs them:
+      ``python -m littlegan_tpu_torch.bench`` at 128², batch 32 with the
+      defaults and with ``--kernels`` (each line parsed: 0 < mfu <= 1, the
+      card's name, and with the kernels each wrapper's launches over the
+      timed windows equal to ``EXPECTED_TRAIN_LAUNCHES`` per update);
+      autotune over K 8, 16 and 64 with the kernels (every point measured,
+      with its graph capture seconds and peak memory); serve_bench with the
+      kernels and a hot-reload drill (0 requests dropped); scaling_curve
+      over one card with the kernels;
+      a one-epoch campaign at 32² with the kernels (7 generator and 7
+      adjuster effects, finite trends, every kernel launched). Each tool's
+      wall is printed beside the card's ``nvidia-smi`` line, and each
+      phase's wall after (m).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -3642,6 +3654,131 @@ def check_coverage():
     return launches, record
 
 
+# phase (m): the measurement and campaign tools (littlegan_tpu_torch/bench.py,
+# littlegan_tpu_torch/scripts/) at the reference's 128², batch 32, each as a
+# user runs it; a failure of any fails the run
+TOOLS_BENCH_WINDOWS = 3 * 5  # bench.time_scan_dispatches: repeats x MEASURE_DISPATCHES
+TOOLS_AUTOTUNE = ["--ks", "8,16,64", "--skip-adj-half", "--skip-moment-dtype", "--measure-dispatches", "1",
+                  "--kernels"]
+TOOLS_SERVE = ["--calls", "16", "--threads", "8", "--reload", "--kernels"]
+TOOLS_CAMPAIGN = ["--epochs", "1", "--eval-every", "1", "--dim", "32", "--n", "512", "--batch-size", "32",
+                  "--fid-n", "128", "--eval-rows", "32", "--kernels"]  # 16 batches: one K = 8 replay
+
+
+def _json_lines(out: str):
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+
+def _run_module(argv, cwd, timeout=600):
+    """``python -m <argv>`` from ``cwd``: (its standard output, host wall s);
+    raises unless it exits 0."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=cwd, capture_output=True, text=True, timeout=timeout)
+    require(proc.returncode == 0, f"python -m {' '.join(argv)}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
+                                  f"{proc.stderr[-4000:]}")
+    return proc.stdout, time.time() - t0
+
+
+def check_tools():
+    """Phase (m): ``python -m littlegan_tpu_torch.bench`` with the defaults
+    and with ``--kernels`` (0 < mfu <= 1, the card's name, the kernels'
+    launches over the timed windows equal to EXPECTED_TRAIN_LAUNCHES per
+    update), autotune over K 8, 16, 64 (every point measured, each K's graph
+    capture s and peak memory), serve_bench with a reload drill (0
+    dropped), scaling_curve over one card, each with the kernels, and a
+    one-epoch campaign at 32² with the kernels (7 + 7 effects, finite trends, every kernel launched).
+    Returns (the kernels' launches: {"bench": ..., "campaign": ...}, the
+    record)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from littlegan_tpu_torch.scripts import autotune, campaign, serve_bench
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    kind = torch.cuda.get_device_name(0)
+    walls, record, launches = {}, {}, {}
+    torch.cuda.empty_cache()
+
+    benches = []
+    for extra in ([], ["--kernels"]):
+        out, walls["bench" + "".join(extra).replace("--", "_")] = _run_module(["littlegan_tpu_torch.bench", *extra],
+                                                                              root)
+        lines = _json_lines(out)
+        require(len(lines) == 1, f"bench {extra}: {len(lines)} JSON lines")
+        line = lines[0]
+        log(f"(m) bench {' '.join(extra) or '(defaults)'}: " + json.dumps(line))
+        require(line["metric"] == "train_images_per_sec_per_chip_128px_b32" + ("_kernels" if extra else ""),
+                line["metric"])
+        require(line["device_kind"] == kind and line["device"] == "cuda", (line["device_kind"], kind))
+        require(line["mfu"] is not None and 0 < line["mfu"] <= 1, f"bench mfu {line['mfu']}")
+        if extra:
+            updates = TOOLS_BENCH_WINDOWS * line["steps_per_dispatch"]
+            want = {k: v * updates for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+            require(line["kernel_launches"] == want, f"bench --kernels launches {line['kernel_launches']}, want {want}")
+            launches["bench"] = line["kernel_launches"]
+        benches.append(line)
+    record["bench"] = benches
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        t0 = time.time()
+        code, out = _call_main(autotune.main, TOOLS_AUTOTUNE + ["--out", os.path.join(tmp, "rec.json")], tmp)
+        walls["autotune"] = time.time() - t0
+        points = _json_lines(out)
+        rec = json.loads(next(ln for ln in out.splitlines() if ln.startswith("RECOMMEND "))[len("RECOMMEND "):])
+        for pt in points:
+            log(f"(m) autotune K {pt['steps_per_dispatch']}: " + json.dumps(pt))
+        require(code == 0 and not rec["failed"] and [p["steps_per_dispatch"] for p in points] == [8, 16, 64],
+                f"autotune: exit {code}, points {points}")
+        require(all(p["graph_capture_s"] > 0 and p["peak_memory_mb"] > 0 for p in points), points)
+        record["autotune"] = {"points": points, "recommend": {k: rec[k] for k in ("parity", "fastest", "device_kind")}}
+        torch.cuda.empty_cache()
+
+        t0 = time.time()
+        code, out = _call_main(serve_bench.main, TOOLS_SERVE, tmp)
+        walls["serve_bench"] = time.time() - t0
+        lines = {ln["metric"]: ln for ln in _json_lines(out)}
+        for ln in lines.values():
+            log("(m) serve_bench: " + json.dumps(ln))
+        drill = lines.get("serve_generate_latency_during_hot_reload", {})
+        require(code == 0 and len(lines) == 6 and drill.get("dropped") == 0 and None not in drill["reloaded"],
+                f"serve_bench: exit {code}, {sorted(lines)}, drill {drill}")
+        record["serve_bench"] = list(lines.values())
+        torch.cuda.empty_cache()
+
+        out, walls["scaling_curve"] = _run_module(
+            ["littlegan_tpu_torch.scripts.scaling_curve", "--devices", "1", "--kernels", "--out",
+             os.path.join(tmp, "c.json")], root)
+        curve = _json_lines(out)
+        log("(m) scaling_curve: " + json.dumps(curve))
+        require(len(curve) == 1 and curve[0]["regime"] == "dp" and curve[0]["efficiency"] == 1.0
+                and curve[0]["device_kind"] == kind and curve[0]["img_s"] > 0, f"scaling_curve: {curve}")
+        record["scaling_curve"] = curve
+
+        counters = _counters(tuple(EXPECTED_TRAIN_LAUNCHES))
+        for c in counters.values():
+            c.reset()
+        t0 = time.time()
+        code, out = _call_main(campaign.main, ["tools"] + TOOLS_CAMPAIGN + [
+            "--data", os.path.join(tmp, "data"), "--result-dir", os.path.join(tmp, "result")], tmp)
+        walls["campaign"] = time.time() - t0
+        launches["campaign"] = {k: c.value for k, c in counters.items()}
+        with open(os.path.join(tmp, "result", "tools", "campaign_trajectory.json")) as f:
+            traj = json.load(f)
+        log("(m) campaign: " + json.dumps(traj) + f"; launches {launches['campaign']}")
+        rec = traj[0] if len(traj) == 1 else {}
+        trends = [rec.get(k) for k in ("fid_trend_random_init", "is_trend_random_init", "kid_trend_random_init")]
+        require(code == 0 and len(rec.get("gen_effects", [])) == 7 and len(rec.get("adj_effects", [])) == 7
+                and all(v is not None and np.isfinite(v) for v in trends) and rec["device_kind"] == kind,
+                f"campaign: exit {code}, {traj}")
+        require(all(v > 0 for v in launches["campaign"].values()), f"campaign launches {launches['campaign']}")
+        record["campaign"] = rec
+    record["walls"] = walls
+    log("phase (m) walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f" | {nvidia_smi_line()}")
+    return launches, record
+
+
 def _free_port() -> int:
     import socket
 
@@ -3651,7 +3788,7 @@ def _free_port() -> int:
 
 
 def summarize(records, serve_launches, train_launches, dispatch_launches, eval_launches, remat_launches,
-              s2d_launches, dp_launches, compat_launches, spatial_launches, parity_launches, coverage):
+              s2d_launches, dp_launches, compat_launches, spatial_launches, parity_launches, coverage, tools):
     """One JSON record per kernel, bf16 (the working dtype): summed over the
     launches of one train step where phase (b) timed the train shapes, else
     over the shapes one /adjust call gives it ("per" says which; a kernel
@@ -3663,7 +3800,8 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
     phase (j)'s spatial runs, where every kernel is off and reads 0, and
     phase (k)'s: the orbax and npz runs, ``--measure``'s update, the
     doctor's step and the conditioning check; phase (l)'s doctor step at
-    block1 width 6), split in "launches_by_path". Phase (l)'s rows, the
+    block1 width 6; phase (m)'s ``bench --kernels`` timed windows and
+    campaign), split in "launches_by_path". Phase (l)'s rows, the
     kernel at the shapes the reference's widths do not reach, are under
     "coverage"."""
     coverage_launches, coverage_record = coverage
@@ -3697,7 +3835,8 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
                    "remat": remat_launches.get(name, 0), "s2d_store": s2d_launches.get(name, 0),
                    "dp": dp_launches.get(name, 0), "compat": compat_launches.get(name, 0),
                    "spatial": spatial_launches.get(name, 0), "parity": parity_launches.get(name, 0),
-                   "coverage": coverage_launches.get(name, 0)}
+                   "coverage": coverage_launches.get(name, 0), "bench": tools["bench"].get(name, 0),
+                   "campaign": tools["campaign"].get(name, 0)}
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3787,11 +3926,15 @@ def main() -> int:
     log("parity record: " + json.dumps(parity))
     walls["k"], t0 = time.time() - t0, time.time()
     coverage = check_coverage()
-    walls["l"] = time.time() - t0
+    walls["l"], t0 = time.time() - t0, time.time()
+    tools_launches, tools = check_tools()
+    log("tools record: " + json.dumps(tools))
+    walls["m"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
                                          eval_launches, remat_launches, s2d_launches, dp_launches,
-                                         compat_launches, spatial_launches, parity_launches, coverage)}))
+                                         compat_launches, spatial_launches, parity_launches, coverage,
+                                         tools_launches)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -5,8 +5,9 @@ Generates images with one attribute bit flipped (+1 vs -1, others fixed) and
 measures the attribute's visual statistic in the generated images, plus the
 discriminator cond-head's agreement with ground-truth labels on real images.
 Designed for the structured synthetic dataset
-(``scripts/make_structured_data.py``: each of the 7 selected bits controls
-a visible property), but the D-head check works on any dataset. It runs
+(``python -m littlegan_tpu_torch.scripts.make_structured_data``, the port's
+own copy of the JAX repo's script: each of the 7 selected bits controls a
+visible property), but the D-head check works on any dataset. It runs
 through the port's ``serving.InferenceEngine`` (batch 64), so on the card
 the forwards run the kernels the config's flags select.
 

@@ -113,20 +113,19 @@ def test_params_cache_tracks_new_weights(tiny_cfg, inputs):
         dp(model, noise)
 
 
-def test_infer_mesh_devices(monkeypatch):
+def test_infer_mesh_devices(monkeypatch, tmp_path):
     """Every visible card with no process group, 1 under one, 1 on the CPU."""
     import torch.distributed as dist
-
-    from torch_dp_common import free_port
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert tinfer.infer_mesh_devices() == 4
     assert tinfer.infer_mesh_devices("cuda:1") == 4
     assert tinfer.infer_mesh_devices("cpu") == 1
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1, rank=0)
     try:
         assert tinfer.infer_mesh_devices() == 1
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

@@ -1,9 +1,11 @@
 """Data-parallel runs of the port over gloo ranks, for the tests.
 
 ``run_ranks(name, world, case)`` starts ``world`` Python processes of this
-file, each a rank of one gloo process group on the CPU (an ephemeral
-localhost port), runs the function ``name`` of this module (or
-``"module:function"`` of another module of ``tests/``) on each as
+file, each a rank of one gloo process group on the CPU (the ranks meet at a
+file in the run's temporary directory: no TCP port is picked, so another
+test process cannot take it between the pick and the ranks' start), runs
+the function ``name`` of this module (or ``"module:function"`` of another
+module of ``tests/``) on each as
 ``fn(DataGroup, case)`` and returns their results in rank order. A process
 start costs seconds of CPU, so a test module runs its cases of one world
 size in one start (:func:`run_many`). The
@@ -17,7 +19,6 @@ import functools
 import importlib
 import os
 import pickle
-import socket
 import subprocess
 import sys
 import tempfile
@@ -30,24 +31,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_ranks(name: str, world: int, case: Dict[str, Any], timeout: float = 120.0) -> List[Any]:
     """``name(dg, case)`` on each of ``world`` gloo ranks; their results."""
     with tempfile.TemporaryDirectory() as tmp:
         case_path = os.path.join(tmp, "case.pkl")
         with open(case_path, "wb") as f:
             pickle.dump(case, f)
-        port = free_port()
+        rendezvous = os.path.join(tmp, "rendezvous")
         env = {**os.environ, "PYTHONPATH": os.pathsep.join([REPO, HERE]), "OMP_NUM_THREADS": "1"}
         env.pop("LOCAL_RANK", None)
         procs = [
             subprocess.Popen(
-                [sys.executable, __file__, name, case_path, str(r), str(world), str(port),
+                [sys.executable, __file__, name, case_path, str(r), str(world), rendezvous,
                  os.path.join(tmp, f"{r}.pkl")],
                 env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
@@ -378,12 +373,12 @@ def spatial_ops(dg, case):
 
 
 if __name__ == "__main__":
-    name, case_path, rank, world, port, out_path = sys.argv[1:]
+    name, case_path, rank, world, rendezvous, out_path = sys.argv[1:]
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=int(world), rank=int(rank))
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}", world_size=int(world), rank=int(rank))
     from littlegan_tpu_torch.parallel.mesh import data_group
 
     with open(case_path, "rb") as f:
@@ -394,5 +389,6 @@ if __name__ == "__main__":
         result = result(data_group("cpu"), case)
         with open(out_path, "wb") as f:
             pickle.dump(result, f)
+        dist.barrier()  # no rank tears down while a peer is still inside a collective
     finally:
         dist.destroy_process_group()
