@@ -174,8 +174,19 @@ Phases, each of which fails the run on any error:
       over one card with the kernels;
       a one-epoch campaign at 32² with the kernels (7 generator and 7
       adjuster effects, finite trends, every kernel launched). Each tool's
-      wall is printed beside the card's ``nvidia-smi`` line, and each
-      phase's wall after (m).
+      wall is printed beside the card's ``nvidia-smi`` line;
+  (n) the JAX repo's last entry points as a user runs them: ``fit_frontier``
+      over 128² at batch 32 and 256, parity and remat (every point fits),
+      and over a point past the card (``ENTRY_OOM``: ``oom``, not an error);
+      ``python -m littlegan_tpu_torch.dryrun 1 --kernels`` over NCCL (each
+      regime OK or skipped as at one rank, the kernels launched);
+      ``bench_step_variants`` (the concat-D step against the current one,
+      kernels on and off: host ms per eager step, device ms per update of a
+      K = 8 graph) with a trace of one graph replay; ``trace_top_ops`` on
+      phase (g)'s ``profile_steps`` trace and on that replay (K1, K2 and K3
+      among the device ops); ``bench_boundary_conv`` (K3 within
+      ``ENTRY_K3_REL`` of phase (b)'s time at (32, 64, 64, 12) bf16). Each
+      tool's wall is printed, and each phase's wall after (n).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -1913,6 +1924,8 @@ STORE_BATCHES = 16
 REMAT_STEPS = 3
 REMAT_TOL = {"loss_rtol": 1e-4, "rtol": 2e-4, "atol": 1e-6}
 PROFILE_STEPS = 2
+# the profile_steps trace, kept past phase (g)'s temporary directory for phase (n)
+PROFILE_TRACE_COPY = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"chip_smoke_{os.getpid()}_profile.pt.trace.json")
 FEED_STEPS = 16
 LOADER_IMAGES = 256
 # remat recomputes each network in every backward that crosses it: the disc
@@ -2235,6 +2248,9 @@ def check_profile_and_feed(root):
         f"K1's {len(k1)}, K3's {len(k3)}; host-fed with prefetch in its window: device busy {busy * 1e3:.2f} of "
         f"{span * 1e3:.2f} ms, idle share {1 - busy / span:.1%}")
     require(k1 and k3, f"the profiler trace holds no K1 or K3 kernel: {sorted(names)[:20]}")
+    import shutil
+
+    shutil.copyfile(traces[0], PROFILE_TRACE_COPY)  # phase (n) summarizes it with trace_top_ops
     for tr in feeds.values():  # one trace per run: the timed epochs run unprofiled
         tr.cfg = tr.cfg.replace(profile_steps=0)
     for name in ("synchronous", "gather"):
@@ -3779,6 +3795,131 @@ def check_tools():
     return launches, record
 
 
+# phase (n): the JAX repo's last entry points, as a user runs them
+ENTRY_FIT = ["--points", "128:32,128:256", "--flagsets", "parity,remat"]
+# a step past 80 GB: the host-fed step without the kernels holds about 110 MB per 128² image (phase (m)'s
+# autotune: 3.7 GB at batch 32), so 1024², batch 32 asks for about 225 GB; its largest tensor stays
+# under 2**31 elements
+ENTRY_OOM = ["--points", "1024:32", "--flagsets", "parity"]
+ENTRY_DRYRUN_TAGS = [("dp", "OK"), ("accum_x_dp", "OK"), ("spatial", "skipped"), ("zero1_x_dp", "OK"),
+                     ("shard_dense", "skipped"), ("moment_bf16_x_zero1_x_dp", "OK"), ("accum_x_spatial", "skipped"),
+                     ("shard_dense_x_zero1", "skipped"), ("infer_dp", "OK")]  # at one rank
+ENTRY_K3_REL = 0.10  # bench_boundary_conv's K3 against phase (b)'s, same shape and dtype
+ENTRY_PORT_KERNELS = ("K1 norm_lrelu.cu", "K2 norm_lrelu_bwd.cu", "K3 boundary_conv.cu")
+
+
+def _top_ops(path, root, top_n=25):
+    """``trace_top_ops <path> <top_n> --json``: its summary; it must name
+    K1, K2 and K3 among the device ops."""
+    out, wall = _run_module(["littlegan_tpu_torch.scripts.trace_top_ops", path, str(top_n), "--json"], root)
+    summary = _json_lines(out)[-1]
+    for line in out.splitlines()[:-1]:
+        log(f"  {line}")
+    cats = {c["category"] for c in summary["by_category"]}
+    require(all(k in cats for k in ENTRY_PORT_KERNELS), f"trace_top_ops of {path}: categories {sorted(cats)}")
+    summary["wall_s"] = wall
+    return summary
+
+
+def check_entry_points(records, profile_trace):
+    """Phase (n): ``fit_frontier`` over ENTRY_FIT (every point fits) and
+    ENTRY_OOM (``oom``, not ``error``), ``dryrun 1 --kernels`` over NCCL
+    (ENTRY_DRYRUN_TAGS), ``trace_top_ops`` on phase (g)'s ``profile_steps``
+    trace and on a replay of the K = 8 graph (K1, K2 and K3 among the device
+    ops), ``bench_boundary_conv`` (K3 within ENTRY_K3_REL of phase (b)'s
+    ``records`` at (32, 64, 64, 12) bf16, within its tolerance at every
+    row) and ``bench_step_variants`` (both forms, kernels on and off).
+    The dry run runs beside the fitting probes (not the OOM one), the rest
+    one at a time. Returns (the kernels' launches of the dry run and the
+    step variants, the record)."""
+    import tempfile
+
+    import numpy as np
+
+    from littlegan_tpu_torch.ops.cuda import _build
+    from littlegan_tpu_torch.scripts import bench_step_variants
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    walls, record = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        # the dry run (a small model) shares the card with the fitting probes, whose peaks are each
+        # process's own; the probe that runs out of memory and the timed tools run alone
+        t_dry = time.time()
+        with open(os.path.join(tmp, "dryrun.log"), "w+") as dry_log:
+            dry_proc = subprocess.Popen([sys.executable, "-m", "littlegan_tpu_torch.dryrun", "1", "--kernels"],
+                                        cwd=root, stdout=dry_log, stderr=subprocess.STDOUT, text=True)
+            try:
+                out, walls["fit_frontier"] = _run_module(
+                    ["littlegan_tpu_torch.scripts.fit_frontier", *ENTRY_FIT, "--out", os.path.join(tmp, "fit.json")],
+                    root)
+                dry_proc.wait(timeout=600)
+            finally:
+                if dry_proc.poll() is None:
+                    dry_proc.kill()
+                    dry_proc.wait()
+            dry_log.seek(0)
+            dry_out = dry_log.read()
+        walls["dryrun"] = time.time() - t_dry
+        rows = [r for r in _json_lines(out) if "verdict" in r]
+        for r in rows:
+            log("(n) fit_frontier: " + json.dumps(r))
+        require([(r["dim"], r["batch"], r["flags"], r["verdict"]) for r in rows]
+                 == [(128, 32, "parity", "fits"), (128, 32, "remat", "fits"), (128, 256, "parity", "fits"),
+                     (128, 256, "remat", "fits")], f"fit_frontier {ENTRY_FIT}: {rows}")
+        require(dry_proc.returncode == 0, f"dryrun 1: exit {dry_proc.returncode}\n{dry_out[-4000:]}")
+        out, walls["fit_frontier_oom"] = _run_module(["littlegan_tpu_torch.scripts.fit_frontier", *ENTRY_OOM], root)
+        (oom,) = [r for r in _json_lines(out) if "verdict" in r]
+        log("(n) fit_frontier past the card: " + json.dumps(oom))
+        require(oom["verdict"] == "oom" and oom["peak_bytes"] > 0 and oom["n_images_headroom"] is not None,
+                f"fit_frontier {ENTRY_OOM}: {oom}")
+        record["fit_frontier"] = rows + [oom]
+
+        lines = [ln for ln in dry_out.splitlines() if ln.startswith("dryrun_multichip(1) ")]
+        for ln in lines:
+            log(f"(n) {ln}")
+        tags = [re.match(r"dryrun_multichip\(1\) \[(\w+)\] (OK|skipped)", ln) for ln in lines[:-1]]
+        require([m.groups() if m else None for m in tags] == ENTRY_DRYRUN_TAGS, f"dryrun 1: {lines}")
+        dry = json.loads(lines[-1].split("kernel launches (rank 0): ", 1)[1])
+        require(all(dry.get(k, 0) > 0 for k in EXPECTED_TRAIN_LAUNCHES), f"dryrun 1 --kernels launches {dry}")
+
+        for c in _build.COUNTERS.values():
+            c.reset()
+        t0 = time.time()
+        code, out = _call_main(bench_step_variants.main, ["--trace", tmp], tmp)
+        walls["bench_step_variants"] = time.time() - t0
+        variants = _json_lines(out)[-1]
+        for ln in out.splitlines()[:-1]:
+            log(f"(n) bench_step_variants: {ln}")
+        nums = [r[k] for rec in (variants["kernels_on"], variants["kernels_off"]) for r in rec.values()
+                for k in ("host_ms_per_step", "graph_busy_ms_per_update")]
+        require(code == 0 and all(np.isfinite(v) and v > 0 for v in nums), f"bench_step_variants: {variants}")
+        launches = {k: c.value + dry.get(k, 0) for k, c in _counters(tuple(EXPECTED_TRAIN_LAUNCHES)).items()}
+        record["bench_step_variants"] = variants
+
+        log("(n) trace_top_ops, phase (g)'s profile_steps trace (host-fed Trainer steps):")
+        record["top_ops_profile"] = _top_ops(profile_trace, root)
+        log("(n) trace_top_ops, one replay of the K = 8 graph (bench_step_variants --trace, kernels on):")
+        record["top_ops_graph"] = _top_ops(os.path.join(tmp, "graph_k8.json"), root)
+
+        out, walls["bench_boundary_conv"] = _run_module(["littlegan_tpu_torch.scripts.bench_boundary_conv"], root)
+        rows = _json_lines(out)
+        for ln in out.splitlines():
+            if not ln.startswith("{"):
+                log(f"(n) bench_boundary_conv: {ln}")
+        (k3,) = [r for r in rows if r["shape"] == [32, 64, 64, 12] and r["dtype"] == "bfloat16"]
+        (b,) = [r for r in records["conv3x3_same_stats"]["shapes"]
+                if r["shape"] == [32, 64, 64, 12, 64] and r["dtype"] == "bfloat16"]
+        log(f"(n) K3 (32, 64, 64, 12) bf16: bench_boundary_conv {k3['k3_ms']:.4f} ms, phase (b) {b['ms']:.4f} ms")
+        require(all(r["within_tol"] for r in rows) and abs(k3["k3_ms"] / b["ms"] - 1) <= ENTRY_K3_REL,
+                f"bench_boundary_conv: {rows} against phase (b)'s {b['ms']}")
+        record["bench_boundary_conv"] = rows
+    if os.path.exists(PROFILE_TRACE_COPY):
+        os.remove(PROFILE_TRACE_COPY)
+    record["walls"] = walls
+    log("phase (n) walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f" | {nvidia_smi_line()}")
+    return launches, record
+
+
 def _free_port() -> int:
     import socket
 
@@ -3788,7 +3929,8 @@ def _free_port() -> int:
 
 
 def summarize(records, serve_launches, train_launches, dispatch_launches, eval_launches, remat_launches,
-              s2d_launches, dp_launches, compat_launches, spatial_launches, parity_launches, coverage, tools):
+              s2d_launches, dp_launches, compat_launches, spatial_launches, parity_launches, coverage, tools,
+              entry_launches):
     """One JSON record per kernel, bf16 (the working dtype): summed over the
     launches of one train step where phase (b) timed the train shapes, else
     over the shapes one /adjust call gives it ("per" says which; a kernel
@@ -3801,7 +3943,8 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
     phase (k)'s: the orbax and npz runs, ``--measure``'s update, the
     doctor's step and the conditioning check; phase (l)'s doctor step at
     block1 width 6; phase (m)'s ``bench --kernels`` timed windows and
-    campaign), split in "launches_by_path". Phase (l)'s rows, the
+    campaign; phase (n)'s dry run and step variants), split in
+    "launches_by_path". Phase (l)'s rows, the
     kernel at the shapes the reference's widths do not reach, are under
     "coverage"."""
     coverage_launches, coverage_record = coverage
@@ -3836,7 +3979,7 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
                    "dp": dp_launches.get(name, 0), "compat": compat_launches.get(name, 0),
                    "spatial": spatial_launches.get(name, 0), "parity": parity_launches.get(name, 0),
                    "coverage": coverage_launches.get(name, 0), "bench": tools["bench"].get(name, 0),
-                   "campaign": tools["campaign"].get(name, 0)}
+                   "campaign": tools["campaign"].get(name, 0), "entry": entry_launches.get(name, 0)}
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3929,12 +4072,15 @@ def main() -> int:
     walls["l"], t0 = time.time() - t0, time.time()
     tools_launches, tools = check_tools()
     log("tools record: " + json.dumps(tools))
-    walls["m"] = time.time() - t0
+    walls["m"], t0 = time.time() - t0, time.time()
+    entry_launches, entry = check_entry_points(records, PROFILE_TRACE_COPY)
+    log("entry points record: " + json.dumps(entry))
+    walls["n"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
                                          eval_launches, remat_launches, s2d_launches, dp_launches,
                                          compat_launches, spatial_launches, parity_launches, coverage,
-                                         tools_launches)}))
+                                         tools_launches, entry_launches)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -38,11 +38,13 @@ import numpy as np
 from littlegan_tpu_torch.config import Config
 
 
-def _tf_forwards(tf, cfg: Config, p: Dict[str, np.ndarray]):
+def _tf_forwards(tf, cfg: Config, p: Dict[str, Any]):
     """The generator, adjuster and discriminator of ``cfg`` in TF ops over
-    the arrays ``p`` (the port's parameter names)."""
+    ``p`` (the port's parameter names): numpy arrays, baked in as
+    constants, or ``tf.Variable``s, read at each call
+    (``compat/tf_reference_step.py`` trains them)."""
     alpha = cfg.leaky_alpha
-    const = {k: tf.constant(v) for k, v in p.items()}
+    const = {k: v if isinstance(v, tf.Variable) else tf.constant(v) for k, v in p.items()}
 
     def norm(x, pre):
         axes = list(range(1, len(x.shape)))

@@ -13,7 +13,11 @@ counterpart of the JAX package's ``scripts/memory_report.py``.
   1: the accumulation step; ``--remat``, ``--adj-half`` as configured;
   ``--kernels``: both kernel flags on), after one warm-up update. One card:
   it refuses ``--mesh``, and without a card it exits 1 and prints no
-  result line.
+  result line. A step that does not fit is a result, as JAX's compile
+  OOM is: ``torch.OutOfMemoryError`` in either update gives ``fits:
+  false`` with the allocator's reserved bytes at the failure
+  (``oom_used_bytes``) and the card's capacity, "DOES NOT FIT" and exit 0
+  (``scripts/fit_frontier.py`` reads it as ``oom``).
 
 ``--topology`` (an ahead-of-time XLA compile for a TPU slice) has no torch
 counterpart and is refused.
@@ -43,10 +47,20 @@ def _fmt(n: int) -> str:
     return f"{n:.2f} GiB"
 
 
-def measured_step_report(cfg) -> Dict:
+TOPOLOGY_REFUSAL = ("memory_report: --topology compiles for a TPU slice ahead of time and has no counterpart in "
+                    "the port; --measure runs one update on this card")
+MESH_REFUSAL = "memory_report: --measure runs one card; it takes no --mesh"
+
+
+def measured_step_report(cfg, device=None) -> Dict:
     """The card's peak over one update of ``cfg``'s step form (after one
     warm-up update): the bytes allocated before it (the train state and
-    the inputs) and the peak during it, with the kernels' launches in it."""
+    the inputs) and the peak during it, with the kernels' launches in it;
+    ``fits`` and the card's ``hbm_capacity_bytes``. An out-of-memory error
+    in either update (the warm-up is the same update) is the verdict
+    ``fits: false``, with the bytes the allocator held at the failure
+    (``oom_used_bytes``) and the error's text; any other error raises.
+    ``device``: the card (default the current one)."""
     import numpy as np
     import torch
 
@@ -54,7 +68,7 @@ def measured_step_report(cfg) -> Dict:
     from littlegan_tpu_torch.training.state import create_train_state
     from littlegan_tpu_torch.training.step import draw_step, make_accum_train_step, make_train_step, stack_draws
 
-    device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
     state = create_train_state(cfg, device)
     rng = np.random.default_rng(0)
     m = cfg.grad_accum
@@ -73,20 +87,26 @@ def measured_step_report(cfg) -> Dict:
 
     step = (make_accum_train_step if m > 1 else make_train_step)(cfg, state)
     b1, b2 = batch(), batch()
-    step(state, b1, b2, draws(), 11)  # warm-up: the kernels' build, cuDNN's plans
-    d = draws()
-    torch.cuda.synchronize(device)
-    for c in _build.COUNTERS.values():
-        c.reset()
-    before = torch.cuda.memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    out = step(state, b1, b2, d, 12)
-    torch.cuda.synchronize(device)
+    rep = {"device": torch.cuda.get_device_name(device), "step": "accum" if m > 1 else "train",
+           "kernels": bool(cfg.use_pallas or cfg.use_pallas_boundary),
+           "hbm_capacity_bytes": int(torch.cuda.mem_get_info(device)[1])}
+    try:
+        step(state, b1, b2, draws(), 11)  # warm-up: the kernels' build, cuDNN's plans
+        d = draws()
+        torch.cuda.synchronize(device)
+        for c in _build.COUNTERS.values():
+            c.reset()
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = step(state, b1, b2, d, 12)
+        torch.cuda.synchronize(device)
+    except torch.OutOfMemoryError as e:
+        return {**rep, "fits": False, "oom_used_bytes": int(torch.cuda.memory_reserved(device)),
+                "oom_error": str(e)[:500]}
     peak = torch.cuda.max_memory_allocated(device)
     losses = [float(v) for v in out.metrics.values()]
-    return {"device": torch.cuda.get_device_name(device), "step": "accum" if m > 1 else "train",
-            "kernels": bool(cfg.use_pallas or cfg.use_pallas_boundary), "before_bytes": int(before),
-            "peak_bytes": int(peak), "launches": {k: v for k, v in _build.launch_counts().items() if v},
+    return {**rep, "fits": True, "before_bytes": int(before), "peak_bytes": int(peak),
+            "launches": {k: v for k, v in _build.launch_counts().items() if v},
             "losses_finite": bool(np.all(np.isfinite(losses)))}
 
 
@@ -114,8 +134,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     if args.topology is not None:
-        print("memory_report: --topology compiles for a TPU slice ahead of time and has no counterpart in the "
-              "port; --measure runs one update on this card", file=sys.stderr)
+        print(TOPOLOGY_REFUSAL, file=sys.stderr)
         return 2
     mesh_shape = None
     if args.mesh:
@@ -127,7 +146,7 @@ def main(argv=None) -> int:
         import torch
 
         if mesh_shape:
-            print("memory_report: --measure runs one card; it takes no --mesh", file=sys.stderr)
+            print(MESH_REFUSAL, file=sys.stderr)
             return 2
         if not torch.cuda.is_available():
             print("memory_report: --measure needs a CUDA device (a CPU number is no card's)", file=sys.stderr)
@@ -163,8 +182,12 @@ def main(argv=None) -> int:
     }
     if args.measure:
         meas = measured_step_report(cfg)
-        print(f"  measured {meas['step']} step on {meas['device']}: {_fmt(meas['before_bytes'])} allocated "
-              f"before it, peak {_fmt(meas['peak_bytes'])}")
+        if meas["fits"]:
+            print(f"  measured {meas['step']} step on {meas['device']}: {_fmt(meas['before_bytes'])} allocated "
+                  f"before it, peak {_fmt(meas['peak_bytes'])}")
+        else:
+            print(f"  measured {meas['step']} step on {meas['device']}: DOES NOT FIT — "
+                  f"{_fmt(meas['oom_used_bytes'])} reserved of {_fmt(meas['hbm_capacity_bytes'])}")
         out["measured"] = meas
     print(json.dumps(out))
     return 0

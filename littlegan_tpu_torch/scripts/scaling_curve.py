@@ -42,14 +42,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
 
-_PACKAGE_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from littlegan_tpu_torch.parallel.launch import run_ranks
 
 
 def _rank_point(spec: dict) -> dict:
@@ -59,7 +57,8 @@ def _rank_point(spec: dict) -> dict:
     import torch.distributed as dist
 
     from littlegan_tpu_torch.config import Config
-    from littlegan_tpu_torch.parallel.mesh import data_group, spatial_group
+    from littlegan_tpu_torch.parallel.launch import join_group
+    from littlegan_tpu_torch.parallel.mesh import spatial_group
     from littlegan_tpu_torch.parallel.train import GradSync, local_draws, replicate_state, shard_local_batch
     from littlegan_tpu_torch.training.state import create_train_state
     from littlegan_tpu_torch.training.step import draw_step, make_train_step
@@ -72,11 +71,7 @@ def _rank_point(spec: dict) -> dict:
         torch.set_num_threads(1)
     dg = None
     if world > 1:
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                                init_method=f"file://{spec['rendezvous']}", world_size=world, rank=rank)
-        dg = data_group(device)
+        dg = join_group(device, spec["rendezvous"])
         if spec["spatial"]:
             dg = spatial_group(dg, (world // 2, 2))
     try:
@@ -126,43 +121,6 @@ def _rank_point(spec: dict) -> dict:
             dist.destroy_process_group()
 
 
-def run_point(spec: dict, n: int, timeout: float = 1800.0) -> dict:
-    """Start the ``n`` rank processes of one point and return rank 0's
-    result; raises with the failed ranks' output if any fails."""
-    with tempfile.TemporaryDirectory(prefix="lg_curve_") as tmp:
-        spec = {**spec, "rendezvous": os.path.join(tmp, "rendezvous")}
-        spec_path = os.path.join(tmp, "spec.json")
-        with open(spec_path, "w") as f:
-            json.dump(spec, f)
-        path = os.environ.get("PYTHONPATH", "")
-        base = {**os.environ, "PYTHONPATH": _PACKAGE_PARENT + (os.pathsep + path if path else ""),
-                "WORLD_SIZE": str(n), "LOCAL_WORLD_SIZE": str(n)}
-        if spec["virtual"]:
-            base["OMP_NUM_THREADS"] = "1"
-        procs = []
-        for r in range(n):
-            env = {**base, "RANK": str(r), "LOCAL_RANK": str(r)}
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "littlegan_tpu_torch.scripts.scaling_curve", "--point", spec_path,
-                 os.path.join(tmp, f"{r}.json")],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=timeout)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
-        if bad:
-            raise RuntimeError(f"scaling point {spec['tag']}: ranks {bad} failed:\n"
-                               + "\n".join(f"--- rank {r}\n{logs[r][-4000:]}" for r, _ in bad))
-        with open(os.path.join(tmp, "0.json")) as f:
-            return json.load(f)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--devices", default="", help="comma list of card counts (default: 1, 2, 4, ... up to all)")
@@ -176,13 +134,13 @@ def main(argv=None) -> int:
                     help="both kernel flags on (the spatial step turns them off, as JAX's does)")
     ap.add_argument("--trace", default="", help="a torch.profiler trace per rank and point under DIR/<tag>")
     ap.add_argument("--out", default="", help="output JSON path (default scaling_curve_<backend>.json)")
-    ap.add_argument("--point", nargs=2, metavar=("SPEC", "OUT"), help=argparse.SUPPRESS)  # one rank of a point
+    ap.add_argument("--rank", nargs=2, metavar=("SPEC", "OUT"), help=argparse.SUPPRESS)  # one rank of a point
     args = ap.parse_args(argv)
 
-    if args.point:
-        with open(args.point[0]) as f:
+    if args.rank:
+        with open(args.rank[0]) as f:
             result = _rank_point(json.load(f))
-        with open(args.point[1], "w") as f:
+        with open(args.rank[1], "w") as f:
             json.dump(result, f)
         return 0
 
@@ -222,7 +180,8 @@ def main(argv=None) -> int:
         spec = {"tag": tag, "cfg": cfg, "virtual": bool(args.virtual), "spatial": regime != "dp",
                 "warmup": args.warmup, "iters": args.iters,
                 "trace": os.path.join(args.trace, tag) if args.trace else ""}
-        sps = run_point(spec, n)["steps_per_sec"]
+        rank0 = run_ranks("littlegan_tpu_torch.scripts.scaling_curve", spec, n, cpu=bool(args.virtual))[0]
+        sps = rank0["steps_per_sec"]
         img_s = sps * global_batch
         if regime == "dp" and n == 1:
             single = img_s

@@ -259,7 +259,15 @@ def micro_grads(
     new_image = (augment_s2d if inputs_s2d else augment)(batch1[0], draws.augment, hw_mean)
     losses, aux = total_loss_fn(model, batch1, batch2, draws.noise, new_image, cfg, adj_sel, draws.gp_eps,
                                 inputs_s2d, sp)
+    grads = route_grads(model, losses, cfg)
+    aux.update({k: v.detach().float() for k, v in losses.items()})
+    return grads, aux
 
+
+def route_grads(model, losses: Dict[str, torch.Tensor], cfg: Config) -> Dict[str, torch.Tensor]:
+    """``name -> gradient`` for every parameter, each group's of its own
+    loss on one autograd graph: D's of the disc loss, G's of the gen loss,
+    the adjuster head's of the adj loss (zeros without ``train_adj``)."""
     grads: Dict[str, torch.Tensor] = {}
     routes = [("loss/disc", D_KEYS), ("loss/gen", G_KEYS)]
     if cfg.train_adj:
@@ -270,8 +278,7 @@ def micro_grads(
         grads.update(zip(params, gs))
     if not cfg.train_adj:
         grads.update({k: torch.zeros_like(p) for k, p in subtree(model, A_KEYS).items()})
-    aux.update({k: v.detach().float() for k, v in losses.items()})
-    return grads, aux
+    return grads
 
 
 def _adj_sel(batch_no: int, cfg: Config, device) -> Optional[torch.Tensor]:
