@@ -205,6 +205,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core and
@@ -576,20 +577,6 @@ def check_kernels():
     if failures:
         raise AssertionError("kernel/plain mismatch:\n  " + "\n  ".join(failures))
     return records
-
-
-def _kernel_name(mangled: str) -> str:
-    """The kernel's own name and template arguments out of its mangled
-    name: the <length><name> part that ends in "kernel"."""
-    for m in re.finditer(r"(?<=\d)[A-Za-z_]", mangled):
-        i = m.start()
-        digits = re.search(r"\d+$", mangled[:i]).group()
-        for k in range(len(digits)):
-            name = mangled[i:i + int(digits[k:])]
-            if name.endswith("kernel"):
-                args = re.match(r"I(\w*?)E", mangled[i + len(name):])
-                return name + (f"<{args.group(1)}>" if args else "")
-    return mangled
 
 
 def check_tensor_cores(so: str) -> dict:
@@ -1925,7 +1912,7 @@ REMAT_STEPS = 3
 REMAT_TOL = {"loss_rtol": 1e-4, "rtol": 2e-4, "atol": 1e-6}
 PROFILE_STEPS = 2
 # the profile_steps trace, kept past phase (g)'s temporary directory for phase (n)
-PROFILE_TRACE_COPY = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"chip_smoke_{os.getpid()}_profile.pt.trace.json")
+PROFILE_TRACE_COPY = os.path.join(tempfile.gettempdir(), f"chip_smoke_{os.getpid()}_profile.pt.trace.json")
 FEED_STEPS = 16
 LOADER_IMAGES = 256
 # remat recomputes each network in every backward that crosses it: the disc
@@ -3870,7 +3857,7 @@ def check_entry_points(records, profile_trace):
         out, walls["fit_frontier_oom"] = _run_module(["littlegan_tpu_torch.scripts.fit_frontier", *ENTRY_OOM], root)
         (oom,) = [r for r in _json_lines(out) if "verdict" in r]
         log("(n) fit_frontier past the card: " + json.dumps(oom))
-        require(oom["verdict"] == "oom" and oom["peak_bytes"] > 0 and oom["n_images_headroom"] is not None,
+        require(oom["verdict"] == "oom" and oom["oom_used_bytes"] > 0 and oom["n_images_headroom"] == 0,
                 f"fit_frontier {ENTRY_OOM}: {oom}")
         record["fit_frontier"] = rows + [oom]
 
@@ -4018,6 +4005,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from littlegan_tpu_torch.ops.cuda import _build
+    from littlegan_tpu_torch.scripts.trace_top_ops import kernel_name
 
     smi = nvidia_smi_line()
     log(f"card: {smi}")
@@ -4030,7 +4018,7 @@ def main() -> int:
         for line in f:
             entry = re.search(r"Compiling entry function '(\w+)'", line)
             if entry:
-                log(f"  {_kernel_name(entry.group(1))}")
+                log(f"  {kernel_name(entry.group(1))}")
             elif "registers" in line or "spill" in line or line.startswith("=="):
                 log("    " + line.strip())
     check_tensor_cores(so)

@@ -116,7 +116,7 @@ def build_scan_harness(cfg, k: int = STEPS_PER_DISPATCH, n_store: Optional[int] 
     (batch ids [0, K) and [K, 2K), batch numbers from ``11 + d*K``) and
     returns the state (updated in place); ``dispatch.prepare()`` captures
     the CUDA graph (on the CPU: nothing to do), which the first call would
-    do otherwise."""
+    do otherwise, and ``dispatch.step`` is the K-update step."""
     import numpy as np
     import torch
 
@@ -149,6 +149,7 @@ def build_scan_harness(cfg, k: int = STEPS_PER_DISPATCH, n_store: Optional[int] 
         return state
 
     dispatch.prepare = lambda: step.prepare(state, images, conds)
+    dispatch.step = step
     return state, dispatch
 
 

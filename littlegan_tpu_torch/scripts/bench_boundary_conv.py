@@ -7,7 +7,7 @@ block1's 3x3 SAME conv 12 -> 64 plus bias, with each sample's sum and sum
 of squares) is timed beside ``F.conv2d`` plus the two sums (cuDNN) and
 beside its plain version, at the adjuster's 64 rows, the G/D batch of 32
 and the serving batch of 8, in bf16 and float32. Each time is a call's
-device time from a CUDA graph of ``--reps`` calls replayed (as
+device time from a CUDA graph of ``REPS`` calls replayed (as
 ``chip_smoke.py`` phase (b) times the kernels: no host launch in it), L2
 warm; float32 convolutions without TF32, as ``chip_smoke.py`` runs them.
 Beside it: the bound (bytes over 3.35 TB/s or operations over the dtype's
@@ -18,7 +18,7 @@ One line per shape and dtype, then one JSON line per row. Needs a card:
 without one it raises (``utils/device.py::resolve_device``). Exits 1 when
 K3 disagrees with its plain version.
 
-  python -m littlegan_tpu_torch.scripts.bench_boundary_conv [--reps 20]
+  python -m littlegan_tpu_torch.scripts.bench_boundary_conv
 """
 
 from __future__ import annotations
@@ -35,10 +35,11 @@ SHAPES = [  # (N, H, W, Cin, Cout, label)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol) of y, as chip_smoke.py's
+REPS = 20  # calls per captured graph
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device ms of one ``fn()``: ``reps`` calls captured in one CUDA graph,
+def graph_ms(fn) -> float:
+    """Device ms of one ``fn()``: ``REPS`` calls captured in one CUDA graph,
     replayed after a warm-up, timed by CUDA events."""
     import torch
 
@@ -50,7 +51,7 @@ def graph_ms(fn, reps: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
+        for _ in range(REPS):
             fn()
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -60,7 +61,7 @@ def graph_ms(fn, reps: int = 20) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (3 * reps)
+    return start.elapsed_time(end) / (3 * REPS)
 
 
 def bound_ms(n, h, w, cin, cout, dtype: str):
@@ -75,7 +76,7 @@ def bound_ms(n, h, w, cin, cout, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bench(reps: int = 20, device=None) -> list:
+def bench(device=None) -> list:
     """Every row of :data:`SHAPES` x (bf16, f32): times, bound, error."""
     from littlegan_tpu_torch.eval.inception import exact_float32
     from littlegan_tpu_torch.utils.device import resolve_device
@@ -84,10 +85,10 @@ def bench(reps: int = 20, device=None) -> list:
     if dev.type != "cuda":
         raise RuntimeError(f"bench_boundary_conv times K3 on a card, not on {dev}")
     with exact_float32():  # the float32 plain version and library conv without TF32, as phase (b) runs them
-        return _bench(reps, dev)
+        return _bench(dev)
 
 
-def _bench(reps, dev) -> list:
+def _bench(dev) -> list:
     import torch
     import torch.nn.functional as F
 
@@ -114,9 +115,9 @@ def _bench(reps, dev) -> list:
                 out = F.conv2d(xt, wl, b, padding=1)
                 return out, out.float().sum((1, 2, 3)), out.float().square().sum((1, 2, 3))
 
-            k3 = graph_ms(lambda: conv3x3_same_stats(x, wt, b), reps)
-            lib = graph_ms(library, reps)
-            plain = graph_ms(lambda: conv3x3_same_stats_plain(x, wt, b), reps)
+            k3 = graph_ms(lambda: conv3x3_same_stats(x, wt, b))
+            lib = graph_ms(library)
+            plain = graph_ms(lambda: conv3x3_same_stats_plain(x, wt, b))
             bnd, by = bound_ms(n, h, w, cin, cout, dtype)
             rows.append({"label": label, "shape": [n, h, w, cin], "cout": cout, "dtype": dtype,
                          "route": kernel_route(dt), "k3_ms": k3, "library_ms": lib, "plain_ms": plain,
@@ -127,12 +128,10 @@ def _bench(reps, dev) -> list:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--reps", type=int, default=20, help="calls per captured graph")
-    args = ap.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
     import torch
 
-    rows = bench(args.reps)
+    rows = bench()
     print(f"# {torch.cuda.get_device_name(0)}")
     for r in rows:
         print(f"{r['label']:28s} {r['dtype']:8s} {tuple(r['shape'])} -> {r['cout']}: "

@@ -21,9 +21,11 @@ Both steps are timed at ``Config(batch_size=32, compute_dtype="bfloat16")``
     batches of 32 images each: images/s = 64 / wall), which an eager step
     spends mostly waiting on the host (63-70% of it idle);
   - device busy per update: a CUDA graph of K = 8 updates over a uint8
-    store (the production graph path's body, ``step.scan_updates``, with
-    the gradients of the one form or the other) replayed between CUDA
-    events.
+    store replayed between CUDA events: for the current step the
+    production K-update step (``bench.build_scan_harness``), for the
+    variant the same loop (``step.scan_updates``') with its gradients
+    (:func:`concat_harness`). Each run of 7 replays must leave the
+    parameters finite.
 
 It prints each number, the verdict on each, and one JSON line last.
 ``--trace DIR`` also writes a ``torch.profiler`` trace of one replay of
@@ -147,11 +149,13 @@ def host_ms(step, state, cfg, device) -> float:
     return (time.perf_counter() - t0) / EAGER_STEPS * 1e3
 
 
-def graph_harness(cfg, grads_fn, device):
-    """K updates of ``grads_fn``'s gradients and the row-form optimizer
-    tail (``step.scan_updates``' body) over a uint8 store of 2K batches,
-    captured in one CUDA graph. Returns (the ``GraphedUpdates``, a call
-    that runs it once on its inputs and returns the (K, 3) losses)."""
+def concat_harness(cfg, device):
+    """K updates of :func:`concat_grads`' gradients and the row-form
+    optimizer tail over a uint8 store of 2K batches, captured in one CUDA
+    graph and run once. ``body`` is ``step.scan_updates``' loop for (K,)
+    batch ids with :func:`concat_grads` in place of ``step.micro_grads``:
+    a change to that loop is made here too. Returns (the state, the
+    ``GraphedUpdates``)."""
     import numpy as np
     import torch
 
@@ -176,17 +180,27 @@ def graph_harness(cfg, grads_fn, device):
         losses = []
         for i in range(K):
             i1, i2 = inputs[i, 0].long(), inputs[i, 1].long()
-            grads, aux = grads_fn(state, (take_batch(images, i1), take_batch(conds, i1)),
-                                  (take_batch(images, i2), take_batch(conds, i2)),
-                                  map_draws(lambda x: x[i], draws), cfg)
+            grads, aux = concat_grads(state, (take_batch(images, i1), take_batch(conds, i1)),
+                                      (take_batch(images, i2), take_batch(conds, i2)),
+                                      map_draws(lambda x: x[i], draws), cfg)
             out = apply_updates_rows(state, grads, aux, inputs[i, 2:], cfg)
             losses.append(torch.stack([out.metrics[k] for k in LOSS_KEYS]))
         return torch.stack(losses)
 
     graphed = GraphedUpdates(body)
-    fixed, tensors = (state, images, conds), state_tensors(state)
-    graphed.prepare(inputs, draws, fixed, tensors)
-    return graphed, lambda: graphed(inputs, draws, fixed, tensors)
+    graphed(inputs, draws, (state, images, conds), state_tensors(state))
+    return state, graphed
+
+
+def current_harness(cfg, device):
+    """The production K-update step (``training/step.py::
+    make_scan_train_step``) over ``bench.build_scan_harness``'s store,
+    captured and run once. Returns (the state, the ``GraphedUpdates``)."""
+    from littlegan_tpu_torch.bench import build_scan_harness
+
+    state, dispatch = build_scan_harness(cfg, K, device=device)
+    dispatch(state, 0)
+    return state, dispatch.step.graphed
 
 
 def replay(graphed) -> None:
@@ -232,12 +246,11 @@ def trace_replay(graphed, path: str) -> None:
 def bench(device=None, trace: str = "") -> dict:
     """Both forms, kernels on and off: {"kernels_on": {...}, "kernels_off": {...}} with each form's
     host ms per eager step, images/s and device ms per update."""
-    import numpy as np
     import torch
 
     from littlegan_tpu_torch.config import Config
     from littlegan_tpu_torch.training.state import create_train_state
-    from littlegan_tpu_torch.training.step import make_train_step, micro_grads
+    from littlegan_tpu_torch.training.step import make_train_step
     from littlegan_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
@@ -249,21 +262,21 @@ def bench(device=None, trace: str = "") -> dict:
                      debug=True)
         check_variant(cfg)
         rec = {}
-        for name, make, grads_fn in (("concat", make_step_concat, concat_grads),
-                                     ("current", make_train_step, micro_grads)):
+        for name, make, harness in (("concat", make_step_concat, concat_harness),
+                                    ("current", make_train_step, current_harness)):
             state = create_train_state(cfg, device)
             ms = host_ms(make(cfg, state), state, cfg, device)
             del state
-            graphed, run = graph_harness(cfg, grads_fn, device)
-            losses = run().cpu().numpy()
-            if not np.isfinite(losses).all():
-                raise RuntimeError(f"{name} step, kernels {'on' if kernels else 'off'}: non-finite losses {losses}")
+            state, graphed = harness(cfg, device)
             busy = graph_busy_ms(graphed)
+            if not all(torch.isfinite(p).all() for p in state.model.parameters()):
+                raise RuntimeError(f"{name} step, kernels {'on' if kernels else 'off'}: non-finite parameters "
+                                   f"after {K * (GRAPH_REPLAYS + 2)} graphed updates")
             if trace and kernels and name == "current":
                 trace_replay(graphed, os.path.join(trace, "graph_k8.json"))
             rec[name] = {"host_ms_per_step": ms, "images_per_s": 2 * cfg.batch_size / (ms / 1e3),
                          "graph_busy_ms_per_update": busy, "graph_launches": dict(graphed.launches)}
-            del graphed, run
+            del state, graphed
             torch.cuda.empty_cache()
         out["kernels_on" if kernels else "kernels_off"] = rec
     return out

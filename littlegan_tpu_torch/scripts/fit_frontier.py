@@ -100,14 +100,18 @@ def probe(dim: int, batch: int, flagset: str, timeout_s: int) -> dict:
     if meas["fits"]:
         out.update(verdict="fits", peak_bytes=meas["peak_bytes"])
     else:
-        out.update(verdict="oom", peak_bytes=meas["oom_used_bytes"], oom_error=meas["oom_error"])
+        out.update(verdict="oom", oom_used_bytes=meas["oom_used_bytes"], oom_error=meas["oom_error"])
     return out
 
 
 def headroom_images(res: dict, dim: int) -> int | None:
     """How many uint8 store images fit next to the step's peak
-    (``device_data`` budgeting) in the capacity the probe reported; None
-    when the probe gave no peak or capacity."""
+    (``device_data`` budgeting) in the capacity the probe reported: 0 when
+    the step alone does not fit (the allocator's reserved bytes at an OOM
+    stay below the capacity, so they are no peak), None when the probe gave
+    no peak or capacity."""
+    if res.get("verdict") == "oom":
+        return 0
     peak, cap = res.get("peak_bytes"), res.get("hbm_capacity_bytes")
     if peak is None or cap is None:
         return None

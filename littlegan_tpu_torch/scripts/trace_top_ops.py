@@ -18,8 +18,8 @@ come from the name): the port's kernels (``littlegan_tpu_torch/csrc``) as
 K1, K2, K3 and K3's backward by source file, convolutions, GEMMs, NCCL,
 foreach (multi-tensor) ops, reductions, elementwise ops, copies and sets,
 else "other". The port's kernels are named by their demangled name
-without the argument list (a mangled one is demangled as
-``chip_smoke.py::_kernel_name`` does).
+without the argument list (a mangled one through :func:`kernel_name`,
+which ``chip_smoke.py`` also uses to list the built kernels).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ _RULES = (  # (category, pattern on the name), the first match wins
 )
 
 
-def _kernel_name(mangled: str) -> str:
+def kernel_name(mangled: str) -> str:
     """The kernel's own name and template arguments out of its mangled
     name: the <length><name> part that ends in "kernel"."""
     for m in re.finditer(r"(?<=\d)[A-Za-z_]", mangled):
@@ -70,7 +70,7 @@ def port_kernel(name: str):
     if name.startswith("_Z"):
         if "_GLOBAL__N_" not in name:
             return None
-        short = _kernel_name(name)
+        short = kernel_name(name)
         base, args = short.split("<")[0], None
     else:
         m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)(<[^(]*>)?\((.*)\)\s*$", name)

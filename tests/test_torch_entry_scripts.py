@@ -118,7 +118,8 @@ def _report(measured):
 
 def test_probe_verdicts(monkeypatch):
     """The verdict from memory_report's last line and exit code: fits,
-    oom (the reserved bytes as the peak, the card's capacity), error
+    oom (the reserved bytes at the failure, the card's capacity, and no
+    store headroom: the step alone does not fit), error
     (no result line, or a non-zero exit), timeout; then one real probe
     here, which has no card: error, exit 1."""
     cap = 85_000_000_000
@@ -149,13 +150,13 @@ def test_probe_verdicts(monkeypatch):
     assert got["fits"] == {**point, "device": "card", "n_chips": 1, "state_bytes": 118_800_000,
                            "hbm_capacity_bytes": cap, "verdict": "fits", "peak_bytes": 1_500_000_000}
     assert got["oom"] == {**point, "device": "card", "n_chips": 1, "state_bytes": 118_800_000,
-                          "hbm_capacity_bytes": cap, "verdict": "oom", "peak_bytes": 84_000_000_000,
+                          "hbm_capacity_bytes": cap, "verdict": "oom", "oom_used_bytes": 84_000_000_000,
                           "oom_error": "CUDA out of memory."}
     assert got["no_line"] == {**point, "verdict": "error", "exit": 1, "stderr_tail": "stderr text"}
     assert got["no_measure"]["verdict"] == "error" and got["no_measure"]["exit"] == 0
     assert got["timeout"] == {**point, "verdict": "timeout", "note": "probe exceeded 60s"}
     assert fit_frontier.headroom_images(got["fits"], 128) == (cap - 1_500_000_000) // (128 * 128 * 3)
-    assert fit_frontier.headroom_images(got["oom"], 128) == (cap - 84_000_000_000) // (128 * 128 * 3)
+    assert fit_frontier.headroom_images(got["oom"], 128) == 0
     assert fit_frontier.headroom_images(got["no_line"], 128) is None
 
     monkeypatch.undo()
@@ -186,7 +187,7 @@ def test_search_and_out(a_card, tmp_path, monkeypatch, capsys):
         calls.append(batch)
         fits = batch <= 5
         res = {"dim": dim, "batch": batch, "flags": flagset, "verdict": "fits" if fits else "oom",
-               "hbm_capacity_bytes": 80 << 30, "peak_bytes": batch * (1 << 20)}
+               "hbm_capacity_bytes": 80 << 30, ("peak_bytes" if fits else "oom_used_bytes"): batch * (1 << 20)}
         return res
 
     monkeypatch.setattr(fit_frontier, "probe", fake_probe)
