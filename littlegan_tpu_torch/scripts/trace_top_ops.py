@@ -20,6 +20,20 @@ foreach (multi-tensor) ops, reductions, elementwise ops, copies and sets,
 else "other". The port's kernels are named by their demangled name
 without the argument list (a mangled one through :func:`kernel_name`,
 which ``chip_smoke.py`` also uses to list the built kernels).
+
+Then the program's host spans (``utils/spans.py``'s ``littlegan:<name>``
+ranges): count and host ms per name; and the device's idle time in the
+window split by the CUDA-graph replays (:func:`replay_split`). The window is
+a ``bench:traced_window`` range where the trace has one (the benchmark's
+traced window), else the first device event's start to the last one's
+end. A replay is the ``cudaGraphLaunch`` inside a ``dispatch.replay`` span;
+the device events with its correlation id are the replay's, and its extent
+runs from their first start to their last end. Idle time inside a replay's
+extent is in-graph (between the graph's own kernels), the rest is between
+replays (the host's); with ``host ms per replay``, the ``step.schedule``
+and ``dispatch.*`` spans but the staging wait that start in the window
+over the replays that start there. Without a replay span, or with a replay
+span without a launch or a launch without a device event, no split.
 """
 
 from __future__ import annotations
@@ -33,6 +47,10 @@ import re
 import sys
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SPAN_PREFIX = "littlegan:"
+WINDOW = "bench:traced_window"
+REPLAY = "dispatch.replay"
+HOST_WORK = ("step.schedule", "dispatch.stage", "dispatch.inputs", REPLAY, "dispatch.outputs")
 
 # the port's kernels, by name and source file (littlegan_tpu_torch/csrc); ``apply_kernel`` and
 # ``cluster_kernel`` are in both norm files: the backward's second argument is the const dy
@@ -142,6 +160,80 @@ def summarize(events, top_n: int = 30) -> dict:
     }
 
 
+def host_spans(events) -> list:
+    """Count and host ms of each ``littlegan:`` span name, the most ms first."""
+    ms, counts = collections.Counter(), collections.Counter()
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e.get("name", "").startswith(SPAN_PREFIX):
+            name = e["name"][len(SPAN_PREFIX):]
+            ms[name] += e.get("dur", 0.0) / 1e3
+            counts[name] += 1
+    return [{"name": n, "count": counts[n], "ms": v} for n, v in sorted(ms.items(), key=lambda kv: (-kv[1], kv[0]))]
+
+
+def _merge(intervals):
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _overlap(a: float, b: float, merged) -> float:
+    return sum(max(0.0, min(b, e) - max(a, s)) for s, e in merged)
+
+
+def replay_split(events):
+    """The window's idle time in and between the graph replays (µs in the
+    trace, ms out), or None (no replay, or one the trace cannot place)."""
+    device, corr, spans, launches, window = [], collections.defaultdict(list), [], [], None
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        ts, end = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+        cat, name, c = e.get("cat"), e.get("name", ""), (e.get("args") or {}).get("correlation")
+        if cat in DEVICE_CATS:
+            device.append((ts, end))
+            if c is not None:
+                corr[c].append((ts, end))
+        elif cat == "user_annotation" and name == WINDOW:
+            window = (ts, end)
+        elif cat == "user_annotation" and name.startswith(SPAN_PREFIX):
+            spans.append((ts, end, name[len(SPAN_PREFIX):]))
+        elif cat == "cuda_runtime" and name.startswith("cudaGraphLaunch") and c is not None:
+            launches.append((ts, c))
+    if not device:
+        return None
+    if window is None:
+        window = (min(s for s, _ in device), max(e for _, e in device))
+    lo, hi = window
+    extents = []
+    for s, e, name in spans:
+        if name != REPLAY:
+            continue
+        inside = [c for t, c in launches if s <= t <= e]
+        if not inside or not all(corr.get(c) for c in inside):
+            return None
+        evs = [iv for c in inside for iv in corr[c]]
+        extents.append((min(a for a, _ in evs), max(b for _, b in evs), len(evs)))
+    if not extents:
+        return None
+    busy = _merge([(max(s, lo), min(e, hi)) for s, e in device if min(e, hi) > max(s, lo)])
+    edges = [lo] + [t for iv in busy for t in iv] + [hi]
+    gaps = [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+    in_graph = _merge([(s, e) for s, e, _ in extents])
+    graph = sum(_overlap(a, b, in_graph) for a, b in gaps)
+    idle = sum(b - a for a, b in gaps)
+    work = sum(e - s for s, e, name in spans if name in HOST_WORK and lo <= s < hi)
+    n_window = sum(1 for s, _, name in spans if name == REPLAY and lo <= s < hi)
+    return {"window_ms": (hi - lo) / 1e3, "idle_ms": idle / 1e3, "graph_gap_ms": graph / 1e3,
+            "host_gap_ms": (idle - graph) / 1e3, "replays": len(extents),
+            "device_events_per_replay": sum(n for _, _, n in extents) / len(extents),
+            "host_ms_per_replay": work / n_window / 1e3 if n_window else None}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("path", help="a trace JSON, or a directory holding *.pt.trace.json")
@@ -160,6 +252,22 @@ def main(argv=None) -> int:
     print()
     for t in s["top"]:
         print(f"  {t['ms']:9.3f} ms {100 * t['share']:5.1f}%  n={t['count']:4d}  [{t['category']}] {t['name'][:110]}")
+    s["spans"], s["idle_split"] = host_spans(events), replay_split(events)
+    if s["spans"]:
+        print("\n== host spans (littlegan:)")
+        for sp in s["spans"]:
+            print(f"  {sp['ms']:9.3f} ms  {sp['count']:5d} calls  {sp['ms'] / sp['count']:8.3f} ms each  {sp['name']}")
+    r = s["idle_split"]
+    if r is None:
+        print("\n== idle  no graph replay placed (no dispatch.replay span with its launch's device events)")
+    else:
+        w = r["window_ms"]
+        per = "not read" if r["host_ms_per_replay"] is None else f"{r['host_ms_per_replay']:.3f} ms"
+        print(f"\n== idle  {r['idle_ms']:.3f} ms of a {w:.3f} ms window ({100 * r['idle_ms'] / w:.3f}%): "
+              f"in-graph {r['graph_gap_ms']:.3f} ms ({100 * r['graph_gap_ms'] / w:.3f}%), between replays "
+              f"{r['host_gap_ms']:.3f} ms ({100 * r['host_gap_ms'] / w:.3f}%)")
+        print(f"  {r['replays']} replays, {r['device_events_per_replay']:.1f} device events each, "
+              f"host ms per replay {per}")
     if args.json:
         print(json.dumps({"path": path, **s}))
     return 0

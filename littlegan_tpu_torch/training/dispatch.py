@@ -28,6 +28,11 @@ The kernel wrappers count their launches when they are called, and a
 capture calls them once while the graph launches their kernels at every
 replay: the capture's counts are taken back, and each replay adds the
 launches the graph holds (``launches``).
+
+While a profiler runs, each call's parts are ``littlegan:dispatch.*``
+ranges (``utils/spans.py``): ``stage_wait`` (the previous call's staging
+copy), ``stage`` (the pinned write and its copy), ``inputs`` (the copies
+into the graph's device inputs), ``replay`` and ``outputs`` (the clones).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from littlegan_tpu_torch.ops.cuda import _build
+from littlegan_tpu_torch.utils.spans import span
 
 
 class GraphedUpdates:
@@ -107,14 +113,19 @@ class GraphedUpdates:
         shapes = lambda xs: [None if x is None else x.shape for x in xs]  # noqa: E731
         if inputs.shape != tuple(self._inputs.shape) or shapes(leaves) != shapes(self._device_inputs):
             raise ValueError("GraphedUpdates: inputs of other shapes than the captured ones")
-        self._copied.synchronize()  # the previous call's copy out of the staging buffer has run
-        self._host.numpy()[...] = inputs
-        self._inputs.copy_(self._host, non_blocking=True)
-        self._copied.record()
-        for static, x in zip(self._device_inputs, leaves):
-            if static is not None:
-                static.copy_(x)
-        self.graph.replay()
-        for k, n in self.launches.items():
-            _build.COUNTERS[k].add(n)
-        return tree_map(torch.clone, self._outputs)
+        with span("dispatch.stage_wait"):
+            self._copied.synchronize()  # the previous call's copy out of the staging buffer has run
+        with span("dispatch.stage"):
+            self._host.numpy()[...] = inputs
+            self._inputs.copy_(self._host, non_blocking=True)
+            self._copied.record()
+        with span("dispatch.inputs"):
+            for static, x in zip(self._device_inputs, leaves):
+                if static is not None:
+                    static.copy_(x)
+        with span("dispatch.replay"):
+            self.graph.replay()
+            for k, n in self.launches.items():
+                _build.COUNTERS[k].add(n)
+        with span("dispatch.outputs"):
+            return tree_map(torch.clone, self._outputs)

@@ -84,6 +84,7 @@ from littlegan_tpu_torch.training.optimizer import (
 )
 from littlegan_tpu_torch.training.partition import adjuster_gate, build_partition_masks, mask_rows, resolve_mask
 from littlegan_tpu_torch.training.state import A_KEYS, D_KEYS, G_KEYS, TrainState, subtree
+from littlegan_tpu_torch.utils.spans import span
 
 LOSS_KEYS = ("loss/gen", "loss/disc", "loss/adj")
 # the three Adams: (state field, partition model, parameter parts)
@@ -601,8 +602,10 @@ def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Opt
 
     def step(state, images, conds, b1s, b2s, draws, batch_no0):
         check_capturable(state)
-        rows = schedule_rows(state, cfg, part_masks, range(batch_no0, batch_no0 + n_steps))
-        losses, fake, adj = graphed(host_inputs(b1s, b2s, rows), draws, (state, images, conds), state_tensors(state))
+        with span("step.schedule"):
+            rows = schedule_rows(state, cfg, part_masks, range(batch_no0, batch_no0 + n_steps))
+            inputs = host_inputs(b1s, b2s, rows)
+        losses, fake, adj = graphed(inputs, draws, (state, images, conds), state_tensors(state))
         return StepOutput(state, {k: losses[:, i] for i, k in enumerate(LOSS_KEYS)}, fake, adj)
 
     def prepare(state, images, conds):

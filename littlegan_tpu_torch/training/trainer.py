@@ -47,7 +47,11 @@ With ``profile_steps`` = n > 0 one ``torch.profiler`` trace (host
 activity, and the card's) of the first epoch is written under
 ``result/<exp>/log/profile`` (:class:`ProfileWindow`): steps [10, 10 + n)
 on the one-update path; on the K-update path whole groups, from the second
-group until n steps are covered.
+group until n steps are covered. Its host side is named by
+``littlegan:trainer.*`` ranges (``utils/spans.py``): ``fetch`` (the loader's
+or the prefetcher's next batches, one-update path), ``draws``, ``flush``
+(the losses' copy from the card) and ``cadence`` (image saves,
+``gather_eval``, ``predict``), besides the step's and the graph's own.
 
 It runs on the card unless ``device="cpu"`` is given; without a card and
 without that argument it raises. Refused (``ValueError``): what
@@ -134,6 +138,7 @@ from littlegan_tpu_torch.utils.image import (
     data_rescale, ensure_pm1, inverse_rescale, save_image, soft, to_grid,
 )
 from littlegan_tpu_torch.utils.provenance import init_result_dirs, snapshot_run
+from littlegan_tpu_torch.utils.spans import span
 from littlegan_tpu_torch.utils.tensorboard import SummaryWriter
 
 FLUSH_EVERY = 16  # calls whose losses stay on the card before one copy to the host
@@ -786,7 +791,13 @@ class Trainer:
         self._cur_batch_no = batch_no
         images_done = 0
         prof = self._profile if first else None
-        for b1, b2 in updates:
+        updates = iter(updates)
+        while True:
+            with span("trainer.fetch"):  # the loader's or the prefetcher's next batches
+                pair = next(updates, None)
+            if pair is None:
+                break
+            b1, b2 = pair
             batch_no += 1
             self._cur_batch_no = batch_no
             self.global_step += 1
@@ -795,7 +806,9 @@ class Trainer:
                     prof.start()
                 elif prof.active and batch_no == 10 + prof.steps:
                     prof.stop()
-            out = run(b1, b2, self.update_draws(self.global_step), batch_no)
+            with span("trainer.draws"):
+                draws = self.update_draws(self.global_step)
+            out = run(b1, b2, draws, batch_no)
             self._metrics_buffer.append((self.global_step, batch_no, out.metrics))
             images_done += 2 * cfg.batch_size * m
             self._after_dispatch(out, epoch, batch_no - 1, batch_no)
@@ -836,7 +849,8 @@ class Trainer:
             b2 = np.asarray(group[1::2], np.int64).reshape(k_r, m)
             if m == 1:
                 b1, b2 = b1[:, 0], b2[:, 0]
-            draws = stack_draws([self.update_draws(self.global_step + 1 + i) for i in range(k_r)])
+            with span("trainer.draws"):
+                draws = stack_draws([self.update_draws(self.global_step + 1 + i) for i in range(k_r)])
             out = self._scan_step(k_r)(self.state, imgs, conds, b1, b2, draws, batch_no + 1)
             self._metrics_buffer.append((self.global_step + 1, batch_no + 1, out.metrics))
             prev = batch_no
@@ -856,19 +870,22 @@ class Trainer:
         cfg = self.cfg
         self._version += 1
         if len(self._metrics_buffer) >= FLUSH_EVERY:
-            self._flush_buffered()
+            with span("trainer.flush"):  # one copy from the card, which drains its queue
+                self._flush_buffered()
         if cfg.freq_gen > 0 and batch_no // cfg.freq_gen > prev_batch // cfg.freq_gen:
-            self._save_train_images(out, epoch, batch_no)
+            with span("trainer.cadence"):
+                self._save_train_images(out, epoch, batch_no)
         if cfg.freq_test > 0 and batch_no // cfg.freq_test > prev_batch // cfg.freq_test:
-            self.gather_eval()
-        if self.writes and cfg.freq_test > 0 and batch_no // cfg.freq_test > prev_batch // cfg.freq_test:
-            name = f"{epoch}-{batch_no}"
-            self.predict(
-                self.test_noise, self.test_cond, self.test_image,
-                os.path.join(cfg.result_dir, "test", "gen", f"{name}.jpg"),
-                os.path.join(cfg.result_dir, "test", "disc", f"{name}.json"),
-                os.path.join(cfg.result_dir, "test", "adj", f"{name}.jpg"),
-            )
+            with span("trainer.cadence"):
+                self.gather_eval()
+                if self.writes:
+                    name = f"{epoch}-{batch_no}"
+                    self.predict(
+                        self.test_noise, self.test_cond, self.test_image,
+                        os.path.join(cfg.result_dir, "test", "gen", f"{name}.jpg"),
+                        os.path.join(cfg.result_dir, "test", "disc", f"{name}.json"),
+                        os.path.join(cfg.result_dir, "test", "adj", f"{name}.jpg"),
+                    )
         if self._interrupted():
             self._save_interrupt()
 

@@ -13,7 +13,10 @@
 - ``trace_top_ops``: a hand-made trace of known device events (totals,
   shares, counts, top order and categories exact, the port's kernels named
   K1, K2, K3 and K3's backward), the same events in a real CPU trace of
-  ``torch.profiler``, and a CPU trace alone (no device event: exit 1).
+  ``torch.profiler``, and a CPU trace alone (no device event: exit 1); the
+  ``littlegan:`` spans per name and the window's idle time in and between
+  graph replays of a hand-made replay trace, none where a replay span has
+  no launch or a launch no device event.
 - ``bench_step_variants``: ``total_loss_concat``'s routed gradients equal
   ``jax.grad`` of the JAX script's ``total_loss_concat`` on the same weights
   (``params_from_jax``) and inputs (rtol 1e-3 / atol 1e-6, f32, as
@@ -392,6 +395,61 @@ def test_top_ops_of_a_torch_profiler_trace(tmp_path, capsys):
     (tmp_path / "empty").mkdir()
     with pytest.raises(SystemExit, match="no \\*.pt.trace.json"):
         trace_top_ops.main([str(tmp_path / "empty")])
+
+
+def replay_events(launch2=True, kernels2=True):
+    """A traced window [0, 100] µs over a lead replay (launched before it)
+    and one replay in it, each with its spans, its ``cudaGraphLaunch`` and
+    the device events of its correlation id, and a draws kernel between
+    them. Idle: [10, 12] and [50, 53] inside the replays' extents, [20, 40],
+    [70, 80] and [85, 100] between them."""
+    x = lambda cat, name, ts, dur, **args: {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,  # noqa: E731
+                                            "pid": 0, "tid": 1, "args": args}
+    sp = lambda name, ts, dur: x("user_annotation", "littlegan:" + name, ts, dur)  # noqa: E731
+    out = [x("user_annotation", "bench:traced_window", 0, 100)]
+    for t0, corr in ((-40, 1), (22, 2)):
+        out += [sp("step.schedule", t0, 2), sp("dispatch.stage_wait", t0 + 2, 1), sp("dispatch.stage", t0 + 3, 2),
+                sp("dispatch.inputs", t0 + 5, 3), sp("dispatch.replay", t0 + 8, 5), sp("dispatch.outputs", t0 + 13, 1)]
+        if corr == 1 or launch2:
+            out.append(x("cuda_runtime", "cudaGraphLaunch", t0 + 9, 3, correlation=corr))
+    out += [x("kernel", ELEM, -5, 15, correlation=1), x("kernel", GEMM, 12, 8, correlation=1)]
+    if kernels2:
+        out += [x("kernel", K3, 40, 10, correlation=2), x("kernel", ELEM, 53, 7, correlation=2),
+                x("gpu_memset", "Memset (Device)", 60, 10, correlation=2)]
+    out.append(x("kernel", ELEM, 80, 5, correlation=9))  # the next replay's draws
+    return out
+
+
+def test_top_ops_host_spans_and_replay_split(tmp_path, capsys):
+    events = replay_events()
+    assert trace_top_ops.host_spans(events) == [
+        {"name": "dispatch.replay", "count": 2, "ms": pytest.approx(0.010)},
+        {"name": "dispatch.inputs", "count": 2, "ms": pytest.approx(0.006)},
+        {"name": "dispatch.stage", "count": 2, "ms": pytest.approx(0.004)},
+        {"name": "step.schedule", "count": 2, "ms": pytest.approx(0.004)},
+        {"name": "dispatch.outputs", "count": 2, "ms": pytest.approx(0.002)},
+        {"name": "dispatch.stage_wait", "count": 2, "ms": pytest.approx(0.002)},
+    ]
+    split = trace_top_ops.replay_split(events)
+    assert split == pytest.approx({"window_ms": 0.1, "idle_ms": 0.050, "graph_gap_ms": 0.005, "host_gap_ms": 0.045,
+                                   "replays": 2, "device_events_per_replay": 2.5,
+                                   "host_ms_per_replay": 0.013}, abs=1e-12)  # the window's replay: 2 + 2 + 3 + 5 + 1 µs
+    assert trace_top_ops.replay_split(replay_events(launch2=False)) is None  # a replay span without its launch
+    assert trace_top_ops.replay_split(replay_events(kernels2=False)) is None  # a launch without device events
+    assert trace_top_ops.replay_split([e for e in events if "dispatch.replay" not in e["name"]]) is None
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert trace_top_ops.main([str(path), "--json"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "== host spans (littlegan:)" in out
+    assert "      0.010 ms      2 calls     0.005 ms each  dispatch.replay" in out
+    assert ("== idle  0.050 ms of a 0.100 ms window (50.000%): in-graph 0.005 ms (5.000%), between replays "
+            "0.045 ms (45.000%)") in out
+    assert "  2 replays, 2.5 device events each, host ms per replay 0.013 ms" in out
+    assert json.loads(out[-1])["idle_split"] == pytest.approx(split, abs=1e-12)
+    path.write_text(json.dumps({"traceEvents": replay_events(launch2=False)}))
+    assert trace_top_ops.main([str(path)]) == 0
+    assert "no graph replay placed" in capsys.readouterr().out
 
 
 def test_port_kernel_names():

@@ -6,7 +6,10 @@ feed, on the CPU (``device="cpu"``).
   the one-update path; on the K-update path whole groups from the second
   until n steps are covered, an epoch whose groups end before that (its
   second group the remainder, or only one group) traced to its end, as the
-  JAX trainer (``trainer.py:916-925``, ``:1047-1059``);
+  JAX trainer (``trainer.py:916-925``, ``:1047-1059``); the trace holds
+  the Trainer's ``littlegan:trainer.*`` spans of those steps (a flush every
+  call, images and predictions at every batch), the one-update path's
+  ``trainer.fetch`` and the K-update path's ``step.schedule``;
 - the host-fed and host-fed accumulation epochs, whose batches go through
   :class:`~littlegan_tpu_torch.training.trainer.Prefetcher`, end where a
   hand loop of ``train_step`` / ``accum_train_step`` over the same batches
@@ -24,6 +27,7 @@ import torch
 from littlegan_tpu_torch.data import SyntheticDataset
 from littlegan_tpu_torch.training.state import create_train_state
 from littlegan_tpu_torch.training.step import accum_train_step, train_step
+from littlegan_tpu_torch.training import trainer as trainer_mod
 from littlegan_tpu_torch.training.trainer import Trainer, _accum_groups, _pairwise
 from littlegan_tpu_torch.utils.tensorboard import read_scalars
 from test_torch_train import tcfg_of
@@ -32,11 +36,12 @@ from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fix
 
 
 def _profiled_run(tiny_cfg, tmp_path, monkeypatch, updates, **kw):
-    """Train one epoch of ``updates`` updates with profile_steps 2; returns
-    (the batch numbers of the updates run while the window was open, the
-    trace files)."""
+    """Train one epoch of ``updates`` updates with profile_steps 2, the
+    losses flushed every call; returns (the batch numbers of the updates
+    run while the window was open, the trace files)."""
     traced = []
     real = Trainer._after_dispatch
+    monkeypatch.setattr(trainer_mod, "FLUSH_EVERY", 1)
 
     def after_dispatch(self, out, epoch, prev_batch, batch_no):
         if self._profile.active:
@@ -51,21 +56,29 @@ def _profiled_run(tiny_cfg, tmp_path, monkeypatch, updates, **kw):
     return traced, glob.glob(os.path.join(cfg.result_dir, "log", "profile", "*.pt.trace.json"))
 
 
-@pytest.mark.parametrize("kw,updates,window", [
-    (dict(), 12, [10, 11]),
-    (dict(device_data=True, steps_per_dispatch=3), 7, [4, 5, 6]),  # the second group
-    (dict(device_data=True, steps_per_dispatch=3), 4, [4]),  # the second group is the remainder
-    (dict(device_data=True, steps_per_dispatch=3), 2, [1, 2]),  # one group, the remainder
+TRAINER_SPANS = {"littlegan:trainer.draws", "littlegan:trainer.flush", "littlegan:trainer.cadence"}
+STEP_SPANS = TRAINER_SPANS | {"littlegan:trainer.fetch"}
+SCAN_SPANS = TRAINER_SPANS | {"littlegan:step.schedule"}  # a CPU state: no graph, no dispatch spans
+
+
+@pytest.mark.parametrize("kw,updates,window,spans", [
+    (dict(), 12, [10, 11], STEP_SPANS),
+    (dict(device_data=True, steps_per_dispatch=3), 7, [4, 5, 6], SCAN_SPANS),  # the second group
+    (dict(device_data=True, steps_per_dispatch=3), 4, [4], SCAN_SPANS),  # the second group is the remainder
+    (dict(device_data=True, steps_per_dispatch=3), 2, [1, 2], SCAN_SPANS),  # one group, the remainder
 ], ids=["step", "scan", "scan-remainder", "scan-one-group"])
-def test_profile_steps_writes_one_trace(tiny_cfg, tmp_path, monkeypatch, capsys, kw, updates, window):
+def test_profile_steps_writes_one_trace(tiny_cfg, tmp_path, monkeypatch, capsys, kw, updates, window, spans):
     """The updates run inside the window, and one trace file holding their
-    host ops."""
-    traced, traces = _profiled_run(tiny_cfg, tmp_path, monkeypatch, updates, **kw)
+    host ops and the Trainer's spans."""
+    traced, traces = _profiled_run(tiny_cfg, tmp_path, monkeypatch, updates, freq_gen=1, freq_test=1, **kw)
     assert traced == window
     assert len(traces) == 1
     with open(traces[0]) as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
     assert any(str(n).startswith("aten::convolution") for n in names)
+    assert {e["name"] for e in events if e.get("cat") == "user_annotation"
+            and e["name"].startswith("littlegan:")} == spans
     out = capsys.readouterr().out
     assert out.count("profiler trace written to") == 1 and os.path.join("log", "profile") in out
 

@@ -77,14 +77,20 @@ def one_thread_per_process():
     single-threaded job beside them runs several times slower (a 2048-d
     ``scipy.linalg.sqrtm``, 15 s alone, took 68 s beside five 8-thread
     torch processes on an 8-core host). The port's test modules import this
-    fixture, which makes it theirs."""
+    fixture, which makes it theirs. Where threadpoolctl is not installed
+    (a card's host, which runs the ``card`` cases), torch's threads only."""
+    import contextlib
+
     import torch
-    from threadpoolctl import threadpool_limits
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        threadpool_limits = None
 
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        with threadpool_limits(1):
+        with threadpool_limits(1) if threadpool_limits else contextlib.nullcontext():
             yield
     finally:
         torch.set_num_threads(n)
