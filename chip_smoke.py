@@ -295,6 +295,13 @@ EXPECTED_TRAIN_LAUNCHES = {  # per train step
     "norm_lrelu_from_stats_bwd": sum(c for _, c in BLOCK1_STEP),
     "conv3x3_bwd_fold": sum(c for _, c in BLOCK1_STEP),
 }
+# a CUDA graph's launches per train step: the families above and the
+# engagement counters of TF SAME's border (norm_lrelu.py's SAME_BORDER):
+# encoder blocks 1-3 write inside the next conv's border in four passes and
+# read its gradient in four backwards, decoder blocks 1-3 read out of the
+# full output in two passes and write its gradient in two backwards
+EXPECTED_GRAPH_LAUNCHES = {**EXPECTED_TRAIN_LAUNCHES, "same_border.write": 12, "same_border.grad_read": 12,
+                           "same_border.crop_read": 6, "same_border.grad_write": 6}
 # phase (e): one epoch of DISPATCH_STEPS updates, DISPATCH_K per CUDA graph
 # replay: 8 + 8 + a remainder of 4, the partition batches 5, 10, 15, 20 and
 # the adjuster gate (batch_no > 10) inside replays; then ACCUM_UPDATES
@@ -1359,7 +1366,7 @@ def check_dispatch():
             f"{time.time() - t0:.1f} s (each after one eager warm-up)")
         for k in sizes:
             held = trainer._scan_steps[k].graphed.launches
-            want = {name: v * k for name, v in EXPECTED_TRAIN_LAUNCHES.items()}
+            want = {name: v * k for name, v in EXPECTED_GRAPH_LAUNCHES.items()}
             require(held == want, f"the {k}-update graph holds {held}, want {want}")
         graph_params = []
         for k in sizes:
@@ -1465,7 +1472,7 @@ def check_accum_dispatch(trainer):
     graph_state, eager_state = create_train_state(cfg, dev), create_train_state(cfg, dev)
     step = make_scan_accum_train_step(cfg, graph_state, ACCUM_K)
     step.prepare(graph_state, imgs, conds)
-    want = {k: v * ACCUM_K * ACCUM_M for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+    want = {k: v * ACCUM_K * ACCUM_M for k, v in EXPECTED_GRAPH_LAUNCHES.items()}
     require(step.graphed.launches == want, f"the accumulation graph holds {step.graphed.launches}, want {want}")
     graph_losses, graph_params = [], []
     for g in range(ACCUM_UPDATES // ACCUM_K):
@@ -2465,7 +2472,7 @@ def check_dp_nccl(root, port: int):
         trainer._scan_step(DP_K).prepare(trainer.state, imgs, conds)
         torch.cuda.synchronize()
         held = trainer._scan_steps[DP_K].graphed.launches
-        want = {k: v * DP_K for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+        want = {k: v * DP_K for k, v in EXPECTED_GRAPH_LAUNCHES.items()}
         require(held == want, f"the {DP_K}-update DP graph holds {held}, want {want}")
         log(f"DP graph of {DP_K} updates (NCCL all-reduce inside) captured in {time.time() - t0:.1f} s; "
             f"launches per replay {held}")

@@ -66,6 +66,13 @@
 // alone. lg_norm_lrelu_apply is pass 2 alone, fed with per-sample sums from
 // another kernel (the boundary conv's fused stats, boundary_conv.cu).
 //
+// Every tensor is addressed through a Map (norm_map.cuh): x may be a
+// window of a larger map (the decoder's, out of its transposed conv's full
+// output) and y may be written inside a border of zeros (the encoder's, the
+// next stride-2 conv's TF SAME padding), which the launch's blocks write
+// too. A sample's elements keep their order, so the sums are those of a
+// contiguous sample bit for bit.
+//
 // C interface for ctypes: pointers and the stream are void*, every function
 // returns cudaGetLastError() as an int.
 
@@ -98,6 +105,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 template <typename T>
 __host__ __device__ constexpr int vec_elems() { return 16 / sizeof(T); }
 
+#include "norm_map.cuh"
+
 __device__ __forceinline__ void warp_sum2(float& a, float& b) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -127,16 +136,14 @@ __device__ __forceinline__ Chunk chunk_of(int64_t m, int64_t chunk) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     stats_kernel(const T* __restrict__ x, float* __restrict__ psum, float* __restrict__ psq,
-                 int64_t m, int64_t chunk, int vec_ok) {
+                 Map xm, int64_t m, int64_t chunk, int vec_ok) {
   const int64_t n = blockIdx.y;
   const Chunk c = chunk_of(m, chunk);
-  const T* xs = x + n * m;
   float s = 0.f, q = 0.f;
   if (vec_ok) {
     constexpr int V = vec_elems<T>();
-    const uint4* xv = reinterpret_cast<const uint4*>(xs);
     for (int64_t i = c.begin / V + threadIdx.x; i < c.end / V; i += kThreads) {
-      const uint4 raw = __ldg(xv + i);
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(x + at(xm, n, i * V)));
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int k = 0; k < V; ++k) {
@@ -147,7 +154,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   } else {
     for (int64_t i = c.begin + threadIdx.x; i < c.end; i += kThreads) {
-      const float v = to_f32(xs[i]);
+      const float v = to_f32(x[at(xm, n, i)]);
       s += v;
       q += v * v;
     }
@@ -188,7 +195,7 @@ __device__ __forceinline__ float sample_sum(const float* __restrict__ p, int64_t
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dev_kernel(const T* __restrict__ x, const float* __restrict__ psum, float* __restrict__ psq,
-               int64_t m, int64_t chunk, int vec_ok) {
+               Map xm, int64_t m, int64_t chunk, int vec_ok) {
   const int64_t n = blockIdx.y;
   __shared__ float smean;
   __shared__ float wq[kWarps];
@@ -199,13 +206,11 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   const float mean = smean;
   const Chunk c = chunk_of(m, chunk);
-  const T* xs = x + n * m;
   float q = 0.f;
   if (vec_ok) {
     constexpr int V = vec_elems<T>();
-    const uint4* xv = reinterpret_cast<const uint4*>(xs);
     for (int64_t i = c.begin / V + threadIdx.x; i < c.end / V; i += kThreads) {
-      const uint4 raw = __ldg(xv + i);
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(x + at(xm, n, i * V)));
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int k = 0; k < V; ++k) {
@@ -215,7 +220,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   } else {
     for (int64_t i = c.begin + threadIdx.x; i < c.end; i += kThreads) {
-      const float d = to_f32(xs[i]) - mean;
+      const float d = to_f32(x[at(xm, n, i)]) - mean;
       q += d * d;
     }
   }
@@ -240,12 +245,13 @@ __device__ __forceinline__ T lrelu_norm(float v, float mean, float inv, float be
 // y null: block 0 of each sample writes the moments and no block writes y
 // (the grid may then be (1, n)). moments null: no moments written.
 // two_pass: psq holds sum((x - mean)^2) partials (dev_kernel), else sum(x^2).
+// ym with a border: the sample's blocks also write its zeros.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     apply_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ psum,
                  const float* __restrict__ psq, int parts, float* __restrict__ moments,
-                 const float* __restrict__ gamma, const float* __restrict__ beta, int64_t m,
-                 int64_t chunk, float alpha, float eps, int vec_ok, int two_pass) {
+                 const float* __restrict__ gamma, const float* __restrict__ beta, Map xm, Map ym,
+                 int64_t m, int64_t chunk, float alpha, float eps, int vec_ok, int two_pass) {
   const int64_t n = blockIdx.y;
   __shared__ float stat[2];  // mean, gamma / (std + eps)
   if (threadIdx.x < 32) {
@@ -266,27 +272,24 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (y == nullptr) return;
+  zero_border(y, ym, n, m, vec_ok, blockIdx.x, gridDim.x);
   __syncthreads();
   const float mean = stat[0], inv = stat[1], b = beta[0];
   const Chunk c = chunk_of(m, chunk);
-  const T* xs = x + n * m;
-  T* ys = y + n * m;
   if (vec_ok) {
     constexpr int V = vec_elems<T>();
-    const uint4* xv = reinterpret_cast<const uint4*>(xs);
-    uint4* yv = reinterpret_cast<uint4*>(ys);
     for (int64_t i = c.begin / V + threadIdx.x; i < c.end / V; i += kThreads) {
-      const uint4 raw = __ldg(xv + i);
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(x + at(xm, n, i * V)));
       const T* e = reinterpret_cast<const T*>(&raw);
       uint4 out;
       T* o = reinterpret_cast<T*>(&out);
 #pragma unroll
       for (int k = 0; k < V; ++k) o[k] = lrelu_norm<T>(to_f32(e[k]), mean, inv, b, alpha);
-      yv[i] = out;
+      *reinterpret_cast<uint4*>(y + at(ym, n, i * V)) = out;
     }
   } else {
     for (int64_t i = c.begin + threadIdx.x; i < c.end; i += kThreads)
-      ys[i] = lrelu_norm<T>(to_f32(xs[i]), mean, inv, b, alpha);
+      y[at(ym, n, i)] = lrelu_norm<T>(to_f32(x[at(xm, n, i)]), mean, inv, b, alpha);
   }
 }
 
@@ -347,12 +350,13 @@ __device__ __forceinline__ void cluster_sums(float (&v)[K], float* ex, int ranks
 // The cluster route: grid (chunks, n) in clusters of `chunks` blocks, one
 // cluster per sample. Block `rank` owns elements [rank*chunk, +chunk) of its
 // sample and holds them in dynamic shared memory (chunk * sizeof(T) bytes).
-// vec_ok: x and y 16-byte aligned, m and chunk multiples of 8.
+// vec_ok: x and y 16-byte aligned, m, chunk and the maps in whole vectors.
+// ym with a border: the cluster's blocks also write the sample's zeros.
 template <typename T, bool kTwoPass>
 __global__ void __launch_bounds__(kThreads)
     cluster_kernel(const T* __restrict__ x, T* __restrict__ y, float* __restrict__ moments,
-                   const float* __restrict__ gamma, const float* __restrict__ beta, int64_t m,
-                   int64_t chunk, float alpha, float eps, int vec_ok) {
+                   const float* __restrict__ gamma, const float* __restrict__ beta, Map xm, Map ym,
+                   int64_t m, int64_t chunk, float alpha, float eps, int vec_ok) {
   constexpr int V = vec_elems<T>();
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -366,13 +370,14 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t begin = rank * chunk;
   const int64_t end = begin + chunk < m ? begin + chunk : m;
   const int len = begin < end ? static_cast<int>(end - begin) : 0;
-  const T* xg = x + n * m + begin;
   // each thread copies, reduces and writes the same elements: vector i (or
   // element i) for i = threadIdx.x + k*kThreads
   const int nvec = vec_ok ? len / V : 0;
   float s = 0.f, q = 0.f;
+  if (vec_ok)
+    for (int i = threadIdx.x; i < nvec; i += kThreads) cp_async16(xs + i * V, x + at(xm, n, begin + i * V));
+  if (y != nullptr) zero_border(y, ym, n, m, vec_ok, rank, ranks);
   if (vec_ok) {
-    for (int i = threadIdx.x; i < nvec; i += kThreads) cp_async16(xs + i * V, xg + i * V);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     for (int i = threadIdx.x; i < nvec; i += kThreads) {
       const uint4 raw = *reinterpret_cast<const uint4*>(xs + i * V);
@@ -386,7 +391,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   } else {
     for (int i = threadIdx.x; i < len; i += kThreads) {
-      const T e = xg[i];
+      const T e = x[at(xm, n, begin + i)];
       xs[i] = e;
       const float v = to_f32(e);
       s += v;
@@ -432,7 +437,6 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (y != nullptr) {
     const float inv = gamma[0] / (sd + eps), b = beta[0];
-    T* yg = y + n * m + begin;
     if (vec_ok) {
       for (int i = threadIdx.x; i < nvec; i += kThreads) {
         const uint4 raw = *reinterpret_cast<const uint4*>(xs + i * V);
@@ -441,49 +445,51 @@ __global__ void __launch_bounds__(kThreads)
         T* o = reinterpret_cast<T*>(&out);
 #pragma unroll
         for (int k = 0; k < V; ++k) o[k] = lrelu_norm<T>(to_f32(e[k]), mean, inv, b, alpha);
-        *reinterpret_cast<uint4*>(yg + i * V) = out;
+        *reinterpret_cast<uint4*>(y + at(ym, n, begin + i * V)) = out;
       }
     } else {
       for (int i = threadIdx.x; i < len; i += kThreads)
-        yg[i] = lrelu_norm<T>(to_f32(xs[i]), mean, inv, b, alpha);
+        y[at(ym, n, begin + i)] = lrelu_norm<T>(to_f32(xs[i]), mean, inv, b, alpha);
     }
   }
   cluster_wait();  // no block leaves while another may still read its partials
 }
 
-int can_vectorize(const void* x, const void* y, int64_t m, int64_t chunk) {
-  // 16-byte aligned, and chunks of whole vectors: 8 elements is a whole
-  // number of vectors for both types
+int can_vectorize(const void* x, const void* y, int64_t m, int64_t chunk, const Map& xm, const Map& ym) {
+  // 16-byte aligned, and chunks and maps of whole vectors: 8 elements is a
+  // whole number of vectors for both types
   return (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (reinterpret_cast<uintptr_t>(y) % 16 == 0) &&
-         (m % 8 == 0) && (chunk % 8 == 0);
+         (m % 8 == 0) && (chunk % 8 == 0) && map_vec(xm) && map_vec(ym);
 }
 
 template <typename T>
 void launch_apply(const void* x, void* y, const float* s1, const float* s2, int parts,
-                  float* moments, const float* gamma, const float* beta, int64_t n, int64_t m,
-                  int64_t chunk, int chunks, float alpha, float eps, int two_pass, cudaStream_t stream) {
+                  float* moments, const float* gamma, const float* beta, const Map& xm, const Map& ym,
+                  int64_t n, int64_t m, int64_t chunk, int chunks, float alpha, float eps, int two_pass,
+                  cudaStream_t stream) {
   const dim3 grid(y == nullptr ? 1 : chunks, static_cast<unsigned>(n));
   apply_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), s1, s2, parts, moments, gamma, beta, m, chunk,
-      alpha, eps, can_vectorize(x, y == nullptr ? x : y, m, chunk), two_pass);
+      static_cast<const T*>(x), static_cast<T*>(y), s1, s2, parts, moments, gamma, beta, xm, ym, m,
+      chunk, alpha, eps, can_vectorize(x, y == nullptr ? x : y, m, chunk, xm, ym), two_pass);
 }
 
 template <typename T>
 void launch_two(const void* x, void* y, float* psum, float* psq, float* moments, const float* gamma,
-                const float* beta, int64_t n, int64_t m, int64_t chunk, int chunks, int two_pass,
-                float alpha, float eps, cudaStream_t stream) {
+                const float* beta, const Map& xm, const Map& ym, int64_t n, int64_t m, int64_t chunk,
+                int chunks, int two_pass, float alpha, float eps, cudaStream_t stream) {
   const dim3 grid(chunks, static_cast<unsigned>(n));
-  const int vec_ok = can_vectorize(x, x, m, chunk);
-  stats_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), psum, psq, m, chunk, vec_ok);
-  if (two_pass) dev_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), psum, psq, m, chunk, vec_ok);
-  launch_apply<T>(x, y, psum, psq, chunks, moments, gamma, beta, n, m, chunk, chunks, alpha, eps,
+  const int vec_ok = can_vectorize(x, x, m, chunk, xm, xm);
+  stats_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), psum, psq, xm, m, chunk, vec_ok);
+  if (two_pass)
+    dev_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), psum, psq, xm, m, chunk, vec_ok);
+  launch_apply<T>(x, y, psum, psq, chunks, moments, gamma, beta, xm, ym, n, m, chunk, chunks, alpha, eps,
                   two_pass, stream);
 }
 
 template <typename T, bool kTwoPass>
 cudaError_t launch_cluster(const void* x, void* y, float* moments, const float* gamma,
-                           const float* beta, int64_t n, int64_t m, int64_t chunk, int chunks,
-                           float alpha, float eps, cudaStream_t stream) {
+                           const float* beta, const Map& xm, const Map& ym, int64_t n, int64_t m,
+                           int64_t chunk, int chunks, float alpha, float eps, cudaStream_t stream) {
   if (chunks < 1 || chunks > kMaxCluster) return cudaErrorInvalidValue;
   const auto kernel = cluster_kernel<T, kTwoPass>;
   const int smem = static_cast<int>((chunk * sizeof(T) + 15) / 16 * 16);
@@ -508,14 +514,19 @@ cudaError_t launch_cluster(const void* x, void* y, float* moments, const float* 
       chunks > 8 ? cudaClusterSchedulingPolicyLoadBalancing : cudaClusterSchedulingPolicyDefault;
   cfg.attrs = attr;
   cfg.numAttrs = 2;
-  const int vec_ok = can_vectorize(x, y == nullptr ? x : y, m, chunk);
+  const int vec_ok = can_vectorize(x, y == nullptr ? x : y, m, chunk, xm, ym);
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<T*>(y), moments,
-                            gamma, beta, m, chunk, alpha, eps, vec_ok);
+                            gamma, beta, xm, ym, m, chunk, alpha, eps, vec_ok);
 }
 
 }  // namespace
 
 extern "C" {
+
+// Every entry takes `layout`: null, x and y contiguous; else eight int64,
+// x's (sample, row, len, off) then y's, as norm_map.cuh's Map reads them
+// (y's off >= 0: y is the interior of a padded buffer whose border the
+// launch zeroes).
 
 // The two-launch route. dtype: 0 = float32, 1 = bfloat16. psum/psq:
 // (n, chunks) f32 scratch; moments: (2, n) f32 out (means, then stds). Each
@@ -524,12 +535,14 @@ extern "C" {
 // launch between the two), else one pass. y null: the moments alone.
 int lg_norm_lrelu(int dtype, const void* x, void* y, float* psum, float* psq, float* moments,
                   const float* gamma, const float* beta, int64_t n, int64_t m, int64_t chunk,
-                  int chunks, int two_pass, float alpha, float eps, void* stream) {
+                  int chunks, int two_pass, float alpha, float eps, const int64_t* layout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Map xm = make_map(layout, m), ym = make_map(layout ? layout + 4 : nullptr, m);
   if (dtype == 0)
-    launch_two<float>(x, y, psum, psq, moments, gamma, beta, n, m, chunk, chunks, two_pass, alpha, eps, s);
+    launch_two<float>(x, y, psum, psq, moments, gamma, beta, xm, ym, n, m, chunk, chunks, two_pass, alpha,
+                      eps, s);
   else if (dtype == 1)
-    launch_two<__nv_bfloat16>(x, y, psum, psq, moments, gamma, beta, n, m, chunk, chunks, two_pass,
+    launch_two<__nv_bfloat16>(x, y, psum, psq, moments, gamma, beta, xm, ym, n, m, chunk, chunks, two_pass,
                               alpha, eps, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
@@ -542,17 +555,20 @@ int lg_norm_lrelu(int dtype, const void* x, void* y, float* psum, float* psq, fl
 // and y null as in lg_norm_lrelu.
 int lg_norm_lrelu_cluster(int dtype, const void* x, void* y, float* moments, const float* gamma,
                           const float* beta, int64_t n, int64_t m, int64_t chunk, int chunks,
-                          int two_pass, float alpha, float eps, void* stream) {
+                          int two_pass, float alpha, float eps, const int64_t* layout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Map xm = make_map(layout, m), ym = make_map(layout ? layout + 4 : nullptr, m);
   cudaError_t e;
   if (dtype == 0)
-    e = two_pass ? launch_cluster<float, true>(x, y, moments, gamma, beta, n, m, chunk, chunks, alpha, eps, s)
-                 : launch_cluster<float, false>(x, y, moments, gamma, beta, n, m, chunk, chunks, alpha, eps, s);
+    e = two_pass ? launch_cluster<float, true>(x, y, moments, gamma, beta, xm, ym, n, m, chunk, chunks, alpha,
+                                               eps, s)
+                 : launch_cluster<float, false>(x, y, moments, gamma, beta, xm, ym, n, m, chunk, chunks,
+                                                alpha, eps, s);
   else if (dtype == 1)
-    e = two_pass ? launch_cluster<__nv_bfloat16, true>(x, y, moments, gamma, beta, n, m, chunk, chunks,
-                                                      alpha, eps, s)
-                 : launch_cluster<__nv_bfloat16, false>(x, y, moments, gamma, beta, n, m, chunk,
-                                                       chunks, alpha, eps, s);
+    e = two_pass ? launch_cluster<__nv_bfloat16, true>(x, y, moments, gamma, beta, xm, ym, n, m, chunk,
+                                                       chunks, alpha, eps, s)
+                 : launch_cluster<__nv_bfloat16, false>(x, y, moments, gamma, beta, xm, ym, n, m, chunk,
+                                                        chunks, alpha, eps, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -562,12 +578,13 @@ int lg_norm_lrelu_cluster(int dtype, const void* x, void* y, float* moments, con
 // Pass 2 alone, from per-sample sums s1 = sum(x), s2 = sum(x^2), shape (n,).
 int lg_norm_lrelu_apply(int dtype, const void* x, void* y, const float* s1, const float* s2,
                         const float* gamma, const float* beta, int64_t n, int64_t m, int64_t chunk,
-                        int chunks, float alpha, float eps, void* stream) {
+                        int chunks, float alpha, float eps, const int64_t* layout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Map xm = make_map(layout, m), ym = make_map(layout ? layout + 4 : nullptr, m);
   if (dtype == 0)
-    launch_apply<float>(x, y, s1, s2, 1, nullptr, gamma, beta, n, m, chunk, chunks, alpha, eps, 0, s);
+    launch_apply<float>(x, y, s1, s2, 1, nullptr, gamma, beta, xm, ym, n, m, chunk, chunks, alpha, eps, 0, s);
   else if (dtype == 1)
-    launch_apply<__nv_bfloat16>(x, y, s1, s2, 1, nullptr, gamma, beta, n, m, chunk, chunks, alpha,
+    launch_apply<__nv_bfloat16>(x, y, s1, s2, 1, nullptr, gamma, beta, xm, ym, n, m, chunk, chunks, alpha,
                                 eps, 0, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);

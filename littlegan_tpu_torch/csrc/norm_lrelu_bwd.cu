@@ -64,6 +64,13 @@
 //     dstd = -sum(dn*nrm)/d,  dvar = var > 0 ? dstd/(2 std) : 0
 //     ds1  = (-sum(dn)/d - 2*mean*dvar)/M,  ds2 = dvar/M
 //
+// Every tensor is addressed through a Map (norm_map.cuh): x and dy may be
+// windows of larger maps (the decoder's x, the encoder's dy out of the next
+// conv's gradient of the padded map) and dx may be written inside a border
+// of zeros (the gradient of the decoder's transposed conv's full output),
+// which the launch's blocks write too. A sample's elements keep their
+// order, so the sums are those of a contiguous sample bit for bit.
+//
 // C interface for ctypes: pointers and the stream are void*, every function
 // returns cudaGetLastError() as an int.
 
@@ -92,6 +99,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 template <typename T>
 __host__ __device__ constexpr int vec_elems() { return 16 / sizeof(T); }
+
+#include "norm_map.cuh"
 
 __device__ __forceinline__ void warp_sum2(float& a, float& b) {
 #pragma unroll
@@ -153,20 +162,17 @@ __global__ void __launch_bounds__(kThreads)
     sums_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ fa,
                 const float* __restrict__ fb, const float* __restrict__ gamma,
                 const float* __restrict__ beta, float* __restrict__ bsum, float* __restrict__ bsq,
-                int64_t m, int64_t chunk, float alpha, float eps, int vec_ok) {
+                Map xm, Map gm, int64_t m, int64_t chunk, float alpha, float eps, int vec_ok) {
   const int64_t n = blockIdx.y;
   const Moments mo = moments<kFromStats>(fa, fb, n, static_cast<float>(m), gamma[0], eps);
   const float mean = mo.mean, inv = mo.inv, rd = 1.f / mo.d, b = beta[0];
   const Chunk c = chunk_of(m, chunk);
-  const T* xs = x + n * m;
-  const T* gs = dy + n * m;
   float sdz = 0.f, sdzn = 0.f;
   if (vec_ok) {
     constexpr int V = vec_elems<T>();
-    const uint4* xv = reinterpret_cast<const uint4*>(xs);
-    const uint4* gv = reinterpret_cast<const uint4*>(gs);
     for (int64_t i = c.begin / V + threadIdx.x; i < c.end / V; i += kThreads) {
-      const uint4 rx = __ldg(xv + i), rg = __ldg(gv + i);
+      const uint4 rx = __ldg(reinterpret_cast<const uint4*>(x + at(xm, n, i * V)));
+      const uint4 rg = __ldg(reinterpret_cast<const uint4*>(dy + at(gm, n, i * V)));
       const T* ex = reinterpret_cast<const T*>(&rx);
       const T* eg = reinterpret_cast<const T*>(&rg);
 #pragma unroll
@@ -178,7 +184,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   } else {
     for (int64_t i = c.begin + threadIdx.x; i < c.end; i += kThreads) {
-      const Elem e = elem(to_f32(xs[i]), to_f32(gs[i]), mean, inv, rd, b, alpha);
+      const Elem e = elem(to_f32(x[at(xm, n, i)]), to_f32(dy[at(gm, n, i)]), mean, inv, rd, b, alpha);
       sdz += e.dz;
       sdzn += e.dz * e.nrm;
     }
@@ -203,6 +209,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // kFromStats = false: dx of the fused op. true: dx = dn/d and ds1/ds2.
+// om with a border: the sample's blocks also write its zeros.
 template <typename T, bool kFromStats>
 __global__ void __launch_bounds__(kThreads)
     apply_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
@@ -210,8 +217,8 @@ __global__ void __launch_bounds__(kThreads)
                  const float* __restrict__ bsum, const float* __restrict__ bsq,
                  const float* __restrict__ gamma, const float* __restrict__ beta,
                  float* __restrict__ dgamma, float* __restrict__ dbeta, float* __restrict__ ds1,
-                 float* __restrict__ ds2, int64_t nsamples, int64_t m, int64_t chunk, float alpha,
-                 float eps, int vec_ok) {
+                 float* __restrict__ ds2, Map xm, Map gm, Map om, int64_t nsamples, int64_t m,
+                 int64_t chunk, float alpha, float eps, int vec_ok) {
   const int64_t n = blockIdx.y;
   const int chunks = gridDim.x;
   const float g = gamma[0];
@@ -255,13 +262,11 @@ __global__ void __launch_bounds__(kThreads)
       dgamma[0] = q;
     }
   }
+  zero_border(dx, om, n, m, vec_ok, blockIdx.x, chunks);
   __syncthreads();
   const float mean = stat[0], inv = stat[1], rd = stat[2], mdn = stat[3], cn = stat[4];
   const float b = beta[0];
   const Chunk c = chunk_of(m, chunk);
-  const T* xs = x + n * m;
-  const T* gs = dy + n * m;
-  T* os = dx + n * m;
   auto grad = [&](float v, float gv) -> float {
     const Elem e = elem(v, gv, mean, inv, rd, b, alpha);
     const float dn = g * e.dz;
@@ -269,22 +274,20 @@ __global__ void __launch_bounds__(kThreads)
   };
   if (vec_ok) {
     constexpr int V = vec_elems<T>();
-    const uint4* xv = reinterpret_cast<const uint4*>(xs);
-    const uint4* gv = reinterpret_cast<const uint4*>(gs);
-    uint4* ov = reinterpret_cast<uint4*>(os);
     for (int64_t i = c.begin / V + threadIdx.x; i < c.end / V; i += kThreads) {
-      const uint4 rx = __ldg(xv + i), rg = __ldg(gv + i);
+      const uint4 rx = __ldg(reinterpret_cast<const uint4*>(x + at(xm, n, i * V)));
+      const uint4 rg = __ldg(reinterpret_cast<const uint4*>(dy + at(gm, n, i * V)));
       const T* ex = reinterpret_cast<const T*>(&rx);
       const T* eg = reinterpret_cast<const T*>(&rg);
       uint4 out;
       T* o = reinterpret_cast<T*>(&out);
 #pragma unroll
       for (int k = 0; k < V; ++k) o[k] = from_f32<T>(grad(to_f32(ex[k]), to_f32(eg[k])));
-      ov[i] = out;
+      *reinterpret_cast<uint4*>(dx + at(om, n, i * V)) = out;
     }
   } else {
     for (int64_t i = c.begin + threadIdx.x; i < c.end; i += kThreads)
-      os[i] = from_f32<T>(grad(to_f32(xs[i]), to_f32(gs[i])));
+      dx[at(om, n, i)] = from_f32<T>(grad(to_f32(x[at(xm, n, i)]), to_f32(dy[at(gm, n, i)])));
   }
 }
 
@@ -299,16 +302,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 // cluster per sample. Block `rank` owns elements [rank*chunk, +chunk) of
 // its sample; it copies the first `kept` of them (x and dy) into shared
 // memory and reads the rest from device memory in pass 1 and again, from
-// L2, in pass 2. x, dy, dx 16-byte aligned; m, chunk and kept multiples
-// of 8. ssum/ssq: (n,) the per-sample sum(dz), sum(dz*nrm).
+// L2, in pass 2. x, dy, dx 16-byte aligned; m, chunk, kept and the maps
+// in whole vectors. ssum/ssq: (n,) the per-sample sum(dz), sum(dz*nrm).
+// om with a border: the cluster's blocks also write the sample's zeros.
 template <typename T, bool kFromStats>
 __global__ void __launch_bounds__(kThreads)
     cluster_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
                    const float* __restrict__ fa, const float* __restrict__ fb,
                    const float* __restrict__ gamma, const float* __restrict__ beta,
                    float* __restrict__ ssum, float* __restrict__ ssq, float* __restrict__ ds1,
-                   float* __restrict__ ds2, int64_t m, int64_t chunk, int64_t kept, float alpha,
-                   float eps) {
+                   float* __restrict__ ds2, Map xm, Map gm, Map om, int64_t m, int64_t chunk,
+                   int64_t kept, float alpha, float eps) {
   constexpr int V = vec_elems<T>();
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -326,12 +330,14 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t end = begin + chunk < m ? begin + chunk : m;
   const int nvec = begin < end ? static_cast<int>((end - begin) / V) : 0;
   const int kvec = nvec < kept / V ? nvec : static_cast<int>(kept / V);
-  const uint4* xg = reinterpret_cast<const uint4*>(x + n * m + begin);
-  const uint4* gg = reinterpret_cast<const uint4*>(dy + n * m + begin);
+  // vector i of this block's share of x and of dy
+  auto xg = [&](int i) { return reinterpret_cast<const uint4*>(x + at(xm, n, begin + i * V)); };
+  auto gg = [&](int i) { return reinterpret_cast<const uint4*>(dy + at(gm, n, begin + i * V)); };
   for (int i = threadIdx.x; i < kvec; i += kThreads) {
-    cp_async16(xs + i * V, xg + i);
-    cp_async16(gs + i * V, gg + i);
+    cp_async16(xs + i * V, xg(i));
+    cp_async16(gs + i * V, gg(i));
   }
+  zero_border(dx, om, n, m, 1, rank, ranks);
   const float g = gamma[0], b = beta[0], fm = static_cast<float>(m);
   if (threadIdx.x == 0) {
     const Moments mo = moments<kFromStats>(fa, fb, n, fm, g, eps);
@@ -359,7 +365,7 @@ __global__ void __launch_bounds__(kThreads)
   // pass 1: the kept part from shared memory, the rest from device memory
   for (int i = threadIdx.x; i < kvec; i += kThreads)
     sums(*reinterpret_cast<const uint4*>(xs + i * V), *reinterpret_cast<const uint4*>(gs + i * V));
-  for (int i = kvec + threadIdx.x; i < nvec; i += kThreads) sums(__ldg(xg + i), __ldg(gg + i));
+  for (int i = kvec + threadIdx.x; i < nvec; i += kThreads) sums(__ldg(xg(i)), __ldg(gg(i)));
   warp_sum2(sdz, sdzn);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
@@ -402,7 +408,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   cluster.sync();  // the sums are in; no block reads another's partials after this
   const float mdn = stat[6], cn = cn_s;
-  uint4* og = reinterpret_cast<uint4*>(dx + n * m + begin);
+  auto og = [&](int i) { return reinterpret_cast<uint4*>(dx + at(om, n, begin + i * V)); };
   auto grad = [&](const uint4 rx, const uint4 rg) -> uint4 {
     const T* ex = reinterpret_cast<const T*>(&rx);
     const T* eg = reinterpret_cast<const T*>(&rg);
@@ -418,8 +424,8 @@ __global__ void __launch_bounds__(kThreads)
   };
   // pass 2: dx, the kept part from shared memory, the rest again from L2
   for (int i = threadIdx.x; i < kvec; i += kThreads)
-    og[i] = grad(*reinterpret_cast<const uint4*>(xs + i * V), *reinterpret_cast<const uint4*>(gs + i * V));
-  for (int i = kvec + threadIdx.x; i < nvec; i += kThreads) og[i] = grad(__ldg(xg + i), __ldg(gg + i));
+    *og(i) = grad(*reinterpret_cast<const uint4*>(xs + i * V), *reinterpret_cast<const uint4*>(gs + i * V));
+  for (int i = kvec + threadIdx.x; i < nvec; i += kThreads) *og(i) = grad(__ldg(xg(i)), __ldg(gg(i)));
 }
 
 // dgamma, dbeta: the per-sample sums in a fixed order (one warp).
@@ -441,8 +447,9 @@ template <typename T, bool kFromStats>
 cudaError_t launch_cluster(const void* x, const void* dy, void* dx, const float* fa,
                            const float* fb, float* ssum, float* ssq,
                            const float* gamma, const float* beta, float* dgamma, float* dbeta,
-                           float* ds1, float* ds2, int64_t n, int64_t m, int64_t chunk, int chunks,
-                           int64_t kept, float alpha, float eps, cudaStream_t stream) {
+                           float* ds1, float* ds2, const Map (&maps)[3], int64_t n, int64_t m,
+                           int64_t chunk, int chunks, int64_t kept, float alpha, float eps,
+                           cudaStream_t stream) {
   const auto kernel = cluster_kernel<T, kFromStats>;
   const int smem = static_cast<int>(2 * kept * sizeof(T));
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -462,52 +469,57 @@ cudaError_t launch_cluster(const void* x, const void* dy, void* dx, const float*
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(dy),
-                         static_cast<T*>(dx), fa, fb, gamma, beta, ssum, ssq, ds1, ds2, m,
-                         chunk, kept, alpha, eps);
+                         static_cast<T*>(dx), fa, fb, gamma, beta, ssum, ssq, ds1, ds2, maps[0], maps[1],
+                         maps[2], m, chunk, kept, alpha, eps);
   if (e != cudaSuccess) return e;
   totals_kernel<<<1, 32, 0, stream>>>(ssum, ssq, n, dgamma, dbeta);
   return cudaGetLastError();
 }
 
-int can_vectorize(const void* a, const void* b, const void* c, int64_t m, int64_t chunk) {
+int can_vectorize(const void* a, const void* b, const void* c, int64_t m, int64_t chunk,
+                  const Map (&maps)[3]) {
   const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  return al(a) && al(b) && al(c) && (m % 8 == 0) && (chunk % 8 == 0);
+  return al(a) && al(b) && al(c) && (m % 8 == 0) && (chunk % 8 == 0) && map_vec(maps[0]) &&
+         map_vec(maps[1]) && map_vec(maps[2]);
 }
 
 template <typename T, bool kFromStats>
 cudaError_t launch_two_pass(const void* x, const void* dy, void* dx, const float* fa,
                             const float* fb, float* bsum, float* bsq,
                             const float* gamma, const float* beta, float* dgamma, float* dbeta,
-                            float* ds1, float* ds2, int64_t n, int64_t m, int64_t chunk, int chunks,
-                            float alpha, float eps, cudaStream_t stream) {
+                            float* ds1, float* ds2, const Map (&maps)[3], int64_t n, int64_t m,
+                            int64_t chunk, int chunks, float alpha, float eps, cudaStream_t stream) {
   const dim3 grid(chunks, static_cast<unsigned>(n));
-  const int vec_ok = can_vectorize(x, dy, dx, m, chunk);
+  const int vec_ok = can_vectorize(x, dy, dx, m, chunk, maps);
   sums_kernel<T, kFromStats><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), fa, fb, gamma, beta, bsum, bsq, m, chunk,
-      alpha, eps, vec_ok);
+      static_cast<const T*>(x), static_cast<const T*>(dy), fa, fb, gamma, beta, bsum, bsq, maps[0], maps[1],
+      m, chunk, alpha, eps, vec_ok);
   apply_kernel<T, kFromStats><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), fa, fb,
-      bsum, bsq, gamma, beta, dgamma, dbeta, ds1, ds2, n, m, chunk, alpha, eps, vec_ok);
+      bsum, bsq, gamma, beta, dgamma, dbeta, ds1, ds2, maps[0], maps[1], maps[2], n, m, chunk, alpha, eps,
+      vec_ok);
   return cudaGetLastError();
 }
 
 // kept > 0: the cluster route (chunks <= 16 blocks per sample, each
 // keeping `kept` elements of x and of dy in shared memory); else the
-// two-pass route.
+// two-pass route. layout: null, or x's, dy's and dx's maps (twelve int64).
 template <typename T, bool kFromStats>
 cudaError_t launch(const void* x, const void* dy, void* dx, const float* fa, const float* fb,
                    float* bsum, float* bsq, const float* gamma, const float* beta,
                    float* dgamma, float* dbeta, float* ds1, float* ds2, int64_t n, int64_t m,
                    int64_t chunk, int chunks, int64_t kept, float alpha, float eps,
-                   cudaStream_t stream) {
+                   const int64_t* layout, cudaStream_t stream) {
+  const Map maps[3] = {make_map(layout, m), make_map(layout ? layout + 4 : nullptr, m),
+                       make_map(layout ? layout + 8 : nullptr, m)};
   if (kept > 0) {
-    if (!can_vectorize(x, dy, dx, m, chunk) || kept % 8 || chunks > 16) return cudaErrorInvalidValue;
+    if (!can_vectorize(x, dy, dx, m, chunk, maps) || kept % 8 || chunks > 16) return cudaErrorInvalidValue;
     return launch_cluster<T, kFromStats>(x, dy, dx, fa, fb, bsum, bsq, gamma, beta,
-                                         dgamma, dbeta, ds1, ds2, n, m, chunk, chunks, kept, alpha,
+                                         dgamma, dbeta, ds1, ds2, maps, n, m, chunk, chunks, kept, alpha,
                                          eps, stream);
   }
   return launch_two_pass<T, kFromStats>(x, dy, dx, fa, fb, bsum, bsq, gamma, beta,
-                                        dgamma, dbeta, ds1, ds2, n, m, chunk, chunks, alpha, eps,
+                                        dgamma, dbeta, ds1, ds2, maps, n, m, chunk, chunks, alpha, eps,
                                         stream);
 }
 
@@ -521,43 +533,46 @@ extern "C" {
 // scratch; dgamma/dbeta: one f32 each. Each sample in `chunks` blocks of
 // `chunk` elements (a multiple of 8). kept > 0: the cluster route, those
 // blocks one cluster (chunks <= 16), each keeping `kept` elements of x and
-// of dy in shared memory; kept = 0: the two-pass route.
+// of dy in shared memory; kept = 0: the two-pass route. layout: null, x,
+// dy and dx contiguous; else twelve int64, x's, dy's and dx's (sample, row,
+// len, off) as norm_map.cuh's Map reads them (dx's off >= 0: dx is the
+// interior of a padded buffer whose border the launch zeroes).
 int lg_norm_lrelu_bwd(int dtype, const void* x, const void* dy, void* dx, const float* mean,
                       const float* std, float* bsum, float* bsq, const float* gamma,
                       const float* beta, float* dgamma, float* dbeta, int64_t n, int64_t m,
                       int64_t chunk, int chunks, int64_t kept, float alpha, float eps,
-                      void* stream) {
+                      const int64_t* layout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return static_cast<int>(launch<float, false>(x, dy, dx, mean, std, bsum, bsq, gamma,
                                                  beta, dgamma, dbeta, nullptr, nullptr, n, m, chunk,
-                                                 chunks, kept, alpha, eps, s));
+                                                 chunks, kept, alpha, eps, layout, s));
   if (dtype == 1)
     return static_cast<int>(launch<__nv_bfloat16, false>(x, dy, dx, mean, std, bsum, bsq,
                                                          gamma, beta, dgamma, dbeta, nullptr,
                                                          nullptr, n, m, chunk, chunks, kept, alpha,
-                                                         eps, s));
+                                                         eps, layout, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Backward of lg_norm_lrelu_apply: y the forward's input, dout its output's
 // cotangent; writes dy (direct path), ds1/ds2 (n,) f32, dgamma, dbeta.
-// Routes and chunks as in lg_norm_lrelu_bwd.
+// Routes, chunks and layout (y's, dout's, dy's maps) as in lg_norm_lrelu_bwd.
 int lg_norm_lrelu_from_stats_bwd(int dtype, const void* y, const void* dout, void* dy,
                                  const float* s1, const float* s2, float* bsum, float* bsq,
                                  const float* gamma, const float* beta, float* dgamma,
                                  float* dbeta, float* ds1, float* ds2, int64_t n, int64_t m,
                                  int64_t chunk, int chunks, int64_t kept, float alpha, float eps,
-                                 void* stream) {
+                                 const int64_t* layout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return static_cast<int>(launch<float, true>(y, dout, dy, s1, s2, bsum, bsq, gamma, beta,
                                                 dgamma, dbeta, ds1, ds2, n, m, chunk, chunks, kept,
-                                                alpha, eps, s));
+                                                alpha, eps, layout, s));
   if (dtype == 1)
     return static_cast<int>(launch<__nv_bfloat16, true>(y, dout, dy, s1, s2, bsum, bsq, gamma,
                                                         beta, dgamma, dbeta, ds1, ds2, n, m, chunk,
-                                                        chunks, kept, alpha, eps, s));
+                                                        chunks, kept, alpha, eps, layout, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

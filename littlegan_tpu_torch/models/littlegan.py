@@ -25,7 +25,14 @@ plain conv and the block epilogue above, as the JAX model does where its
 predicate says False). Both go through their autograd Functions
 (``FusedNormLReLU``, ``BoundaryConvS2D``, ``NormLReLUFromStats``), whose
 backwards are kernels too, so the gradient reaches every parameter. On CPU
-tensors they take their plain versions. Dropout is the reference's inert
+tensors they take their plain versions. Where a kernel closes a block and
+TF SAME's border is uneven (stride 2 over an even map), the kernels read
+and write through the border instead of a pad, crop or copy: encoder
+blocks 1-3 write their map inside the next conv's border (the padded map
+goes to that conv whole, the interior view everywhere else) and decoder
+blocks read their map out of the transposed conv's full output
+(``ops/conv.py``'s ``conv2d_padded``, ``deconv2d_full``); not under a
+spatial mesh nor with dropout masks. Dropout is the reference's inert
 one unless a caller passes ``dropout_masks`` to the encoder (through
 ``discriminator`` or ``adjuster``): one keep-mask per encoder block, of
 the block's output shape, applied as JAX ``encoder_apply`` does with a
@@ -52,7 +59,9 @@ from torch import nn
 
 from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.ops import s2d
-from littlegan_tpu_torch.ops.conv import conv2d, deconv2d, dense, leaky_relu
+from littlegan_tpu_torch.ops.conv import (
+    conv2d, conv2d_padded, deconv2d, deconv2d_full, dense, leaky_relu, same_border, same_crop,
+)
 from littlegan_tpu_torch.ops.cuda import boundary_conv
 from littlegan_tpu_torch.ops.cuda.norm_lrelu import FusedNormLReLU, NormLReLUFromStats
 from littlegan_tpu_torch.ops.norm import instance_norm
@@ -102,15 +111,27 @@ def _conv(x, kernel, bias, stride: int, sp, height: int) -> torch.Tensor:
     return conv2d(x, kernel, bias, stride=stride) if sp is None else spatial.conv(x, kernel, bias, stride, sp, height)
 
 
-def _norm_lrelu(x: torch.Tensor, norm: Norm, cfg: Config, sp=None, height: int = 0) -> torch.Tensor:
+_EPS = 1e-3  # the instance norm's epsilon (ops/norm.py's default)
+
+
+def _norm_lrelu(x: torch.Tensor, norm: Norm, cfg: Config, sp=None, height: int = 0, border=None, crop=None):
     """InstanceNorm -> LeakyReLU block epilogue: the fused kernel when
     ``cfg.use_pallas``, plain ops otherwise; under a spatial mesh ``sp`` the
-    sharded norm of a map ``height`` rows high."""
+    sharded norm of a map ``height`` rows high. On the kernel's path only:
+    ``border``, the map written inside it and (padded, map) returned;
+    ``crop``, x a transposed conv's full output and the norm of that window."""
     if sp is not None:
         return leaky_relu(spatial.instance_norm(x, norm.gamma, norm.beta, sp, height), cfg.leaky_alpha)
     if cfg.use_pallas and x.dim() == 4:
-        return FusedNormLReLU.apply(x.contiguous(), norm.gamma, norm.beta, cfg.leaky_alpha)
+        x = x if crop is not None else x.contiguous()
+        return FusedNormLReLU.apply(x, norm.gamma, norm.beta, cfg.leaky_alpha, _EPS, border, crop)
     return leaky_relu(instance_norm(x, norm.gamma, norm.beta), cfg.leaky_alpha)
+
+
+def _next_border(y: torch.Tensor, cfg: Config):
+    """The uneven SAME border of the encoder's next stride-2 conv over y,
+    for y's norm kernel to write y inside; None where it is even."""
+    return same_border(y.shape[1], y.shape[2], cfg.kernel_size, 2)
 
 
 class Encoder(nn.Module):
@@ -140,8 +161,10 @@ class Encoder(nn.Module):
             if not s2d_in:
                 x = s2d.space_to_depth(x)
         outputs = []
+        padded = None  # the last map inside this block's SAME border, where a norm kernel wrote it so
         for i in range(1, 5):
             blk = getattr(self, f"block{i}")
+            bordered = sp is None and dropout_masks is None and i < 4  # a kernel may write the next border
             if i == 1 and s2d_active(cfg):
                 kern = s2d.s2d_conv1_kernel(blk.conv.kernel, s2d.module_index(self, "conv1"))
                 if (sp is None and cfg.use_pallas_boundary
@@ -149,13 +172,22 @@ class Encoder(nn.Module):
                     y, s1, s2 = boundary_conv.BoundaryConvS2D.apply(
                         x.contiguous(), kern.to(x.dtype), blk.conv.bias
                     )
-                    x = NormLReLUFromStats.apply(y, s1, s2, blk.norm.gamma, blk.norm.beta, cfg.leaky_alpha)
+                    border = _next_border(y, cfg) if bordered else None
+                    x = NormLReLUFromStats.apply(y, s1, s2, blk.norm.gamma, blk.norm.beta, cfg.leaky_alpha, _EPS,
+                                                 border)
                 else:
-                    x = _norm_lrelu(_conv(x, kern, blk.conv.bias, 1, sp, height), blk.norm, cfg, sp, height)
+                    y = _conv(x, kern, blk.conv.bias, 1, sp, height)
+                    border = _next_border(y, cfg) if bordered and cfg.use_pallas else None
+                    x = _norm_lrelu(y, blk.norm, cfg, sp, height, border)
             else:
-                x = _conv(x, blk.conv.kernel, blk.conv.bias, 2, sp, height)
+                if padded is None:
+                    y = _conv(x, blk.conv.kernel, blk.conv.bias, 2, sp, height)
+                else:
+                    y = conv2d_padded(padded, blk.conv.kernel, blk.conv.bias, 2)
                 height //= 2
-                x = _norm_lrelu(x, blk.norm, cfg, sp, height)
+                border = _next_border(y, cfg) if bordered and cfg.use_pallas else None
+                x = _norm_lrelu(y, blk.norm, cfg, sp, height, border)
+            padded, x = x if border is not None else (None, x)
             if dropout_masks is not None:
                 mask = dropout_masks[i - 1].to(x.device)
                 if sp is not None and sp.tiles(height):
@@ -187,18 +219,24 @@ class Decoder(nn.Module):
             blk = getattr(self, f"block{i}")
             if skips[i - 1] is not None:
                 x = x + skips[i - 1].to(x.dtype)
+            crop = None  # the window of the full output its norm kernel takes, where SAME's crop is uneven
             if i == 4 and s2d_active(cfg):
                 x = _conv(
                     x, s2d.s2d_deconv_kernel(blk.conv.kernel, s2d.module_index(self, "deconv")),
                     s2d.tile_bias(blk.conv.bias), 1, sp, height,
                 )
             elif sp is None:
-                x = deconv2d(x, blk.conv.kernel, blk.conv.bias, stride=2)
+                if cfg.use_pallas:
+                    crop = same_crop(x.shape[1], x.shape[2], cfg.kernel_size, 2)
+                if crop is None:
+                    x = deconv2d(x, blk.conv.kernel, blk.conv.bias, stride=2)
+                else:
+                    x = deconv2d_full(x, blk.conv.kernel, blk.conv.bias, stride=2)
                 height *= 2
             else:
                 x = spatial.deconv(x, blk.conv.kernel, blk.conv.bias, 2, sp, height)
                 height *= 2
-            x = _norm_lrelu(x, blk.norm, cfg, sp, height)
+            x = _norm_lrelu(x, blk.norm, cfg, sp, height, crop=crop)
         return x
 
 

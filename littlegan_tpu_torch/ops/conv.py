@@ -11,7 +11,11 @@ on the NHWC memory without a copy and their outputs come back NHWC.
 TF SAME padding is asymmetric for a stride-2 conv on an even input (one
 row and column before, two after), so that case pads explicitly; a
 stride-2 SAME transposed conv is the full ``conv_transpose2d`` output
-cropped by the forward conv's leading pad.
+cropped by the forward conv's leading pad. Where a norm kernel writes the
+padded map itself or reads the window out of the full output
+(``models/littlegan.py``), the model calls :func:`conv2d_padded` and
+:func:`deconv2d_full` instead, with :func:`same_border` and
+:func:`same_crop` saying where the map lies: no pad, crop or copy.
 
 Kernels are stored f32 and cast to the activation dtype at each call, as
 in the JAX package; under bf16 the convolutions accumulate in f32.
@@ -30,6 +34,43 @@ def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     out = -(-size // stride)
     total = max((out - 1) * stride + k - size, 0)
     return total // 2, total - total // 2
+
+
+def same_border(h: int, w: int, k: int, stride: int) -> Optional[Tuple[int, int, int, int]]:
+    """(top, bottom, left, right): TF SAME's pads of a conv over an h x w
+    map where they are uneven, which cuDNN's symmetric padding cannot take
+    (a stride-2 conv over an even map); None where they are even."""
+    ph, pw = same_pads(h, k, stride), same_pads(w, k, stride)
+    return None if ph[0] == ph[1] and pw[0] == pw[1] else (*ph, *pw)
+
+
+def same_crop(h: int, w: int, k: int, stride: int) -> Optional[Tuple[int, int, int, int]]:
+    """(top, left, rows, cols): the window of :func:`deconv2d_full`'s output
+    over an h x w input that TF SAME keeps, where the crop is uneven; None
+    where it is even (``deconv2d`` pads symmetrically there)."""
+    border = same_border(h * stride, w * stride, k, stride)
+    return None if border is None else (border[0], border[2], h * stride, w * stride)
+
+
+def conv2d_padded(
+    xp: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, stride: int = 2
+) -> torch.Tensor:
+    """:func:`conv2d` of a map that already holds its SAME border: ``xp`` is
+    the map inside :func:`same_border`'s zeros, taken whole with no padding,
+    as ``conv2d`` takes its own ``F.pad``'s output."""
+    w = kernel.to(xp.dtype).permute(3, 2, 0, 1)
+    b = None if bias is None else bias.to(xp.dtype)
+    return F.conv2d(xp.permute(0, 3, 1, 2), w, b, stride=stride).permute(0, 2, 3, 1)
+
+
+def deconv2d_full(
+    x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, stride: int = 2
+) -> torch.Tensor:
+    """:func:`deconv2d`'s whole ``conv_transpose2d`` output before SAME's
+    crop, NHWC; :func:`same_crop` gives the window ``deconv2d`` keeps."""
+    w = kernel.to(x.dtype).permute(3, 2, 0, 1)
+    b = None if bias is None else bias.to(x.dtype)
+    return F.conv_transpose2d(x.permute(0, 3, 1, 2), w, b, stride=stride).permute(0, 2, 3, 1)
 
 
 def conv2d(

@@ -27,6 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("norm_lrelu.cu", "norm_lrelu_bwd.cu", "boundary_conv.cu", "boundary_conv_bwd.cu")
+HEADERS = ("norm_map.cuh",)  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,15 +37,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
+_L = ctypes.POINTER(ctypes.c_int64)  # a norm kernel's layout: None, or int64 maps (csrc/norm_map.cuh)
 _SIGNATURES = {
-    "lg_norm_lrelu": (_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _F, _F, _P),
-    "lg_norm_lrelu_cluster": (_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _F, _F, _P),
-    "lg_norm_lrelu_apply": (_I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _P),
+    "lg_norm_lrelu": (_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _F, _F, _L, _P),
+    "lg_norm_lrelu_cluster": (_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _F, _F, _L, _P),
+    "lg_norm_lrelu_apply": (_I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _F, _F, _L, _P),
     "lg_norm_lrelu_bwd": (
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64, _F, _F, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64, _F, _F, _L, _P,
     ),
     "lg_norm_lrelu_from_stats_bwd": (
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64, _F, _F, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64, _F, _F, _L, _P,
     ),
     "lg_conv3x3_same_stats": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lg_conv3x3_partials": (_I, _I, _I, _I, _I),
@@ -72,7 +74,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
@@ -139,6 +141,16 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = lib().lg_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def layout(*maps):
+    """A norm kernel's ``layout`` argument: None where every tensor's map
+    (sample, row, len, off) is a contiguous sample without a border, else
+    the maps as one int64 array (``csrc/norm_map.cuh``)."""
+    if all(mp[1] == 0 and mp[3] < 0 for mp in maps):
+        return None
+    flat = [v for mp in maps for v in mp]
+    return (ctypes.c_int64 * len(flat))(*flat)
 
 
 def dtype_code(t) -> int:

@@ -337,8 +337,83 @@ def bwd_plan(
     return BwdPlan(chunk, blocks, kept)
 
 
-def _aligned(*tensors: torch.Tensor) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in tensors)
+Border = Tuple[int, int, int, int]
+"""(top, bottom, left, right): rows and columns of zeros around an NHWC map."""
+Crop = Tuple[int, int, int, int]
+"""(top, left, rows, cols): the window of a larger NHWC map that a norm takes."""
+Map = Tuple[int, int, int, int]
+
+
+def _map(t: torch.Tensor) -> Optional[Map]:
+    """The kernels' map of an NHWC tensor (``csrc/norm_map.cuh``), in
+    elements: (m, 0, 0, -1) where it is contiguous, (sample, row, W*C, -1)
+    where each of its rows of W*C elements is (a map cropped out of a larger
+    one); None otherwise."""
+    n, h, w, c = t.shape
+    if t.is_contiguous():
+        return h * w * c, 0, 0, -1
+    s = t.stride()
+    if s[3] == 1 and s[2] == c and s[1] >= w * c and s[0] >= (h - 1) * s[1] + w * c and h * w * c < 2**31:
+        return s[0], s[1], w * c, -1
+    return None
+
+
+def _addressable(t: torch.Tensor) -> torch.Tensor:
+    """t itself where the kernels can address it, else a contiguous copy."""
+    return t if _map(t) is not None else t.contiguous()
+
+
+def _window(x: torch.Tensor, crop: Optional[Crop]) -> torch.Tensor:
+    if crop is None:
+        return x
+    top, left, rows, cols = crop
+    return x[:, top:top + rows, left:left + cols]
+
+
+def interior(padded: torch.Tensor, border: Border) -> torch.Tensor:
+    """The view of the map inside ``border`` of a padded NHWC buffer."""
+    top, bottom, left, right = border
+    return padded[:, top:padded.shape[1] - bottom, left:padded.shape[2] - right]
+
+
+def pad_plain(y: torch.Tensor, border: Border) -> torch.Tensor:
+    """y inside ``border`` zeros: the plain version of a bordered write."""
+    top, bottom, left, right = border
+    return torch.nn.functional.pad(y, (0, 0, left, right, top, bottom))
+
+
+def _padded(like: torch.Tensor, border: Border) -> Tuple[torch.Tensor, torch.Tensor, Map]:
+    """(padded, interior, the interior's map): an uninitialised buffer of
+    ``like``'s shape inside ``border``, whose zeros the launch writes."""
+    n, h, w, c = like.shape
+    top, bottom, left, right = border
+    padded = like.new_empty((n, h + top + bottom, w + left + right, c))
+    off = (top * (w + left + right) + left) * c  # where the interior starts in a padded sample
+    return padded, interior(padded, border), (padded.stride(0), padded.stride(1), w * c, off)
+
+
+def _maps(what: str, *tensors: torch.Tensor) -> Tuple[Map, ...]:
+    maps = tuple(_map(t) for t in tensors)
+    if None in maps:
+        raise ValueError(f"{what}: each row (W*C elements) of an NHWC input must be contiguous")
+    return maps
+
+
+def _vectorized(tensors, maps) -> bool:
+    """Whether the kernels take 16-byte vectors over these tensors (as
+    ``norm_map.cuh``'s ``map_vec`` and the launchers' alignment check)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors) and all(
+        mp[0] % 8 == 0 and mp[1] % 8 == 0 and mp[2] % 8 == 0 and (mp[3] < 0 or mp[3] % 8 == 0) for mp in maps
+    )
+
+
+def _count_border(read: Map, written: Map, read_kind: str, write_kind: str) -> None:
+    """The engagement counters (``same_border.*``): a launch that read a map
+    out of a larger one (``read``'s rows apart), or wrote one inside a border."""
+    if read[1]:
+        SAME_BORDER[read_kind].add()
+    if written[3] >= 0:
+        SAME_BORDER[write_kind].add()
 
 
 def _check_plan(plan, m: int, what: str) -> None:
@@ -384,16 +459,14 @@ def _check_inputs(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, what
         raise ValueError(f"{what}: expected a CPU or CUDA tensor, got {x.device}")
     if x.dim() != 4:
         raise ValueError(f"{what}: expected an NHWC tensor, got shape {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{what}: x must be contiguous (NHWC)")
     for name, t in (("gamma", gamma), ("beta", beta)):
         if t.numel() != 1 or t.device != x.device:
             raise ValueError(f"{what}: {name} must be one value on {x.device}")
 
 
 def _check_like(x: torch.Tensor, t: torch.Tensor, name: str, what: str) -> None:
-    if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device or not t.is_contiguous():
-        raise ValueError(f"{what}: {name} must be contiguous {x.dtype} {tuple(x.shape)} on {x.device}")
+    if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+        raise ValueError(f"{what}: {name} must be {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def _check_sums(n: int, device, what: str, **sums: torch.Tensor) -> None:
@@ -411,14 +484,30 @@ def _check_stats(stats: torch.Tensor, n: int, device, what: str) -> None:
         raise ValueError(f"{what}: stats must be the forward's contiguous f32 (2, {n}) (mean, std) on {device}")
 
 
+def _output(like: torch.Tensor, border: Optional[Border]) -> Tuple[torch.Tensor, torch.Tensor, Map]:
+    """(what the wrapper returns, where the kernel writes, the map of that):
+    a contiguous tensor of ``like``'s shape, or a buffer with ``border``."""
+    if border is None:
+        out = torch.empty(like.shape, dtype=like.dtype, device=like.device)
+        return out, out, _map(out)
+    return _padded(like, border)
+
+
 def _fused_forward(
     x, gamma, beta, alpha, eps, plan: Optional[FwdPlan] = None, write_y: bool = True,
+    border: Optional[Border] = None,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """(y, stats): y (None unless ``write_y``) and the per-sample f32
-    (mean, std), shape (2, N), that the backward reads."""
+    (mean, std), shape (2, N), that the backward reads. x may be a window of
+    a larger map (rows contiguous); with ``border`` y is written inside that
+    border of zeros and the padded buffer returned."""
     if x.device.type == "cpu":
+        x = x.contiguous()  # a window's sums in a contiguous sample's order
         stats = instance_norm_moments_plain(x)
-        return (_norm_lrelu_plain(x, stats, gamma, beta, alpha, eps) if write_y else None), stats
+        if not write_y:
+            return None, stats
+        y = _norm_lrelu_plain(x, stats, gamma, beta, alpha, eps)
+        return (y if border is None else pad_plain(y, border)), stats
     what = "fused_instance_norm_lrelu"
     refuse_grad(what, "FusedNormLReLU", x, gamma, beta)
     _check_inputs(x, gamma, beta, what)
@@ -427,25 +516,32 @@ def _fused_forward(
     if plan is None:
         plan = fwd_plan(n, m, x.element_size(), _sms(x.device), holds_whole_sample(x.shape, x.element_size()))
     _check_plan(plan, m, what)
-    y = torch.empty_like(x) if write_y else None
-    y_ptr = y.data_ptr() if write_y else None
+    (xm,) = _maps(what, x)
+    if write_y:
+        y, inner, ym = _output(x, border)
+        y_ptr = inner.data_ptr()
+    else:
+        y, y_ptr, ym = None, None, xm
+    layout = _build.layout(xm, ym)
     stats = torch.empty((2, n), dtype=torch.float32, device=x.device)
     g, b = _scalar(gamma), _scalar(beta)
     lib, stream = _build.lib(), _build.stream_ptr(x.device)
     if plan.cluster:
         err = lib.lg_norm_lrelu_cluster(
             code, x.data_ptr(), y_ptr, stats.data_ptr(), g.data_ptr(), b.data_ptr(), n, m, plan.chunk,
-            plan.chunks, int(plan.two_pass), alpha, eps, stream,
+            plan.chunks, int(plan.two_pass), alpha, eps, layout, stream,
         )
     else:
         part = torch.empty((2, n, plan.chunks), dtype=torch.float32, device=x.device)
         err = lib.lg_norm_lrelu(
             code, x.data_ptr(), y_ptr, part[0].data_ptr(), part[1].data_ptr(), stats.data_ptr(),
-            g.data_ptr(), b.data_ptr(), n, m, plan.chunk, plan.chunks, int(plan.two_pass), alpha, eps, stream,
+            g.data_ptr(), b.data_ptr(), n, m, plan.chunk, plan.chunks, int(plan.two_pass), alpha, eps, layout,
+            stream,
         )
     _build.check(err, what)
     if write_y:
         fused_instance_norm_lrelu.launches.add()
+        _count_border(xm, ym, "crop_read", "write")
     return y, stats
 
 
@@ -454,7 +550,8 @@ def fused_instance_norm_lrelu(
     plan: Optional[FwdPlan] = None,
 ) -> torch.Tensor:
     """leaky_relu(instance_norm(x, gamma, beta), alpha). x: (N, H, W, C)
-    float32 or bfloat16; gamma, beta: shape (1,). Output in x's dtype.
+    float32 or bfloat16, contiguous or a window of a larger map (each row of
+    W*C elements contiguous); gamma, beta: shape (1,). Output in x's dtype.
     ``plan``: the kernel's split of the batch (default :func:`fwd_plan`'s)."""
     return _fused_forward(x, gamma, beta, alpha, eps, plan)[0]
 
@@ -468,18 +565,22 @@ def fused_instance_norm_lrelu_bwd(
     eps: float = 1e-3,
     stats: Optional[torch.Tensor] = None,
     plan: Optional[BwdPlan] = None,
+    border: Optional[Border] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dgamma, dbeta) of ``fused_instance_norm_lrelu`` for the output
-    cotangent dy (x's shape and dtype). ``stats``: the forward's (2, N)
-    (mean, std); without them the forward's kernel takes them first (no y
-    written). ``plan``: the kernel's split of the batch (default
-    :func:`bwd_plan`'s). dgamma and dbeta are f32 (1,), summed over the
-    batch."""
+    cotangent dy (x's shape and dtype; x and dy each contiguous or a window
+    of a larger map). ``stats``: the forward's (2, N) (mean, std); without
+    them the forward's kernel takes them first (no y written). ``plan``: the
+    kernel's split of the batch (default :func:`bwd_plan`'s). ``border``: dx
+    written inside that border of zeros, the padded buffer returned. dgamma
+    and dbeta are f32 (1,), summed over the batch."""
     what = "fused_instance_norm_lrelu_bwd"
     if x.device.type == "cpu":
         if stats is not None:
             _check_stats(stats, x.shape[0], x.device, what)
-        return fused_instance_norm_lrelu_bwd_plain(x, dy, gamma, beta, alpha, eps, stats)
+        dx, dg, db = fused_instance_norm_lrelu_bwd_plain(x.contiguous(), dy.contiguous(), gamma, beta, alpha, eps,
+                                                         stats)
+        return (dx if border is None else pad_plain(dx, border)), dg, db
     refuse_grad(what, "FusedNormLReLU", x, dy, gamma, beta)
     _check_inputs(x, gamma, beta, what)
     _check_like(x, dy, "dy", what)
@@ -489,20 +590,23 @@ def fused_instance_norm_lrelu_bwd(
     if stats is None:
         stats = _fused_forward(x, gamma, beta, alpha, eps, write_y=False)[1]
     _check_stats(stats, n, x.device, what)
-    dx = torch.empty_like(x)
+    dx, inner, om = _output(x, border)
+    maps = (*_maps(what, x, dy), om)
     if plan is None:
-        plan = bwd_plan(n, m, x.element_size(), sms) if _aligned(x, dy, dx) else BwdPlan(*chunking(n, m, sms))
+        vec = _vectorized((x, dy, inner), maps)
+        plan = bwd_plan(n, m, x.element_size(), sms) if vec else BwdPlan(*chunking(n, m, sms))
     _check_plan(plan, m, what)
     part = torch.empty((2, n, plan.chunks), dtype=torch.float32, device=x.device)
     dgb = torch.empty((2,), dtype=torch.float32, device=x.device)
     g, b = _scalar(gamma), _scalar(beta)
     err = _build.lib().lg_norm_lrelu_bwd(
-        code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        code, x.data_ptr(), dy.data_ptr(), inner.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
         part[0].data_ptr(), part[1].data_ptr(), g.data_ptr(), b.data_ptr(), dgb[0].data_ptr(),
-        dgb[1].data_ptr(), n, m, *plan, alpha, eps, _build.stream_ptr(x.device),
+        dgb[1].data_ptr(), n, m, *plan, alpha, eps, _build.layout(*maps), _build.stream_ptr(x.device),
     )
     _build.check(err, what)
     fused_instance_norm_lrelu_bwd.launches.add()
+    _count_border(maps[1], om, "grad_read", "grad_write")
     return dx, dgb[0:1], dgb[1:2]
 
 
@@ -514,25 +618,30 @@ def norm_lrelu_from_stats(
     beta: torch.Tensor,
     alpha: float = 0.3,
     eps: float = 1e-3,
+    border: Optional[Border] = None,
 ) -> torch.Tensor:
     """``fused_instance_norm_lrelu`` from per-sample sums s1 = sum(y) and
-    s2 = sum(y^2), each f32 of shape (N,)."""
+    s2 = sum(y^2), each f32 of shape (N,); ``border`` as there."""
     if y.device.type == "cpu":
-        return norm_lrelu_from_stats_plain(y, s1, s2, gamma, beta, alpha, eps)
-    refuse_grad("norm_lrelu_from_stats", "NormLReLUFromStats", y, s1, s2, gamma, beta)
-    _check_inputs(y, gamma, beta, "norm_lrelu_from_stats")
+        out = norm_lrelu_from_stats_plain(y.contiguous(), s1, s2, gamma, beta, alpha, eps)
+        return out if border is None else pad_plain(out, border)
+    what = "norm_lrelu_from_stats"
+    refuse_grad(what, "NormLReLUFromStats", y, s1, s2, gamma, beta)
+    _check_inputs(y, gamma, beta, what)
     n, m = y.shape[0], y[0].numel()
-    _check_sums(n, y.device, "norm_lrelu_from_stats", s1=s1, s2=s2)
+    _check_sums(n, y.device, what, s1=s1, s2=s2)
     code = _build.dtype_code(y)
     chunk, chunks = chunking(n, m, _sms(y.device))
-    out = torch.empty_like(y)
+    out, inner, om = _output(y, border)
+    maps = (*_maps(what, y), om)
     g, b = _scalar(gamma), _scalar(beta)
     err = _build.lib().lg_norm_lrelu_apply(
-        code, y.data_ptr(), out.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-        g.data_ptr(), b.data_ptr(), n, m, chunk, chunks, alpha, eps, _build.stream_ptr(y.device),
+        code, y.data_ptr(), inner.data_ptr(), s1.data_ptr(), s2.data_ptr(), g.data_ptr(), b.data_ptr(), n, m,
+        chunk, chunks, alpha, eps, _build.layout(*maps), _build.stream_ptr(y.device),
     )
-    _build.check(err, "norm_lrelu_from_stats")
+    _build.check(err, what)
     norm_lrelu_from_stats.launches.add()
+    _count_border(*maps, "crop_read", "write")
     return out
 
 
@@ -548,10 +657,10 @@ def norm_lrelu_from_stats_bwd(
     plan: Optional[BwdPlan] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """(dy, ds1, ds2, dgamma, dbeta) of ``norm_lrelu_from_stats`` for the
-    output cotangent dout; dy in y's dtype, the rest f32. ``plan`` as in
-    :func:`fused_instance_norm_lrelu_bwd`."""
+    output cotangent dout; dy in y's dtype, the rest f32. ``plan`` and the
+    inputs' layouts as in :func:`fused_instance_norm_lrelu_bwd`."""
     if y.device.type == "cpu":
-        return norm_lrelu_from_stats_bwd_plain(y, s1, s2, gamma, beta, dout, alpha, eps)
+        return norm_lrelu_from_stats_bwd_plain(y.contiguous(), s1, s2, gamma, beta, dout.contiguous(), alpha, eps)
     what = "norm_lrelu_from_stats_bwd"
     refuse_grad(what, "NormLReLUFromStats", y, s1, s2, gamma, beta, dout)
     _check_inputs(y, gamma, beta, what)
@@ -560,9 +669,11 @@ def norm_lrelu_from_stats_bwd(
     _check_sums(n, y.device, what, s1=s1, s2=s2)
     code = _build.dtype_code(y)
     sms = _sms(y.device)
-    dy = torch.empty_like(y)
+    dy, _, om = _output(y, None)
+    maps = (*_maps(what, y, dout), om)
     if plan is None:
-        plan = bwd_plan(n, m, y.element_size(), sms) if _aligned(y, dout, dy) else BwdPlan(*chunking(n, m, sms))
+        vec = _vectorized((y, dout, dy), maps)
+        plan = bwd_plan(n, m, y.element_size(), sms) if vec else BwdPlan(*chunking(n, m, sms))
     _check_plan(plan, m, what)
     part = torch.empty((2, n, plan.chunks), dtype=torch.float32, device=y.device)
     ds = torch.empty((2, n), dtype=torch.float32, device=y.device)
@@ -571,10 +682,12 @@ def norm_lrelu_from_stats_bwd(
     err = _build.lib().lg_norm_lrelu_from_stats_bwd(
         code, y.data_ptr(), dout.data_ptr(), dy.data_ptr(), s1.data_ptr(), s2.data_ptr(), part[0].data_ptr(),
         part[1].data_ptr(), g.data_ptr(), b.data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(),
-        ds[0].data_ptr(), ds[1].data_ptr(), n, m, *plan, alpha, eps, _build.stream_ptr(y.device),
+        ds[0].data_ptr(), ds[1].data_ptr(), n, m, *plan, alpha, eps, _build.layout(*maps),
+        _build.stream_ptr(y.device),
     )
     _build.check(err, what)
     norm_lrelu_from_stats_bwd.launches.add()
+    _count_border(*maps[1:], "grad_read", "grad_write")
     return dy, ds[0], ds[1], dgb[0:1], dgb[1:2]
 
 
@@ -582,46 +695,86 @@ fused_instance_norm_lrelu.launches = _build.LaunchCounter("fused_instance_norm_l
 fused_instance_norm_lrelu_bwd.launches = _build.LaunchCounter("fused_instance_norm_lrelu_bwd")
 norm_lrelu_from_stats.launches = _build.LaunchCounter("norm_lrelu_from_stats")
 norm_lrelu_from_stats_bwd.launches = _build.LaunchCounter("norm_lrelu_from_stats_bwd")
+# The engagement counters of TF SAME's border, launches of the norm kernels
+# that ``write`` their map inside a border of zeros (the encoder's, for the
+# next stride-2 conv), ``grad_read`` their output's gradient out of the
+# bordered buffer's, ``crop_read`` their map out of a transposed conv's full
+# output (the decoder's) or ``grad_write`` the gradient of all of it.
+SAME_BORDER = {kind: _build.LaunchCounter(f"same_border.{kind}")
+               for kind in ("write", "grad_read", "crop_read", "grad_write")}
+
+
+def _output_grad(grads, border: Optional[Border], dtype: torch.dtype) -> torch.Tensor:
+    """The cotangent of a norm's output map from its Function's output
+    grads: with ``border``, the padded buffer's (its interior, read in place)
+    plus the interior view's, either of them None where it had no use."""
+    if border is None:
+        g = grads[0]
+    else:
+        padded, inner = grads
+        g = None if padded is None else interior(padded, border)
+        if inner is not None:
+            g = inner if g is None else g + inner
+    return _addressable(g.to(dtype))
+
+
+def _crop_border(full: torch.Tensor, crop: Optional[Crop]) -> Optional[Border]:
+    """The border around ``crop``'s window in ``full``: where the gradient
+    of the full map holds zeros."""
+    if crop is None:
+        return None
+    top, left, rows, cols = crop
+    return top, full.shape[1] - top - rows, left, full.shape[2] - left - cols
 
 
 class FusedNormLReLU(torch.autograd.Function):
     """``fused_instance_norm_lrelu`` with ``fused_instance_norm_lrelu_bwd``
-    as its backward (the Pallas op's custom VJP)."""
+    as its backward (the Pallas op's custom VJP). ``border``: the map is
+    written inside that border of zeros and the Function returns (padded,
+    map), the map a view of the padded buffer's interior; its backward reads
+    the interior of the padded buffer's gradient in place. ``crop``: x is a
+    larger map, the norm takes that window of it, and the gradient comes
+    back for all of x (zeros outside the window, written by the kernel)."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, alpha: float = 0.3, eps: float = 1e-3):
-        y, stats = _fused_forward(x, gamma, beta, alpha, eps)
+    def forward(ctx, x, gamma, beta, alpha: float = 0.3, eps: float = 1e-3, border=None, crop=None):
+        ctx.set_materialize_grads(False)
+        y, stats = _fused_forward(_window(x, crop), gamma, beta, alpha, eps, border=border)
         ctx.save_for_backward(x, gamma, beta, stats)
-        ctx.alpha, ctx.eps = alpha, eps
-        return y
+        ctx.alpha, ctx.eps, ctx.border, ctx.crop = alpha, eps, border, crop
+        return y if border is None else (y, interior(y, border))
 
     @staticmethod
     @first_order_only
-    def backward(ctx, dy):
+    def backward(ctx, *grads):
         x, gamma, beta, stats = ctx.saved_tensors  # stats: the forward's (mean, std)
         dx, dg, db = fused_instance_norm_lrelu_bwd(
-            x, dy.to(x.dtype).contiguous(), gamma, beta, ctx.alpha, ctx.eps, stats
+            _window(x, ctx.crop), _output_grad(grads, ctx.border, x.dtype), gamma, beta, ctx.alpha, ctx.eps, stats,
+            border=_crop_border(x, ctx.crop),
         )
-        return dx, dg.to(gamma.dtype).reshape(gamma.shape), db.to(beta.dtype).reshape(beta.shape), None, None
+        return (dx, dg.to(gamma.dtype).reshape(gamma.shape), db.to(beta.dtype).reshape(beta.shape),
+                None, None, None, None)
 
 
 class NormLReLUFromStats(torch.autograd.Function):
     """``norm_lrelu_from_stats`` with ``norm_lrelu_from_stats_bwd`` as its
-    backward; the sums' cotangents flow on to the conv that made them."""
+    backward; the sums' cotangents flow on to the conv that made them.
+    ``border`` as in :class:`FusedNormLReLU`."""
 
     @staticmethod
-    def forward(ctx, y, s1, s2, gamma, beta, alpha: float = 0.3, eps: float = 1e-3):
-        out = norm_lrelu_from_stats(y, s1, s2, gamma, beta, alpha, eps)
+    def forward(ctx, y, s1, s2, gamma, beta, alpha: float = 0.3, eps: float = 1e-3, border=None):
+        ctx.set_materialize_grads(False)
+        out = norm_lrelu_from_stats(y, s1, s2, gamma, beta, alpha, eps, border)
         ctx.save_for_backward(y, s1, s2, gamma, beta)
-        ctx.alpha, ctx.eps = alpha, eps
-        return out
+        ctx.alpha, ctx.eps, ctx.border = alpha, eps, border
+        return out if border is None else (out, interior(out, border))
 
     @staticmethod
     @first_order_only
-    def backward(ctx, dout):
+    def backward(ctx, *grads):
         y, s1, s2, gamma, beta = ctx.saved_tensors
         dy, ds1, ds2, dg, db = norm_lrelu_from_stats_bwd(
-            y, s1, s2, gamma, beta, dout.to(y.dtype).contiguous(), ctx.alpha, ctx.eps
+            y, s1, s2, gamma, beta, _output_grad(grads, ctx.border, y.dtype), ctx.alpha, ctx.eps
         )
         return (dy, ds1.to(s1.dtype), ds2.to(s2.dtype), dg.to(gamma.dtype).reshape(gamma.shape),
-                db.to(beta.dtype).reshape(beta.shape), None, None)
+                db.to(beta.dtype).reshape(beta.shape), None, None, None)

@@ -88,11 +88,17 @@ class _Recorder:
         rec = self
         orig_norm = tm._norm_lrelu
 
+        def bordered(y, border):  # the Functions' (padded, map) where the model asks for a border
+            return y if border is None else (tnl.pad_plain(y, border), y)
+
         class Fused:
             @staticmethod
-            def apply(x, gamma, beta, alpha):
+            def apply(x, gamma, beta, alpha, eps=None, border=None, crop=None):
                 rec._fused += 1
-                return x
+                if crop is not None:
+                    top, left, rows, cols = crop
+                    x = x[:, top:top + rows, left:left + cols]
+                return bordered(x, border)
 
         class Conv:
             @staticmethod
@@ -103,13 +109,14 @@ class _Recorder:
 
         class FromStats:
             @staticmethod
-            def apply(y, s1, s2, gamma, beta, alpha):
-                return y
+            def apply(y, s1, s2, gamma, beta, alpha, eps=None, border=None):
+                return bordered(y, border)
 
-        def norm_lrelu(x, norm, cfg, sp=None, height=0):
+        def norm_lrelu(x, norm, cfg, sp=None, height=0, border=None, crop=None):
             before = rec._fused
-            out = orig_norm(x, norm, cfg, sp, height)
-            rec.norms.append((tuple(x.shape), rec._fused == before + 1))
+            out = orig_norm(x, norm, cfg, sp, height, border, crop)
+            shape = tuple(x.shape) if crop is None else (x.shape[0], crop[2], crop[3], x.shape[3])  # the norm's map
+            rec.norms.append((shape, rec._fused == before + 1))
             return out
 
         def supports(x_shape, cout=None, dtype=None):
