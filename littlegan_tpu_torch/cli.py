@@ -94,7 +94,14 @@ def parse_config(argv: Optional[Sequence[str]] = None) -> Config:
 
 
 def make_dataset(cfg: Config):
-    """Synthetic data only on request; else CelebA from ``image_path``."""
+    """Synthetic data only on request; else CelebA from ``image_path``, or
+    for StarGAN v2 its domain folders (``data/domains.py``)."""
+    if cfg.model == "stargan_v2":
+        from littlegan_tpu_torch.data.domains import DomainFolder, SyntheticDomains
+
+        if cfg.extra.get("synthetic_data"):
+            return SyntheticDomains(cfg, max(4 * cfg.batch_size, 64))
+        return DomainFolder(cfg)
     if cfg.extra.get("synthetic_data"):
         from littlegan_tpu_torch.data import SyntheticDataset
 
@@ -282,6 +289,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"--devices {devices}: this host has {torch.cuda.device_count()} visible CUDA card(s)",
                   file=sys.stderr)
             return 2
+    if cfg.model == "stargan_v2" and cfg.mode != "train":
+        print(f"{cfg.mode}: model stargan_v2 runs only in train mode (its sampling, evaluation, export and "
+              "serving are not built)", file=sys.stderr)
+        return 2
     print("Application Params:", json.dumps(cfg.to_json_dict(), default=str)[:500])
     print("Running Mode:", cfg.mode)
 
@@ -304,7 +315,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               devices=cfg.extra.get("serve_devices"))
         return 0
 
-    from littlegan_tpu_torch.training.trainer import Trainer
+    from littlegan_tpu_torch.training.trainer import Trainer, make_trainer
 
     if cfg.mode == "train":
         from littlegan_tpu_torch.parallel.mesh import initialize_distributed
@@ -315,7 +326,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print("Using Attribute:", data.label)
         group = initialize_distributed(device=device)  # torchrun's ranks; None for one process
         try:
-            Trainer(cfg, data, device=device, group=group).train()
+            make_trainer(cfg, data, device=device, group=group).train()
         finally:
             if group is not None:
                 import torch.distributed as dist

@@ -144,6 +144,26 @@ class Config:
     eval_data_parallel: bool = True
     tb_images: bool = True
 
+    # --- the port's own: which model, and StarGAN v2's settings (defaults:
+    # the published main.py's); the JAX package has none of them ---
+    # "littlegan" (the reference's model) or "stargan_v2" (StarGAN v2,
+    # models/stargan_v2.py, trained by training/stargan_v2_trainer.py)
+    model: str = "littlegan"
+    num_domains: int = 2
+    latent_dim: int = 16
+    style_dim: int = 64
+    mapping_dim: int = 512
+    max_conv_dim: int = 512
+    base_dim: int = 0  # the first conv's width; 0: the published 2**14 // image_dim
+    lambda_reg: float = 1.0
+    lambda_sty: float = 1.0
+    lambda_ds: float = 1.0
+    lambda_cyc: float = 1.0
+    ds_iter: int = 100000
+    f_lr: float = 1e-6  # the mapping network's learning rate
+    weight_decay: float = 1e-4  # torch.optim.Adam's L2 form
+    randcrop_prob: float = 0.5
+
     # unknown keys from user env files are preserved here for provenance
     extra: Dict[str, Any] = field(default_factory=dict)
 
@@ -182,6 +202,10 @@ class Config:
 
 
 _FIELD_NAMES = {f.name for f in dataclasses.fields(Config)}
+# the fields the JAX package's Config lacks
+PORT_ONLY_FIELDS = ("model", "num_domains", "latent_dim", "style_dim", "mapping_dim", "max_conv_dim", "base_dim",
+                    "lambda_reg", "lambda_sty", "lambda_ds", "lambda_cyc", "ds_iter", "f_lr", "weight_decay",
+                    "randcrop_prob")
 _DERIVED = {"cond_dim", "result_dir", "prefetch"}
 
 

@@ -1,0 +1,356 @@
+"""StarGAN v2 (Choi et al., CVPR 2020, arXiv:1912.01865) as ``nn.Module``s:
+``core/model.py`` of github.com/clovaai/stargan-v2 with ``w_hpf = 0``.
+
+:class:`StarGANv2` holds the four networks under their published names,
+so a parameter's name is the published ``state_dict`` key under its
+network (``generator.encode.0.conv1.weight``):
+
+- :class:`Generator`: a 3x3 ``from_rgb``, ``log2(image_dim) - 4``
+  downsampling :class:`ResBlk` (affine IN) and two bottleneck ones, the
+  mirrored :class:`AdainResBlk` (AdaIN from the 64-d style, nearest x2
+  upsampling), ``to_rgb`` (affine IN, LeakyReLU, 1x1 conv);
+- :class:`MappingNetwork`: four shared ``mapping_dim`` linears with ReLU,
+  then per domain three more and a ``style_dim`` output;
+- :class:`StyleEncoder` and :class:`Discriminator`: a 3x3 conv,
+  ``log2(image_dim) - 2`` downsampling blocks without norm, LeakyReLU, a
+  4x4 valid conv, LeakyReLU, and per domain a linear to a style
+  (encoder) or a 1x1 conv to one logit per domain (discriminator).
+
+Every per-domain head is computed, and each sample's row gathered by its
+label on the card (:func:`pick`), as the published code does: every head
+then takes part in every Adam step of its network, with a zero gradient
+where no sample chose it. Residual blocks divide shortcut + residual by
+sqrt(2). Norms are ``ops/norm.py``'s per-channel instance norm (eps 1e-5);
+resampling ``ops/resample.py``'s. The discriminator's convs and
+LeakyReLUs are :class:`R1Conv` and :func:`r1_leaky_relu`: the same
+arithmetic, with backwards that R1's double backward differentiates in
+cuDNN's first-order kernels and that send nothing back into the forward's
+graph.
+
+Parameters are float32; every network takes NCHW images, casts them to
+``cfg.compute_dtype`` and computes convolutions, linears and norms in it
+(norm statistics in float32); outputs stay in the compute dtype.
+:func:`init_params` is the published ``he_init`` from a seed. Each network
+counts its calls (``stargan_v2.generator``, ``.mapping``,
+``.style_encoder``, ``.discriminator``: ``ops/cuda/_build.py``'s
+``LaunchCounter``s, which a CUDA graph's replays advance). No kernel of
+``ops/cuda`` runs here: :func:`check_supported` refuses their flags and
+the other options this model does not have.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from littlegan_tpu_torch.config import Config
+from littlegan_tpu_torch.ops.cuda._build import LaunchCounter
+from littlegan_tpu_torch.ops.norm import adain, channel_instance_norm
+from littlegan_tpu_torch.ops.resample import downsample, upsample
+
+CALLS = {name: LaunchCounter(f"stargan_v2.{name}")
+         for name in ("generator", "mapping", "style_encoder", "discriminator")}
+SQRT2 = math.sqrt(2.0)
+
+
+def check_supported(cfg: Config) -> None:
+    """Refuse what StarGAN v2 does not run: the LittleGAN kernels and
+    layouts, the LittleGAN-only penalty and remat, and every form of
+    parallelism or accumulation."""
+    refused = [
+        (cfg.use_pallas, "use_pallas: the norm kernels normalise a whole sample with a scalar gamma and beta; "
+                         "StarGAN v2's norms are per (sample, channel)"),
+        (cfg.use_pallas_boundary, "use_pallas_boundary: the boundary kernel is LittleGAN's 5x5 s2d encoder conv"),
+        (cfg.use_s2d, "use_s2d: the space-to-depth boundary is LittleGAN's 5x5 layout; set use_s2d false"),
+        (cfg.use_gp, "use_gp: StarGAN v2's penalty is R1 (lambda_reg), always on"),
+        (cfg.remat, "remat: not built for StarGAN v2"),
+        (cfg.mesh_shape is not None or cfg.shard_opt_state or cfg.shard_dense
+         or int(os.environ.get("WORLD_SIZE", "1")) > 1,
+         "a mesh, sharding or several processes: StarGAN v2 trains on one card (data parallelism is queued)"),
+        (cfg.grad_accum > 1, "grad_accum > 1: one iteration is four optimizer phases on one batch"),
+    ]
+    bad = [why for on, why in refused if on]
+    if bad:
+        raise ValueError("model stargan_v2 does not support " + "; ".join(bad))
+    if cfg.image_dim < 32 or cfg.image_dim & (cfg.image_dim - 1):
+        raise ValueError(f"stargan_v2 needs a power-of-two image_dim >= 32, got {cfg.image_dim}")
+
+
+def pick(out: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Each sample's row of a (B, domains, ...) output, by its label (on the card)."""
+    idx = y.view(-1, 1, *([1] * (out.dim() - 2))).expand(-1, 1, *out.shape[2:])
+    return out.gather(1, idx).squeeze(1)
+
+
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype (float32 parameters)."""
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
+
+
+class _R1Conv(torch.autograd.Function):
+    """A stride-1 ``conv2d`` whose backward is written in differentiable
+    ops: the input's gradient as ``conv_transpose2d(g, w)``, a function of
+    the gradient and the weight alone. R1's double backward then runs as
+    that transposed conv's first-order backward (cuDNN's data and filter
+    gradients); PyTorch's own double backward of a conv takes the weight's
+    part as a convolution with a filter the size of the image, and sends a
+    gradient of zeros back through the forward's graph."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, padding: int):
+        ctx.save_for_backward(x, w)
+        ctx.padding, ctx.has_bias = padding, b is not None
+        return F.conv2d(x, w, b, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        p = ctx.padding
+        gx = F.conv_transpose2d(g, w, padding=p) if ctx.needs_input_grad[0] else None
+        gw = gb = None
+        if ctx.needs_input_grad[1]:
+            gw = torch.ops.aten.convolution_backward(g, x, w, None, [1, 1], [p, p], [1, 1], False, [0, 0], 1,
+                                                     [False, True, False])[1]
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            gb = g.sum((0, 2, 3))
+        return gx, gw, gb, None
+
+
+class R1Conv(Conv):
+    """The discriminator's convs (stride 1): :class:`_R1Conv`."""
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return _R1Conv.apply(x, self.weight.to(x.dtype), b, self.padding[0])
+
+
+class _R1LeakyReLU(torch.autograd.Function):
+    """LeakyReLU whose backward, ``where(y > 0, g, alpha g)``, is a function
+    of the gradient alone (the sign is a constant): its double backward
+    sends nothing back into the forward's graph, where PyTorch's sends a
+    gradient of zeros."""
+
+    @staticmethod
+    def forward(ctx, x, alpha: float):
+        y = F.leaky_relu(x, alpha)
+        ctx.save_for_backward(y)
+        ctx.alpha = alpha
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where(y > 0, g, g * ctx.alpha), None
+
+
+def r1_leaky_relu(x, alpha: float):
+    return _R1LeakyReLU.apply(x, alpha)
+
+
+class R1LeakyReLU(nn.LeakyReLU):
+    def forward(self, x):
+        return r1_leaky_relu(x, self.negative_slope)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype (float32 parameters)."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class InstanceNorm(nn.Module):
+    """``nn.InstanceNorm2d(c, affine=True)``: the weight and bias as published."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x):
+        return channel_instance_norm(x, self.weight, self.bias)
+
+
+class ResBlk(nn.Module):
+    """``r1``: the discriminator's form (:class:`R1Conv`, :func:`r1_leaky_relu`)."""
+
+    def __init__(self, cin: int, cout: int, alpha: float, normalize: bool = False, down: bool = False,
+                 r1: bool = False):
+        super().__init__()
+        self.alpha, self.normalize, self.down = alpha, normalize, down
+        self.act = r1_leaky_relu if r1 else F.leaky_relu
+        conv = R1Conv if r1 else Conv
+        self.conv1 = conv(cin, cin, 3, 1, 1)
+        self.conv2 = conv(cin, cout, 3, 1, 1)
+        if normalize:
+            self.norm1, self.norm2 = InstanceNorm(cin), InstanceNorm(cin)
+        self.conv1x1 = conv(cin, cout, 1, 1, 0, bias=False) if cin != cout else None
+
+    def forward(self, x):
+        sc = x if self.conv1x1 is None else self.conv1x1(x)
+        if self.down:
+            sc = downsample(sc)
+        r = self.norm1(x) if self.normalize else x
+        r = self.conv1(self.act(r, self.alpha))
+        if self.down:
+            r = downsample(r)
+        if self.normalize:
+            r = self.norm2(r)
+        r = self.conv2(self.act(r, self.alpha))
+        return (sc + r) / SQRT2
+
+
+class AdaIN(nn.Module):
+    def __init__(self, style_dim: int, c: int):
+        super().__init__()
+        self.fc = Linear(style_dim, 2 * c)
+
+    def forward(self, x, s):
+        gamma, beta = self.fc(s).chunk(2, dim=1)
+        return adain(x, gamma, beta)
+
+
+class AdainResBlk(nn.Module):
+    def __init__(self, cin: int, cout: int, style_dim: int, alpha: float, up: bool = False):
+        super().__init__()
+        self.alpha, self.up = alpha, up
+        self.conv1 = Conv(cin, cout, 3, 1, 1)
+        self.conv2 = Conv(cout, cout, 3, 1, 1)
+        self.norm1, self.norm2 = AdaIN(style_dim, cin), AdaIN(style_dim, cout)
+        self.conv1x1 = Conv(cin, cout, 1, 1, 0, bias=False) if cin != cout else None
+
+    def forward(self, x, s):
+        r = F.leaky_relu(self.norm1(x, s), self.alpha)
+        if self.up:
+            r = upsample(r)
+        r = self.conv2(F.leaky_relu(self.norm2(self.conv1(r), s), self.alpha))
+        sc = upsample(x) if self.up else x
+        if self.conv1x1 is not None:
+            sc = self.conv1x1(sc)
+        return (r + sc) / SQRT2
+
+
+def widths(cfg: Config, repeat: int) -> List[Tuple[int, int]]:
+    """(in, out) of ``repeat`` downsampling blocks from the first width."""
+    out, d = [], cfg.base_dim or 2 ** 14 // cfg.image_dim
+    for _ in range(repeat):
+        out.append((d, min(2 * d, cfg.max_conv_dim)))
+        d = out[-1][1]
+    return out
+
+
+class _Net(nn.Module):
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.dtype = getattr(torch, cfg.compute_dtype)
+
+
+class Generator(_Net):
+    def __init__(self, cfg: Config):
+        super().__init__(cfg)
+        a = cfg.leaky_alpha
+        down = widths(cfg, int(math.log2(cfg.image_dim)) - 4)
+        top, d = down[-1][1], down[0][0]
+        self.from_rgb = Conv(3, d, 3, 1, 1)
+        self.encode = nn.ModuleList([ResBlk(i, o, a, normalize=True, down=True) for i, o in down]
+                                    + [ResBlk(top, top, a, normalize=True) for _ in range(2)])
+        self.decode = nn.ModuleList([AdainResBlk(top, top, cfg.style_dim, a) for _ in range(2)]
+                                    + [AdainResBlk(o, i, cfg.style_dim, a, up=True) for i, o in reversed(down)])
+        self.to_rgb = nn.Sequential(InstanceNorm(d), nn.LeakyReLU(a), Conv(d, 3, 1, 1, 0))
+
+    def forward(self, x, s):
+        CALLS["generator"].add()
+        x = self.from_rgb(x.to(self.dtype))
+        for block in self.encode:
+            x = block(x)
+        s = s.to(self.dtype)
+        for block in self.decode:
+            x = block(x, s)
+        return self.to_rgb(x)
+
+
+class MappingNetwork(_Net):
+    def __init__(self, cfg: Config):
+        super().__init__(cfg)
+        m = cfg.mapping_dim
+        layers: List[nn.Module] = [Linear(cfg.latent_dim, m), nn.ReLU()]
+        for _ in range(3):
+            layers += [Linear(m, m), nn.ReLU()]
+        self.shared = nn.Sequential(*layers)
+        self.unshared = nn.ModuleList([
+            nn.Sequential(Linear(m, m), nn.ReLU(), Linear(m, m), nn.ReLU(), Linear(m, m), nn.ReLU(),
+                          Linear(m, cfg.style_dim))
+            for _ in range(cfg.num_domains)])
+
+    def forward(self, z, y):
+        CALLS["mapping"].add()
+        h = self.shared(z.to(self.dtype))
+        return pick(torch.stack([head(h) for head in self.unshared], 1), y)
+
+
+def _trunk(cfg: Config, r1: bool = False) -> List[nn.Module]:
+    """The style encoder's and the discriminator's shared layers (``r1``: the discriminator's)."""
+    a = cfg.leaky_alpha
+    blocks = widths(cfg, int(math.log2(cfg.image_dim)) - 2)
+    top = blocks[-1][1]
+    conv, act = (R1Conv, R1LeakyReLU) if r1 else (Conv, nn.LeakyReLU)
+    return ([conv(3, blocks[0][0], 3, 1, 1)] + [ResBlk(i, o, a, down=True, r1=r1) for i, o in blocks]
+            + [act(a), conv(top, top, 4, 1, 0), act(a)])
+
+
+class StyleEncoder(_Net):
+    def __init__(self, cfg: Config):
+        super().__init__(cfg)
+        self.shared = nn.Sequential(*_trunk(cfg))
+        top = widths(cfg, int(math.log2(cfg.image_dim)) - 2)[-1][1]
+        self.unshared = nn.ModuleList([Linear(top, cfg.style_dim) for _ in range(cfg.num_domains)])
+
+    def forward(self, x, y):
+        CALLS["style_encoder"].add()
+        h = self.shared(x.to(self.dtype)).flatten(1)
+        return pick(torch.stack([head(h) for head in self.unshared], 1), y)
+
+
+class Discriminator(_Net):
+    def __init__(self, cfg: Config):
+        super().__init__(cfg)
+        top = widths(cfg, int(math.log2(cfg.image_dim)) - 2)[-1][1]
+        self.main = nn.Sequential(*_trunk(cfg, r1=True), R1Conv(top, cfg.num_domains, 1, 1, 0))
+
+    def forward(self, x, y):
+        CALLS["discriminator"].add()
+        return pick(self.main(x.to(self.dtype)).flatten(1), y)
+
+
+class StarGANv2(nn.Module):
+    """The four networks, each the prefix of its parameters' names."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        check_supported(cfg)
+        self.generator = Generator(cfg)
+        self.mapping_network = MappingNetwork(cfg)
+        self.style_encoder = StyleEncoder(cfg)
+        self.discriminator = Discriminator(cfg)
+
+
+@torch.no_grad()
+def init_params(model: StarGANv2, seed: int) -> StarGANv2:
+    """The published ``he_init`` in place, from ``seed`` (one CPU generator,
+    the parameters in order): every conv and linear weight ~ N(0, 2 /
+    fan_in), biases 0, norm weights 1."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in model.named_parameters():
+        if p.dim() >= 2:
+            p.copy_(torch.randn(p.shape, generator=gen) * math.sqrt(2.0 / p[0].numel()))
+        else:
+            p.fill_(0.0 if name.endswith(".bias") else 1.0)
+    return model

@@ -6,11 +6,23 @@ added to the population STD (not the variance), and stats in f32 whatever
 the activation dtype. The default computes the variance in one pass
 (E[x^2] - mean^2, clamped at 0); ``two_pass=True`` takes the mean of
 squared deviations instead.
+
+StarGAN v2's norms are per (sample, channel) instead
+(:func:`channel_instance_norm`, :func:`adain`): ``torch.nn.InstanceNorm2d``'s
+arithmetic (eps 1e-5 added to the biased variance), with an affine that
+may differ per sample, as AdaIN's does. Both run as one ``batch_norm`` over
+the (1, B*C, H, W) view, as ``torch.instance_norm`` itself does, with the
+(B*C) scale and shift as its weight and bias: its kernels keep the stats
+in f32 whatever the activation dtype, and its backward gives the scale's
+and shift's gradients.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 
 def instance_norm(
@@ -49,3 +61,19 @@ def instance_norm_from_stats(
     var = ((s2.float() / m).reshape(shape) - mean.square()).clamp_min(0.0)
     normed = (x.float() - mean) / (var.sqrt() + eps)
     return (normed * gamma.float() + beta.float()).to(x.dtype)
+
+
+def channel_instance_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None, shift: Optional[torch.Tensor] = None,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """Instance norm of an NCHW ``x`` over H and W per (sample, channel),
+    then ``scale * x + shift``: each (C,) (shared by the samples) or (B, C)
+    (one per sample), or None (1 and 0)."""
+    b, c = x.shape[:2]
+    flat = lambda t: None if t is None else t.expand(b, c).reshape(b * c).to(x.dtype)  # noqa: E731
+    y = F.batch_norm(x.reshape(1, b * c, *x.shape[2:]), None, None, flat(scale), flat(shift), True, 0.0, eps)
+    return y.view_as(x)
+
+
+def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """AdaIN: ``(1 + gamma) * IN(x) + beta``, gamma and beta (B, C) from the style."""
+    return channel_instance_norm(x, 1.0 + gamma, beta, eps)

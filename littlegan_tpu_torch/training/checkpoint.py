@@ -13,6 +13,11 @@ The JAX package writes one ``ckpt-<tag>.npz`` per checkpoint
   same for ``.opt_d`` and ``.opt_a``, and ``.ema/<key>`` when the run keeps
   an EMA of the generator's parts.
 
+A StarGAN v2 state (``training/state.py::StarGANState``) is stored the same
+way under its own Adams' names (``.opt_g``, ``.opt_f``, ``.opt_e``,
+``.opt_d``) and its EMA of G, F and E; every function here takes either
+state, by its ``OPTS``.
+
 :class:`Checkpointer` writes a port :class:`TrainState` under those keys and
 layouts, so a checkpoint of either package restores in the other. A save
 writes a temporary file in the same directory, fsyncs it and renames it
@@ -74,9 +79,9 @@ def _write_status(directory: str, status: Dict[str, Any]) -> None:
 
 
 def flatten_state(state) -> Dict[str, np.ndarray]:
-    """A port TrainState under the JAX package's flat keys."""
+    """A port TrainState (or StarGANState) under the JAX package's flat keys."""
     flat = {f".params/{jax_key(n)}": to_numpy(p) for n, p in state.model.named_parameters()}
-    for name in ("opt_g", "opt_d", "opt_a"):
+    for name in state.OPTS:
         opt = getattr(state, name)
         for k in opt.mu:
             key = jax_key(k)
@@ -94,7 +99,7 @@ def state_tensors(state) -> Dict[str, torch.Tensor]:
     lie (this rank's part where a leaf is sharded), the counts as int32
     scalars."""
     flat = {f".params/{jax_key(n)}": p.detach() for n, p in state.model.named_parameters()}
-    for name in ("opt_g", "opt_d", "opt_a"):
+    for name in state.OPTS:
         opt = getattr(state, name)
         for k in opt.mu:
             key = jax_key(k)
@@ -126,7 +131,7 @@ def load_state(state, flat: Dict[str, Any]):
     keys are ignored."""
     for n, p in state.model.named_parameters():
         p.copy_(_take(flat, f".params/{jax_key(n)}", p))
-    for name in ("opt_g", "opt_d", "opt_a"):
+    for name in state.OPTS:
         opt = getattr(state, name)
         for k in opt.mu:
             key = jax_key(k)

@@ -36,7 +36,7 @@ How this differs in form from the JAX function, not in result:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -215,3 +215,50 @@ def masked_adam_update_rows(
         torch.where(on[j], p - delta[j], p, out=p)
         for new, old in ((m[j], state.mu[k]), (v[j], state.nu[k])):
             torch.where(on[j], new.to(old.dtype), old, out=old)
+
+
+# ------------------------------------------------ torch.optim.Adam's arithmetic --
+
+
+def torch_adam_step(state: AdamState, lr: float, b1: float, b2: float) -> Tuple[float, float]:
+    """Advance every leaf's count by one, as one ``torch.optim.Adam`` step
+    does, and return that step's (``lr / (1 - b1^t)``, ``sqrt(1 - b2^t)``),
+    worked out in double precision as torch does and rounded to float32, the
+    precision its kernels apply them in."""
+    for k in state.count:
+        state.count[k] += 1
+    t = next(iter(state.count.values()))
+    return float(np.float32(lr / (1.0 - b1 ** t))), float(np.float32((1.0 - b2 ** t) ** 0.5))
+
+
+@torch.no_grad()
+def adam_l2_update_rows(
+    grads: Dict[str, torch.Tensor],
+    state: AdamState,
+    params: Dict[str, torch.Tensor],
+    step_size: torch.Tensor,
+    bc2_sqrt: torch.Tensor,
+    b1: float,
+    b2: float,
+    weight_decay: float,
+    eps: float = 1e-8,
+) -> None:
+    """One ``torch.optim.Adam`` step of every leaf, in place, from device
+    scalars (:func:`torch_adam_step`'s pair): the L2 ``weight_decay`` added
+    to the gradient, ``m = lerp(m, g, 1 - b1)``, ``v = b2 v + (1 - b2) g^2``,
+    ``p -= step_size * m / (sqrt(v) / bc2_sqrt + eps)``. float32 moments
+    only. The host counts are not touched here."""
+    names = list(params)
+    p = [params[k] for k in names]
+    m = [state.mu[k] for k in names]
+    v = [state.nu[k] for k in names]
+    g = torch._foreach_add([grads[k] for k in names], p, alpha=weight_decay)
+    torch._foreach_lerp_(m, g, 1.0 - b1)
+    torch._foreach_mul_(v, b2)
+    torch._foreach_addcmul_(v, g, g, value=1.0 - b2)
+    denom = torch._foreach_sqrt(v)
+    torch._foreach_div_(denom, bc2_sqrt)
+    torch._foreach_add_(denom, eps)
+    q = torch._foreach_div(m, denom)
+    torch._foreach_mul_(q, step_size)
+    torch._foreach_sub_(p, q)

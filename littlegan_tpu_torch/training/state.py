@@ -10,6 +10,11 @@ The three optimizers own disjoint parts of the one :class:`LittleGAN`:
 G and D use Adam(lr, beta_1, beta_2); the adjuster's Adam the default betas
 (0.9, 0.999). ``ema`` is a float32 copy of G's parameters when
 ``Config.ema_decay > 0``, else None.
+
+:class:`StarGANState` is StarGAN v2's (``Config.model = "stargan_v2"``):
+its four networks, one ``torch.optim.Adam``-form state per network
+(``opt_g``, ``opt_f``, ``opt_e``, ``opt_d``) and the EMA of G, F and E.
+Each state's ``OPTS`` names its Adams, in the order checkpoints store them.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 
 from littlegan_tpu_torch.config import Config
+from littlegan_tpu_torch.models import stargan_v2
 from littlegan_tpu_torch.models.littlegan import LittleGAN, init_params
 from littlegan_tpu_torch.training.optimizer import AdamState, adam_init
 
@@ -28,6 +34,7 @@ A_KEYS = ("adj_head",)
 
 
 class TrainState(NamedTuple):
+    OPTS = ("opt_g", "opt_d", "opt_a")
     model: LittleGAN
     opt_g: AdamState
     opt_d: AdamState
@@ -40,9 +47,7 @@ def subtree(model: LittleGAN, keys: Sequence[str]) -> Dict[str, torch.nn.Paramet
     return {n: p for n, p in model.named_parameters() if n.split(".", 1)[0] in keys}
 
 
-def create_train_state(cfg: Config, device=None, model: Optional[LittleGAN] = None) -> TrainState:
-    """A fresh state on ``device``: ``model`` if given, else a seeded
-    ``init_params(cfg, cfg.seed)``; zero moments in ``cfg.moment_dtype``."""
+def check_state_config(cfg: Config) -> None:
     if not 0.0 <= cfg.ema_decay < 1.0:
         raise ValueError(
             f"ema_decay must be in [0, 1), got {cfg.ema_decay}: 1.0 freezes "
@@ -55,6 +60,12 @@ def create_train_state(cfg: Config, device=None, model: Optional[LittleGAN] = No
             f"{cfg.moment_dtype!r} (Adam math is always f32; this only "
             "picks the mu/nu STORAGE dtype)"
         )
+
+
+def create_train_state(cfg: Config, device=None, model: Optional[LittleGAN] = None) -> TrainState:
+    """A fresh state on ``device``: ``model`` if given, else a seeded
+    ``init_params(cfg, cfg.seed)``; zero moments in ``cfg.moment_dtype``."""
+    check_state_config(cfg)
     model = (init_params(cfg, cfg.seed) if model is None else model).to(device)
     mdt = getattr(torch, cfg.moment_dtype)
     g = subtree(model, G_KEYS)
@@ -74,3 +85,35 @@ def eval_params(state: TrainState) -> Dict[str, torch.Tensor]:
     if state.ema is not None:
         params.update(state.ema)
     return params
+
+
+# StarGAN v2's networks by the Adam that steps each
+STARGAN_ADAMS = (("opt_g", "generator"), ("opt_f", "mapping_network"), ("opt_e", "style_encoder"),
+                 ("opt_d", "discriminator"))
+
+
+class StarGANState(NamedTuple):
+    OPTS = tuple(opt for opt, _ in STARGAN_ADAMS)
+    model: stargan_v2.StarGANv2
+    opt_g: AdamState
+    opt_f: AdamState
+    opt_e: AdamState
+    opt_d: AdamState
+    ema: Optional[Dict[str, torch.Tensor]] = None  # G's, F's and E's parameters
+
+
+def create_stargan_state(cfg: Config, device=None, model: Optional[stargan_v2.StarGANv2] = None) -> StarGANState:
+    """A fresh StarGAN v2 state on ``device``: ``model`` if given, else
+    ``he_init`` from ``cfg.seed``; zero float32 moments and counts; the EMA
+    (``ema_decay > 0``) a copy of G's, F's and E's weights."""
+    check_state_config(cfg)
+    if cfg.moment_dtype != "float32":
+        raise ValueError("stargan_v2 keeps float32 moments (moment_dtype float32), as torch.optim.Adam does")
+    if model is None:
+        model = stargan_v2.init_params(stargan_v2.StarGANv2(cfg), cfg.seed)
+    model = model.to(device)
+    opts = {opt: adam_init(subtree(model, (net,))) for opt, net in STARGAN_ADAMS}
+    ema = None
+    if cfg.ema_decay > 0:
+        ema = {k: p.detach().clone() for k, p in subtree(model, ("generator", "mapping_network", "style_encoder")).items()}
+    return StarGANState(model=model, ema=ema, **opts)

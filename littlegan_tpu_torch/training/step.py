@@ -546,10 +546,11 @@ def scan_updates(state: TrainState, images, conds, ids1, ids2, draws: StepDraws,
     return torch.stack(losses), out.fake_image, out.adj_image
 
 
-def state_tensors(state: TrainState) -> List[torch.Tensor]:
-    """Every tensor an update writes: parameters, moments, the EMA."""
+def state_tensors(state) -> List[torch.Tensor]:
+    """Every tensor an update writes: parameters, moments, the EMA (of
+    either model's state, by its ``OPTS``)."""
     out = list(state.model.parameters())
-    for opt, _, _ in _ADAMS:
+    for opt in state.OPTS:
         adam = getattr(state, opt)
         out += list(adam.mu.values()) + list(adam.nu.values())
     return out + (list(state.ema.values()) if state.ema is not None else [])

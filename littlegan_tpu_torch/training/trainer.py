@@ -54,7 +54,9 @@ or the prefetcher's next batches, one-update path), ``draws``, ``flush``
 ``gather_eval``, ``predict``), besides the step's and the graph's own.
 
 It runs on the card unless ``device="cpu"`` is given; without a card and
-without that argument it raises. Refused (``ValueError``): what
+without that argument it raises. It trains LittleGAN: :func:`make_trainer`
+gives StarGAN v2's configs (``model = "stargan_v2"``) their own trainer,
+``training/stargan_v2_trainer.py``. Refused (``ValueError``): what
 ``step.check_supported`` refuses (the gradient penalty with a kernel flag),
 and the meshes, ``shard_opt_state`` and ``shard_dense`` settings the JAX
 trainer refuses (:func:`check_trainer_supported`).
@@ -151,6 +153,9 @@ def check_trainer_supported(cfg: Config, dp: Optional[DataGroup] = None) -> None
     ``shard_dense`` without a model axis dividing ``init_dim``, and
     ``shard_opt_state`` without ranks to shard over; the data ranks must
     split ``batch_size`` and the model ranks ``image_dim``."""
+    if cfg.model != "littlegan":
+        raise ValueError(f"Trainer trains LittleGAN; model {cfg.model!r} trains with make_trainer's choice "
+                         "(stargan_v2: training/stargan_v2_trainer.py)")
     world = 1 if dp is None else dp.world
     check_mesh(cfg.mesh_axes, cfg.mesh_shape, world)
     check_supported(resolve_config(cfg, 1 if dp is None else dp.model_size)[0])
@@ -346,6 +351,24 @@ def step_seed(seed: int, global_step: int, micro: Optional[int] = None) -> int:
     ``micro`` in an accumulated update."""
     entropy = [seed, global_step] if micro is None else [seed, global_step, micro]
     return int(np.random.SeedSequence(entropy).generate_state(1)[0])
+
+
+MODELS = ("littlegan", "stargan_v2")
+
+
+def make_trainer(cfg: Config, dataset, device=None, group: Optional[DataGroup] = None):
+    """The trainer of ``cfg.model``: :class:`Trainer` for LittleGAN,
+    ``StarGANTrainer`` (``training/stargan_v2_trainer.py``, one process,
+    no group) for StarGAN v2."""
+    if cfg.model not in MODELS:
+        raise ValueError(f"model must be one of {MODELS}, got {cfg.model!r}")
+    if cfg.model == "stargan_v2":
+        if group is not None:
+            raise ValueError("model stargan_v2 trains on one card: start it without torchrun")
+        from littlegan_tpu_torch.training.stargan_v2_trainer import StarGANTrainer
+
+        return StarGANTrainer(cfg, dataset, device=device)
+    return Trainer(cfg, dataset, device=device, group=group)
 
 
 class Trainer:

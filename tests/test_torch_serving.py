@@ -31,6 +31,7 @@ from littlegan_tpu.config import Config as JConfig
 from littlegan_tpu.config import load_config as jload_config
 from littlegan_tpu.training.checkpoint import _flatten, make_checkpointer as jmake_checkpointer
 from littlegan_tpu_torch import serving as tserving
+from littlegan_tpu_torch.config import PORT_ONLY_FIELDS
 from littlegan_tpu_torch.config import Config as TConfig
 from littlegan_tpu_torch.config import load_config as tload_config
 from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
@@ -56,10 +57,17 @@ def _cond(cfg, n, seed=0):
     return np.where(rng.random((n, cfg.cond_dim)) < 0.5, 0.98, -0.94).astype(np.float32)
 
 
+def _shared(d: dict) -> dict:
+    """A port config's dict without the fields the JAX package lacks (the model switch and StarGAN v2's)."""
+    return {k: v for k, v in d.items() if k not in PORT_ONLY_FIELDS}
+
+
 def test_config_fields_and_defaults_match_jax():
     j, t = JConfig(), TConfig()
-    assert [f.name for f in dataclasses.fields(j)] == [f.name for f in dataclasses.fields(t)]
-    assert j.to_json_dict() == t.to_json_dict()
+    names = [f.name for f in dataclasses.fields(t)]
+    assert [f.name for f in dataclasses.fields(j)] == [n for n in names if n not in PORT_ONLY_FIELDS]
+    assert set(PORT_ONLY_FIELDS) <= set(names) and t.model == "littlegan"
+    assert j.to_json_dict() == _shared(t.to_json_dict())
 
 
 def test_load_config_layers_match_jax(tmp_path):
@@ -68,7 +76,7 @@ def test_load_config_layers_match_jax(tmp_path):
     over = {"epoch": 5, "exp_name": "x", "seed": None}
     j = jload_config("myenv", over, search_dirs=(str(tmp_path),))
     t = tload_config("myenv", over, search_dirs=(str(tmp_path),))
-    assert t.to_json_dict() == j.to_json_dict()
+    assert _shared(t.to_json_dict()) == j.to_json_dict()
     assert (t.batch_size, t.lr, t.epoch, t.extra["custom_key"], t.cond_dim) == (8, 2e-3, 5, 7, 7)
 
 
