@@ -167,7 +167,9 @@ Phases, each of which fails the run on any error:
       ``python -m littlegan_tpu_torch.bench`` at 128², batch 32 with the
       defaults and with ``--kernels`` (each line parsed: 0 < mfu <= 1, the
       card's name, and with the kernels each wrapper's launches over the
-      timed windows equal to ``EXPECTED_TRAIN_LAUNCHES`` per update);
+      timed windows equal to ``EXPECTED_GRAPH_LAUNCHES`` per update: its
+      updates run as CUDA-graph replays, so the SAME-border counters count
+      too);
       autotune over K 8, 16 and 64 with the kernels (every point measured,
       with its graph capture seconds and peak memory); serve_bench with the
       kernels and a hot-reload drill (0 requests dropped); scaling_curve
@@ -186,7 +188,20 @@ Phases, each of which fails the run on any error:
       phase (g)'s ``profile_steps`` trace and on that replay (K1, K2 and K3
       among the device ops); ``bench_boundary_conv`` (K3 within
       ``ENTRY_K3_REL`` of phase (b)'s time at (32, 64, 64, 12) bf16). Each
-      tool's wall is printed, and each phase's wall after (n).
+      tool's wall is printed;
+  (o) StarGAN v2's kernels (``csrc/channel_norm_lrelu.cu``,
+      ``csrc/resample.cu``) as its main path runs them: one eager iteration
+      of the benchmark's configuration (``SG_CONFIG``: AFHQ 256², batch 8,
+      bf16) under the profiler, the ``stargan_v2.*`` kernel counters set to
+      0 just before it, must count ``SG_EXPECTED_CALLS`` and launch
+      ``SG_KERNELS`` per call; at every (C, H) the iteration ran, batch 8,
+      bf16 channels-last, the norm's forward and backward (IN's shared and
+      AdaIN's per-sample affine) and the pool and upsample (at both scales)
+      against their plain versions to one rounding (``SG_ROUNDING``,
+      ``SG_SUMS_REL``), each timed beside its bytes' bound, its plain
+      version and PyTorch's ops (``batch_norm`` + ``leaky_relu`` over NCHW;
+      ``avg_pool2d`` and ``interpolate`` over NHWC and NCHW), and summed
+      over the iteration's calls. Each phase's wall after (o).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -3692,7 +3707,7 @@ def _run_module(argv, cwd, timeout=600):
 def check_tools():
     """Phase (m): ``python -m littlegan_tpu_torch.bench`` with the defaults
     and with ``--kernels`` (0 < mfu <= 1, the card's name, the kernels'
-    launches over the timed windows equal to EXPECTED_TRAIN_LAUNCHES per
+    launches over the timed windows equal to EXPECTED_GRAPH_LAUNCHES per
     update), autotune over K 8, 16, 64 (every point measured, each K's graph
     capture s and peak memory), serve_bench with a reload drill (0
     dropped), scaling_curve over one card, each with the kernels, and a
@@ -3725,7 +3740,7 @@ def check_tools():
         require(line["mfu"] is not None and 0 < line["mfu"] <= 1, f"bench mfu {line['mfu']}")
         if extra:
             updates = TOOLS_BENCH_WINDOWS * line["steps_per_dispatch"]
-            want = {k: v * updates for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+            want = {k: v * updates for k, v in EXPECTED_GRAPH_LAUNCHES.items()}
             require(line["kernel_launches"] == want, f"bench --kernels launches {line['kernel_launches']}, want {want}")
             launches["bench"] = line["kernel_launches"]
         benches.append(line)
@@ -3914,6 +3929,290 @@ def check_entry_points(records, profile_trace):
     return launches, record
 
 
+# phase (o): StarGAN v2's kernels at the benchmark's configuration
+# (benchmark/configs/stargan-v2-afhq-256.json: AFHQ 256², batch 8, bf16)
+SG_CONFIG = os.path.join("benchmark", "configs", "stargan-v2-afhq-256.json")
+# (C, H) of the generator's 25 norms a pass (base width 64, widths up to 512)
+SG_NORM_SHAPES = [(64, 256), (64, 128), (128, 128), (128, 64), (256, 64), (256, 32), (512, 32), (512, 16)]
+# calls an iteration: 25 norms in each of the 8 generator passes, 4 of them
+# differentiated; the pools and upsamples of the four networks' passes,
+# their backwards (each the other) and R1's double backward through D
+SG_EXPECTED_CALLS = {"stargan_v2.channel_norm": 200, "stargan_v2.channel_norm_bwd": 100,
+                     "stargan_v2.down2": 276, "stargan_v2.up2": 228}
+# the kernels each call launches (csrc/channel_norm_lrelu.cu: a partial-sums
+# launch, then the apply; csrc/resample.cu: one)
+SG_KERNELS = {"stargan_v2.channel_norm": ("channel_instance_norm_lrelu_stats_kernel",
+                                          "channel_instance_norm_lrelu_fwd_kernel"),
+              "stargan_v2.channel_norm_bwd": ("channel_instance_norm_lrelu_bwd_stats_kernel",
+                                              "channel_instance_norm_lrelu_bwd_kernel"),
+              "stargan_v2.down2": ("resample_down2_kernel",), "stargan_v2.up2": ("resample_up2_kernel",)}
+# |kernel - plain| <= SG_ROUNDING * max|plain|: one rounding of bf16 at the
+# output (both round an f32 value once; the f32 values differ in the sums'
+# order); the f32 moments and the (B, C) gradients of the affine to
+# SG_SUMS_REL of their largest value
+SG_ROUNDING = 2.0 ** -7
+SG_SUMS_REL = 1e-4
+SG_ALPHA = 0.2
+
+
+def _rel_to_max(got, want) -> float:
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30))
+
+
+def _stargan_iteration_calls():
+    """One eager iteration of the benchmark's StarGAN v2 configuration after
+    one that meets every first use, under the profiler, with the
+    ``stargan_v2.*`` kernel counters set to 0 just before it: (the
+    counters, the kernels the trace saw launched by name, the calls by
+    (kind, C, H), whether every loss term is finite)."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from littlegan_tpu_torch.config import Config
+    from littlegan_tpu_torch.data.domains import BalancedSampler
+    from littlegan_tpu_torch.ops.cuda import _build
+    from littlegan_tpu_torch.ops.cuda import channel_norm_lrelu as cn
+    from littlegan_tpu_torch.ops.cuda import resample as rs
+    from littlegan_tpu_torch.training import stargan_v2 as ts
+    from littlegan_tpu_torch.training.state import create_stargan_state
+
+    dev = torch.device("cuda")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), SG_CONFIG)) as f:
+        published = json.load(f)
+    fields = {f.name for f in dataclasses.fields(Config)}
+    cfg = Config(**{k: v for k, v in published.items() if k in fields}).replace(device_data=True)
+    state = create_stargan_state(cfg, dev)
+    n_img = 8 * cfg.num_domains
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randint(0, 256, (n_img, cfg.image_dim, cfg.image_dim, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    domains = np.arange(n_img) % cfg.num_domains
+    labels = torch.as_tensor(domains, device=dev)
+    sampler, rng = BalancedSampler(domains, cfg.num_domains), np.random.default_rng(2)
+    dgen = torch.Generator(device=dev).manual_seed(3)
+
+    def one(it):
+        ids = np.stack([sampler.draw(rng, cfg.batch_size)])
+        draws = ts.stack_draws([ts.draw_iteration(dgen, cfg, dev)])
+        return ts.eager_iterations(state, cfg, images, labels, ids, draws, it)
+
+    one(0)
+    torch.cuda.synchronize()
+    calls = collections.Counter()
+    spies = {(cn, "channel_norm_lrelu_fwd"): "norm", (cn, "channel_norm_lrelu_bwd"): "norm_bwd",
+             (rs, "resample2"): None}
+    kept = {key: getattr(*key) for key in spies}
+
+    def spy(key, kind):
+        fn = kept[key]
+
+        def call(x, *args):
+            calls[(kind or ("up2" if args[1] else "down2"), x.shape[1], x.shape[2])] += 1
+            return fn(x, *args)
+        return call
+
+    for key, kind in spies.items():
+        setattr(*key, spy(key, kind))
+    try:
+        for name in SG_EXPECTED_CALLS:
+            _build.COUNTERS[name].reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            losses = one(1)
+            torch.cuda.synchronize()
+        counters = {name: _build.COUNTERS[name].value for name in SG_EXPECTED_CALLS}
+    finally:
+        for key, fn in kept.items():
+            setattr(*key, fn)
+    launched = collections.Counter()
+    for e in device_events(prof):
+        m = re.search(r"::(\w+)<", e.key)
+        if m is not None:
+            launched[m.group(1)] += e.count
+    finite = bool(torch.isfinite(losses).all())
+    del state, images
+    torch.cuda.empty_cache()
+    return counters, dict(launched), calls, finite
+
+
+def check_stargan_v2():
+    """Phase (o): StarGAN v2's kernels as its main path runs them. One eager
+    iteration of the benchmark's configuration (AFHQ 256², batch 8, bf16):
+    the kernel counters at ``SG_EXPECTED_CALLS`` and the kernels the
+    profiler saw launched at ``SG_KERNELS`` per call (none of it on the
+    plain versions), the calls' shapes recorded; then at each shape the
+    iteration ran, batch 8, bf16 in channels-last memory, each kernel
+    against its plain version (``SG_ROUNDING``, ``SG_SUMS_REL``), timed
+    beside the plain version, PyTorch's ops and its bytes at 3.35 TB/s.
+    Returns (calls by counter, the record: per-shape rows and the sums over
+    one iteration's calls) and raises on a miss."""
+    import torch
+    import torch.nn.functional as F
+
+    from littlegan_tpu_torch.ops.cuda import channel_norm_lrelu as cn
+    from littlegan_tpu_torch.ops.cuda import resample as rs
+    from littlegan_tpu_torch.ops.norm import adain
+
+    counters, launched, calls, finite = _stargan_iteration_calls()
+    log(f"StarGAN v2 eager iteration: counters {counters}, kernels launched {launched}")
+    failures = []
+    if not finite:
+        failures.append("a loss term of the iteration is not finite")
+    if counters != SG_EXPECTED_CALLS:
+        failures.append(f"counters {counters}, want {SG_EXPECTED_CALLS}")
+    for name, kernels in SG_KERNELS.items():
+        for k in kernels:
+            if launched.get(k, 0) != counters[name]:
+                failures.append(f"{k} launched {launched.get(k, 0)} times for {counters[name]} {name} calls")
+    norm_shapes = sorted({(c, h) for kind, c, h in calls if kind == "norm"}, key=lambda s: (-s[1], s[0]))
+    if norm_shapes != sorted(SG_NORM_SHAPES, key=lambda s: (-s[1], s[0])):
+        failures.append(f"the norms ran at (C, H) {norm_shapes}, want {SG_NORM_SHAPES}")
+
+    dev = torch.device("cuda")
+    cl, bf = torch.channels_last, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    norm_rows, kinks = [], 0
+    for c, h in norm_shapes:
+        x = randn(8, c, h, h).to(bf).contiguous(memory_format=cl)
+        dy = randn(8, c, h, h).to(bf).contiguous(memory_format=cl)
+        errs = {}
+        # IN's (C,) weight shared by the samples, then AdaIN's (B, C) rows with offset 1
+        for kind, scale, shift, offset in (("instance", 1 + 0.5 * randn(c), 0.5 * randn(c), 0.0),
+                                           ("adain", 0.5 * randn(8, c), 0.5 * randn(8, c), 1.0)):
+            y, mean, rstd = cn.channel_norm_lrelu_fwd(x, scale, shift, offset, SG_ALPHA, 1e-5)
+            yp, mp, rp = cn.channel_norm_lrelu_plain(x, scale, shift, offset, SG_ALPHA, 1e-5)
+            # where z lies at the LeakyReLU's kink, rounding picks its side
+            # differently in the kernel (one fused multiply-add) and the
+            # plain version: dy is 0 there, so the side does not matter
+            a = ((offset + scale.expand(8, c)) * rp)[:, :, None, None]
+            z = (x.float() - mp[:, :, None, None]) * a + shift.expand(8, c)[:, :, None, None]
+            flips = (y > 0) != (z > 0)
+            kinks += int(flips.sum())
+            if bool(flips.any()) and float(z[flips].abs().max()) > KINK * float(z.abs().max()):
+                failures.append(f"norm {kind} ({c}, {h}): a side differs away from the kink")
+            dyk = dy.masked_fill(flips, 0)
+            dx, ds, dh = cn.channel_norm_lrelu_bwd(x, dyk, scale, shift, offset, mean, rstd, SG_ALPHA)
+            dxp, dsp, dhp = cn.channel_norm_lrelu_bwd_plain(x, dyk, scale, shift, offset, mean, rstd, SG_ALPHA)
+            torch.cuda.synchronize()
+            e = {"y": _rel_to_max(y, yp), "dx": _rel_to_max(dx, dxp), "mean": _rel_to_max(mean, mp),
+                 "rstd": _rel_to_max(rstd, rp), "dscale": _rel_to_max(ds, dsp), "dshift": _rel_to_max(dh, dhp)}
+            if not (y.is_contiguous(memory_format=cl) and dx.is_contiguous(memory_format=cl)):
+                failures.append(f"norm {kind} ({c}, {h}): y or dx not channels-last")
+            if max(e["y"], e["dx"]) > SG_ROUNDING or max(e["mean"], e["rstd"], e["dscale"], e["dshift"]) > SG_SUMS_REL:
+                failures.append(f"norm {kind} ({c}, {h}): errors {e}")
+            errs = {k: max(v, errs.get(k, 0.0)) for k, v in e.items()}
+        # timed as AdaIN, the generator's decoder norms
+        xn, dyn = x.contiguous(), dy.contiguous()
+        gamma, beta = 0.5 * randn(8, c), 0.5 * randn(8, c)
+        gb, bb = gamma.to(bf), beta.to(bf)
+        xr, gr, br = (t.clone().requires_grad_(True) for t in (xn, gb, bb))
+        y, mean, rstd = cn.channel_norm_lrelu_fwd(x, gamma, beta, 1.0, SG_ALPHA, 1e-5)
+
+        def plain_fb():
+            _, mp, rp = cn.channel_norm_lrelu_plain(x, gamma, beta, 1.0, SG_ALPHA, 1e-5)
+            cn.channel_norm_lrelu_bwd_plain(x, dy, gamma, beta, 1.0, mp, rp, SG_ALPHA)
+
+        def library_fb():
+            torch.autograd.grad(F.leaky_relu(adain(xr, gr, br), SG_ALPHA), (xr, gr, br), dyn)
+
+        n_el = x.numel()
+        row = {"c": c, "h": h, "calls": calls[("norm", c, h)], "bwd_calls": calls[("norm_bwd", c, h)],
+               "max_rel_err": errs,
+               "ms": time_ms(lambda: cn.channel_norm_lrelu_fwd(x, gamma, beta, 1.0, SG_ALPHA, 1e-5)),
+               "bwd_ms": time_ms(lambda: cn.channel_norm_lrelu_bwd(x, dy, gamma, beta, 1.0, mean, rstd, SG_ALPHA)),
+               "bound_ms": bound(2 * n_el * 2, 0, "bfloat16")[0], "bwd_bound_ms": bound(3 * n_el * 2, 0, "bfloat16")[0],
+               "plain_ms": time_ms(lambda: cn.channel_norm_lrelu_plain(x, gamma, beta, 1.0, SG_ALPHA, 1e-5)),
+               "plain_fb_ms": time_ms(plain_fb),
+               "library_ms": time_ms(lambda: F.leaky_relu(adain(xn, gb, bb), SG_ALPHA)),
+               "library_fb_ms": time_ms(library_fb)}
+        norm_rows.append(row)
+        log(f"  channel_norm_lrelu bf16 (8, {c}, {h}, {h}) x{row['calls']} fwd / x{row['bwd_calls']} bwd an "
+            f"iteration: kernel {row['ms']:.4f} / {row['bwd_ms']:.4f} ms, bound {row['bound_ms']:.4f} / "
+            f"{row['bwd_bound_ms']:.4f} ms, plain {row['plain_ms']:.4f} / fwd+bwd {row['plain_fb_ms']:.4f} ms, "
+            f"batch_norm + leaky_relu (NCHW) {row['library_ms']:.4f} / fwd+bwd {row['library_fb_ms']:.4f} ms; "
+            "max rel err " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    log(f"  {kinks} elements at the LeakyReLU's kink took dy 0 in the backward checks")
+
+    resample_rows = []
+    for kind, c, h in sorted((k for k in calls if k[0] in ("down2", "up2")), key=lambda k: (k[0], -k[2], k[1])):
+        up = kind == "up2"
+        x = randn(8, c, h, h).to(bf).contiguous(memory_format=cl)
+        xn = x.contiguous()
+        err = 0.0
+        for s in (0.25, 1.0):  # the forward's scale and the other Function's backward's
+            got, want = rs.resample2(x, s, up), rs.resample2_plain(x, s, up)
+            torch.cuda.synchronize()
+            if not got.is_contiguous(memory_format=cl) or got.shape != want.shape:
+                failures.append(f"{kind} ({c}, {h}): shape {tuple(got.shape)} or layout")
+            elif up and not torch.equal(got, want):
+                failures.append(f"{kind} ({c}, {h}) s {s}: not equal to the plain version")
+            elif _rel_to_max(got, want) > SG_ROUNDING:
+                failures.append(f"{kind} ({c}, {h}) s {s}: max rel err {_rel_to_max(got, want):.3g}")
+            err = max(err, _rel_to_max(got, want))
+        s = 1.0 if up else 0.25
+
+        def torch_op(t):
+            return F.interpolate(t, scale_factor=2, mode="nearest") if up else F.avg_pool2d(t, 2)
+
+        n_el = x.numel()
+        row = {"kind": kind, "c": c, "h": h, "calls": calls[(kind, c, h)], "max_rel_err": err,
+               "ms": time_ms(lambda: rs.resample2(x, s, up)),
+               "bound_ms": bound(n_el * 2 * (5 if up else 1.25), 0, "bfloat16")[0],
+               "plain_ms": time_ms(lambda: rs.resample2_plain(x, s, up)),
+               "torch_nhwc_ms": time_ms(lambda: torch_op(x)), "torch_nchw_ms": time_ms(lambda: torch_op(xn))}
+        resample_rows.append(row)
+        log(f"  resample2 {kind} bf16 (8, {c}, {h}, {h}) x{row['calls']} an iteration: kernel {row['ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, PyTorch NHWC "
+            f"{row['torch_nhwc_ms']:.4f} / NCHW {row['torch_nchw_ms']:.4f} ms; max rel err {err:.2e}")
+
+    def norm_sum(fwd, bwd, fb=None):
+        # a differentiated call runs the forward and the backward (or fb, both)
+        return sum((r["calls"] - r["bwd_calls"]) * r[fwd] + r["bwd_calls"] * (r[fb] if fb else r[fwd] + r[bwd])
+                   for r in norm_rows)
+
+    per_iteration = {
+        "channel_norm_lrelu": {"ms": norm_sum("ms", "bwd_ms"), "bound_ms": norm_sum("bound_ms", "bwd_bound_ms"),
+                               "plain_ms": norm_sum("plain_ms", None, "plain_fb_ms"),
+                               "library_ms": norm_sum("library_ms", None, "library_fb_ms")},
+        "resample2": {k: sum(r["calls"] * r[k] for r in resample_rows)
+                      for k in ("ms", "bound_ms", "plain_ms", "torch_nhwc_ms", "torch_nchw_ms")},
+    }
+    log("StarGAN v2 kernels, ms an iteration (their calls at the shapes above): " + json.dumps(per_iteration))
+    require(not failures, "StarGAN v2 kernels:\n  " + "\n  ".join(failures))
+    return counters, {"launched": launched, "norm": norm_rows, "resample": resample_rows,
+                      "per_iteration": per_iteration}
+
+
+def summarize_stargan(counters, record):
+    """The kernels' records of phase (o), as :func:`summarize`'s: ms summed
+    over one StarGAN v2 iteration's calls at their shapes, bf16."""
+    it = record["per_iteration"]
+    norm = {"name": "channel_norm_lrelu", "route": "cuda", "source": "littlegan_tpu_torch/csrc/channel_norm_lrelu.cu",
+            "replaces": None, "launches": counters["stargan_v2.channel_norm"] + counters["stargan_v2.channel_norm_bwd"],
+            "launches_by_path": {"stargan_v2_iteration": {k: counters[k] for k in
+                                                          ("stargan_v2.channel_norm", "stargan_v2.channel_norm_bwd")}},
+            "max_rel_err": max(max(r["max_rel_err"].values()) for r in record["norm"]),
+            **it["channel_norm_lrelu"], "bound_by": "bytes", "per": "StarGAN v2 iteration",
+            "shapes": record["norm"]}
+    resample = {"name": "resample2", "route": "cuda", "source": "littlegan_tpu_torch/csrc/resample.cu",
+                "replaces": None, "launches": counters["stargan_v2.down2"] + counters["stargan_v2.up2"],
+                "launches_by_path": {"stargan_v2_iteration": {k: counters[k] for k in
+                                                              ("stargan_v2.down2", "stargan_v2.up2")}},
+                "max_rel_err": max(r["max_rel_err"] for r in record["resample"]),
+                "ms": it["resample2"]["ms"], "bound_ms": it["resample2"]["bound_ms"],
+                "plain_ms": it["resample2"]["plain_ms"], "library_ms": it["resample2"]["torch_nhwc_ms"],
+                "library_nchw_ms": it["resample2"]["torch_nchw_ms"], "bound_by": "bytes",
+                "per": "StarGAN v2 iteration", "shapes": record["resample"]}
+    return [norm, resample]
+
+
 def _free_port() -> int:
     import socket
 
@@ -4070,12 +4369,15 @@ def main() -> int:
     walls["m"], t0 = time.time() - t0, time.time()
     entry_launches, entry = check_entry_points(records, PROFILE_TRACE_COPY)
     log("entry points record: " + json.dumps(entry))
-    walls["n"] = time.time() - t0
+    walls["n"], t0 = time.time() - t0, time.time()
+    stargan_calls, stargan = check_stargan_v2()
+    walls["o"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
                                          eval_launches, remat_launches, s2d_launches, dp_launches,
                                          compat_launches, spatial_launches, parity_launches, coverage,
-                                         tools_launches, entry_launches)}))
+                                         tools_launches, entry_launches)
+                                 + summarize_stargan(stargan_calls, stargan)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

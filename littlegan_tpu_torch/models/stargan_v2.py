@@ -8,7 +8,8 @@ network (``generator.encode.0.conv1.weight``):
 - :class:`Generator`: a 3x3 ``from_rgb``, ``log2(image_dim) - 4``
   downsampling :class:`ResBlk` (affine IN) and two bottleneck ones, the
   mirrored :class:`AdainResBlk` (AdaIN from the 64-d style, nearest x2
-  upsampling), ``to_rgb`` (affine IN, LeakyReLU, 1x1 conv);
+  upsampling), ``to_rgb`` (affine IN, LeakyReLU, 1x1 conv; its modules
+  named ``0`` and ``2`` as the published ``nn.Sequential``'s);
 - :class:`MappingNetwork`: four shared ``mapping_dim`` linears with ReLU,
   then per domain three more and a ``style_dim`` output;
 - :class:`StyleEncoder` and :class:`Discriminator`: a 3x3 conv,
@@ -20,28 +21,35 @@ Every per-domain head is computed, and each sample's row gathered by its
 label on the card (:func:`pick`), as the published code does: every head
 then takes part in every Adam step of its network, with a zero gradient
 where no sample chose it. Residual blocks divide shortcut + residual by
-sqrt(2). Norms are ``ops/norm.py``'s per-channel instance norm (eps 1e-5);
-resampling ``ops/resample.py``'s. The discriminator's convs and
-LeakyReLUs are :class:`R1Conv` and :func:`r1_leaky_relu`: the same
+sqrt(2). Every norm is followed by a LeakyReLU, and the two run as one
+call of ``ops/cuda/channel_norm_lrelu.py``'s per-(sample, channel)
+instance norm (eps 1e-5) + LeakyReLU: a CUDA kernel on the card, its plain
+version on the CPU. Resampling is ``ops/resample.py``'s (a CUDA kernel on
+the card too). The discriminator's convs and LeakyReLUs are :class:`R1Conv` and :func:`r1_leaky_relu`: the same
 arithmetic, with backwards that R1's double backward differentiates in
 cuDNN's first-order kernels and that send nothing back into the forward's
 graph.
 
-Parameters are float32; every network takes NCHW images, casts them to
-``cfg.compute_dtype`` and computes convolutions, linears and norms in it
-(norm statistics in float32); outputs stay in the compute dtype.
+Parameters are float32; every network takes (B, 3, H, W) images, casts
+them to ``cfg.compute_dtype`` in channels-last memory (:data:`LAYOUT`) and
+computes convolutions, linears and norms in it (norm statistics and affine
+in float32); outputs stay in the compute dtype and layout. Every
+activation, and every conv weight from its creation (so its Adam moments,
+its EMA and its gradient too), lies channels-last, so that cuDNN's kernels
+read and write them as they are.
 :func:`init_params` is the published ``he_init`` from a seed. Each network
 counts its calls (``stargan_v2.generator``, ``.mapping``,
 ``.style_encoder``, ``.discriminator``: ``ops/cuda/_build.py``'s
-``LaunchCounter``s, which a CUDA graph's replays advance). No kernel of
-``ops/cuda`` runs here: :func:`check_supported` refuses their flags and
-the other options this model does not have.
+``LaunchCounter``s, which a CUDA graph's replays advance). No LittleGAN
+kernel of ``ops/cuda`` runs here: :func:`check_supported` refuses their
+flags and the other options this model does not have.
 """
 
 from __future__ import annotations
 
 import math
 import os
+from collections import OrderedDict
 from typing import List, Tuple
 
 import torch
@@ -50,12 +58,13 @@ from torch import nn
 
 from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.ops.cuda._build import LaunchCounter
-from littlegan_tpu_torch.ops.norm import adain, channel_instance_norm
+from littlegan_tpu_torch.ops.cuda.channel_norm_lrelu import channel_norm_lrelu
 from littlegan_tpu_torch.ops.resample import downsample, upsample
 
 CALLS = {name: LaunchCounter(f"stargan_v2.{name}")
          for name in ("generator", "mapping", "style_encoder", "discriminator")}
 SQRT2 = math.sqrt(2.0)
+LAYOUT = torch.channels_last  # the memory format of every activation and conv weight
 
 
 def check_supported(cfg: Config) -> None:
@@ -88,7 +97,12 @@ def pick(out: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 class Conv(nn.Conv2d):
-    """``nn.Conv2d`` computing in its input's dtype (float32 parameters)."""
+    """``nn.Conv2d`` computing in its input's dtype (float32 parameters),
+    its weight held in :data:`LAYOUT`."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.weight = nn.Parameter(self.weight.detach().contiguous(memory_format=LAYOUT))
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
@@ -168,15 +182,17 @@ class Linear(nn.Linear):
 
 
 class InstanceNorm(nn.Module):
-    """``nn.InstanceNorm2d(c, affine=True)``: the weight and bias as published."""
+    """``nn.InstanceNorm2d(c, affine=True)`` and the LeakyReLU after it: the
+    weight and bias as published."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, alpha: float):
         super().__init__()
+        self.alpha = alpha
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
 
     def forward(self, x):
-        return channel_instance_norm(x, self.weight, self.bias)
+        return channel_norm_lrelu(x, self.weight, self.bias, self.alpha)
 
 
 class ResBlk(nn.Module):
@@ -191,47 +207,48 @@ class ResBlk(nn.Module):
         self.conv1 = conv(cin, cin, 3, 1, 1)
         self.conv2 = conv(cin, cout, 3, 1, 1)
         if normalize:
-            self.norm1, self.norm2 = InstanceNorm(cin), InstanceNorm(cin)
+            self.norm1, self.norm2 = InstanceNorm(cin, alpha), InstanceNorm(cin, alpha)
         self.conv1x1 = conv(cin, cout, 1, 1, 0, bias=False) if cin != cout else None
 
     def forward(self, x):
         sc = x if self.conv1x1 is None else self.conv1x1(x)
         if self.down:
             sc = downsample(sc)
-        r = self.norm1(x) if self.normalize else x
-        r = self.conv1(self.act(r, self.alpha))
+        r = self.conv1(self.norm1(x) if self.normalize else self.act(x, self.alpha))
         if self.down:
             r = downsample(r)
-        if self.normalize:
-            r = self.norm2(r)
-        r = self.conv2(self.act(r, self.alpha))
+        r = self.conv2(self.norm2(r) if self.normalize else self.act(r, self.alpha))
         return (sc + r) / SQRT2
 
 
 class AdaIN(nn.Module):
-    def __init__(self, style_dim: int, c: int):
+    """AdaIN, ``(1 + gamma) * IN(x) + beta`` with (gamma, beta) a linear of
+    the style, and the LeakyReLU after it."""
+
+    def __init__(self, style_dim: int, c: int, alpha: float):
         super().__init__()
+        self.alpha = alpha
         self.fc = Linear(style_dim, 2 * c)
 
     def forward(self, x, s):
-        gamma, beta = self.fc(s).chunk(2, dim=1)
-        return adain(x, gamma, beta)
+        gamma, beta = self.fc(s).float().chunk(2, dim=1)
+        return channel_norm_lrelu(x, gamma, beta, self.alpha, offset=1.0)
 
 
 class AdainResBlk(nn.Module):
     def __init__(self, cin: int, cout: int, style_dim: int, alpha: float, up: bool = False):
         super().__init__()
-        self.alpha, self.up = alpha, up
+        self.up = up
         self.conv1 = Conv(cin, cout, 3, 1, 1)
         self.conv2 = Conv(cout, cout, 3, 1, 1)
-        self.norm1, self.norm2 = AdaIN(style_dim, cin), AdaIN(style_dim, cout)
+        self.norm1, self.norm2 = AdaIN(style_dim, cin, alpha), AdaIN(style_dim, cout, alpha)
         self.conv1x1 = Conv(cin, cout, 1, 1, 0, bias=False) if cin != cout else None
 
     def forward(self, x, s):
-        r = F.leaky_relu(self.norm1(x, s), self.alpha)
+        r = self.norm1(x, s)
         if self.up:
             r = upsample(r)
-        r = self.conv2(F.leaky_relu(self.norm2(self.conv1(r), s), self.alpha))
+        r = self.conv2(self.norm2(self.conv1(r), s))
         sc = upsample(x) if self.up else x
         if self.conv1x1 is not None:
             sc = self.conv1x1(sc)
@@ -264,11 +281,12 @@ class Generator(_Net):
                                     + [ResBlk(top, top, a, normalize=True) for _ in range(2)])
         self.decode = nn.ModuleList([AdainResBlk(top, top, cfg.style_dim, a) for _ in range(2)]
                                     + [AdainResBlk(o, i, cfg.style_dim, a, up=True) for i, o in reversed(down)])
-        self.to_rgb = nn.Sequential(InstanceNorm(d), nn.LeakyReLU(a), Conv(d, 3, 1, 1, 0))
+        # the published Sequential(IN, LeakyReLU, conv): the LeakyReLU runs inside the norm's call
+        self.to_rgb = nn.Sequential(OrderedDict([("0", InstanceNorm(d, a)), ("2", Conv(d, 3, 1, 1, 0))]))
 
     def forward(self, x, s):
         CALLS["generator"].add()
-        x = self.from_rgb(x.to(self.dtype))
+        x = self.from_rgb(x.to(self.dtype, memory_format=LAYOUT))
         for block in self.encode:
             x = block(x)
         s = s.to(self.dtype)
@@ -315,7 +333,7 @@ class StyleEncoder(_Net):
 
     def forward(self, x, y):
         CALLS["style_encoder"].add()
-        h = self.shared(x.to(self.dtype)).flatten(1)
+        h = self.shared(x.to(self.dtype, memory_format=LAYOUT)).flatten(1)
         return pick(torch.stack([head(h) for head in self.unshared], 1), y)
 
 
@@ -327,7 +345,7 @@ class Discriminator(_Net):
 
     def forward(self, x, y):
         CALLS["discriminator"].add()
-        return pick(self.main(x.to(self.dtype)).flatten(1), y)
+        return pick(self.main(x.to(self.dtype, memory_format=LAYOUT)).flatten(1), y)
 
 
 class StarGANv2(nn.Module):

@@ -26,8 +26,9 @@ from typing import Dict, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("norm_lrelu.cu", "norm_lrelu_bwd.cu", "boundary_conv.cu", "boundary_conv_bwd.cu")
-HEADERS = ("norm_map.cuh",)  # included by the sources: part of the build's hash
+SOURCES = ("norm_lrelu.cu", "norm_lrelu_bwd.cu", "boundary_conv.cu", "boundary_conv_bwd.cu", "channel_norm_lrelu.cu",
+           "resample.cu")
+HEADERS = ("norm_map.cuh", "vec_io.cuh")  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,6 +53,11 @@ _SIGNATURES = {
     "lg_conv3x3_partials": (_I, _I, _I, _I, _I),
     "lg_conv3x3_smem_bytes": (_I, _I, _I, _I),
     "lg_conv3x3_bwd_fold": (_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P),
+    "lg_channel_norm_lrelu": (_I, _I, _P, _P, _P, _P, _P, _I64, _F, _P, _P, _I64, _I64, _I, _I, _I64, _F, _F, _P),
+    "lg_channel_norm_lrelu_bwd": (
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F, _P, _P, _I64, _I64, _I, _I, _I64, _F, _P,
+    ),
+    "lg_resample2": (_I, _I, _I, _P, _P, _I64, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

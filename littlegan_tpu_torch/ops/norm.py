@@ -7,14 +7,14 @@ the activation dtype. The default computes the variance in one pass
 (E[x^2] - mean^2, clamped at 0); ``two_pass=True`` takes the mean of
 squared deviations instead.
 
-StarGAN v2's norms are per (sample, channel) instead
-(:func:`channel_instance_norm`, :func:`adain`): ``torch.nn.InstanceNorm2d``'s
-arithmetic (eps 1e-5 added to the biased variance), with an affine that
-may differ per sample, as AdaIN's does. Both run as one ``batch_norm`` over
-the (1, B*C, H, W) view, as ``torch.instance_norm`` itself does, with the
-(B*C) scale and shift as its weight and bias: its kernels keep the stats
-in f32 whatever the activation dtype, and its backward gives the scale's
-and shift's gradients.
+:func:`channel_instance_norm` and :func:`adain` normalise per (sample,
+channel) instead, with ``torch.nn.InstanceNorm2d``'s arithmetic (eps 1e-5
+added to the biased variance) and an affine that may differ per sample, as
+AdaIN's does: one ``batch_norm`` over the (1, B*C, H, W) view of an NCHW
+tensor, as ``torch.instance_norm`` itself does. The program no longer runs
+them: StarGAN v2's norms go through ``ops/cuda/channel_norm_lrelu.py`` over
+channels-last maps, and these serve only as the tests' and the card
+smoke's PyTorch reference for it.
 """
 
 from __future__ import annotations

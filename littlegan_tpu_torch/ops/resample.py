@@ -1,6 +1,13 @@
 """StarGAN v2's resampling: 2x2 average-pool downsampling, nearest x2
 upsampling, and the training images' random-resized crop on the card.
 
+The pool and the upsample run through ``ops/cuda/resample.py``'s
+Functions (a CUDA kernel over channels-last maps on the card, the plain
+version on the CPU), each the other's backward: the pool's backward is the
+gradient over 4 spread by a nearest x2 upsample, a function of the
+gradient alone, so a double backward (R1) sends nothing back into the
+forward's graph.
+
 The crop follows the published transform (``core/data_loader.py``): with
 probability ``randcrop_prob`` torchvision's ``RandomResizedCrop`` (area
 0.8-1.0 of the image, aspect ratio 0.9-1.1, ten tries and then the whole
@@ -20,33 +27,21 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from littlegan_tpu_torch.ops.cuda.resample import Down2, Up2
+
 SCALE = (0.8, 1.0)
 RATIO = (0.9, 1.1)
 TRIES = 10
 
 
-class _Downsample(torch.autograd.Function):
-    """``F.avg_pool2d(x, 2)`` whose backward, the gradient over 4 spread by
-    a nearest x2 upsample, is a function of the gradient alone: a double
-    backward (R1) sends nothing back into the forward's graph, and the
-    backward runs as the upsample's kernel (``avg_pool2d``'s own backward
-    kernel is a slow gather)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return F.avg_pool2d(x, 2)
-
-    @staticmethod
-    def backward(ctx, g):
-        return upsample(g * 0.25)
-
-
 def downsample(x: torch.Tensor) -> torch.Tensor:
-    return _Downsample.apply(x)
+    """``F.avg_pool2d(x, 2)``."""
+    return Down2.apply(x, 0.25)
 
 
 def upsample(x: torch.Tensor) -> torch.Tensor:
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    """``F.interpolate(x, scale_factor=2, mode="nearest")``."""
+    return Up2.apply(x, 1.0)
 
 
 def draw_crops(gen: torch.Generator, n: int, dim: int, prob: float, device) -> Tuple[torch.Tensor, torch.Tensor]:
