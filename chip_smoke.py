@@ -26,20 +26,21 @@ Phases, each of which fails the run on any error:
       of 2 to 16 blocks) and the norm backward's two routes against each
       other, each in one run;
   (c) build an InferenceEngine at the full default width (128x128,
-      conv_filter [384, 256, 128, 64, 32], bf16, s2d on, both kernels on,
-      seeded random weights, batch 8), start ``serve()`` on an ephemeral
+      conv_filter [384, 256, 128, 64, 32], bf16, s2d on, the kernels on
+      the card as everywhere, seeded random weights, batch 8), start ``serve()`` on an ephemeral
       port, answer HTTP requests to /generate, /adjust, /discriminate and
       /metrics, check the kernels' launch counts per engine call, and compare
       the engine's outputs with the same weights run through the plain
-      versions on the card;
+      versions on the card (under ``_build.plain_versions()``, as every
+      plain side below);
   (d) trains the full-width model (128x128, batch 32, bf16, s2d, adjuster,
-      partition schedule, clipping, both kernel flags on) through
+      partition schedule, clipping) through
       ``Trainer`` on the synthetic dataset for 12 steps in a temporary
       result directory: checks the losses, the kernels' launches per step,
       the train image and the epoch checkpoint, and that the checkpoint
       restores in a new ``Trainer``; then one step's losses and gradients
       with the kernels against the same step through the plain versions,
-      and the step's host and device times with the kernels on and off;
+      and the step's host and device times through each;
   (e) trains the same configuration over the card-resident dataset
       (``device_data``) with ``steps_per_dispatch`` 8: one epoch of 20
       steps (updates 1-8 and 9-16 as replays of one CUDA graph, 17-20 of
@@ -75,11 +76,11 @@ Phases, each of which fails the run on any error:
       images/s, Inception images/s at batch 100 and ``evaluate``'s host
       wall;
   (g) drives the single-card trainer's remaining options at the same full
-      width: ``GP_K`` updates with the gradient penalty (both kernel flags
-      off) as one CUDA graph replay against the same updates run eagerly,
-      bit for bit, with the update's time and peak memory against the same
-      graph without the penalty, and a GP step with a kernel flag refused;
-      ``REMAT_STEPS`` steps with both kernel flags on with and without
+      width: ``GP_K`` updates with the gradient penalty (on the plain ops,
+      the model's route under it) as one CUDA graph replay against the same
+      updates run eagerly, bit for bit, with the update's time and peak
+      memory against the same graph without the penalty on the plain ops;
+      ``REMAT_STEPS`` steps through the kernels with and without
       ``remat`` from one init (losses and weights to ``REMAT_TOL``, the
       kernels' launches per step exactly ``EXPECTED_REMAT_LAUNCHES`` and
       ``EXPECTED_TRAIN_LAUNCHES``, peak memory and time per step); one
@@ -104,7 +105,7 @@ Phases, each of which fails the run on any error:
       bit for bit with the run without a group;
       (ii) ``DP_RANKS`` gloo ranks sharing the card, started by this
       script (``--dp-rank``): ``DP_UPDATES`` updates of the global batch
-      (host-fed, host-fed, gather, ``grad_accum`` 2) with the kernels on,
+      (host-fed, host-fed, gather, ``grad_accum`` 2) through the kernels,
       in float32 and in bf16, replicated and with ZeRO-1, against one
       process on the global batch (losses to ``TRAIN_TOL["loss_rtol"]``,
       weights to ``DP_FLOOR_X`` times the gap that swapping the batch's
@@ -119,7 +120,7 @@ Phases, each of which fails the run on any error:
       checkpoint's variables (``state_to_variables``) and back
       (``variables_to_train_state`` on the card), bit for bit; the
       converter's npz writer stores it and ``COMPAT_RESUMED`` updates (bf16,
-      both kernel flags) resumed by a ``Trainer`` from it match the same
+      through the kernels) resumed by a ``Trainer`` from it match the same
       updates resumed from the unconverted state (``TRAIN_TOL["loss_rtol"]``,
       launch counts per update); the three ``torch.export`` programs
       (``compat/torch_export.py``) reloaded at ``PT2_BATCHES`` against the
@@ -131,9 +132,9 @@ Phases, each of which fails the run on any error:
       full width (128², batch 32, s2d): ``SP_RANKS`` gloo ranks sharing the
       card as a [1, ``SP_RANKS``] mesh (``--sp-rank``), each on its image
       rows, run phase (h) (ii)'s updates in float32 and bf16, replicated,
-      with ZeRO-1, with ``shard_dense`` and both, the kernels off as the
-      spatial step turns them off (none may launch), against one process
-      with the kernel flags off (losses to ``TRAIN_TOL["loss_rtol"]``,
+      with ZeRO-1, with ``shard_dense`` and both, on the plain ops as the
+      model runs under a mesh (no kernel may launch), against one process
+      on the plain ops (losses to ``TRAIN_TOL["loss_rtol"]``,
       weights to ``DP_FLOOR_X`` times that process's halves-swapped gap);
       the ``shard_dense`` state through rank 0's npz and back, bit for
       bit; the K-update graph refused under gloo; a ``Trainer`` epoch over
@@ -145,7 +146,7 @@ Phases, each of which fails the run on any error:
       against the same run on the npz backend, and a run resumed from the
       orbax run's epoch-1 checkpoint (saved asynchronously while epoch 2
       trained) against the unbroken run, both bit for bit, with each
-      save's blocking host time; ``memory_report --measure --kernels``
+      save's blocking host time; ``memory_report --measure``
       (one update's peak beside the analytic state bytes); the doctor on
       the card (its tiny step must launch the kernels); the conditioning
       check on the orbax run's checkpoint over a synthetic structured set
@@ -164,27 +165,25 @@ Phases, each of which fails the run on any error:
       launched, timed beside its bound; then the doctor's tiny train step
       at the JAX doctor's block1 width 6, every kernel launched;
   (m) the measurement and campaign tools as a user runs them:
-      ``python -m littlegan_tpu_torch.bench`` at 128², batch 32 with the
-      defaults and with ``--kernels`` (each line parsed: 0 < mfu <= 1, the
-      card's name, and with the kernels each wrapper's launches over the
-      timed windows equal to ``EXPECTED_GRAPH_LAUNCHES`` per update: its
-      updates run as CUDA-graph replays, so the SAME-border counters count
-      too);
-      autotune over K 8, 16 and 64 with the kernels (every point measured,
-      with its graph capture seconds and peak memory); serve_bench with the
-      kernels and a hot-reload drill (0 requests dropped); scaling_curve
-      over one card with the kernels;
-      a one-epoch campaign at 32² with the kernels (7 generator and 7
+      ``python -m littlegan_tpu_torch.bench`` at 128², batch 32 (its line
+      parsed: 0 < mfu <= 1, the card's name, and each wrapper's launches
+      over the timed windows equal to ``EXPECTED_GRAPH_LAUNCHES`` per
+      update: its updates run as CUDA-graph replays, so the SAME-border
+      counters count too);
+      autotune over K 8, 16 and 64 (every point measured, with its graph
+      capture seconds and peak memory); serve_bench with a hot-reload
+      drill (0 requests dropped); scaling_curve over one card;
+      a one-epoch campaign at 32² (7 generator and 7
       adjuster effects, finite trends, every kernel launched). Each tool's
       wall is printed beside the card's ``nvidia-smi`` line;
   (n) the JAX repo's last entry points as a user runs them: ``fit_frontier``
       over 128² at batch 32 and 256, parity and remat (every point fits),
       and over a point past the card (``ENTRY_OOM``: ``oom``, not an error);
-      ``python -m littlegan_tpu_torch.dryrun 1 --kernels`` over NCCL (each
-      regime OK or skipped as at one rank, the kernels launched);
-      ``bench_step_variants`` (the concat-D step against the current one,
-      kernels on and off: host ms per eager step, device ms per update of a
-      K = 8 graph) with a trace of one graph replay; ``trace_top_ops`` on
+      ``python -m littlegan_tpu_torch.dryrun 1`` over NCCL (each regime OK
+      or skipped as at one rank, the kernels launched);
+      ``bench_step_variants`` (the concat-D step against the current one:
+      host ms per eager step, device ms per update of a K = 8 graph) with a
+      trace of one graph replay; ``trace_top_ops`` on
       phase (g)'s ``profile_steps`` trace and on that replay (K1, K2 and K3
       among the device ops); ``bench_boundary_conv`` (K3 within
       ``ENTRY_K3_REL`` of phase (b)'s time at (32, 64, 64, 12) bf16). Each
@@ -199,7 +198,8 @@ Phases, each of which fails the run on any error:
       AdaIN's per-sample affine) and the pool and upsample (at both scales)
       against their plain versions to one rounding (``SG_ROUNDING``,
       ``SG_SUMS_REL``), each timed beside its bytes' bound, its plain
-      version and PyTorch's ops (``batch_norm`` + ``leaky_relu`` over NCHW;
+      version and PyTorch's ops (``instance_norm``, the affine and
+      ``leaky_relu`` over NCHW;
       ``avg_pool2d`` and ``interpolate`` over NHWC and NCHW), and summed
       over the iteration's calls. Each phase's wall after (o).
 
@@ -235,7 +235,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # sum|y|, since s1 may cancel to near 0.
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
 STATS_RTOL = 1e-4
-# engine (both kernels) vs the same weights through the plain versions, bf16
+# engine (the kernels) vs the same weights through the plain versions, bf16
 ENGINE_TOL = {"image_max": 0.1, "image_mean": 5e-3, "prob_max": 0.02}
 
 BATCH = 8
@@ -931,12 +931,11 @@ def _png_b64(img_u8) -> str:
 
 def full_config():
     """The served configuration: the defaults (128x128, conv_filter
-    [384, 256, 128, 64, 32], bf16, s2d on) with both kernels on, seeded
-    fresh weights, batch 8."""
+    [384, 256, 128, 64, 32], bf16, s2d on; the kernels run on the card),
+    seeded fresh weights, batch 8."""
     from littlegan_tpu_torch.config import Config
 
-    cfg = Config(use_pallas=True, use_pallas_boundary=True, restore=False, seed=0, batch_size=BATCH,
-                 exp_name="chip_smoke")
+    cfg = Config(restore=False, seed=0, batch_size=BATCH, exp_name="chip_smoke")
     require((cfg.image_dim, cfg.conv_filter, cfg.compute_dtype, cfg.use_s2d) == (
         128, [384, 256, 128, 64, 32], "bfloat16", True), "the defaults are no longer the full-width model")
     return cfg
@@ -951,6 +950,7 @@ def check_serving(cfg, device=None):
     import torch
 
     from littlegan_tpu_torch.models import LittleGAN
+    from littlegan_tpu_torch.ops.cuda import _build
     from littlegan_tpu_torch.serving import InferenceEngine, serve
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1052,15 +1052,14 @@ def check_serving(cfg, device=None):
     log(f"served-run launches: {launches}; engine calls {calls}")
 
     # the same weights through the plain versions, on the card
-    plain_cfg = cfg.replace(use_pallas=False, use_pallas_boundary=False)
-    plain = LittleGAN(plain_cfg)
+    plain = LittleGAN(cfg)
     plain.load_state_dict(engine.model.state_dict())
     plain = plain.to(engine.device).eval()
     noise = rng.normal(size=(BATCH, cfg.noise_dim)).astype(np.float32)
     cond = soft(rng.random((BATCH, cfg.cond_dim)) < 0.5)
     images = (images_u8[rng.integers(0, 3, BATCH)] / 127.5 - 1.0).astype(np.float32)
     dev = engine.device
-    with torch.inference_mode():
+    with torch.inference_mode(), _build.plain_versions():
         want_g = plain.generator(torch.from_numpy(noise).to(dev), torch.from_numpy(cond).to(dev)).float().cpu().numpy()
         want_a = plain.adjuster(torch.from_numpy(images).to(dev), torch.from_numpy(cond).to(dev)).float().cpu().numpy()
         wp, wc = plain.discriminator(torch.from_numpy(images).to(dev))
@@ -1124,12 +1123,12 @@ def time_engine(engine, noise, cond, images):
 
 def train_config(root):
     """The trained configuration: the defaults (128x128, conv_filter
-    [384, 256, 128, 64, 32], bf16, s2d, train_adj, use_partition, use_clip)
-    with both kernels on, batch 32, one epoch of TRAIN_STEPS steps, one
-    train image at the last step, no fixture predict, in ``root``."""
+    [384, 256, 128, 64, 32], bf16, s2d, train_adj, use_partition, use_clip;
+    the kernels run on the card), batch 32, one epoch of TRAIN_STEPS steps,
+    one train image at the last step, no fixture predict, in ``root``."""
     from littlegan_tpu_torch.config import Config
 
-    cfg = Config(use_pallas=True, use_pallas_boundary=True, seed=0, batch_size=TRAIN_BATCH, epoch=1,
+    cfg = Config(seed=0, batch_size=TRAIN_BATCH, epoch=1,
                  freq_gen=TRAIN_STEPS, freq_test=0, debug=True, exp_name="chip_smoke_train",
                  all_result_dir=os.path.join(root, "result"), test_data_dir=os.path.join(root, "test-data"))
     require((cfg.image_dim, cfg.conv_filter, cfg.compute_dtype, cfg.use_s2d, cfg.train_adj, cfg.use_partition,
@@ -1212,6 +1211,7 @@ def compare_plain_step(trainer):
     weights and draws through the plain versions, on the card, bf16."""
     import torch
 
+    from littlegan_tpu_torch.ops.cuda import _build
     from littlegan_tpu_torch.training.state import A_KEYS, D_KEYS, G_KEYS, create_train_state, subtree
     from littlegan_tpu_torch.training.step import LOSS_KEYS, compute_grads
 
@@ -1221,16 +1221,13 @@ def compare_plain_step(trainer):
     draws = trainer.draws(10_000)
     batch_no = 12
     grads, aux = compute_grads(trainer.state, b1, b2, draws, batch_no, cfg)
-    plain_cfg = cfg.replace(use_pallas=False, use_pallas_boundary=False)
-    plain_model = type(trainer.state.model)(plain_cfg).to(trainer.device)
-    plain_model.load_state_dict(trainer.state.model.state_dict())
-    plain_state = create_train_state(plain_cfg, trainer.device, plain_model)
-    pgrads, paux = compute_grads(plain_state, b1, b2, draws, batch_no, plain_cfg)
-    f32_cfg = plain_cfg.replace(compute_dtype="float32")
+    f32_cfg = cfg.replace(compute_dtype="float32")
     f32_model = type(trainer.state.model)(f32_cfg).to(trainer.device)
     f32_model.load_state_dict(trainer.state.model.state_dict())
-    fgrads, _ = compute_grads(create_train_state(f32_cfg, trainer.device, f32_model), b1, b2, draws, batch_no,
-                              f32_cfg)
+    with _build.plain_versions():
+        pgrads, paux = compute_grads(trainer.state, b1, b2, draws, batch_no, cfg)
+        fgrads, _ = compute_grads(create_train_state(f32_cfg, trainer.device, f32_model), b1, b2, draws, batch_no,
+                                  f32_cfg)
     torch.cuda.synchronize()
     losses = {k: (float(aux[k]), float(paux[k])) for k in LOSS_KEYS}
     rel, floor = {}, {}
@@ -1254,27 +1251,34 @@ def time_train_step(trainer, reps: int = 10):
     """Host wall ms of one train step (two batches already on the card,
     synchronous), the device's busy ms in it (sum of device-side events in
     torch.profiler, as time_engine) and images/s counted as the trainer
-    counts them (2 x batch per step); with both kernel flags on (the
-    trainer's state) and off (a copy of it through the plain versions),
-    measured on, off, on, off in this one run."""
+    counts them (2 x batch per step); through the kernels (the trainer's
+    state) and through the plain versions (a copy of it, under
+    ``_build.plain_versions()``), measured kernels, plain, kernels, plain
+    in this one run."""
+    import contextlib
+
+    from littlegan_tpu_torch.ops.cuda import _build
     from littlegan_tpu_torch.training.state import create_train_state
     from littlegan_tpu_torch.training.step import make_train_step
 
     cfg = trainer.cfg
     it = trainer.dataset.epoch_iterator(2)
     b1, b2 = _put(next(it), trainer.device), _put(next(it), trainer.device)
-    plain_cfg = cfg.replace(use_pallas=False, use_pallas_boundary=False)
-    plain_model = type(trainer.state.model)(plain_cfg).to(trainer.device)
+    plain_model = type(trainer.state.model)(cfg).to(trainer.device)
     plain_model.load_state_dict(trainer.state.model.state_dict())
-    plain_state = create_train_state(plain_cfg, trainer.device, plain_model)
+    plain_state = create_train_state(cfg, trainer.device, plain_model)
     runs = {
-        "kernels": (trainer.state, trainer._train_step),
-        "plain": (plain_state, make_train_step(plain_cfg, plain_state)),
+        "kernels": (trainer.state, trainer._train_step, contextlib.nullcontext),
+        "plain": (plain_state, make_train_step(cfg, plain_state), _build.plain_versions),
     }
     out = {}
     for rnd in range(2):
-        for name, (state, step_fn) in runs.items():
-            step = lambda i: step_fn(state, b1, b2, trainer.draws(20_000 + i), 11 + i % 5)  # noqa: E731
+        for name, (state, step_fn, route) in runs.items():
+
+            def step(i, state=state, step_fn=step_fn, route=route):
+                with route():
+                    return step_fn(state, b1, b2, trainer.draws(20_000 + i), 11 + i % 5)
+
             r = _time_steps(step, reps, cfg.batch_size, top=12 if rnd == 0 and name == "kernels" else 0)
             log(f"train step, batch {cfg.batch_size}, {name} (round {rnd + 1}): {r['step_ms']:.3f} ms per step "
                 f"(host wall, mean of {reps}); device busy {r['device_busy_ms']:.3f} ms ({r['device_ops']:.0f} "
@@ -1625,11 +1629,11 @@ NS_SCIPY_DIM = 512
 
 
 def eval_config(root):
-    """Phase (f)'s configuration file: the defaults at full width with both
-    kernels on, batch 32, one short synthetic train epoch, random-init
-    Inception allowed, all four metrics."""
+    """Phase (f)'s configuration file: the defaults at full width (the
+    kernels run on the card), batch 32, one short synthetic train epoch,
+    random-init Inception allowed, all four metrics."""
     return {
-        "use_pallas": True, "use_pallas_boundary": True, "seed": 0, "batch_size": TRAIN_BATCH, "epoch": 1,
+        "seed": 0, "batch_size": TRAIN_BATCH, "epoch": 1,
         "freq_gen": 0, "freq_test": 0, "debug": True, "all_result_dir": os.path.join(root, "result"),
         "test_data_dir": os.path.join(root, "test-data"), "evaluate_sample_size": EVAL_SAMPLES,
         "condition_sample_batch": EVAL_CONDITION_BATCH, "allow_random_fid": True,
@@ -1735,6 +1739,7 @@ def check_sample_u8(cfg):
     from torch.profiler import ProfilerActivity, profile
 
     from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.ops.cuda import _build
     from littlegan_tpu_torch.training.trainer import Trainer
 
     image, cond = next(SyntheticDataset(cfg, num_items=cfg.batch_size).epoch_iterator(7))
@@ -1761,8 +1766,9 @@ def check_sample_u8(cfg):
 
     counters = _counters()
     before = {k: c.value for k, c in counters.items()}
-    plain = Trainer(cfg.replace(reuse=True, restore=True, use_pallas=False, use_pallas_boundary=False), None)
-    want = plain.sample_u8(noise, cond, image)
+    with _build.plain_versions():
+        plain = Trainer(cfg.replace(reuse=True, restore=True), None)
+        want = plain.sample_u8(noise, cond, image)
     require({k: c.value for k, c in counters.items()} == before, "the plain sample_u8 launched a kernel")
     errs = {}
     for name, g, w in zip(("gen", "adj_real", "adj_fake"), (got[0], got[2], got[3]), (want[0], want[2], want[3])):
@@ -1917,9 +1923,9 @@ def check_newton_schulz():
 
 
 # phase (g): the single-card trainer's remaining options at full width.
-# GP_K updates of the gradient penalty (both kernel flags off, the
-# reference's only GP) as one CUDA graph replay against the same updates run
-# eagerly, bit for bit; REMAT_STEPS steps with both kernel flags on with and
+# GP_K updates of the gradient penalty (on the plain ops, as the penalty
+# takes them) as one CUDA graph replay against the same updates run
+# eagerly, bit for bit; REMAT_STEPS steps through the kernels with and
 # without remat, to JAX's test_remat_step_equivalence bounds (REMAT_TOL); one
 # K = GP_K replay over an s2d-layout store against the raw store, bit for
 # bit (the networks see the same values in either layout: the augmentation's
@@ -2027,28 +2033,24 @@ def _step_peak_mb(step_fn):
 
 
 def check_gp(root, imgs, conds):
-    """(i) The gradient penalty, both kernel flags off: GP_K updates as one
-    graph replay against the same updates through the eager gather step,
-    bit for bit; finite losses; a GP step with a kernel flag refused; time
-    and peak memory per update against the same graph without GP."""
+    """(i) The gradient penalty, on the plain ops (the model's route under
+    use_gp): GP_K updates as one graph replay against the same updates
+    through the eager gather step, bit for bit; finite losses; time and
+    peak memory per update against the same graph without GP, on the plain
+    ops too (``_build.plain_versions()``)."""
+    import contextlib
+
     import numpy as np
     import torch
 
+    from littlegan_tpu_torch.ops.cuda import _build
     from littlegan_tpu_torch.training.state import create_train_state
-    from littlegan_tpu_torch.training.step import make_gather_train_step, make_scan_train_step, make_train_step
+    from littlegan_tpu_torch.training.step import make_gather_train_step, make_scan_train_step
 
-    plain = train_config(root).replace(use_pallas=False, use_pallas_boundary=False)
+    plain = train_config(root)
     cfg = plain.replace(use_gp=True)
     dev = imgs.device
-    probe = create_train_state(cfg, dev)
-    for flag in ("use_pallas", "use_pallas_boundary"):
-        try:
-            make_train_step(cfg.replace(**{flag: True}), probe)
-        except ValueError as e:
-            require("first order only" in str(e), str(e))
-        else:
-            raise AssertionError(f"a GP step with {flag} was built")
-    graph_state, eager_state = probe, create_train_state(cfg, dev)
+    graph_state, eager_state = create_train_state(cfg, dev), create_train_state(cfg, dev)
     n = imgs.shape[0]
     ids = np.arange(2 * GP_K) % n
     stacked, draws = _draws_k(cfg, 1, GP_K, dev)
@@ -2072,18 +2074,22 @@ def check_gp(root, imgs, conds):
     require(bitwise, "the GP graph replay differs from the same updates run eagerly")
     record = {"bitwise": bitwise, "losses": graph_losses}
 
-    # the same graph without GP, for the penalty's cost; peak memory of one eager update of each
+    # the same graph without GP on the plain ops, for the penalty's cost; peak memory of one eager update of each
     base_state = create_train_state(plain, dev)
     base_step = make_scan_train_step(plain, base_state, GP_K)
-    base_step.prepare(base_state, imgs, conds)
-    for name, (c, st, s, g) in (("gp", (cfg, graph_state, step, gather)),
-                                ("no_gp", (plain, base_state, base_step, make_gather_train_step(plain, base_state)))):
-        r = _time_graph(s, st, imgs, conds, c)
-        d = _draws_k(c, 1, 1, dev)[1][0]
-        g(st, imgs, conds, 0, 1, d, 12)  # this state's first eager update, outside the measurement
-        peak, before = _step_peak_mb(lambda: g(st, imgs, conds, 2, 3, d, 13))
+    with _build.plain_versions():
+        base_step.prepare(base_state, imgs, conds)
+    for name, (c, st, s, g, route) in (
+            ("gp", (cfg, graph_state, step, gather, contextlib.nullcontext)),
+            ("no_gp", (plain, base_state, base_step, make_gather_train_step(plain, base_state),
+                       _build.plain_versions))):
+        with route():
+            r = _time_graph(s, st, imgs, conds, c)
+            d = _draws_k(c, 1, 1, dev)[1][0]
+            g(st, imgs, conds, 0, 1, d, 12)  # this state's first eager update, outside the measurement
+            peak, before = _step_peak_mb(lambda: g(st, imgs, conds, 2, 3, d, 13))
         r["eager_peak_mb"], r["eager_before_mb"] = peak, before
-        log(f"graph (K = {GP_K}, kernel flags off), {name}: {r['update_ms']:.3f} ms per update (host wall); "
+        log(f"graph (K = {GP_K}, plain ops), {name}: {r['update_ms']:.3f} ms per update (host wall); "
             f"device busy {r['device_busy_ms']:.3f} ms; idle share {r['idle_share']:.1%}; "
             f"{r['images_per_s']:.1f} images/s; one eager update's peak {peak:.0f} MB allocated "
             f"({before:.0f} MB before it)")
@@ -2092,7 +2098,7 @@ def check_gp(root, imgs, conds):
 
 
 def check_remat(root, imgs, conds):
-    """(ii) REMAT_STEPS steps with both kernel flags on, with and without
+    """(ii) REMAT_STEPS steps through the kernels, with and without
     remat, from one init: losses and weights to REMAT_TOL, the kernels'
     launches per step exactly, peak memory per step, step times. Returns
     (the remat run's launches, the record)."""
@@ -2151,7 +2157,7 @@ def check_remat(root, imgs, conds):
         b1 = (take_batch(imgs, 0), take_batch(conds, 0))
         b2 = (take_batch(imgs, 1), take_batch(conds, 1))
         r = _time_steps(lambda i: step(state, b1, b2, draws[0], 11 + i % 5), 5, cfg.batch_size)
-        log(f"train step, batch {cfg.batch_size}, kernels on, remat={remat}: {r['step_ms']:.3f} ms (host wall); "
+        log(f"train step, batch {cfg.batch_size}, kernels, remat={remat}: {r['step_ms']:.3f} ms (host wall); "
             f"device busy {r['device_busy_ms']:.3f} ms ({r['device_ops']:.0f} ops); idle share "
             f"{r['idle_share']:.1%}; {r['images_per_s']:.1f} images/s")
         record.setdefault(f"time_remat_{remat}", []).append(r)
@@ -2160,7 +2166,7 @@ def check_remat(root, imgs, conds):
 
 def check_s2d_store(root, imgs, conds):
     """(iii) One K = GP_K replay over an s2d-layout store against the same
-    updates over the raw store, both kernel flags on. Returns (the s2d
+    updates over the raw store, through the kernels. Returns (the s2d
     replay's launches, the record)."""
     import numpy as np
     import torch
@@ -2326,7 +2332,7 @@ def check_trainer_options():
 # leaf DP_RANKS ranks would shard sent through them (bit for bit);
 # (ii) DP_RANKS ranks sharing the card over gloo, spawned by this script,
 # run DP_UPDATES updates of the global batch (host-fed, host-fed, gather,
-# grad_accum 2) with the kernels on, in float32 and in bf16, replicated and
+# grad_accum 2) through the kernels, in float32 and in bf16, replicated and
 # with ZeRO-1, against one process on the global batch; and one Trainer
 # epoch each (rank 1 writes no file); (iii) an engine over [cuda:0, cuda:0]
 # (two replicas on the card) against the one-card engine at DP_INFER_ROWS
@@ -2866,6 +2872,7 @@ def check_compat():
     from littlegan_tpu_torch.compat import torch_export as te
     from littlegan_tpu_torch.compat.jax_params import jax_key
     from littlegan_tpu_torch.data import SyntheticDataset
+    from littlegan_tpu_torch.ops.cuda import _build
     from littlegan_tpu_torch.serving import InferenceEngine
     from littlegan_tpu_torch.training.checkpoint import Checkpointer, to_numpy
     from littlegan_tpu_torch.training.state import eval_params
@@ -2902,7 +2909,7 @@ def check_compat():
             launches = {k: launches.get(k, 0) + v for k, v in got.items()}
         rel = max(abs(a - b) / max(abs(b), 1e-12) for la, lb in zip(losses["converted"], losses["unconverted"])
                   for a, b in zip(la, lb))
-        log(f"resumed {COMPAT_RESUMED} updates (bf16, both kernel flags): (gen, disc) losses converted "
+        log(f"resumed {COMPAT_RESUMED} updates (bf16, kernels): (gen, disc) losses converted "
             f"{losses['converted']}, unconverted {losses['unconverted']}; largest relative difference {rel:.3g} "
             f"(tolerance {TRAIN_TOL['loss_rtol']})")
         require(rel <= TRAIN_TOL["loss_rtol"], f"the resumed runs disagree: {rel}")
@@ -2925,7 +2932,7 @@ def check_compat():
                 z = torch.from_numpy(rng.normal(size=(b, cfg.noise_dim)).astype(np.float32)).cuda()
                 c = torch.from_numpy(rng.uniform(-1, 1, (b, cfg.cond_dim)).astype(np.float32)).cuda()
                 x = torch.from_numpy(rng.uniform(-1, 1, (b, 128, 128, 3)).astype(np.float32)).cuda()
-                with torch.no_grad():
+                with torch.no_grad(), _build.plain_versions():
                     pr, cd = eager.discriminator(x)
                     want = {"generate": eager.generator(z, c), "adjust": eager.adjuster(x, c), "pr": pr, "cond": cd}
                     d = progs["discriminate"](x)
@@ -2943,7 +2950,7 @@ def check_compat():
             f"(bound rtol {PT2_TOL[0]}, atol {PT2_TOL[1]})")
         record.update(pt2_max_err=errs, pt2_bytes=sizes)
 
-        # the reloaded generate beside the engine (bf16, both kernels) at batch 8, host arrays in and out
+        # the reloaded generate beside the engine (bf16, the kernels) at batch 8, host arrays in and out
         z8 = rng.normal(size=(BATCH, cfg.noise_dim)).astype(np.float32)
         c8 = rng.uniform(-1, 1, (BATCH, cfg.cond_dim)).astype(np.float32)
         engine = InferenceEngine(full_config(), params={jax_key(n): to_numpy(p) for n, p in params.items()},
@@ -2977,9 +2984,9 @@ def check_compat():
 # [1, SP_RANKS] mesh, spawned by this script (--sp-rank), each on its
 # 128 / SP_RANKS image rows: (i) the DP_UPDATES updates of phase (h) (ii)
 # (host-fed, host-fed, gather, grad_accum 2) in float32 and bf16, replicated
-# and with ZeRO-1 (over both ranks), the kernels off as the spatial step
-# turns them off (no kernel may launch on a rank), against one process with
-# the kernel flags off on the same global batches and draws: the losses to
+# and with ZeRO-1 (over both ranks), on the plain ops as the model runs
+# under a mesh (no kernel may launch on a rank), against one process on the
+# plain ops (_build.plain_versions()) on the same global batches and draws: the losses to
 # TRAIN_TOL["loss_rtol"], the weights to DP_FLOOR_X times the gap that
 # swapping the batch's halves makes in that process; the K-update graph
 # refused under gloo; (ii) the same with shard_dense (bf16, replicated and
@@ -2987,7 +2994,7 @@ def check_compat():
 # into a fresh whole state on rank 0, broadcast and sliced again, bit for
 # bit the live parts; (iii) one host-fed Trainer epoch of SP_EPOCH_BATCHES
 # batches over the mesh (rank 1 writes nothing), each rank's peak
-# max_memory_allocated beside one process's epoch with the kernel flags off
+# max_memory_allocated beside one process's epoch on the plain ops
 # (each above what its process held before the epoch).
 SP_RANKS = 2
 SP_EPOCH_BATCHES = 4
@@ -2997,8 +3004,8 @@ SP_RUNS = (("f32", "float32", False, False), ("replicated", "bfloat16", False, F
 
 
 def _sp_config(root):
-    """Phase (j)'s configuration: ``train_config``'s, kernel flags as given
-    (the spatial step turns them off)."""
+    """Phase (j)'s configuration: ``train_config``'s (the model takes its
+    plain route under a mesh)."""
     return train_config(root).replace(exp_name="chip_smoke_spatial")
 
 
@@ -3106,6 +3113,7 @@ def check_spatial():
 
     from littlegan_tpu_torch.data import SyntheticDataset
     from littlegan_tpu_torch.models.littlegan import init_params
+    from littlegan_tpu_torch.ops.cuda import _build
     from littlegan_tpu_torch.training.state import create_train_state
     from littlegan_tpu_torch.training.trainer import Trainer
 
@@ -3114,34 +3122,35 @@ def check_spatial():
     dev = torch.device("cuda", 0)
     t_phase = time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as root:
-        cfg = _sp_config(os.path.join(root, "single")).replace(use_pallas=False, use_pallas_boundary=False)
-        imgs, conds = _store(cfg, dev)
-        single, swapped = {}, {}
-        halves = list(range(cfg.batch_size // 2, cfg.batch_size)) + list(range(cfg.batch_size // 2))
-        for dtype in ("float32", "bfloat16"):
-            for box, rows in ((single, None), (swapped, halves)):
-                run_cfg = cfg.replace(compute_dtype=dtype)
-                state = create_train_state(run_cfg, dev, init_params(cfg, cfg.seed))
-                losses = _dp_updates(run_cfg, state, None, imgs, conds, None, rows)
-                box[dtype] = (losses, _flat_params(state.model).cpu())
-                del state
-        del imgs, conds
-        floor = {dtype: _rel_err(swapped[dtype][1], single[dtype][1]) for dtype in single}
-        for dtype in single:
-            log(f"(j) one process, kernel flags off, {DP_UPDATES} updates, {dtype}, the batch's halves swapped vs "
-                f"in order: weights {floor[dtype]:.3g} (relative norm); "
-                f"{_lr_steps(swapped[dtype][1], single[dtype][1], cfg.lr)}")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)  # what earlier phases still hold
-        data = SyntheticDataset(cfg, num_items=SP_EPOCH_BATCHES * cfg.batch_size)
-        one = Trainer(cfg.replace(freq_gen=2, epoch=1), data, device=dev)
-        t0 = time.time()
-        one.train()
-        torch.cuda.synchronize()
-        one_wall, one_peak = time.time() - t0, (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
-        del one
-        torch.cuda.empty_cache()
+        with _build.plain_versions():  # the one-process reference on the plain ops, as the mesh runs them
+            cfg = _sp_config(os.path.join(root, "single"))
+            imgs, conds = _store(cfg, dev)
+            single, swapped = {}, {}
+            halves = list(range(cfg.batch_size // 2, cfg.batch_size)) + list(range(cfg.batch_size // 2))
+            for dtype in ("float32", "bfloat16"):
+                for box, rows in ((single, None), (swapped, halves)):
+                    run_cfg = cfg.replace(compute_dtype=dtype)
+                    state = create_train_state(run_cfg, dev, init_params(cfg, cfg.seed))
+                    losses = _dp_updates(run_cfg, state, None, imgs, conds, None, rows)
+                    box[dtype] = (losses, _flat_params(state.model).cpu())
+                    del state
+            del imgs, conds
+            floor = {dtype: _rel_err(swapped[dtype][1], single[dtype][1]) for dtype in single}
+            for dtype in single:
+                log(f"(j) one process, plain ops, {DP_UPDATES} updates, {dtype}, the batch's halves swapped vs "
+                    f"in order: weights {floor[dtype]:.3g} (relative norm); "
+                    f"{_lr_steps(swapped[dtype][1], single[dtype][1], cfg.lr)}")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)  # what earlier phases still hold
+            data = SyntheticDataset(cfg, num_items=SP_EPOCH_BATCHES * cfg.batch_size)
+            one = Trainer(cfg.replace(freq_gen=2, epoch=1), data, device=dev)
+            t0 = time.time()
+            one.train()
+            torch.cuda.synchronize()
+            one_wall, one_peak = time.time() - t0, (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+            del one
+            torch.cuda.empty_cache()
         out = os.path.join(root, "sp")
         env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
         env.pop("LOCAL_RANK", None)
@@ -3198,7 +3207,7 @@ def check_spatial():
     peaks = [r["trainer_peak_mb"] for r in recs]
     log(f"(j) Trainer epoch of {SP_EPOCH_BATCHES} batches over the mesh: rank 0 wrote {len(files[0])} files, rank 1 "
         f"none; peak max_memory_allocated above what the process held before the epoch, per rank "
-        f"{[round(p, 1) for p in peaks]} MiB vs one process {one_peak:.1f} MiB (kernel flags off); "
+        f"{[round(p, 1) for p in peaks]} MiB vs one process {one_peak:.1f} MiB (plain ops); "
         f"wall {recs[0]['trainer_wall_s']:.1f} s vs {one_wall:.1f} s")
     record.update(launches=launches, trainer_peak_mb=peaks, one_process_peak_mb=one_peak,
                   trainer_wall_s=recs[0]["trainer_wall_s"], one_process_wall_s=one_wall, ranks_wall_s=ranks_wall)
@@ -3409,14 +3418,14 @@ def check_parity():
                            "torch": torch.__version__}
 
         # --- memory report: one update's peak on the card beside the analytic bytes
-        code, out = _call_main(memory_report.main, ["--dim", "128", "--batch", "32", "--measure", "--kernels"], root)
+        code, out = _call_main(memory_report.main, ["--dim", "128", "--batch", "32", "--measure"], root)
         require(code == 0, f"(k) memory_report --measure exited {code}: {out[-2000:]}")
         rep = json.loads(out.strip().splitlines()[-1])
         meas = rep["measured"]
-        require(meas["losses_finite"] and all(meas["launches"].get(k, 0) > 0 for k in EXPECTED_TRAIN_LAUNCHES),
-                f"(k) --measure: {meas}")
+        require(meas["losses_finite"] and meas["kernels"]
+                and all(meas["launches"].get(k, 0) > 0 for k in EXPECTED_TRAIN_LAUNCHES), f"(k) --measure: {meas}")
         add(meas["launches"])
-        log(f"(k) memory_report --measure (128², batch 32, kernels on): peak {meas['peak_bytes'] / 2 ** 20:.1f} MiB, "
+        log(f"(k) memory_report --measure (128², batch 32, kernels): peak {meas['peak_bytes'] / 2 ** 20:.1f} MiB, "
             f"{meas['before_bytes'] / 2 ** 20:.1f} MiB allocated before the update; analytic train state "
             f"{rep['total_per_chip_bytes'] / 2 ** 20:.1f} MiB; launches {meas['launches']}")
         record["memory"] = {"peak_bytes": meas["peak_bytes"], "before_bytes": meas["before_bytes"],
@@ -3428,9 +3437,8 @@ def check_parity():
         _structured_jpegs(struct, CONDITIONING_IMAGES, cfg.image_dim, cfg.attr)
         cwd = os.path.join(root, "cwd")
         os.makedirs(cwd)
-        base = {f: getattr(cfg, f) for f in ("all_result_dir", "test_data_dir", "use_pallas", "use_pallas_boundary",
-                                              "extra", "image_dim", "init_dim", "noise_dim", "conv_filter",
-                                              "compute_dtype", "attr")}
+        base = {f: getattr(cfg, f) for f in ("all_result_dir", "test_data_dir", "extra", "image_dim", "init_dim",
+                                              "noise_dim", "conv_filter", "compute_dtype", "attr")}
         with open(os.path.join(cwd, "sample.config.json"), "w") as f:
             json.dump({**base, "batch_size": CONDITIONING_IMAGES, "image_path": os.path.join(struct, "img"),
                        "attr_path": os.path.join(struct, "attrs.txt")}, f)
@@ -3514,8 +3522,6 @@ def check_coverage():
     plan (``conv_plan``) against the library's own shared memory and
     partial counts. Returns (each kernel's launches in the doctor's step,
     the record)."""
-    from types import SimpleNamespace
-
     import torch
 
     from littlegan_tpu_torch.ops.cuda import _build
@@ -3667,12 +3673,12 @@ def check_coverage():
     if failures:
         raise AssertionError("(l) kernel coverage:\n  " + "\n  ".join(failures))
 
-    # --- the doctor's tiny step, block1 at the JAX doctor's width 6, both kernel flags
+    # --- the doctor's tiny step, block1 at the JAX doctor's width 6
     for c in counters.values():
         c.reset()
-    detail = doctor.train_step(SimpleNamespace(use_pallas=True, use_pallas_boundary=True), "cuda")
+    detail = doctor.train_step("cuda")
     launches = {k: c.value for k, c in counters.items()}
-    log(f"(l) doctor train-step (conv_filter [16, 12, 8, 6, 4], both kernel flags) on the card: PASS {detail}")
+    log(f"(l) doctor train-step (conv_filter [16, 12, 8, 6, 4]) on the card: PASS {detail}")
     require(all(v > 0 for v in launches.values()), f"(l) doctor step launches {launches}")
     record = {"rows": rows, "doctor": {"detail": detail, "launches": launches}, "wall_s": time.time() - t_phase}
     log(f"phase (l) wall: {record['wall_s']:.1f} s")
@@ -3683,11 +3689,10 @@ def check_coverage():
 # littlegan_tpu_torch/scripts/) at the reference's 128², batch 32, each as a
 # user runs it; a failure of any fails the run
 TOOLS_BENCH_WINDOWS = 3 * 5  # bench.time_scan_dispatches: repeats x MEASURE_DISPATCHES
-TOOLS_AUTOTUNE = ["--ks", "8,16,64", "--skip-adj-half", "--skip-moment-dtype", "--measure-dispatches", "1",
-                  "--kernels"]
-TOOLS_SERVE = ["--calls", "16", "--threads", "8", "--reload", "--kernels"]
+TOOLS_AUTOTUNE = ["--ks", "8,16,64", "--skip-adj-half", "--skip-moment-dtype", "--measure-dispatches", "1"]
+TOOLS_SERVE = ["--calls", "16", "--threads", "8", "--reload"]
 TOOLS_CAMPAIGN = ["--epochs", "1", "--eval-every", "1", "--dim", "32", "--n", "512", "--batch-size", "32",
-                  "--fid-n", "128", "--eval-rows", "32", "--kernels"]  # 16 batches: one K = 8 replay
+                  "--fid-n", "128", "--eval-rows", "32"]  # 16 batches: one K = 8 replay
 
 
 def _json_lines(out: str):
@@ -3705,13 +3710,12 @@ def _run_module(argv, cwd, timeout=600):
 
 
 def check_tools():
-    """Phase (m): ``python -m littlegan_tpu_torch.bench`` with the defaults
-    and with ``--kernels`` (0 < mfu <= 1, the card's name, the kernels'
-    launches over the timed windows equal to EXPECTED_GRAPH_LAUNCHES per
-    update), autotune over K 8, 16, 64 (every point measured, each K's graph
-    capture s and peak memory), serve_bench with a reload drill (0
-    dropped), scaling_curve over one card, each with the kernels, and a
-    one-epoch campaign at 32² with the kernels (7 + 7 effects, finite trends, every kernel launched).
+    """Phase (m): ``python -m littlegan_tpu_torch.bench`` (0 < mfu <= 1,
+    the card's name, the kernels' launches over the timed windows equal to
+    EXPECTED_GRAPH_LAUNCHES per update), autotune over K 8, 16, 64 (every
+    point measured, each K's graph capture s and peak memory), serve_bench
+    with a reload drill (0 dropped), scaling_curve over one card, and a
+    one-epoch campaign at 32² (7 + 7 effects, finite trends, every kernel launched).
     Returns (the kernels' launches: {"bench": ..., "campaign": ...}, the
     record)."""
     import tempfile
@@ -3726,25 +3730,18 @@ def check_tools():
     walls, record, launches = {}, {}, {}
     torch.cuda.empty_cache()
 
-    benches = []
-    for extra in ([], ["--kernels"]):
-        out, walls["bench" + "".join(extra).replace("--", "_")] = _run_module(["littlegan_tpu_torch.bench", *extra],
-                                                                              root)
-        lines = _json_lines(out)
-        require(len(lines) == 1, f"bench {extra}: {len(lines)} JSON lines")
-        line = lines[0]
-        log(f"(m) bench {' '.join(extra) or '(defaults)'}: " + json.dumps(line))
-        require(line["metric"] == "train_images_per_sec_per_chip_128px_b32" + ("_kernels" if extra else ""),
-                line["metric"])
-        require(line["device_kind"] == kind and line["device"] == "cuda", (line["device_kind"], kind))
-        require(line["mfu"] is not None and 0 < line["mfu"] <= 1, f"bench mfu {line['mfu']}")
-        if extra:
-            updates = TOOLS_BENCH_WINDOWS * line["steps_per_dispatch"]
-            want = {k: v * updates for k, v in EXPECTED_GRAPH_LAUNCHES.items()}
-            require(line["kernel_launches"] == want, f"bench --kernels launches {line['kernel_launches']}, want {want}")
-            launches["bench"] = line["kernel_launches"]
-        benches.append(line)
-    record["bench"] = benches
+    out, walls["bench"] = _run_module(["littlegan_tpu_torch.bench"], root)
+    lines = _json_lines(out)
+    require(len(lines) == 1, f"bench: {len(lines)} JSON lines")
+    line = lines[0]
+    log("(m) bench: " + json.dumps(line))
+    require(line["metric"] == "train_images_per_sec_per_chip_128px_b32_kernels", line["metric"])
+    require(line["device_kind"] == kind and line["device"] == "cuda", (line["device_kind"], kind))
+    require(line["mfu"] is not None and 0 < line["mfu"] <= 1, f"bench mfu {line['mfu']}")
+    want = {k: v * TOOLS_BENCH_WINDOWS * line["steps_per_dispatch"] for k, v in EXPECTED_GRAPH_LAUNCHES.items()}
+    require(line["kernel_launches"] == want, f"bench launches {line['kernel_launches']}, want {want}")
+    launches["bench"] = line["kernel_launches"]
+    record["bench"] = [line]
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
         t0 = time.time()
@@ -3773,7 +3770,7 @@ def check_tools():
         torch.cuda.empty_cache()
 
         out, walls["scaling_curve"] = _run_module(
-            ["littlegan_tpu_torch.scripts.scaling_curve", "--devices", "1", "--kernels", "--out",
+            ["littlegan_tpu_torch.scripts.scaling_curve", "--devices", "1", "--out",
              os.path.join(tmp, "c.json")], root)
         curve = _json_lines(out)
         log("(m) scaling_curve: " + json.dumps(curve))
@@ -3806,10 +3803,10 @@ def check_tools():
 
 # phase (n): the JAX repo's last entry points, as a user runs them
 ENTRY_FIT = ["--points", "128:32,128:256", "--flagsets", "parity,remat"]
-# a step past 80 GB: the host-fed step without the kernels holds about 110 MB per 128² image (phase (m)'s
-# autotune: 3.7 GB at batch 32), so 1024², batch 32 asks for about 225 GB; its largest tensor stays
-# under 2**31 elements
-ENTRY_OOM = ["--points", "1024:32", "--flagsets", "parity"]
+# a step past 80 GB: the host-fed step through the kernels peaks at 63.2 GB at 1024², batch 32 on an
+# H100 80GB (about 1.9 GB per image over a 2.3 GB state), so batch 56 asks for about 109 GB; its largest
+# tensor stays under 2**31 elements (56 x 1024² x 32)
+ENTRY_OOM = ["--points", "1024:56", "--flagsets", "parity"]
 ENTRY_DRYRUN_TAGS = [("dp", "OK"), ("accum_x_dp", "OK"), ("spatial", "skipped"), ("zero1_x_dp", "OK"),
                      ("shard_dense", "skipped"), ("moment_bf16_x_zero1_x_dp", "OK"), ("accum_x_spatial", "skipped"),
                      ("shard_dense_x_zero1", "skipped"), ("infer_dp", "OK")]  # at one rank
@@ -3832,12 +3829,12 @@ def _top_ops(path, root, top_n=25):
 
 def check_entry_points(records, profile_trace):
     """Phase (n): ``fit_frontier`` over ENTRY_FIT (every point fits) and
-    ENTRY_OOM (``oom``, not ``error``), ``dryrun 1 --kernels`` over NCCL
+    ENTRY_OOM (``oom``, not ``error``), ``dryrun 1`` over NCCL
     (ENTRY_DRYRUN_TAGS), ``trace_top_ops`` on phase (g)'s ``profile_steps``
     trace and on a replay of the K = 8 graph (K1, K2 and K3 among the device
     ops), ``bench_boundary_conv`` (K3 within ENTRY_K3_REL of phase (b)'s
     ``records`` at (32, 64, 64, 12) bf16, within its tolerance at every
-    row) and ``bench_step_variants`` (both forms, kernels on and off).
+    row) and ``bench_step_variants`` (both forms).
     The dry run runs beside the fitting probes (not the OOM one), the rest
     one at a time. Returns (the kernels' launches of the dry run and the
     step variants, the record)."""
@@ -3855,7 +3852,7 @@ def check_entry_points(records, profile_trace):
         # process's own; the probe that runs out of memory and the timed tools run alone
         t_dry = time.time()
         with open(os.path.join(tmp, "dryrun.log"), "w+") as dry_log:
-            dry_proc = subprocess.Popen([sys.executable, "-m", "littlegan_tpu_torch.dryrun", "1", "--kernels"],
+            dry_proc = subprocess.Popen([sys.executable, "-m", "littlegan_tpu_torch.dryrun", "1"],
                                         cwd=root, stdout=dry_log, stderr=subprocess.STDOUT, text=True)
             try:
                 out, walls["fit_frontier"] = _run_module(
@@ -3889,7 +3886,7 @@ def check_entry_points(records, profile_trace):
         tags = [re.match(r"dryrun_multichip\(1\) \[(\w+)\] (OK|skipped)", ln) for ln in lines[:-1]]
         require([m.groups() if m else None for m in tags] == ENTRY_DRYRUN_TAGS, f"dryrun 1: {lines}")
         dry = json.loads(lines[-1].split("kernel launches (rank 0): ", 1)[1])
-        require(all(dry.get(k, 0) > 0 for k in EXPECTED_TRAIN_LAUNCHES), f"dryrun 1 --kernels launches {dry}")
+        require(all(dry.get(k, 0) > 0 for k in EXPECTED_TRAIN_LAUNCHES), f"dryrun 1 launches {dry}")
 
         for c in _build.COUNTERS.values():
             c.reset()
@@ -3899,15 +3896,14 @@ def check_entry_points(records, profile_trace):
         variants = _json_lines(out)[-1]
         for ln in out.splitlines()[:-1]:
             log(f"(n) bench_step_variants: {ln}")
-        nums = [r[k] for rec in (variants["kernels_on"], variants["kernels_off"]) for r in rec.values()
-                for k in ("host_ms_per_step", "graph_busy_ms_per_update")]
+        nums = [r[k] for r in variants["kernels_on"].values() for k in ("host_ms_per_step", "graph_busy_ms_per_update")]
         require(code == 0 and all(np.isfinite(v) and v > 0 for v in nums), f"bench_step_variants: {variants}")
         launches = {k: c.value + dry.get(k, 0) for k, c in _counters(tuple(EXPECTED_TRAIN_LAUNCHES)).items()}
         record["bench_step_variants"] = variants
 
         log("(n) trace_top_ops, phase (g)'s profile_steps trace (host-fed Trainer steps):")
         record["top_ops_profile"] = _top_ops(profile_trace, root)
-        log("(n) trace_top_ops, one replay of the K = 8 graph (bench_step_variants --trace, kernels on):")
+        log("(n) trace_top_ops, one replay of the K = 8 graph (bench_step_variants --trace):")
         record["top_ops_graph"] = _top_ops(os.path.join(tmp, "graph_k8.json"), root)
 
         out, walls["bench_boundary_conv"] = _run_module(["littlegan_tpu_torch.scripts.bench_boundary_conv"], root)
@@ -4054,7 +4050,9 @@ def check_stargan_v2():
 
     from littlegan_tpu_torch.ops.cuda import channel_norm_lrelu as cn
     from littlegan_tpu_torch.ops.cuda import resample as rs
-    from littlegan_tpu_torch.ops.norm import adain
+
+    def adain(x, gamma, beta):  # PyTorch's ops: F.instance_norm, then AdaIN's per-sample affine
+        return F.instance_norm(x) * (1 + gamma[:, :, None, None]) + beta[:, :, None, None]
 
     counters, launched, calls, finite = _stargan_iteration_calls()
     log(f"StarGAN v2 eager iteration: counters {counters}, kernels launched {launched}")
@@ -4136,7 +4134,8 @@ def check_stargan_v2():
         log(f"  channel_norm_lrelu bf16 (8, {c}, {h}, {h}) x{row['calls']} fwd / x{row['bwd_calls']} bwd an "
             f"iteration: kernel {row['ms']:.4f} / {row['bwd_ms']:.4f} ms, bound {row['bound_ms']:.4f} / "
             f"{row['bwd_bound_ms']:.4f} ms, plain {row['plain_ms']:.4f} / fwd+bwd {row['plain_fb_ms']:.4f} ms, "
-            f"batch_norm + leaky_relu (NCHW) {row['library_ms']:.4f} / fwd+bwd {row['library_fb_ms']:.4f} ms; "
+            f"instance_norm + affine + leaky_relu (NCHW) {row['library_ms']:.4f} / fwd+bwd "
+            f"{row['library_fb_ms']:.4f} ms; "
             "max rel err " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
     log(f"  {kinks} elements at the LeakyReLU's kink took dy 0 in the backward checks")
 
@@ -4235,7 +4234,7 @@ def summarize(records, serve_launches, train_launches, dispatch_launches, eval_l
     phase (j)'s spatial runs, where every kernel is off and reads 0, and
     phase (k)'s: the orbax and npz runs, ``--measure``'s update, the
     doctor's step and the conditioning check; phase (l)'s doctor step at
-    block1 width 6; phase (m)'s ``bench --kernels`` timed windows and
+    block1 width 6; phase (m)'s ``bench`` timed windows and
     campaign; phase (n)'s dry run and step variants), split in
     "launches_by_path". Phase (l)'s rows, the
     kernel at the shapes the reference's widths do not reach, are under

@@ -2,7 +2,6 @@
 repo's ``bench.py``.
 
     python -m littlegan_tpu_torch.bench                  # 128², batch 32, one JSON line
-    python -m littlegan_tpu_torch.bench --kernels        # both kernel flags on
     python -m littlegan_tpu_torch.bench --dim 512 --batch 8 --k 4
 
 It measures the full train step (G, D and the adjuster forward and
@@ -23,10 +22,10 @@ Besides images/s the line carries:
   ``torch.cuda.synchronize()``;
 - ``model_tflops_per_step``: the FLOPs of one step, counted by
   ``torch.utils.flop_counter.FlopCounterMode`` over one plain-op step
-  (forward plus the three ``autograd.grad`` of ``micro_grads``) on the meta
-  device, after the timing, with the kernel flags and ``remat`` off (the
-  kernels are invisible to the counter and compute the same function;
-  recompute is not model work). The counter counts every tap of a
+  (forward plus the three ``autograd.grad`` of ``micro_grads``, under
+  ``_build.plain_versions()``) on the meta device, after the timing, with
+  ``remat`` off (the kernels are invisible to the counter and compute the
+  same function; recompute is not model work). The counter counts every tap of a
   convolution; XLA's cost model, which the JAX bench reads, leaves out the
   taps that fall on padding, so the port's count is the larger by their
   share (``tests/test_torch_bench.py`` states the ratio);
@@ -38,7 +37,7 @@ Besides images/s the line carries:
   utilisation;
 - ``graph_capture_s`` and ``peak_memory_mb``: the K-update graph's capture
   (its eager warm-up included) and ``torch.cuda.max_memory_allocated``
-  over the whole run; ``kernel_launches`` with ``--kernels``: each kernel
+  over the whole run; ``kernel_launches`` on the card: each kernel
   wrapper's launches over the timed windows.
 
 Without a card it exits 1 and prints no result: there is no CPU fallback.
@@ -57,9 +56,9 @@ from typing import Dict, Optional, Tuple
 # K updates per CUDA graph replay when --k is not given (dispatch plumbing:
 # the K updates are exactly K sequential steps). Swept with
 # scripts/autotune.py --ks 1,2,4,8,16,32,64 at 128², batch 32 on an H100
-# 80GB HBM3 at a 700 W power limit: with both kernel flags K = 1-16 took
+# 80GB HBM3 at a 700 W power limit: with the kernels K = 1-16 took
 # 10.82-10.86 ms per update, K = 32 10.38 and K = 64 10.31 (the fastest);
-# without them every K took 25.0-26.0 ms. A graph of K updates holds more
+# on the plain ops every K took 25.0-26.0 ms. A graph of K updates holds more
 # memory as K grows (peak 1.8 GB at K = 8, 3.2 GB at K = 64 with the
 # kernels).
 STEPS_PER_DISPATCH = 64
@@ -78,15 +77,15 @@ V100_ASSUMED_UTIL = 0.30
 
 
 def bench_config(dim: int, batch: int, adj_half: bool = False, moment_dtype: str = "float32", remat: bool = False,
-                 no_s2d: bool = False, kernels: bool = False):
+                 no_s2d: bool = False):
     """The measured configuration: the JAX bench's (bf16, partition
-    schedule, adjuster), with the kernel flags as asked."""
+    schedule, adjuster)."""
     from littlegan_tpu_torch.config import Config
 
     return Config(
         image_dim=dim, init_dim=dim // 16, batch_size=batch, compute_dtype="bfloat16", use_partition=True,
         train_adj=True, adj_half_batch=adj_half, moment_dtype=moment_dtype, remat=remat, use_s2d=not no_s2d,
-        use_pallas=kernels, use_pallas_boundary=kernels, debug=True,
+        debug=True,
     )
 
 
@@ -192,31 +191,33 @@ def time_scan_dispatches(state, dispatch, k: int = STEPS_PER_DISPATCH, warmup: i
 def count_step_flops(cfg) -> float:
     """FLOPs of one train step of ``cfg``: ``FlopCounterMode`` over
     ``micro_grads`` (the forward and its three ``autograd.grad``) on the
-    meta device, the kernel flags and ``remat`` off. Takes no device
-    memory."""
+    meta device, on the plain ops (``_build.plain_versions()``), ``remat``
+    off. Takes no device memory."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from littlegan_tpu_torch.models.littlegan import LittleGAN
+    from littlegan_tpu_torch.ops.cuda import _build
     from littlegan_tpu_torch.training.state import create_train_state
     from littlegan_tpu_torch.training.step import _adj_sel, micro_grads, zero_draws
 
-    cfg = cfg.replace(use_pallas=False, use_pallas_boundary=False, remat=False)
+    cfg = cfg.replace(remat=False)
     with torch.device("meta"):
         model = LittleGAN(cfg)
     state = create_train_state(cfg, "meta", model)
     shape = (cfg.batch_size, cfg.image_dim, cfg.image_dim, cfg.image_channel)
     batch = lambda: (torch.empty(shape, dtype=torch.uint8, device="meta"),  # noqa: E731
                      torch.empty((cfg.batch_size, cfg.cond_dim), device="meta"))
-    with FlopCounterMode(display=False) as counter:
+    with _build.plain_versions(), FlopCounterMode(display=False) as counter:
         micro_grads(state, batch(), batch(), zero_draws(cfg, cfg.batch_size, "meta"), cfg,
                     _adj_sel(11, cfg, "meta"))
     return float(counter.get_total_flops())
 
 
-def metric_name(args, auto_k_value: int, auto_store: int) -> str:
+def metric_name(args, auto_k_value: int, auto_store: int, kernels: bool = False) -> str:
     """The JAX bench's metric name for the same flags (``bench.py:378-389``),
-    with ``_kernels`` last for the port's kernel flag."""
+    with ``_kernels`` last where the step took the kernels' route (on the
+    card)."""
     suffix = "_adjhalf" if args.adj_half else ""
     if args.moment_dtype == "bfloat16":
         suffix += "_mbf16"
@@ -228,7 +229,7 @@ def metric_name(args, auto_k_value: int, auto_store: int) -> str:
         suffix += f"_k{args.k}"
     if args.store_batches and args.store_batches != auto_store:
         suffix += f"_store{args.store_batches}"
-    if args.kernels:
+    if kernels:
         suffix += "_kernels"
     return f"train_images_per_sec_per_chip_{args.dim}px_b{args.batch}{suffix}"
 
@@ -258,9 +259,6 @@ def parse_args(argv=None):
     ap.add_argument("--k", type=_nonneg_int, default=0,
                     help=f"updates per CUDA graph replay (0 = auto: {STEPS_PER_DISPATCH}, shrunk as the batch "
                          "pair's bytes pass 1 GiB); another K adds a _kN suffix")
-    ap.add_argument("--kernels", action="store_true",
-                    help="both kernel flags on (use_pallas, use_pallas_boundary; a _kernels suffix); the line "
-                         "then carries kernel_launches")
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU; default: the card")
     return ap.parse_args(argv)
 
@@ -269,12 +267,13 @@ def measure(args) -> dict:
     """The measurement; returns the JSON line's dict."""
     import torch
 
+    from littlegan_tpu_torch.ops.cuda import _build
     from littlegan_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
-    cfg = bench_config(args.dim, args.batch, args.adj_half, args.moment_dtype, args.remat, args.no_s2d,
-                       args.kernels)
+    kernels = _build.runs_kernel(device)
+    cfg = bench_config(args.dim, args.batch, args.adj_half, args.moment_dtype, args.remat, args.no_s2d)
     k_auto = auto_k(args.dim, args.batch)
     k = args.k or k_auto
     store_auto = auto_store_batches(cfg, k)
@@ -296,7 +295,7 @@ def measure(args) -> dict:
         flops_per_step, flops_note = 0.0, f"flops count failed ({type(e).__name__}: {e}); mfu omitted"
     kind = torch.cuda.get_device_name(device) if cuda else "cpu"
     out = {
-        "metric": metric_name(args, k_auto, store_auto),
+        "metric": metric_name(args, k_auto, store_auto, kernels),
         "value": round(images_per_sec, 2),
         "unit": "images/sec",
         "step_ms": round(step_s * 1000, 3),
@@ -306,7 +305,7 @@ def measure(args) -> dict:
         "graph_capture_s": round(capture_s, 3) if cuda else None,
         "peak_memory_mb": round(peak_mb, 1) if cuda else None,
     }
-    if args.kernels:
+    if kernels:
         out["kernel_launches"] = launches
     if flops_per_step > 0:
         achieved = flops_per_step / step_s

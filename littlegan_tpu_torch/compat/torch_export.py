@@ -5,9 +5,10 @@ package serializes its jitted forwards to StableHLO with ``jax.export``, the
 port serializes its forwards with ``torch.export`` to ``.pt2`` files that
 ``torch.export.load(path).module()`` runs with no model code (and that
 AOTInductor-class runtimes consume). The same three entry points, in
-float32 with both kernel flags off (the plain ops, as the JAX export runs
-without its Pallas kernels), the EMA generator weights when the checkpoint
-carries them (``training/state.py::eval_params``):
+float32 and traced on the plain ops (``ops/cuda/_build.py::plain_versions``:
+a trace cannot follow a ctypes launch, and the JAX export runs without its
+Pallas kernels), the EMA generator weights when the checkpoint carries
+them (``training/state.py::eval_params``):
 
 - ``generate(noise[b,noise_dim], cond[b,cond_dim]) -> image [b,H,W,3]``
 - ``adjust(image[b,H,W,3], cond[b,cond_dim]) -> image [b,H,W,3]``
@@ -38,6 +39,7 @@ from torch import nn
 
 from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.models.littlegan import LittleGAN
+from littlegan_tpu_torch.ops.cuda import _build
 from littlegan_tpu_torch.utils.device import resolve_device
 
 ENTRY_POINTS = ("generate", "adjust", "discriminate")
@@ -73,11 +75,10 @@ class Discriminate(nn.Module):
 
 
 def export_model(cfg: Config, params: Mapping[str, Any], device=None) -> LittleGAN:
-    """The model the exports trace: ``cfg`` in float32 with both kernel
-    flags off, holding ``params`` (``name -> tensor``, as
-    ``training/state.py::eval_params`` gives them) in float32 on ``device``."""
-    ecfg = cfg.replace(compute_dtype="float32", use_pallas=False, use_pallas_boundary=False)
-    model = LittleGAN(ecfg)
+    """The model the exports trace: ``cfg`` in float32, holding ``params``
+    (``name -> tensor``, as ``training/state.py::eval_params`` gives them)
+    in float32 on ``device``."""
+    model = LittleGAN(cfg.replace(compute_dtype="float32"))
     model.load_state_dict({k: torch.as_tensor(v).float() for k, v in params.items()})
     return model.to(resolve_device(device)).eval().requires_grad_(False)
 
@@ -121,7 +122,8 @@ def export_torch(
                                 "torch_version": torch.__version__}
     for name in include:
         module, args, dynamic = entries[name]
-        program = torch.export.export(module, args, dynamic_shapes=dynamic)
+        with _build.plain_versions():
+            program = torch.export.export(module, args, dynamic_shapes=dynamic)
         path = os.path.join(out_dir, f"{name}.pt2")
         torch.export.save(program, path)
         with torch.no_grad():

@@ -5,11 +5,11 @@ Same fields, defaults and three-layer merge as ``littlegan_tpu/config.py``:
     sample.config.json  ->  <env>.config.json  ->  CLI overrides
 
 so one experiment directory and one ``config.json`` serve both packages.
-Fields that only the JAX trainer reads (meshes, XLA options, VMEM budgets)
-are kept so that a config written by either package loads in the other;
-the port ignores them. ``use_pallas`` and ``use_pallas_boundary`` keep
-their names and select the port's hand-written CUDA kernels
-(``ops/cuda/norm_lrelu.py`` and ``ops/cuda/boundary_conv.py``).
+Fields that only the JAX trainer reads (meshes, XLA options, VMEM budgets,
+and the kernel flags ``use_pallas`` and ``use_pallas_boundary``) are kept
+so that a config written by either package loads in the other; the port
+ignores them. Its hand-written CUDA kernels run wherever the tensor is on
+the card (``models/littlegan.py::_kernels``, ``ops/cuda/_build.py``).
 """
 
 from __future__ import annotations
@@ -104,12 +104,8 @@ class Config:
     shard_opt_state: bool = False
     shard_dense: bool = False
     donate_state: bool = True
-    # Fused instance norm + LeakyReLU kernel (ops/cuda/norm_lrelu.py) for
-    # every encoder/decoder block epilogue. Off by default, as in the JAX
-    # package; whether it is on by default for the GPU is still to measure.
+    # The JAX package's Pallas kernel flags (the port ignores them)
     use_pallas: bool = False
-    # Boundary 3x3 conv kernel with fused per-sample stats
-    # (ops/cuda/boundary_conv.py) for encoder block1 in s2d form.
     use_pallas_boundary: bool = False
     halt_on_nonfinite: bool = False
     ema_decay: float = 0.0

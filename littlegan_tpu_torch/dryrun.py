@@ -4,7 +4,6 @@ repo's ``__graft_entry__.py``.
 
   python -m littlegan_tpu_torch.dryrun N                 # N ranks, one per card, NCCL
   python -m littlegan_tpu_torch.dryrun N --device cpu    # N gloo ranks on the CPU
-  python -m littlegan_tpu_torch.dryrun N --kernels       # both kernel flags on
 
 :func:`entry` is the reference-scale forward: the conditional generator at
 128x128, batch 8, bf16 compute, on the card. :func:`dryrun_multichip` runs
@@ -43,10 +42,10 @@ One process per rank, as the port's data-parallel paths run
 (``parallel/launch.py``: the ranks meet at a file): over NCCL, one per
 card, more ranks than visible cards are refused; with ``--device cpu``
 over gloo on the CPU. The process group is made at N = 1 too: on a card
-that is NCCL at world size 1. With ``--kernels`` both kernel flags are on:
-the DP regimes launch the kernels on the card, and the spatial regimes
-turn them off (``parallel/spatial.py::resolve_config``); on the card the
-run ends with rank 0's launch counts.
+that is NCCL at world size 1. On the card the DP regimes launch the
+kernels and the spatial regimes take the plain route
+(``models/littlegan.py::_kernels``), and the run ends with rank 0's launch
+counts.
 
 JAX's dry run also counts XLA's "involuntary full rematerialization"
 warnings of its SPMD partitioner and fails on any. The port has no
@@ -89,16 +88,15 @@ def entry(device=None):
     return fn, (noise, cond)
 
 
-def tiny_config(n: int, kernels: bool = False):
+def tiny_config(n: int):
     """JAX's dry-run config (``__graft_entry__.py``) for ``n`` ranks."""
     from littlegan_tpu_torch.config import Config
 
     return Config(batch_size=2 * n, image_dim=16, init_dim=1, noise_dim=13, conv_filter=[24, 16, 12, 8, 4],
-                  compute_dtype="float32", use_partition=True, train_adj=True, use_pallas=kernels,
-                  use_pallas_boundary=kernels, debug=True)
+                  compute_dtype="float32", use_partition=True, train_adj=True, debug=True)
 
 
-def _regimes(dg, kernels: bool) -> list:
+def _regimes(dg) -> list:
     """Run every regime on this rank of ``dg``; rank 0's printed lines."""
     import numpy as np
     import torch
@@ -116,7 +114,7 @@ def _regimes(dg, kernels: bool) -> list:
     from littlegan_tpu_torch.utils.image import soft
 
     n, device = dg.world, dg.device
-    cfg = tiny_config(n, kernels)
+    cfg = tiny_config(n)
     lines = []
 
     def say(line: str) -> None:
@@ -274,7 +272,7 @@ def _rank(spec: dict) -> dict:
         torch.set_num_threads(1)
     dg = join_group(device, spec["rendezvous"])
     try:
-        lines = _regimes(dg, spec["kernels"])
+        lines = _regimes(dg)
         launches = {k: v for k, v in _build.launch_counts().items() if v}
         dist.barrier(dg.control)
     finally:
@@ -282,7 +280,7 @@ def _rank(spec: dict) -> dict:
     return {"lines": lines, "launches": launches}
 
 
-def dryrun_multichip(n: int, device=None, kernels: bool = False) -> dict:
+def dryrun_multichip(n: int, device=None) -> dict:
     """Run every regime over ``n`` rank processes and print rank 0's lines
     (and on the card its kernels' launches); returns rank 0's result.
     ``device``: None or "cuda" for one rank per card (NCCL), "cpu" for gloo
@@ -297,7 +295,7 @@ def dryrun_multichip(n: int, device=None, kernels: bool = False) -> dict:
     if not cpu and n > torch.cuda.device_count():
         raise SystemExit(f"dryrun: {n} ranks exceed the {torch.cuda.device_count()} visible CUDA devices "
                          "(one rank per card; --device cpu runs gloo ranks)")
-    spec = {"tag": f"dryrun_multichip({n})", "device": "cpu" if cpu else None, "kernels": kernels}
+    spec = {"tag": f"dryrun_multichip({n})", "device": "cpu" if cpu else None}
     result = run_ranks("littlegan_tpu_torch.dryrun", spec, n, cpu=cpu, timeout=900.0)[0]
     for line in result["lines"]:
         print(line, flush=True)
@@ -311,7 +309,6 @@ def main(argv=None) -> int:
     ap.add_argument("n", type=int, nargs="?", default=8, help="ranks (default 8, as the JAX dry run's devices)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="cpu: gloo ranks on the CPU (default: one rank per card)")
-    ap.add_argument("--kernels", action="store_true", help="both kernel flags on (use_pallas, use_pallas_boundary)")
     ap.add_argument("--rank", nargs=2, metavar=("SPEC", "OUT"), help=argparse.SUPPRESS)  # one rank of the run
     args = ap.parse_args(argv)
     if args.rank:
@@ -320,7 +317,7 @@ def main(argv=None) -> int:
         with open(args.rank[1], "w") as f:
             json.dump(result, f)
         return 0
-    dryrun_multichip(args.n, args.device, args.kernels)
+    dryrun_multichip(args.n, args.device)
     return 0
 
 

@@ -17,22 +17,25 @@ loads a JAX parameter set into a model, and ``ops/conv.py`` permutes to
 PyTorch's layouts at each call.
 
 All compute is NHWC in ``cfg.compute_dtype``; instance-norm stats are f32.
-With ``cfg.use_pallas`` every encoder/decoder block epilogue runs the fused
-norm + LeakyReLU CUDA kernel; with ``cfg.use_pallas_boundary`` encoder
-block1 (s2d form) runs the boundary conv kernel with fused stats, then the
-stats-in norm kernel, where its ``supports`` takes the shape (else the
-plain conv and the block epilogue above, as the JAX model does where its
-predicate says False). Both go through their autograd Functions
-(``FusedNormLReLU``, ``BoundaryConvS2D``, ``NormLReLUFromStats``), whose
-backwards are kernels too, so the gradient reaches every parameter. On CPU
-tensors they take their plain versions. Where a kernel closes a block and
-TF SAME's border is uneven (stride 2 over an even map), the kernels read
-and write through the border instead of a pad, crop or copy: encoder
-blocks 1-3 write their map inside the next conv's border (the padded map
-goes to that conv whole, the interior view everywhere else) and decoder
-blocks read their map out of the transposed conv's full output
-(``ops/conv.py``'s ``conv2d_padded``, ``deconv2d_full``); not under a
-spatial mesh nor with dropout masks. Dropout is the reference's inert
+On the kernels' route (:func:`_kernels`: everywhere but under a spatial
+mesh, the gradient penalty or ``ops/cuda/_build.py``'s ``plain_versions``)
+every encoder/decoder block epilogue runs the
+fused norm + LeakyReLU kernel, and encoder block1 (s2d form) the boundary
+conv kernel with fused stats, then the stats-in norm kernel, where its
+``supports`` takes the shape (else the plain conv and the block epilogue
+above, as the JAX model does where its predicate says False). Both go
+through their autograd Functions (``FusedNormLReLU``, ``BoundaryConvS2D``,
+``NormLReLUFromStats``), whose backwards are kernels too, so the gradient
+reaches every parameter. The Functions launch the kernels on a CUDA tensor
+and take their plain versions on a CPU tensor (``ops/cuda/_build.py``'s
+``runs_kernel``); the JAX package's kernel flags do not reach the port.
+Where a kernel closes a block and TF SAME's border is uneven (stride 2
+over an even map), the kernels read and write through the border instead
+of a pad, crop or copy: encoder blocks 1-3 write their map inside the next
+conv's border (the padded map goes to that conv whole, the interior view
+everywhere else) and decoder blocks read their map out of the transposed
+conv's full output (``ops/conv.py``'s ``conv2d_padded``,
+``deconv2d_full``); not with dropout masks. Dropout is the reference's inert
 one unless a caller passes ``dropout_masks`` to the encoder (through
 ``discriminator`` or ``adjuster``): one keep-mask per encoder block, of
 the block's output shape, applied as JAX ``encoder_apply`` does with a
@@ -45,7 +48,7 @@ Each network takes ``sp``, a spatial mesh's model axis
 (``parallel/spatial.py``; None otherwise): its images are this rank's rows,
 each map is held H-sharded when its height (``cfg``'s, global) tiles the
 model axis and replicated otherwise, and the ops run in their sharded forms
-there, the kernels off (the act-sharding policy of JAX
+there, off the kernels' route (the act-sharding policy of JAX
 ``models/littlegan.py:204-223,280-309``). Without ``sp`` nothing changes.
 """
 
@@ -62,7 +65,7 @@ from littlegan_tpu_torch.ops import s2d
 from littlegan_tpu_torch.ops.conv import (
     conv2d, conv2d_padded, deconv2d, deconv2d_full, dense, leaky_relu, same_border, same_crop,
 )
-from littlegan_tpu_torch.ops.cuda import boundary_conv
+from littlegan_tpu_torch.ops.cuda import _build, boundary_conv
 from littlegan_tpu_torch.ops.cuda.norm_lrelu import FusedNormLReLU, NormLReLUFromStats
 from littlegan_tpu_torch.ops.norm import instance_norm
 from littlegan_tpu_torch.parallel import spatial
@@ -114,15 +117,24 @@ def _conv(x, kernel, bias, stride: int, sp, height: int) -> torch.Tensor:
 _EPS = 1e-3  # the instance norm's epsilon (ops/norm.py's default)
 
 
+def _kernels(cfg: Config, sp) -> bool:
+    """Whether the blocks take the kernels' route (``FusedNormLReLU``,
+    ``NormLReLUFromStats``, ``BoundaryConvS2D``): not under a spatial mesh
+    ``sp`` (the kernels take whole-sample moments), nor with ``cfg.use_gp``
+    (the penalty differentiates D twice, and the kernels' backwards are
+    first order only), nor inside ``_build.plain_versions()``."""
+    return sp is None and not cfg.use_gp and not _build.plain_only()
+
+
 def _norm_lrelu(x: torch.Tensor, norm: Norm, cfg: Config, sp=None, height: int = 0, border=None, crop=None):
-    """InstanceNorm -> LeakyReLU block epilogue: the fused kernel when
-    ``cfg.use_pallas``, plain ops otherwise; under a spatial mesh ``sp`` the
-    sharded norm of a map ``height`` rows high. On the kernel's path only:
-    ``border``, the map written inside it and (padded, map) returned;
+    """InstanceNorm -> LeakyReLU block epilogue: the fused kernel's Function
+    on the kernels' route, plain ops otherwise; under a spatial mesh ``sp``
+    the sharded norm of a map ``height`` rows high. On the kernels' route
+    only: ``border``, the map written inside it and (padded, map) returned;
     ``crop``, x a transposed conv's full output and the norm of that window."""
     if sp is not None:
         return leaky_relu(spatial.instance_norm(x, norm.gamma, norm.beta, sp, height), cfg.leaky_alpha)
-    if cfg.use_pallas and x.dim() == 4:
+    if _kernels(cfg, sp) and x.dim() == 4:
         x = x if crop is not None else x.contiguous()
         return FusedNormLReLU.apply(x, norm.gamma, norm.beta, cfg.leaky_alpha, _EPS, border, crop)
     return leaky_relu(instance_norm(x, norm.gamma, norm.beta), cfg.leaky_alpha)
@@ -161,14 +173,14 @@ class Encoder(nn.Module):
             if not s2d_in:
                 x = s2d.space_to_depth(x)
         outputs = []
+        kernels = _kernels(cfg, sp)
         padded = None  # the last map inside this block's SAME border, where a norm kernel wrote it so
         for i in range(1, 5):
             blk = getattr(self, f"block{i}")
-            bordered = sp is None and dropout_masks is None and i < 4  # a kernel may write the next border
+            bordered = kernels and dropout_masks is None and i < 4  # a kernel writes the next border
             if i == 1 and s2d_active(cfg):
                 kern = s2d.s2d_conv1_kernel(blk.conv.kernel, s2d.module_index(self, "conv1"))
-                if (sp is None and cfg.use_pallas_boundary
-                        and boundary_conv.supports(x.shape, kern.shape[3], x.dtype)):
+                if kernels and boundary_conv.supports(x.shape, kern.shape[3], x.dtype):
                     y, s1, s2 = boundary_conv.BoundaryConvS2D.apply(
                         x.contiguous(), kern.to(x.dtype), blk.conv.bias
                     )
@@ -177,7 +189,7 @@ class Encoder(nn.Module):
                                                  border)
                 else:
                     y = _conv(x, kern, blk.conv.bias, 1, sp, height)
-                    border = _next_border(y, cfg) if bordered and cfg.use_pallas else None
+                    border = _next_border(y, cfg) if bordered else None
                     x = _norm_lrelu(y, blk.norm, cfg, sp, height, border)
             else:
                 if padded is None:
@@ -185,7 +197,7 @@ class Encoder(nn.Module):
                 else:
                     y = conv2d_padded(padded, blk.conv.kernel, blk.conv.bias, 2)
                 height //= 2
-                border = _next_border(y, cfg) if bordered and cfg.use_pallas else None
+                border = _next_border(y, cfg) if bordered else None
                 x = _norm_lrelu(y, blk.norm, cfg, sp, height, border)
             padded, x = x if border is not None else (None, x)
             if dropout_masks is not None:
@@ -226,7 +238,7 @@ class Decoder(nn.Module):
                     s2d.tile_bias(blk.conv.bias), 1, sp, height,
                 )
             elif sp is None:
-                if cfg.use_pallas:
+                if _kernels(cfg, sp):
                     crop = same_crop(x.shape[1], x.shape[2], cfg.kernel_size, 2)
                 if crop is None:
                     x = deconv2d(x, blk.conv.kernel, blk.conv.bias, stride=2)

@@ -41,8 +41,8 @@ read and write them as they are.
 counts its calls (``stargan_v2.generator``, ``.mapping``,
 ``.style_encoder``, ``.discriminator``: ``ops/cuda/_build.py``'s
 ``LaunchCounter``s, which a CUDA graph's replays advance). No LittleGAN
-kernel of ``ops/cuda`` runs here: :func:`check_supported` refuses their
-flags and the other options this model does not have.
+kernel of ``ops/cuda`` runs here. :func:`check_supported` refuses the
+options this model does not have.
 """
 
 from __future__ import annotations
@@ -68,13 +68,10 @@ LAYOUT = torch.channels_last  # the memory format of every activation and conv w
 
 
 def check_supported(cfg: Config) -> None:
-    """Refuse what StarGAN v2 does not run: the LittleGAN kernels and
-    layouts, the LittleGAN-only penalty and remat, and every form of
-    parallelism or accumulation."""
+    """Refuse what StarGAN v2 does not run: the LittleGAN layout, the
+    LittleGAN-only penalty and remat, and every form of parallelism or
+    accumulation."""
     refused = [
-        (cfg.use_pallas, "use_pallas: the norm kernels normalise a whole sample with a scalar gamma and beta; "
-                         "StarGAN v2's norms are per (sample, channel)"),
-        (cfg.use_pallas_boundary, "use_pallas_boundary: the boundary kernel is LittleGAN's 5x5 s2d encoder conv"),
         (cfg.use_s2d, "use_s2d: the space-to-depth boundary is LittleGAN's 5x5 layout; set use_s2d false"),
         (cfg.use_gp, "use_gp: StarGAN v2's penalty is R1 (lambda_reg), always on"),
         (cfg.remat, "remat: not built for StarGAN v2"),

@@ -11,10 +11,19 @@ to seconds.
 Wrappers pass tensor pointers and PyTorch's current stream as
 ``c_void_p``; every C function returns ``cudaGetLastError()`` and
 :func:`check` raises if it is not 0.
+
+Which version of an op runs is the device's choice, made here once: a
+wrapper takes its plain PyTorch version for a CPU tensor and launches its
+kernel for a CUDA tensor (:func:`runs_kernel`). Under
+:func:`plain_versions` every wrapper takes its plain version on the card
+too, and LittleGAN takes its plain route (``models/littlegan.py::_kernels``):
+for the checks that hold the kernels against the plain ops on one device,
+and for tracers and counters that cannot follow a ctypes launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -62,6 +71,34 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_plain_depth = 0  # open plain_versions() contexts, process-wide: autograd runs a CUDA backward on its own thread
+
+
+def plain_only() -> bool:
+    """Whether a :func:`plain_versions` context is open."""
+    return _plain_depth > 0
+
+
+def runs_kernel(device: "torch.device") -> bool:
+    """Whether a wrapper takes its kernel's route for a tensor on
+    ``device``: off the CPU and outside :func:`plain_versions`. The route
+    launches on a CUDA device and raises on any other."""
+    return device.type != "cpu" and not plain_only()
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The plain versions of the port's kernels inside, on the card as on
+    the CPU: every wrapper takes its own, LittleGAN its plain route. The
+    launch counters do not move."""
+    global _plain_depth
+    with _lock:
+        _plain_depth += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _plain_depth -= 1
 
 
 def nvcc() -> str:

@@ -31,10 +31,11 @@ then takes dx and dw with PyTorch's convolution backward, as the JAX
 package leaves those two to XLA. The backward is first order only: a gradient
 of its gradient raises.
 
-A CPU tensor takes the plain PyTorch versions below; a CUDA tensor launches
-the kernels or raises, and a raw wrapper asked for a result autograd would
-have to differentiate raises. Each wrapper counts its launches in
-``.launches``.
+A CPU tensor takes the plain PyTorch versions below, and so does a CUDA
+tensor under ``_build.plain_versions()``; a CUDA tensor launches the
+kernels, any other device raises, and a raw wrapper asked for a result
+autograd would have to differentiate raises. Each wrapper counts its
+launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -156,7 +157,7 @@ def conv3x3_same_stats(
 
     y is in x's dtype; s1 and s2 are f32 (N,): the sum and the sum of
     squares of each sample's (H, W, Cout) output, bias included."""
-    if x.device.type == "cpu":
+    if not _build.runs_kernel(x.device):
         return conv3x3_same_stats_plain(x, w, b)
     refuse_grad("conv3x3_same_stats", "BoundaryConvS2D", x, w, b)
     if x.device.type != "cuda":
@@ -211,7 +212,7 @@ def conv3x3_bwd_fold(
     """The stats-cotangent fold of the boundary conv's backward: y the
     forward's (cast) output, gy its cotangent, gs1/gs2 the (N,) f32
     cotangents of the sums. Returns (gy' in y's dtype, db f32 (Cout,))."""
-    if y.device.type == "cpu":
+    if not _build.runs_kernel(y.device):
         return conv3x3_bwd_fold_plain(y, gy, gs1, gs2)
     what = "conv3x3_bwd_fold"
     refuse_grad(what, "BoundaryConvS2D", y, gy, gs1, gs2)

@@ -23,8 +23,9 @@ of x and dy and a write of dx backward. The backward reads the forward's
 per-(sample, channel) f32 mean and rstd, and recomputes the LeakyReLU's
 sign from x.
 
-A CPU tensor takes the plain PyTorch versions below, forward and backward;
-a CUDA tensor launches the kernels or raises. The Function's backward is
+A CPU tensor takes the plain PyTorch versions below, forward and backward,
+and so does a CUDA tensor under ``_build.plain_versions()``; a CUDA tensor
+launches the kernels, any other device raises. The Function's backward is
 first order only (``norm_lrelu.first_order_only``). Counters:
 ``stargan_v2.channel_norm`` and ``stargan_v2.channel_norm_bwd``, one count
 per call of the Function's forward and backward, on either device (25 and,
@@ -187,13 +188,14 @@ def channel_norm_lrelu_bwd(x, dy, scale, shift, offset: float, mean, rstd, alpha
 
 class ChannelNormLReLU(torch.autograd.Function):
     """:func:`channel_norm_lrelu_fwd` with :func:`channel_norm_lrelu_bwd` as
-    its backward (the plain versions on the CPU). scale and shift: f32, (C,)
-    or (B, C); a (C,) one's gradient is summed over the samples."""
+    its backward (the plain versions where ``_build.runs_kernel`` says
+    no). scale and shift: f32, (C,) or (B, C); a (C,) one's gradient is
+    summed over the samples."""
 
     @staticmethod
     def forward(ctx, x, scale, shift, alpha: float, offset: float, eps: float):
         CALLS.add()
-        fwd = channel_norm_lrelu_plain if x.device.type == "cpu" else channel_norm_lrelu_fwd
+        fwd = channel_norm_lrelu_fwd if _build.runs_kernel(x.device) else channel_norm_lrelu_plain
         y, mean, rstd = fwd(x, scale, shift, offset, alpha, eps)
         ctx.save_for_backward(x, scale, shift, mean, rstd)
         ctx.alpha, ctx.offset = alpha, offset
@@ -204,7 +206,7 @@ class ChannelNormLReLU(torch.autograd.Function):
     def backward(ctx, dy):
         BWD_CALLS.add()
         x, scale, shift, mean, rstd = ctx.saved_tensors
-        bwd = channel_norm_lrelu_bwd_plain if x.device.type == "cpu" else channel_norm_lrelu_bwd
+        bwd = channel_norm_lrelu_bwd if _build.runs_kernel(x.device) else channel_norm_lrelu_bwd_plain
         dx, dscale, dshift = bwd(x, dy, scale, shift, ctx.offset, mean, rstd, ctx.alpha)
         if scale.dim() == 1:
             dscale, dshift = dscale.sum(0), dshift.sum(0)

@@ -38,7 +38,9 @@ the stats' cotangents.
 
 :class:`FusedNormLReLU` and :class:`NormLReLUFromStats` are the autograd
 Functions the model calls. A CPU tensor takes the plain PyTorch versions
-below, forward and backward; a CUDA tensor launches the kernels or raises.
+below, forward and backward, and so does a CUDA tensor under
+``_build.plain_versions()``; a CUDA tensor launches the kernels, any other
+device raises.
 A raw wrapper asked for a result that autograd would have to differentiate
 raises instead of returning it detached. The Functions' backwards are first
 order only (:func:`first_order_only`): a gradient of their gradient (what a
@@ -501,7 +503,7 @@ def _fused_forward(
     (mean, std), shape (2, N), that the backward reads. x may be a window of
     a larger map (rows contiguous); with ``border`` y is written inside that
     border of zeros and the padded buffer returned."""
-    if x.device.type == "cpu":
+    if not _build.runs_kernel(x.device):
         x = x.contiguous()  # a window's sums in a contiguous sample's order
         stats = instance_norm_moments_plain(x)
         if not write_y:
@@ -575,7 +577,7 @@ def fused_instance_norm_lrelu_bwd(
     written inside that border of zeros, the padded buffer returned. dgamma
     and dbeta are f32 (1,), summed over the batch."""
     what = "fused_instance_norm_lrelu_bwd"
-    if x.device.type == "cpu":
+    if not _build.runs_kernel(x.device):
         if stats is not None:
             _check_stats(stats, x.shape[0], x.device, what)
         dx, dg, db = fused_instance_norm_lrelu_bwd_plain(x.contiguous(), dy.contiguous(), gamma, beta, alpha, eps,
@@ -622,7 +624,7 @@ def norm_lrelu_from_stats(
 ) -> torch.Tensor:
     """``fused_instance_norm_lrelu`` from per-sample sums s1 = sum(y) and
     s2 = sum(y^2), each f32 of shape (N,); ``border`` as there."""
-    if y.device.type == "cpu":
+    if not _build.runs_kernel(y.device):
         out = norm_lrelu_from_stats_plain(y.contiguous(), s1, s2, gamma, beta, alpha, eps)
         return out if border is None else pad_plain(out, border)
     what = "norm_lrelu_from_stats"
@@ -659,7 +661,7 @@ def norm_lrelu_from_stats_bwd(
     """(dy, ds1, ds2, dgamma, dbeta) of ``norm_lrelu_from_stats`` for the
     output cotangent dout; dy in y's dtype, the rest f32. ``plan`` and the
     inputs' layouts as in :func:`fused_instance_norm_lrelu_bwd`."""
-    if y.device.type == "cpu":
+    if not _build.runs_kernel(y.device):
         return norm_lrelu_from_stats_bwd_plain(y.contiguous(), s1, s2, gamma, beta, dout.contiguous(), alpha, eps)
     what = "norm_lrelu_from_stats_bwd"
     refuse_grad(what, "NormLReLUFromStats", y, s1, s2, gamma, beta, dout)

@@ -12,10 +12,11 @@ function of the gradient alone).
 
 Replaces no TPU kernel: the JAX package has no StarGAN v2. What bounds the
 kernel is bytes; ``csrc/resample.cu`` says how it reads and writes whole
-16-byte vectors of channels. A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises. Counters ``stargan_v2.down2`` and
-``stargan_v2.up2``: one count per call, forward or backward, on either
-device.
+16-byte vectors of channels. A CPU tensor takes the plain version, and so
+does a CUDA tensor under ``_build.plain_versions()``; a CUDA tensor
+launches the kernel, any other device raises. Counters
+``stargan_v2.down2`` and ``stargan_v2.up2``: one count per call, forward
+or backward, on either device.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ def resample2(x: torch.Tensor, s: float, up: bool) -> torch.Tensor:
 
 def _resample(x: torch.Tensor, s: float, up: bool) -> torch.Tensor:
     (UP2 if up else DOWN2).add()
-    if x.device.type == "cpu":
+    if not _build.runs_kernel(x.device):
         return resample2_plain(x, s, up)
     if x.device.type != "cuda":
         raise ValueError(f"resample2: expected a CPU or CUDA tensor, got {x.device}")

@@ -35,9 +35,11 @@ sharded forms of the model's ops, with the collectives of
   (and a mean over the data axis: ``parallel/train.py``'s ``GradSync``).
 
 The kernels (K1, K1', K2, K3) stay off under a model axis, as JAX turns its
-own off (``spatial.py:53-54``): each computes a whole sample's moments.
-:func:`resolve_config` turns them off, and s2d too where block space does
-not tile the model axis (JAX ``step.py::_resolve_mesh_s2d``).
+own off (``spatial.py:53-54``): each computes a whole sample's moments, and
+the model takes its plain route wherever it is given ``sp``
+(``models/littlegan.py::_kernels``). :func:`resolve_config` turns s2d off
+where block space does not tile the model axis (JAX
+``step.py::_resolve_mesh_s2d``).
 """
 
 from __future__ import annotations
@@ -109,18 +111,11 @@ def spatial_s2d_compatible(cfg: Config, n_model: int) -> bool:
 
 
 def resolve_config(cfg: Config, n_model: int) -> Tuple[Config, str]:
-    """(the config a spatial step runs, a note of what changed): the kernel
-    flags off, and s2d off where block space does not tile the model axis."""
-    if n_model <= 1:
-        return cfg, ""
-    notes = []
-    if cfg.use_pallas or cfg.use_pallas_boundary:
-        cfg = cfg.replace(use_pallas=False, use_pallas_boundary=False)
-        notes.append("kernels off (K1/K2/K3 take whole-sample moments)")
-    if cfg.use_s2d and not spatial_s2d_compatible(cfg, n_model):
-        cfg = cfg.replace(use_s2d=False)
-        notes.append(f"s2d off (block height {cfg.image_dim // 2} does not tile {n_model})")
-    return cfg, "; ".join(notes)
+    """(the config a spatial step runs, a note of what changed): s2d off
+    where block space does not tile the model axis."""
+    if n_model > 1 and cfg.use_s2d and not spatial_s2d_compatible(cfg, n_model):
+        return cfg.replace(use_s2d=False), f"s2d off (block height {cfg.image_dim // 2} does not tile {n_model})"
+    return cfg, ""
 
 
 # ----------------------------------------------------- the model's ops --

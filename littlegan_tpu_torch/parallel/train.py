@@ -2,8 +2,8 @@
 
 Each rank runs the single-card step on its ``batch_size / world`` rows of
 every global batch (:func:`shard_local_batch`, :func:`local_draws`), so it
-runs the kernels the config asks for (K1, K1', K2, K3 and their backwards)
-on its own rows. The JAX package turns its Pallas kernels off under a mesh
+runs the kernels (K1, K1', K2, K3 and their backwards) on its own rows.
+The JAX package turns its Pallas kernels off under a mesh
 (``parallel/train.py:88-92``) only because XLA's SPMD partitioner cannot
 split a Mosaic kernel; a process per card has no such limit, so the port
 keeps them on.

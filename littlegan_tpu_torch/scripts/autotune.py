@@ -48,8 +48,6 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-moment-dtype", action="store_true", help="leave the bfloat16 Adam-moment lever out")
     ap.add_argument("--measure-dispatches", type=int, default=5,
                     help="timed dispatches per window (3 windows, the best kept; see bench.time_scan_dispatches)")
-    ap.add_argument("--kernels", action="store_true",
-                    help="every point with both kernel flags on (use_pallas, use_pallas_boundary)")
     ap.add_argument("--out", default="", help="also write the recommendation to this JSON file")
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU; default: the card")
     args = ap.parse_args(argv)
@@ -72,7 +70,7 @@ def main(argv=None) -> int:
 
     results, failed = [], []
     for adj_half, moment_dtype, k in itertools.product(adj_opts, mom_opts, ks):
-        cfg = bench.bench_config(args.dim, args.batch, adj_half, moment_dtype, kernels=args.kernels)
+        cfg = bench.bench_config(args.dim, args.batch, adj_half, moment_dtype)
         point = {"adj_half_batch": adj_half, "moment_dtype": moment_dtype, "steps_per_dispatch": k}
         t0 = time.time()
         state = dispatch = None
@@ -127,7 +125,7 @@ def main(argv=None) -> int:
         "device_kind": torch.cuda.get_device_name(device) if cuda else "cpu",
         "image_dim": args.dim,
         "batch_size": args.batch,
-        "kernels": args.kernels,
+        "kernels": cuda,  # the route the card takes: the kernels launch there
         "parity": pick_parity,
         "fastest": pick_fast,
         "opt_ins": opt_ins,
@@ -137,7 +135,6 @@ def main(argv=None) -> int:
             "device_data": True,
             **({"adj_half_batch": True} if pick_fast["adj_half_batch"] else {}),
             **({"moment_dtype": "bfloat16"} if pick_fast["moment_dtype"] == "bfloat16" else {}),
-            **({"use_pallas": True, "use_pallas_boundary": True} if args.kernels else {}),
         },
     }
     print("RECOMMEND", json.dumps(recommend), flush=True)

@@ -15,7 +15,7 @@ adjuster gate (``batch_no > 10``) and three masked Adams
 (``step.apply_updates``).
 
 Both steps are timed at ``Config(batch_size=32, compute_dtype="bfloat16")``
-(128², s2d, adjuster), with both kernel flags on and then off:
+(128², s2d, adjuster), through the kernels:
 
   - host wall per eager step (20 host-fed steps after 4 of warm-up, two
     batches of 32 images each: images/s = 64 / wall), which an eager step
@@ -29,7 +29,7 @@ Both steps are timed at ``Config(batch_size=32, compute_dtype="bfloat16")``
 
 It prints each number, the verdict on each, and one JSON line last.
 ``--trace DIR`` also writes a ``torch.profiler`` trace of one replay of
-the current step's graph with the kernels on (``DIR/graph_k8.json``, for
+the current step's graph (``DIR/graph_k8.json``, for
 ``scripts/trace_top_ops.py``). Needs a card: without one it raises
 (``utils/device.py::resolve_device``).
 
@@ -244,8 +244,8 @@ def trace_replay(graphed, path: str) -> None:
 
 
 def bench(device=None, trace: str = "") -> dict:
-    """Both forms, kernels on and off: {"kernels_on": {...}, "kernels_off": {...}} with each form's
-    host ms per eager step, images/s and device ms per update."""
+    """Both forms through the kernels: {"kernels_on": {...}} with each form's host ms per eager step,
+    images/s and device ms per update."""
     import torch
 
     from littlegan_tpu_torch.config import Config
@@ -256,30 +256,25 @@ def bench(device=None, trace: str = "") -> dict:
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError(f"bench_step_variants times the card, not {device}")
-    out = {}
-    for kernels in (True, False):
-        cfg = Config(batch_size=32, compute_dtype="bfloat16", use_pallas=kernels, use_pallas_boundary=kernels,
-                     debug=True)
-        check_variant(cfg)
-        rec = {}
-        for name, make, harness in (("concat", make_step_concat, concat_harness),
-                                    ("current", make_train_step, current_harness)):
-            state = create_train_state(cfg, device)
-            ms = host_ms(make(cfg, state), state, cfg, device)
-            del state
-            state, graphed = harness(cfg, device)
-            busy = graph_busy_ms(graphed)
-            if not all(torch.isfinite(p).all() for p in state.model.parameters()):
-                raise RuntimeError(f"{name} step, kernels {'on' if kernels else 'off'}: non-finite parameters "
-                                   f"after {K * (GRAPH_REPLAYS + 2)} graphed updates")
-            if trace and kernels and name == "current":
-                trace_replay(graphed, os.path.join(trace, "graph_k8.json"))
-            rec[name] = {"host_ms_per_step": ms, "images_per_s": 2 * cfg.batch_size / (ms / 1e3),
-                         "graph_busy_ms_per_update": busy, "graph_launches": dict(graphed.launches)}
-            del state, graphed
-            torch.cuda.empty_cache()
-        out["kernels_on" if kernels else "kernels_off"] = rec
-    return out
+    cfg = Config(batch_size=32, compute_dtype="bfloat16", debug=True)
+    check_variant(cfg)
+    rec = {}
+    for name, make, harness in (("concat", make_step_concat, concat_harness),
+                                ("current", make_train_step, current_harness)):
+        state = create_train_state(cfg, device)
+        ms = host_ms(make(cfg, state), state, cfg, device)
+        del state
+        state, graphed = harness(cfg, device)
+        busy = graph_busy_ms(graphed)
+        if not all(torch.isfinite(p).all() for p in state.model.parameters()):
+            raise RuntimeError(f"{name} step: non-finite parameters after {K * (GRAPH_REPLAYS + 2)} graphed updates")
+        if trace and name == "current":
+            trace_replay(graphed, os.path.join(trace, "graph_k8.json"))
+        rec[name] = {"host_ms_per_step": ms, "images_per_s": 2 * cfg.batch_size / (ms / 1e3),
+                     "graph_busy_ms_per_update": busy, "graph_launches": dict(graphed.launches)}
+        del state, graphed
+        torch.cuda.empty_cache()
+    return {"kernels_on": rec}
 
 
 def main(argv=None) -> int:

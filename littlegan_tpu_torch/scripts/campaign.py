@@ -26,7 +26,7 @@ counterpart.
 
 Usage:
   python -m littlegan_tpu_torch.scripts.campaign <exp> [--epochs N] [--eval-every K]
-      [--cond-bias] [--data DIR] [--dim 128] [--n 6400] [--kernels]
+      [--cond-bias] [--data DIR] [--dim 128] [--n 6400]
 Artifacts: <result-dir>/<exp>/campaign_trajectory.json (one record per
 eval). Without a card it exits 2 (``--device cpu`` asks for the CPU
 explicitly, for the tests).
@@ -137,7 +137,6 @@ def main(argv=None) -> int:
                    help="generated images per generate+featurise call (0 = auto: 128 up to 512², 32 above)")
     p.add_argument("--eval-rows", type=int, default=0,
                    help="rows per effect-size stat batch (0 = auto: 64 up to 512², 32 above)")
-    p.add_argument("--kernels", action="store_true", help="both kernel flags on (use_pallas, use_pallas_boundary)")
     p.add_argument("--data", default=os.path.join(tmp, "structured_celeba"))
     p.add_argument("--dim", type=int, default=128)
     p.add_argument("--n", type=int, default=6400)
@@ -184,7 +183,6 @@ def main(argv=None) -> int:
         restore=True, reuse=True, debug=True, ckpt_every=args.ckpt_every, keep_checkpoints=3,
         cond_bias=args.cond_bias, ema_decay=args.ema, adj_half_batch=args.adj_half,
         moment_dtype=args.moment_dtype, remat=args.remat, allow_random_fid=True,
-        use_pallas=args.kernels, use_pallas_boundary=args.kernels,
     )
 
     # --- the dataset's statistics for the FID trend (random-init Inception, once) ---

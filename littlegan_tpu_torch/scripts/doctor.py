@@ -12,9 +12,9 @@ Checks (PASS / WARN / FAIL per line, one JSON summary last,
 - ``cuda-build``: ``nvcc`` and the kernels built for ``sm_90a``
   (``ops/cuda/_build.py``); a WARN on the CPU, where the wrappers take
   their plain versions;
-- ``train-step``: one tiny train step with the config's kernel flags
-  (``use_pallas``, ``use_pallas_boundary``) on the chosen device; on the
-  card each flagged kernel must launch (the wrappers' launch counters);
+- ``train-step``: one tiny train step on the chosen device; on the card
+  each of the six kernel families must launch (the wrappers' launch
+  counters), on the CPU the wrappers take their plain versions;
 - ``native-loader``: g++ and libjpeg build ``data/native_loader.py``'s
   library (a WARN without them: PIL decodes);
 - ``dep:tensorflow`` (reference checkpoints, the SavedModel export) and
@@ -58,20 +58,15 @@ class Report:
         return 0 if ok else 1
 
 
-def _kernel_names(cfg) -> List[str]:
-    """The launch counters a train step with ``cfg``'s kernel flags moves."""
-    names = []
-    if cfg.use_pallas:
-        names += ["fused_instance_norm_lrelu", "fused_instance_norm_lrelu_bwd"]
-    if cfg.use_pallas_boundary:
-        names += ["conv3x3_same_stats", "norm_lrelu_from_stats", "conv3x3_bwd_fold", "norm_lrelu_from_stats_bwd"]
-    return names
+# The launch counters a train step moves on the card
+KERNEL_NAMES = ("fused_instance_norm_lrelu", "fused_instance_norm_lrelu_bwd", "conv3x3_same_stats",
+                "norm_lrelu_from_stats", "conv3x3_bwd_fold", "norm_lrelu_from_stats_bwd")
 
 
-def train_step(flags, device) -> str:
-    """One tiny train step with ``flags``' kernel settings on ``device``;
-    on a card every flagged kernel must launch. The JAX script's shapes.
-    Returns the detail line; raises on a failure."""
+def train_step(device) -> str:
+    """One tiny train step on ``device``; on a card every kernel of
+    :data:`KERNEL_NAMES` must launch. The JAX script's shapes. Returns the
+    detail line; raises on a failure."""
     import numpy as np
     import torch
 
@@ -82,8 +77,7 @@ def train_step(flags, device) -> str:
 
     t0 = time.perf_counter()
     cfg = Config(batch_size=2, image_dim=16, init_dim=1, noise_dim=8, conv_filter=[16, 12, 8, 6, 4],
-                 compute_dtype="float32", debug=True, use_pallas=flags.use_pallas,
-                 use_pallas_boundary=flags.use_pallas_boundary)
+                 compute_dtype="float32", debug=True)
     state = create_train_state(cfg, device)
     rng = np.random.default_rng(1)
     images = torch.from_numpy(rng.uniform(-1, 1, (cfg.batch_size, *cfg.image_shape)).astype(np.float32))
@@ -97,14 +91,13 @@ def train_step(flags, device) -> str:
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite losses {losses}")
     counts = _build.launch_counts()
-    names = _kernel_names(cfg)
     detail = f"tiny G+D+A step on {device} in {time.perf_counter() - t0:.1f}s (incl. build)"
-    if torch.device(device).type != "cuda":
-        return detail + ("; kernel flags on, their plain versions on the CPU" if names else "; kernel flags off")
-    missing = [n for n in names if counts.get(n, 0) == 0]
+    if not _build.runs_kernel(torch.device(device)):
+        return detail + "; the kernels' plain versions"
+    missing = [n for n in KERNEL_NAMES if counts.get(n, 0) == 0]
     if missing:
-        raise RuntimeError(f"kernels of the config's flags never launched: {missing} (counts {counts})")
-    return detail + "; launches " + (", ".join(f"{n} {counts[n]}" for n in names) or "none (kernel flags off)")
+        raise RuntimeError(f"kernels never launched: {missing} (counts {counts})")
+    return detail + "; launches " + ", ".join(f"{n} {counts[n]}" for n in KERNEL_NAMES)
 
 
 def main(argv=None) -> int:
@@ -152,7 +145,7 @@ def main(argv=None) -> int:
 
     # --- one tiny train step ------------------------------------------------
     try:
-        report("PASS", "train-step", train_step(cfg, device))
+        report("PASS", "train-step", train_step(device))
     except Exception as e:  # noqa: BLE001
         ok = False
         report("FAIL", "train-step", f"{type(e).__name__}: {e}")

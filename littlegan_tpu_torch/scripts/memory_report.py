@@ -11,7 +11,7 @@ counterpart of the JAX package's ``scripts/memory_report.py``.
   ``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``
   over one update of the step form the flags select (``--grad-accum`` M >
   1: the accumulation step; ``--remat``, ``--adj-half`` as configured;
-  ``--kernels``: both kernel flags on), after one warm-up update. One card:
+  the kernels launch, as on every card), after one warm-up update. One card:
   it refuses ``--mesh``, and without a card it exits 1 and prints no
   result line. A step that does not fit is a result, as JAX's compile
   OOM is: ``torch.OutOfMemoryError`` in either update gives ``fits:
@@ -27,7 +27,7 @@ Usage:
   python -m littlegan_tpu_torch.scripts.memory_report --dim 1024 --batch 32 \\
       --mesh data=4,model=2 --shard-opt-state --shard-dense \\
       --moment-dtype bfloat16 --ema 0.999
-  python -m littlegan_tpu_torch.scripts.memory_report --dim 128 --batch 32 --measure --kernels
+  python -m littlegan_tpu_torch.scripts.memory_report --dim 128 --batch 32 --measure
 Prints one JSON line (machine-readable) after a human-readable table.
 """
 
@@ -88,7 +88,7 @@ def measured_step_report(cfg, device=None) -> Dict:
     step = (make_accum_train_step if m > 1 else make_train_step)(cfg, state)
     b1, b2 = batch(), batch()
     rep = {"device": torch.cuda.get_device_name(device), "step": "accum" if m > 1 else "train",
-           "kernels": bool(cfg.use_pallas or cfg.use_pallas_boundary),
+           "kernels": _build.runs_kernel(device),
            "hbm_capacity_bytes": int(torch.cuda.mem_get_info(device)[1])}
     try:
         step(state, b1, b2, draws(), 11)  # warm-up: the kernels' build, cuDNN's plans
@@ -128,8 +128,6 @@ def main(argv=None) -> int:
                    help="the adjuster on one alternating batch (Config.adj_half_batch): moves only --measure")
     p.add_argument("--measure", action="store_true",
                    help="also run one update on the card and report its peak (torch.cuda.max_memory_allocated)")
-    p.add_argument("--kernels", action="store_true",
-                   help="--measure with both kernel flags on (use_pallas, use_pallas_boundary)")
     p.add_argument("--topology", default=None, metavar="NAME", help="refused: a TPU-only AOT compile")
     args = p.parse_args(argv)
 
@@ -159,7 +157,7 @@ def main(argv=None) -> int:
         image_dim=args.dim, init_dim=args.dim // 16, batch_size=args.batch, compute_dtype="bfloat16",
         shard_opt_state=args.shard_opt_state, shard_dense=args.shard_dense, moment_dtype=args.moment_dtype,
         ema_decay=args.ema, remat=args.remat, grad_accum=args.grad_accum, adj_half_batch=args.adj_half,
-        use_pallas=args.kernels, use_pallas_boundary=args.kernels, debug=True,
+        debug=True,
     )
     rep = state_bytes_report(cfg, mesh_shape)
     print(f"train-state memory @ {args.dim}² b{args.batch} "

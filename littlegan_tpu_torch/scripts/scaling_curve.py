@@ -130,8 +130,6 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--no-spatial", action="store_true", help="skip the ('data', 'model') points")
-    ap.add_argument("--kernels", action="store_true",
-                    help="both kernel flags on (the spatial step turns them off, as JAX's does)")
     ap.add_argument("--trace", default="", help="a torch.profiler trace per rank and point under DIR/<tag>")
     ap.add_argument("--out", default="", help="output JSON path (default scaling_curve_<backend>.json)")
     ap.add_argument("--rank", nargs=2, metavar=("SPEC", "OUT"), help=argparse.SUPPRESS)  # one rank of a point
@@ -163,7 +161,7 @@ def main(argv=None) -> int:
 
     base = dict(image_dim=args.dim, init_dim=args.dim // 16,
                 compute_dtype="float32" if args.virtual else "bfloat16", use_partition=True, train_adj=True,
-                use_pallas=args.kernels, use_pallas_boundary=args.kernels, debug=True)
+                debug=True)
     if args.virtual:  # tiny shapes: the harness is checked, no card is measured
         base.update(image_dim=16, init_dim=1, noise_dim=13, conv_filter=[24, 16, 12, 8, 4])
     kind = torch.cuda.get_device_name(0) if backend == "cuda" else "cpu"
@@ -196,7 +194,7 @@ def main(argv=None) -> int:
 
     out = args.out or f"scaling_curve_{backend}.json"
     with open(out, "w") as f:
-        json.dump({"results": results, "iters": args.iters, "kernels": args.kernels,
+        json.dump({"results": results, "iters": args.iters, "kernels": backend == "cuda",  # the DP points' route
                    "timing_note": "host-fed steps, one per call, between a card synchronise and a barrier"},
                   f, indent=1)
     print(f"curve -> {out}")

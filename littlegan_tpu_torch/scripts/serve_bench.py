@@ -22,7 +22,7 @@ on one card, one JSON line per measurement:
   the requests dropped (must be 0).
 
 Usage: python -m littlegan_tpu_torch.scripts.serve_bench [--batch 32] [--dim 128] [--calls 50]
-           [--reload] [--kernels]
+           [--reload]
 Without a card it exits 2 and prints no measurement (``--device cpu`` asks
 for the CPU explicitly, for the tests).
 """
@@ -49,8 +49,7 @@ def emit(metric: str, value: float, unit: str, **extra) -> None:
 def _config(args, **kw):
     from littlegan_tpu_torch.config import Config
 
-    return Config(image_dim=args.dim, init_dim=args.dim // 16, compute_dtype="bfloat16", debug=True,
-                  use_pallas=args.kernels, use_pallas_boundary=args.kernels, **kw)
+    return Config(image_dim=args.dim, init_dim=args.dim // 16, compute_dtype="bfloat16", debug=True, **kw)
 
 
 def _pct(sorted_vals, q: float) -> float:
@@ -64,7 +63,6 @@ def main(argv=None) -> int:
     p.add_argument("--calls", type=int, default=50)
     p.add_argument("--reload", action="store_true", help="also run the checkpoint hot-reload-under-load drill")
     p.add_argument("--threads", type=int, default=32)
-    p.add_argument("--kernels", action="store_true", help="both kernel flags on (use_pallas, use_pallas_boundary)")
     p.add_argument("--device", default=None, help="'cpu' to run on the CPU; default: the card")
     args = p.parse_args(argv)
 
@@ -74,13 +72,15 @@ def main(argv=None) -> int:
         print("serve_bench: no CUDA device (--device cpu asks for the CPU explicitly); no measurement",
               file=sys.stderr)
         return 2
+    from littlegan_tpu_torch.ops.cuda import _build
     from littlegan_tpu_torch.serving import InferenceEngine, close_batchers, make_batchers
     from littlegan_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     cfg = _config(args, restore=False)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"# device: {kind} | batch {args.batch} | {args.dim}px | kernels {args.kernels}", file=sys.stderr)
+    print(f"# device: {kind} | batch {args.batch} | {args.dim}px | kernels {_build.runs_kernel(device)}",
+          file=sys.stderr)
     engine = InferenceEngine(cfg, batch_size=args.batch, device=device)
 
     rng = np.random.default_rng(0)

@@ -43,10 +43,10 @@ as a row (:func:`schedule_rows`: masks, Adam step sizes, the
 
 ``use_gp`` adds the WGAN-GP penalty on interpolates of the augmented real
 batch and ``fake`` to D's loss (:func:`gradient_penalty`): a third D pass
-with live parameters, differentiated twice. It runs on the plain ops only:
-with a kernel flag it is refused (:func:`check_supported`), since the
-kernels' backwards are first order only, and the JAX package's Pallas
-kernels cannot be differentiated twice either. ``remat`` recomputes each
+with live parameters, differentiated twice. The model then runs on the
+plain ops (``models/littlegan.py::_kernels``), since the kernels' backwards
+are first order only, as the JAX package's Pallas kernels cannot be
+differentiated twice either. ``remat`` recomputes each
 network application (G, each D pass, the adjuster) in its own backward
 (``torch.utils.checkpoint``), as the JAX step's ``jax.checkpoint``; the
 penalty's D pass is not wrapped, as in JAX. An s2d-layout store
@@ -57,9 +57,9 @@ Under a spatial ``('data', 'model')`` mesh the ranks' reduction ``sync``
 carries the model axis (``sync.spatial``, ``parallel/spatial.py``): each
 rank's batches and draws are its rows and H-slices, the networks, the
 contrast's mean, the L1 terms and the penalty's norms run in their sharded
-forms, and the step makers run the config :func:`spatial_config` gives
-(the kernels off, s2d off where block space does not tile the model axis),
-as JAX ``make_spatial_train_step`` does.
+forms, off the kernels' route, and the step makers run the config
+:func:`spatial_config` gives (s2d off where block space does not tile the
+model axis), as JAX ``make_spatial_train_step`` does.
 """
 
 from __future__ import annotations
@@ -110,22 +110,11 @@ def spatial_of(sync):
 
 
 def spatial_config(cfg: Config, sync) -> Config:
-    """The config the step runs under ``sync``: under a model axis the
-    kernels off and s2d off where block space does not tile it (JAX
-    ``spatial.py:53-58``); unchanged otherwise."""
+    """The config the step runs under ``sync``: under a model axis s2d off
+    where block space does not tile it (JAX ``spatial.py:53-58``);
+    unchanged otherwise."""
     sp = spatial_of(sync)
     return cfg if sp is None else resolve_config(cfg, sp.m)[0]
-
-
-def check_supported(cfg: Config) -> None:
-    """Refuse what the step cannot run: the gradient penalty with a kernel
-    flag on."""
-    if cfg.use_gp and (cfg.use_pallas or cfg.use_pallas_boundary):
-        raise ValueError(
-            "use_gp needs use_pallas=False and use_pallas_boundary=False: the penalty differentiates D "
-            "twice, and the kernels' backwards are first order only (the JAX reference cannot "
-            "differentiate its Pallas kernels twice either)"
-        )
 
 
 def draw_step(generator: torch.Generator, cfg: Config, n: int, device) -> StepDraws:
@@ -252,7 +241,6 @@ def micro_grads(
     optimizer. Reads nothing from the host. ``inputs_s2d``: both batches
     are in block layout (an s2d-layout store), augmented as such. ``sp``:
     a spatial mesh's model axis; each gradient is then this rank's share."""
-    check_supported(cfg)
     model = state.model
     batch1 = (prep_images(batch1[0]), batch1[1])
     batch2 = (prep_images(batch2[0]), batch2[1])
@@ -451,7 +439,6 @@ def make_train_step(cfg: Config, state: TrainState, sync=None):
     :func:`spatial_config` resolves it), the partition masks and the ranks'
     reduction ``sync`` (None on one card) bound."""
     cfg = spatial_config(cfg, sync)
-    check_supported(cfg)
     return functools.partial(train_step, cfg=cfg, part_masks=partition_masks(state.model), sync=sync)
 
 
@@ -476,7 +463,6 @@ def make_accum_train_step(cfg: Config, state: TrainState, sync=None):
     """``step(state, batch1s, batch2s, draws, batch_no)`` with (M, B, ...)
     stacked batches and draws."""
     cfg = spatial_config(cfg, sync)
-    check_supported(cfg)
     return functools.partial(accum_train_step, cfg=cfg, part_masks=partition_masks(state.model), sync=sync)
 
 
@@ -510,7 +496,6 @@ def make_gather_train_step(cfg: Config, state: TrainState, store_s2d: bool = Fal
     store is in block layout (``ops/s2d.py::space_to_depth`` of each
     batch)."""
     cfg = spatial_config(cfg, sync)
-    check_supported(cfg)
     _check_store_layout(cfg, store_s2d)
     part_masks = partition_masks(state.model)
 
@@ -574,7 +559,6 @@ def _make_scan_dispatch(cfg: Config, state: TrainState, n_steps: int, micro: Opt
     (``training/dispatch.py``) runs :func:`scan_updates` on it (one CUDA
     graph replay on the card). ``micro``: M for (K, M) ids, None for (K,)."""
     cfg = spatial_config(cfg, sync)
-    check_supported(cfg)
     _check_store_layout(cfg, store_s2d)
     part_masks = partition_masks(state.model)
     m = micro or 1

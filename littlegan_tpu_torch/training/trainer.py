@@ -56,10 +56,9 @@ or the prefetcher's next batches, one-update path), ``draws``, ``flush``
 It runs on the card unless ``device="cpu"`` is given; without a card and
 without that argument it raises. It trains LittleGAN: :func:`make_trainer`
 gives StarGAN v2's configs (``model = "stargan_v2"``) their own trainer,
-``training/stargan_v2_trainer.py``. Refused (``ValueError``): what
-``step.check_supported`` refuses (the gradient penalty with a kernel flag),
-and the meshes, ``shard_opt_state`` and ``shard_dense`` settings the JAX
-trainer refuses (:func:`check_trainer_supported`).
+``training/stargan_v2_trainer.py``. Refused (``ValueError``): the meshes,
+``shard_opt_state`` and ``shard_dense`` settings the JAX trainer refuses
+(:func:`check_trainer_supported`).
 
 Data parallelism (``parallel/``): under a ``torch.distributed`` process
 group (``torchrun --nproc_per_node N``; :class:`~littlegan_tpu_torch.parallel.mesh.DataGroup`)
@@ -86,8 +85,9 @@ under a group.
 A spatial mesh (``mesh_axes = ['data', 'model']``, ``mesh_shape`` [D, M],
 by default [world / 2, 2]; ``parallel/spatial.py``): the ranks form a
 :class:`~littlegan_tpu_torch.parallel.mesh.SpatialGroup`, each trains its
-rows of every global batch and of those its H-slice, the kernels off (and
-s2d where block space does not tile M), as the log line says. Model rank 0
+rows of every global batch and of those its H-slice, off the kernels'
+route (and s2d off where block space does not tile M, as the log line
+says). Model rank 0
 of each data index decodes the index's rows and sends each model rank its
 H-slice over a gloo group of their own (``SpatialGroup.feed_batch``),
 host-fed and for the store, which holds each rank's rows and H-slice of
@@ -132,7 +132,7 @@ from littlegan_tpu_torch.parallel.zero import (
 from littlegan_tpu_torch.training.checkpoint import OrbaxCheckpointer, make_checkpointer
 from littlegan_tpu_torch.training.state import TrainState, create_train_state, eval_params
 from littlegan_tpu_torch.training.step import (
-    LOSS_KEYS, check_supported, draw_step, make_accum_train_step, make_gather_train_step,
+    LOSS_KEYS, draw_step, make_accum_train_step, make_gather_train_step,
     make_scan_accum_train_step, make_scan_train_step, make_train_step, stack_draws,
 )
 from littlegan_tpu_torch.utils.device import resolve_device
@@ -147,8 +147,7 @@ FLUSH_EVERY = 16  # calls whose losses stay on the card before one copy to the h
 
 
 def check_trainer_supported(cfg: Config, dp: Optional[DataGroup] = None) -> None:
-    """Refuse what the step refuses (under a spatial mesh, with its kernels
-    off), a mesh the JAX trainer's ``make_mesh`` refuses over the ranks of
+    """Refuse a mesh the JAX trainer's ``make_mesh`` refuses over the ranks of
     ``dp`` (a :class:`SpatialGroup` for ``['data', 'model']``),
     ``shard_dense`` without a model axis dividing ``init_dim``, and
     ``shard_opt_state`` without ranks to shard over; the data ranks must
@@ -158,7 +157,6 @@ def check_trainer_supported(cfg: Config, dp: Optional[DataGroup] = None) -> None
                          "(stargan_v2: training/stargan_v2_trainer.py)")
     world = 1 if dp is None else dp.world
     check_mesh(cfg.mesh_axes, cfg.mesh_shape, world)
-    check_supported(resolve_config(cfg, 1 if dp is None else dp.model_size)[0])
     check_shard_dense(cfg, dp)
     check_shard_opt_state(cfg, dp)
     if isinstance(dp, SpatialGroup):

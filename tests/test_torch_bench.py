@@ -5,8 +5,8 @@ JAX repo's root ``bench.py``, on the CPU.
   grid of image sizes, batches and K (the auto-K rule is read from the JAX
   ``measure``'s own two lines and run with each package's cap);
 - the metric name of every flag combination equals the name JAX's
-  ``measure`` builds (a table of literal names), ``_kernels`` last for the
-  port's kernel flag;
+  ``measure`` builds (a table of literal names), ``_kernels`` last where
+  the step took the kernels' route (on the card);
 - the harness's dispatches take batch ids [0, K) and [K, 2K) and batch
   numbers ``11 + d*K``, ids past the store clamped onto its last batch;
   the timed windows count the kernels' launches after the warm-up only;
@@ -104,8 +104,7 @@ def test_metric_name_equals_jax(flags, name):
     k_auto = _jax_auto_k(args.dim, args.batch, jbench.STEPS_PER_DISPATCH)
     store_auto = jbench.auto_store_batches(jcfg, args.k or k_auto)
     assert tbench.metric_name(args, k_auto, store_auto) == name
-    args.kernels = True
-    assert tbench.metric_name(args, k_auto, store_auto) == name + "_kernels"
+    assert tbench.metric_name(args, k_auto, store_auto, kernels=True) == name + "_kernels"
 
 
 def test_harness_dispatch_ids_and_batch_numbers(tiny_cfg, monkeypatch):
@@ -177,7 +176,7 @@ def test_flop_count_within_band_of_xla(tiny_cfg):
     ratio = port / xla
     print(f"tiny_cfg step: port {port:.0f} FLOPs, XLA {xla:.0f}, ratio {ratio:.4f}")
     assert FLOP_RATIO_BAND[0] <= ratio <= FLOP_RATIO_BAND[1], ratio
-    # the kernel flags and remat leave the count alone (the same function, model FLOPs)
+    # remat leaves the count alone (recompute is not model work), and the JAX kernel flags do not reach it
     assert tbench.count_step_flops(tcfg.replace(use_pallas=True, use_pallas_boundary=True, remat=True)) == port
 
 
@@ -225,9 +224,10 @@ def test_without_a_card_it_exits_nonzero_and_prints_no_result():
 
 def test_peak_table_and_kernel_flags():
     """The peak table holds the H100 SXM5's dense bf16 figure alone; the
-    kernel flags are off by default (the JAX bench's step) and both on
-    with --kernels."""
+    measured config is the JAX bench's step, and no option of the bench
+    sets a kernel flag (the kernels run wherever the tensor is on the card)."""
     assert tbench.PEAK_TFLOPS_BF16 == {"NVIDIA H100 80GB HBM3": 989.4e12}
-    off, on = tbench.bench_config(128, 32), tbench.bench_config(128, 32, kernels=True)
-    assert (off.use_pallas, off.use_pallas_boundary, on.use_pallas, on.use_pallas_boundary) == (False, False, True, True)
-    assert (off.image_dim, off.init_dim, off.batch_size, off.compute_dtype) == (128, 8, 32, "bfloat16")
+    cfg = tbench.bench_config(128, 32)
+    assert (cfg.use_pallas, cfg.use_pallas_boundary) == (False, False)
+    assert (cfg.image_dim, cfg.init_dim, cfg.batch_size, cfg.compute_dtype) == (128, 8, 32, "bfloat16")
+    assert "kernels" not in inspect.signature(tbench.bench_config).parameters

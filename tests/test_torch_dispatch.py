@@ -9,8 +9,9 @@ counterpart on the same weights, uint8 store and draws: the draws are
 recomputed from the JAX keys (``fold_in(base, global_step0 + i)``, then
 ``fold_in(., j)`` per micro-step) in ``_micro_grads``' split order. The
 JAX side runs without its Pallas kernels (they are held against the
-port's Functions in tests/test_torch_train.py); the port's "kernels"
-cases run its Functions' plain versions. The K-update steps run their
+port's Functions in tests/test_torch_train.py); the port runs its
+kernels' Functions (their plain versions) in the "+kernels" cases and its
+plain ops (``_build.plain_versions()``) in the others. The K-update steps run their
 updates eagerly here (a CPU state); on the card they are one CUDA graph
 replay (``chip_smoke.py`` phase (e)).
 
@@ -30,6 +31,8 @@ form against a fused ``p + (-lr_t) * m / (sqrt(v) + eps)``: one ulp of
 each weight (or of its step, where that is larger).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +45,7 @@ from littlegan_tpu.training import create_train_state as jcreate_train_state
 from littlegan_tpu.training import partition as jpart
 from littlegan_tpu.training import step as jstep
 from littlegan_tpu.training.checkpoint import _flatten
+from littlegan_tpu_torch.ops.cuda import _build
 from littlegan_tpu_torch.training import optimizer as topt
 from littlegan_tpu_torch.training import partition as tpart
 from littlegan_tpu_torch.training import step as tstep
@@ -276,41 +280,43 @@ JAX_CASES = {
 def test_device_store_steps_match_jax(tiny_cfg, case):
     flags, kind, k, m, batch_no0 = JAX_CASES[case]
     jcfg = tiny_cfg.replace(donate_state=False, grad_accum=m or 1, **flags)
-    port_flags = dict(use_pallas=jcfg.use_pallas, use_pallas_boundary=jcfg.use_pallas_boundary)
+    # the port's route: its kernels' Functions in the "+kernels" cases, else its plain ops, as JAX's side
+    route = contextlib.nullcontext() if jcfg.use_pallas else _build.plain_versions()
     jcfg = jcfg.replace(use_pallas=False, use_pallas_boundary=False)
     jstate = jcreate_train_state(jcfg, jax.random.PRNGKey(0))
-    state, tc = port_state(jstate, jcfg.replace(**port_flags))
+    state, tc = port_state(jstate, jcfg)
     rng = np.random.default_rng(batch_no0)
     imgs, conds = make_store(rng, jcfg)
     timgs, tconds = torch.from_numpy(imgs), torch.from_numpy(conds)
     shape = imgs.shape[1:]
     base, gs0 = jax.random.PRNGKey(3), 40
     ids = rng.integers(0, N_BATCHES, (2, k, m or 1))
-    if kind == "gather":
-        b1, b2 = int(ids[0, 0, 0]), int(ids[1, 0, 0])
-        key = jax.random.fold_in(base, gs0)
-        jout = jstep.make_gather_train_step(jcfg, jstate.params, donate=False)(
-            jstate, imgs, conds, jnp.int32(b1), jnp.int32(b2), key, jnp.int32(batch_no0))
-        out = tstep.make_gather_train_step(tc, state)(state, timgs, tconds, b1, b2,
-                                                      jax_update_draws(key, jcfg, shape), batch_no0)
-    elif kind == "accum":
-        key = jax.random.fold_in(base, gs0)
-        b1s = (imgs[ids[0, 0]], conds[ids[0, 0]])
-        b2s = (imgs[ids[1, 0]], conds[ids[1, 0]])
-        jout = jstep.make_accum_train_step(jcfg, jstate.params, donate=False)(
-            jstate, b1s, b2s, key, jnp.int32(batch_no0))
-        out = tstep.accum_train_step(state, tuple(map(t, b1s)), tuple(map(t, b2s)),
-                                     jax_update_draws(key, jcfg, shape, m), batch_no0, tc)
-    else:
-        b1s, b2s = (ids[0], ids[1]) if m else (ids[0, :, 0], ids[1, :, 0])
-        make_j = jstep.make_scan_accum_train_step if m else jstep.make_scan_train_step
-        jout = make_j(jcfg, jstate.params, k, donate=False)(
-            jstate, imgs, conds, jnp.asarray(b1s, jnp.int32), jnp.asarray(b2s, jnp.int32), base,
-            jnp.int32(gs0), jnp.int32(batch_no0))
-        draws = tstep.stack_draws([jax_update_draws(jax.random.fold_in(base, gs0 + i), jcfg, shape, m)
-                                   for i in range(k)])
-        make_t = tstep.make_scan_accum_train_step if m else tstep.make_scan_train_step
-        out = make_t(tc, state, k)(state, timgs, tconds, b1s, b2s, draws, batch_no0)
+    with route:
+        if kind == "gather":
+            b1, b2 = int(ids[0, 0, 0]), int(ids[1, 0, 0])
+            key = jax.random.fold_in(base, gs0)
+            jout = jstep.make_gather_train_step(jcfg, jstate.params, donate=False)(
+                jstate, imgs, conds, jnp.int32(b1), jnp.int32(b2), key, jnp.int32(batch_no0))
+            out = tstep.make_gather_train_step(tc, state)(state, timgs, tconds, b1, b2,
+                                                          jax_update_draws(key, jcfg, shape), batch_no0)
+        elif kind == "accum":
+            key = jax.random.fold_in(base, gs0)
+            b1s = (imgs[ids[0, 0]], conds[ids[0, 0]])
+            b2s = (imgs[ids[1, 0]], conds[ids[1, 0]])
+            jout = jstep.make_accum_train_step(jcfg, jstate.params, donate=False)(
+                jstate, b1s, b2s, key, jnp.int32(batch_no0))
+            out = tstep.accum_train_step(state, tuple(map(t, b1s)), tuple(map(t, b2s)),
+                                         jax_update_draws(key, jcfg, shape, m), batch_no0, tc)
+        else:
+            b1s, b2s = (ids[0], ids[1]) if m else (ids[0, :, 0], ids[1, :, 0])
+            make_j = jstep.make_scan_accum_train_step if m else jstep.make_scan_train_step
+            jout = make_j(jcfg, jstate.params, k, donate=False)(
+                jstate, imgs, conds, jnp.asarray(b1s, jnp.int32), jnp.asarray(b2s, jnp.int32), base,
+                jnp.int32(gs0), jnp.int32(batch_no0))
+            draws = tstep.stack_draws([jax_update_draws(jax.random.fold_in(base, gs0 + i), jcfg, shape, m)
+                                       for i in range(k)])
+            make_t = tstep.make_scan_accum_train_step if m else tstep.make_scan_train_step
+            out = make_t(tc, state, k)(state, timgs, tconds, b1s, b2s, draws, batch_no0)
 
     for key_ in tstep.LOSS_KEYS:
         got = np.atleast_1d(out.metrics[key_].numpy())

@@ -54,11 +54,11 @@ def _jax_lines(n: int):
     return out
 
 
-@pytest.mark.parametrize("n,kernels", [(2, False), (4, False), (1, True)])
-def test_dryrun_prints_jax_regimes_in_order(n, kernels, capsys):
+@pytest.mark.parametrize("n", [2, 4, 1])
+def test_dryrun_prints_jax_regimes_in_order(n, capsys):
     want = _jax_lines(n)
     assert len(want) == 9
-    dryrun.dryrun_multichip(n, device="cpu", kernels=kernels)
+    dryrun.dryrun_multichip(n, device="cpu")
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith(f"dryrun_multichip({n}) ")]
     got = [re.match(rf"dryrun_multichip\({n}\) \[(\w+)\] (OK|skipped)", ln).groups() for ln in lines]
     skipped = [t for t, w in want if w == "skipped"]

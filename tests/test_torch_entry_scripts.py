@@ -57,6 +57,7 @@ from littlegan_tpu.utils.image import soft  # noqa: E402
 from littlegan_tpu_torch.compat.jax_params import params_from_jax  # noqa: E402
 from littlegan_tpu_torch.compat.tf_reference_step import TFReferenceStep  # noqa: E402
 from littlegan_tpu_torch.models.littlegan import LittleGAN  # noqa: E402
+from littlegan_tpu_torch.ops.cuda import _build  # noqa: E402
 from littlegan_tpu_torch.scripts import (  # noqa: E402
     baseline_anchor, bench_boundary_conv, bench_step_variants, fit_frontier, memory_report, trace_top_ops,
 )
@@ -500,8 +501,11 @@ def test_total_loss_concat_grads_equal_jax_and_the_step(tiny_cfg, monkeypatch):
     model = params_from_jax(_flatten(params), LittleGAN(tcfg))
     t = torch.from_numpy
     args = ((t(img1), t(cond1)), (t(img2), t(cond2)), t(noise), t(new_image), tcfg)
-    losses, aux = bench_step_variants.total_loss_concat(model, *args)
-    grads = tstep.route_grads(model, losses, tcfg)
+    with _build.plain_versions():  # the plain ops, as JAX's side runs them
+        losses, aux = bench_step_variants.total_loss_concat(model, *args)
+        grads = tstep.route_grads(model, losses, tcfg)
+        step_losses, _ = tstep.total_loss_fn(model, *args)
+        step_grads = tstep.route_grads(model, step_losses, tcfg)
     for k in ("loss/gen", "loss/disc", "loss/adj"):
         np.testing.assert_allclose(float(losses[k].detach()), float(jaux[k]), rtol=1e-5, err_msg=k)
     np.testing.assert_allclose(aux["fake"].numpy(), np.asarray(jaux["fake"]), rtol=1e-4, atol=1e-5)
@@ -509,8 +513,6 @@ def test_total_loss_concat_grads_equal_jax_and_the_step(tiny_cfg, monkeypatch):
     for k, want in jgrads.items():
         np.testing.assert_allclose(grads[k.replace("/", ".")].numpy(), np.asarray(want), **GRAD_TOL, err_msg=k)
 
-    step_losses, _ = tstep.total_loss_fn(model, *args)
-    step_grads = tstep.route_grads(model, step_losses, tcfg)
     for k in losses:
         np.testing.assert_allclose(float(losses[k]), float(step_losses[k]), rtol=1e-6, err_msg=k)
     for k, g in step_grads.items():

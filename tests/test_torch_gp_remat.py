@@ -28,8 +28,8 @@ from littlegan_tpu.training.checkpoint import _flatten
 from littlegan_tpu_torch.ops.cuda import boundary_conv
 from littlegan_tpu_torch.ops.cuda.norm_lrelu import FusedNormLReLU, NormLReLUFromStats
 from littlegan_tpu_torch.training import step as tstep
-from littlegan_tpu_torch.training.state import create_train_state
 from test_torch_dispatch import _clone_state, _same_state
+from test_torch_same_border import KERNEL_FUNCTIONS, _Calls
 from test_torch_step import GRAD_TOL
 from test_torch_train import batch, jax_step_draws, port_state, t
 from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
@@ -49,10 +49,12 @@ def _jax_grads(jcfg):
     return jax.jit(fn)
 
 
-def _against_jax(tiny_cfg, **flags):
+def _against_jax(tiny_cfg, port_flags=None, **flags):
+    """``port_flags``: set on the port's config only (the JAX side runs
+    without them)."""
     jcfg = tiny_cfg.replace(donate_state=False, use_partition=False, **flags)
     jstate = jcreate_train_state(jcfg, jax.random.PRNGKey(0))
-    state, tc = port_state(jstate, jcfg)
+    state, tc = port_state(jstate, jcfg.replace(**(port_flags or {})))
     rng = np.random.default_rng(3)
     b1, b2 = batch(rng, jcfg), batch(rng, jcfg)
     key = jax.random.PRNGKey(21)
@@ -168,14 +170,15 @@ def test_gp_in_a_k_update_scan_equals_eager_steps(tiny_cfg):
     _same_state(state, eager)
 
 
-@pytest.mark.parametrize("flag", ["use_pallas", "use_pallas_boundary"])
-def test_gp_refused_with_a_kernel_flag(tiny_cfg, flag):
-    """Refused when the step is built, loudly; the flag is never turned off."""
-    _, tc, _, _, _ = _port_case(tiny_cfg)
-    cfg = tc.replace(use_gp=True, **{flag: True})
-    with pytest.raises(ValueError, match="cannot differentiate its Pallas kernels twice"):
-        tstep.make_scan_accum_train_step(cfg.replace(grad_accum=2), create_train_state(tc, "cpu"), 2)
-    assert getattr(cfg, flag)
+@pytest.mark.parametrize("flags", [dict(use_pallas=True), KERNELS], ids=["use_pallas", "both"])
+def test_gp_with_a_kernel_flag_matches_jax_on_the_plain_route(tiny_cfg, flags, monkeypatch):
+    """The JAX package's kernel flags do not reach the port: its GP step
+    takes the plain route by itself, calls no kernel Function, and matches
+    the JAX GP step run without its kernels."""
+    calls = _Calls(monkeypatch, KERNEL_FUNCTIONS)
+    grads, _ = _against_jax(tiny_cfg, port_flags=flags, use_gp=True, use_s2d=True)
+    assert calls.counts == {}
+    assert float(grads["encoder.block1.conv.kernel"].abs().sum()) > 0
 
 
 def _fused(x, g, b):

@@ -2,9 +2,11 @@
 
 JAX ``init_params`` makes the weights; ``params_from_jax`` carries them into
 the port's ``LittleGAN``. Inputs come from numpy. Both run in f32 on the
-CPU, for s2d on and off and with the kernel flags (``use_pallas``,
-``use_pallas_boundary``) on and off: the JAX side then runs its Pallas
-kernels in interpret mode, the port its kernels' plain versions.
+CPU, for s2d on and off and with the JAX package's kernel flags
+(``use_pallas``, ``use_pallas_boundary``) on and off: the flags choose the
+JAX side's route (its Pallas kernels in interpret mode, or its plain ops),
+and the port's one route (its kernels' Functions, their plain versions on
+the CPU) is held against both.
 Tolerance rtol 1e-4 / atol 1e-5, as tests/test_pallas.py:75-81.
 
 Active encoder dropout: JAX's keep-masks, drawn through the same

@@ -34,6 +34,7 @@ from littlegan_tpu_torch.config import Config as TConfig
 from littlegan_tpu_torch.models import littlegan as tm
 from littlegan_tpu_torch.ops import conv as tconv
 from littlegan_tpu_torch.ops.cuda import _build
+from littlegan_tpu_torch.ops.cuda import boundary_conv as tbc
 from littlegan_tpu_torch.ops.cuda import norm_lrelu as tnl
 from littlegan_tpu_torch.training import step as tstep
 from littlegan_tpu_torch.training.state import create_train_state
@@ -42,11 +43,11 @@ from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fix
 BORDER = (1, 2, 1, 2)  # TF SAME's pads of a 5x5 stride-2 conv over an even map
 TINY = dict(batch_size=4, image_dim=16, init_dim=1, noise_dim=13, attr=[0, 1, 2, 3, 4, 5, 6],
             conv_filter=[24, 16, 12, 8, 4], kernel_size=5, use_s2d=True, use_partition=False, train_adj=True,
-            use_pallas=True, use_pallas_boundary=True, debug=True)
+            debug=True)
 REFERENCE = dict(batch_size=32, image_dim=128, init_dim=8, noise_dim=93, attr=[8, 15, 20, 22, 26, 36, 39],
                  conv_filter=[384, 256, 128, 64, 32], kernel_size=5, compute_dtype="bfloat16", use_s2d=True,
                  use_partition=True, partition_interval=4, train_adj=True, use_clip=True, clip_range=0.5,
-                 use_pallas=True, use_pallas_boundary=True, debug=True)
+                 debug=True)
 COUNTERS = ("write", "grad_read", "crop_read", "grad_write")
 
 
@@ -223,21 +224,25 @@ def test_step_gradients_equal_the_composition(dtype, s2d, monkeypatch):
     _check_route_equals_composition(TConfig(**TINY).replace(compute_dtype=dtype, use_s2d=s2d), "cpu", monkeypatch)
 
 
-class _Calls:
-    """The kernel Functions' calls, by (Function, direction, what it took:
-    "border", "crop" or "plain")."""
+NORM_FUNCTIONS = (tnl.FusedNormLReLU, tnl.NormLReLUFromStats)
+KERNEL_FUNCTIONS = NORM_FUNCTIONS + (tbc.BoundaryConvS2D,)  # every kernel Function the model calls
 
-    def __init__(self, monkeypatch):
+
+class _Calls:
+    """The calls of ``functions`` (the norm kernels' Functions by default),
+    by (Function, direction, what it took: "border", "crop" or "plain")."""
+
+    def __init__(self, monkeypatch, functions=NORM_FUNCTIONS):
         self.counts = {}
 
         def kind(border, crop):
             return "border" if border is not None else "crop" if crop is not None else "plain"
 
         def forward(cls, orig):
-            at = 7 if cls is tnl.NormLReLUFromStats else 5  # where the border argument sits
+            at = {tnl.NormLReLUFromStats: 7, tnl.FusedNormLReLU: 5}.get(cls)  # where the border argument sits
 
             def wrapped(ctx, *a):
-                border = a[at] if len(a) > at else None
+                border = a[at] if at is not None and len(a) > at else None
                 crop = a[6] if cls is tnl.FusedNormLReLU and len(a) > 6 else None
                 self._add(cls, "forward", kind(border, crop))
                 return orig(ctx, *a)
@@ -245,11 +250,11 @@ class _Calls:
 
         def backward(cls, orig):
             def wrapped(ctx, *g):
-                self._add(cls, "backward", kind(ctx.border, getattr(ctx, "crop", None)))
+                self._add(cls, "backward", kind(getattr(ctx, "border", None), getattr(ctx, "crop", None)))
                 return orig(ctx, *g)
             return staticmethod(wrapped)
 
-        for cls in (tnl.FusedNormLReLU, tnl.NormLReLUFromStats):
+        for cls in functions:
             monkeypatch.setattr(cls, "forward", forward(cls, cls.forward))
             monkeypatch.setattr(cls, "backward", backward(cls, cls.backward))
 
@@ -276,16 +281,17 @@ def test_the_model_routes_each_uneven_border_through_the_kernels(monkeypatch):
     }
 
 
-@pytest.mark.parametrize("case", ["dropout", "kernels off", "odd maps"])
+@pytest.mark.parametrize("case", ["dropout", "gp", "odd maps"])
 def test_no_border_where_the_kernels_do_not_write_it(case, monkeypatch):
-    """Dropout masks and the kernel flags off keep today's path; a map
-    whose next conv pads it evenly (a 12-pixel image's 3-pixel map) is not
+    """Dropout masks keep their Functions borderless; the gradient penalty
+    takes the plain route, so no Function is called at all; a map whose
+    next conv pads it evenly (a 12-pixel image's 3-pixel map) is not
     bordered: no Function call takes a border where the code sees none."""
     calls = _Calls(monkeypatch)
     cfg = TConfig(**TINY)
     gen = torch.Generator().manual_seed(2)
-    if case == "kernels off":
-        cfg = cfg.replace(use_pallas=False, use_pallas_boundary=False)
+    if case == "gp":
+        cfg = cfg.replace(use_gp=True)
     if case == "odd maps":
         cfg = cfg.replace(image_dim=12, use_s2d=False)
     model = tm.init_params(cfg)
@@ -300,8 +306,72 @@ def test_no_border_where_the_kernels_do_not_write_it(case, monkeypatch):
     if case == "odd maps":
         # maps of 6, 3, 2 and 1 pixels: the next conv pads 6 and 2 unevenly, 3 evenly; block 4 has no next
         assert calls.counts == {("FusedNormLReLU", "forward", "border"): 2, ("FusedNormLReLU", "forward", "plain"): 2}
+    elif case == "gp":
+        assert calls.counts == {}
     else:
-        assert kinds <= {"plain"}
+        assert kinds <= {"plain"} and calls.counts
+
+
+class _OneRank:
+    """A model axis of one rank, whose collectives copy: a spatial mesh's
+    code path in one process."""
+
+    world, rank = 1, 0
+
+    def all_gather(self, out, inp):
+        return out.copy_(inp)
+
+    def reduce_scatter_sum(self, out, inp):
+        return out.copy_(inp)
+
+    def all_reduce_sum_(self, t):
+        return t
+
+
+@pytest.mark.parametrize("case", ["plain config", "spatial mesh", "gp", "plain_versions"])
+def test_the_kernels_route_is_taken_unless_a_mesh_or_the_penalty_forbids_it(case, monkeypatch):
+    """``models/littlegan.py::_kernels``: a config with no option set sends
+    D's encoder through the kernel Functions (block1's boundary conv and its
+    stats-in norm, the fused norm of blocks 2-4); under a spatial mesh's
+    model axis, with the gradient penalty and inside
+    ``_build.plain_versions()`` no kernel Function is called."""
+    from littlegan_tpu_torch.parallel.spatial import Spatial
+
+    calls = _Calls(monkeypatch, KERNEL_FUNCTIONS)
+    cfg = TConfig(**TINY).replace(use_gp=case == "gp")
+    model = tm.init_params(cfg)
+    image = torch.rand(2, cfg.image_dim, cfg.image_dim, 3, generator=torch.Generator().manual_seed(4)) * 2 - 1
+    with _build.plain_versions() if case == "plain_versions" else contextlib.nullcontext():
+        pr, cond = model.discriminator(image, sp=Spatial(_OneRank()) if case == "spatial mesh" else None)
+        (pr.sum() + cond.sum()).backward()
+    if case == "plain config":
+        assert calls.counts == {
+            ("BoundaryConvS2D", "forward", "plain"): 1, ("BoundaryConvS2D", "backward", "plain"): 1,
+            ("NormLReLUFromStats", "forward", "border"): 1, ("NormLReLUFromStats", "backward", "border"): 1,
+            ("FusedNormLReLU", "forward", "border"): 2, ("FusedNormLReLU", "backward", "border"): 2,
+            ("FusedNormLReLU", "forward", "plain"): 1, ("FusedNormLReLU", "backward", "plain"): 1,
+        }
+    else:
+        assert calls.counts == {}
+    assert float(model.encoder.block1.conv.kernel.grad.abs().sum()) > 0
+
+
+def test_runs_kernel_says_no_on_the_cpu_and_inside_plain_versions():
+    """``_build.runs_kernel``: the kernel for a CUDA device, the plain
+    version for the CPU; inside ``plain_versions()`` the plain version for
+    both, and the kernel again once the context is left, by an exception
+    too (the device objects are made without a card)."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert _build.runs_kernel(cuda) and not _build.runs_kernel(cpu) and not _build.plain_only()
+    with _build.plain_versions():
+        assert not _build.runs_kernel(cuda) and not _build.runs_kernel(cpu) and _build.plain_only()
+        with _build.plain_versions():
+            assert not _build.runs_kernel(cuda)
+        assert not _build.runs_kernel(cuda)
+    assert _build.runs_kernel(cuda)
+    with pytest.raises(KeyError), _build.plain_versions():
+        raise KeyError("inside")
+    assert _build.runs_kernel(cuda) and not _build.runs_kernel(cpu) and not _build.plain_only()
 
 
 # ---------------------------------------------------------------------------

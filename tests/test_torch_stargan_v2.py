@@ -29,7 +29,7 @@ from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.data.domains import BalancedSampler, DomainFolder
 from littlegan_tpu_torch.models import stargan_v2 as sm
 from littlegan_tpu_torch.ops.cuda import _build
-from littlegan_tpu_torch.ops.norm import adain, channel_instance_norm
+from littlegan_tpu_torch.ops.cuda.channel_norm_lrelu import channel_norm_lrelu_plain
 from littlegan_tpu_torch.ops.resample import crop_resize, draw_crops
 from littlegan_tpu_torch.training import stargan_v2 as ts
 from littlegan_tpu_torch.training.checkpoint import Checkpointer, flatten_state
@@ -137,15 +137,17 @@ def test_networks_match_the_reference(setup):
 
 
 def test_norms_are_instance_norm_and_adain():
+    """The norm kernel's plain version at slope 1 (no LeakyReLU) is IN with
+    a shared (C,) affine, and AdaIN with a per-sample (B, C) one."""
     gen = torch.Generator().manual_seed(2)
     x = torch.randn((3, 5, 6, 6), generator=gen) * 3 + 1
     w, b = torch.rand(5, generator=gen), torch.randn(5, generator=gen)
-    # the same batch_norm arithmetic torch.instance_norm runs: equal up to its reductions' order
-    torch.testing.assert_close(channel_instance_norm(x, w, b), F.instance_norm(x, weight=w, bias=b),
-                               rtol=1e-5, atol=1e-5)
+    # equal up to the reductions' order (torch.instance_norm takes Welford moments)
+    torch.testing.assert_close(channel_norm_lrelu_plain(x, w, b, 0.0, 1.0, 1e-5)[0],
+                               F.instance_norm(x, weight=w, bias=b), rtol=1e-5, atol=1e-5)
     g, be = torch.randn((3, 5), generator=gen), torch.randn((3, 5), generator=gen)
     want = (1 + g[:, :, None, None]) * F.instance_norm(x) + be[:, :, None, None]
-    torch.testing.assert_close(adain(x, g, be), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(channel_norm_lrelu_plain(x, g, be, 1.0, 1.0, 1e-5)[0], want, rtol=1e-5, atol=1e-5)
 
 
 def test_crop_boxes_and_resize():
@@ -310,7 +312,25 @@ def test_an_unchosen_head_moves_under_weight_decay(setup):
     assert float(row.abs().min()) > 0  # D's unchosen logit row moves too (two steps)
 
 
-@pytest.mark.parametrize("flag", [dict(use_pallas=True), dict(use_pallas_boundary=True), dict(use_s2d=True),
+@pytest.mark.parametrize("flags", [dict(use_pallas=True), dict(use_pallas_boundary=True)],
+                         ids=lambda d: next(iter(d)))
+def test_kernel_flags_do_not_reach_the_model(setup, flags):
+    """The JAX package's kernel flags are ignored: the four networks built
+    with one set give the outputs of the same networks without it."""
+    cfg, p0, *_ = setup
+    model, flagged = port_state(cfg, p0).model, port_state(tiny_cfg(**flags), p0).model
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand((B, 3, 32, 32), generator=gen) * 2 - 1
+    s, z = torch.randn((B, 16), generator=gen), torch.randn((B, 8), generator=gen)
+    y = torch.tensor([1, 0, 2, 1])
+    for m in (model, flagged):
+        m.requires_grad_(False)
+    for net, args in (("generator", (x, s)), ("mapping_network", (z, y)), ("style_encoder", (x, y)),
+                      ("discriminator", (x, y))):
+        assert torch.equal(getattr(flagged, net)(*args), getattr(model, net)(*args)), net
+
+
+@pytest.mark.parametrize("flag", [dict(use_s2d=True),
                                   dict(use_gp=True), dict(remat=True), dict(mesh_shape=[1, 2]),
                                   dict(shard_opt_state=True), dict(grad_accum=2)],
                          ids=lambda d: next(iter(d)))

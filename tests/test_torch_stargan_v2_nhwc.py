@@ -46,7 +46,6 @@ from littlegan_tpu_torch.models import stargan_v2 as sm
 from littlegan_tpu_torch.ops.cuda import _build
 from littlegan_tpu_torch.ops.cuda import channel_norm_lrelu as cn
 from littlegan_tpu_torch.ops.cuda import resample as rs
-from littlegan_tpu_torch.ops.norm import adain, channel_instance_norm
 from littlegan_tpu_torch.training import stargan_v2 as ts
 from littlegan_tpu_torch.training.state import create_stargan_state
 from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fixture)
@@ -70,10 +69,15 @@ def _affine(kind: str, b: int, c: int, gen, device="cpu"):
     return gamma, beta, 1.0
 
 
+def instance_norm_affine(x, scale, shift, eps: float = 1e-5):
+    """``F.instance_norm`` of an NCHW x, then ``scale * x + shift``: each
+    (C,) (shared by the samples) or (B, C) (one per sample)."""
+    return F.instance_norm(x, eps=eps) * scale[..., None, None] + shift[..., None, None]
+
+
 def _composition(x, scale, shift, offset):
-    """Today's route: ``batch_norm`` over the (1, B*C, H, W) view, then LeakyReLU."""
-    y = adain(x, scale, shift) if offset == 1.0 else channel_instance_norm(x, scale, shift)
-    return F.leaky_relu(y, ALPHA)
+    """The library's route: ``F.instance_norm`` and the affine, then LeakyReLU."""
+    return F.leaky_relu(instance_norm_affine(x, offset + scale, shift), ALPHA)
 
 
 def _max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -101,7 +105,7 @@ def test_plain_equals_the_batch_norm_composition(kind, shape, layout):
     got = cn.channel_norm_lrelu(got_in[0], got_in[1], got_in[2], ALPHA, offset=offset)
     want = _composition(*want_in, offset)
     assert got.is_contiguous(memory_format=CL) == (layout == "channels_last")
-    # measured under 1e-6 (the composition's batch_norm takes Welford moments)
+    # measured under 1e-6 (the composition's instance_norm takes Welford moments)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     gg = torch.autograd.grad(got, got_in, dy)
     gw = torch.autograd.grad(want, want_in, dy)
@@ -189,11 +193,11 @@ def _tiny_cfg(**kw) -> Config:
 
 
 def _nchw_path(monkeypatch):
-    """Today's path: contiguous weights and activations, the norms through
-    the ``batch_norm`` composition and ``F.leaky_relu``."""
+    """The NCHW path: contiguous weights and activations, the norms through
+    ``F.instance_norm``, the affine and ``F.leaky_relu``."""
     monkeypatch.setattr(sm, "LAYOUT", torch.contiguous_format)
     monkeypatch.setattr(sm, "channel_norm_lrelu", lambda x, scale, shift, alpha, offset=0.0, eps=1e-5:
-                        F.leaky_relu(channel_instance_norm(x, offset + scale, shift, eps), alpha))
+                        F.leaky_relu(instance_norm_affine(x, offset + scale, shift, eps), alpha))
 
 
 def _network_case(net: str, model, x, s, z, y):

@@ -17,6 +17,8 @@ gradient of the other sign moves it the other way; golden losses rtol 5e-4,
 as tests/test_golden.py.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,7 @@ from littlegan_tpu.training import create_train_state as jcreate_train_state
 from littlegan_tpu.training import step as jstep
 from littlegan_tpu.training.checkpoint import _flatten
 from littlegan_tpu.training.partition import build_partition_masks
+from littlegan_tpu_torch.ops.cuda import _build
 from littlegan_tpu_torch.training import optimizer as topt
 from littlegan_tpu_torch.training import step as tstep
 from littlegan_tpu_torch.training.checkpoint import flatten_state
@@ -37,8 +40,8 @@ from torch_dp_common import one_thread_per_process  # noqa: F401 (an autouse fix
 
 GRAD_TOL = dict(rtol=1e-3, atol=1e-6)
 
-# (JAX/port config changes, batch_no): the kernels' Functions in the whole
-# step; partition batches (5: group 1, 10: group 2) with the adjuster gate
+# (JAX config changes, batch_no): the kernel flags choose the port's route
+# (its kernels' Functions; without them its plain ops); partition batches (5: group 1, 10: group 2) with the adjuster gate
 # off; the half-batch adjuster on an even step with a G-only EMA and bf16
 # moments; no adjuster with v1's shared beta powers and no clipping
 STEP_CASES = {
@@ -65,14 +68,15 @@ def jax_step_with_grads(jcfg, params):
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_train_step_matches_jax(tiny_cfg, case):
     """The JAX side runs without its Pallas kernels (they are held against
-    the port's Functions in tests/test_torch_train.py); the port's
-    "kernels" case runs its Functions' plain versions."""
+    the port's Functions in tests/test_torch_train.py); the port runs its
+    kernels' Functions (their plain versions) in the "kernels" case and its
+    plain ops (``_build.plain_versions()``) in the others."""
     flags, batch_no = STEP_CASES[case]
     jcfg = tiny_cfg.replace(donate_state=False, **flags)
-    port_flags = dict(use_pallas=jcfg.use_pallas, use_pallas_boundary=jcfg.use_pallas_boundary)
+    route = contextlib.nullcontext() if jcfg.use_pallas else _build.plain_versions()
     jcfg = jcfg.replace(use_pallas=False, use_pallas_boundary=False)
     jstate = jcreate_train_state(jcfg, jax.random.PRNGKey(0))
-    state, tc = port_state(jstate, jcfg.replace(**port_flags))
+    state, tc = port_state(jstate, jcfg)
     rng = np.random.default_rng(batch_no)
     b1, b2 = batch(rng, jcfg), batch(rng, jcfg)
     key = jax.random.PRNGKey(7 + batch_no)
@@ -82,14 +86,15 @@ def test_train_step_matches_jax(tiny_cfg, case):
         jstate, b1, b2, key, jnp.int32(batch_no)
     )
     tb1, tb2 = (t(b1[0]), t(b1[1])), (t(b2[0]), t(b2[1]))
-    grads, aux = tstep.compute_grads(state, tb1, tb2, draws, batch_no, tc)
+    with route:
+        grads, aux = tstep.compute_grads(state, tb1, tb2, draws, batch_no, tc)
+        out = tstep.train_step(state, tb1, tb2, draws, batch_no, tc)
     for k in tstep.LOSS_KEYS:
         np.testing.assert_allclose(float(aux[k]), float(jmetrics[k]), rtol=1e-5, err_msg=k)
     for k, want in _flatten(jgrads).items():
         np.testing.assert_allclose(grads[k.replace("/", ".")].numpy(), np.asarray(want), **GRAD_TOL, err_msg=k)
     np.testing.assert_allclose(aux["fake"].numpy(), np.asarray(jfake), rtol=1e-4, atol=1e-5)
 
-    out = tstep.train_step(state, tb1, tb2, draws, batch_no, tc)
     want, got = _flatten(jnew), flatten_state(out.state)
     assert sorted(got) == sorted(want)
     lr_t = topt.adam_lr_t(jcfg.lr, jcfg.beta_1, jcfg.beta_2, 1)

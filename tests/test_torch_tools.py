@@ -13,7 +13,9 @@
   set (``scripts/make_structured_data.py``) and one npz checkpoint, each
   attribute's delta agrees with ``scripts/verify_conditioning.py``'s within
   1e-4 (float32), and the D cond-head accuracy and both "learned" counts
-  are equal.
+  are equal;
+- no entry point takes ``--kernels``: the kernels run wherever the tensor
+  is on the card, and argparse refuses the option.
 """
 
 import contextlib
@@ -40,6 +42,23 @@ def _script(name):
 
 def _last_json(out: str):
     return json.loads(out.strip().splitlines()[-1])
+
+
+# ---------------------------------------------------------------- --kernels --
+
+KERNELS_ENTRY_POINTS = {
+    "bench": [], "scripts.serve_bench": [], "scripts.scaling_curve": [], "scripts.autotune": [],
+    "scripts.campaign": ["exp"], "scripts.memory_report": [], "dryrun": ["1"],
+}
+
+
+@pytest.mark.parametrize("module", sorted(KERNELS_ENTRY_POINTS))
+def test_no_entry_point_takes_a_kernels_option(module, capsys):
+    mod = importlib.import_module(f"littlegan_tpu_torch.{module}")
+    with pytest.raises(SystemExit) as exc:
+        mod.main([*KERNELS_ENTRY_POINTS[module], "--kernels"])
+    assert exc.value.code == 2
+    assert "unrecognized arguments: --kernels" in capsys.readouterr().err
 
 
 # ------------------------------------------------------------------ doctor --

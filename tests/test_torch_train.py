@@ -328,17 +328,25 @@ def test_encoder_grads_with_both_kernel_flags_match_jax(tiny_cfg):
 
 
 @pytest.mark.parametrize("flag", ["use_pallas", "use_pallas_boundary"])
-def test_step_refuses_unported_options(tiny_cfg, flag):
-    """The one step option refused: the gradient penalty with a kernel flag
-    (the kernels' backwards are first order only), at every step maker."""
-    tc = tcfg_of(tiny_cfg).replace(use_gp=True, **{flag: True})
-    state = create_train_state(tc.replace(use_gp=False), "cpu")
-    for check in (tstep.check_supported, lambda c: tstep.make_train_step(c, state),
-                  lambda c: tstep.make_accum_train_step(c, state), lambda c: tstep.make_gather_train_step(c, state),
-                  lambda c: tstep.make_scan_train_step(c, state, 2)):
-        with pytest.raises(ValueError, match="use_gp needs use_pallas=False and use_pallas_boundary=False"):
-            check(tc)
-    tstep.check_supported(tc.replace(**{flag: False}))  # GP on the plain ops is taken
+def test_gp_with_a_kernel_flag_builds_at_every_step_maker(tiny_cfg, flag, monkeypatch):
+    """The gradient penalty with a kernel flag set is built at every step
+    maker (the flag does not reach the port), and its step takes the plain
+    route by itself: no kernel Function is called, the losses are finite."""
+    from test_torch_same_border import KERNEL_FUNCTIONS, _Calls
+
+    calls = _Calls(monkeypatch, KERNEL_FUNCTIONS)
+    tc = tcfg_of(tiny_cfg).replace(use_gp=True, use_s2d=True, **{flag: True})
+    state = create_train_state(tc, "cpu")
+    for make in (tstep.make_train_step, tstep.make_accum_train_step, tstep.make_gather_train_step,
+                 lambda c, s: tstep.make_scan_train_step(c, s, 2),
+                 lambda c, s: tstep.make_scan_accum_train_step(c.replace(grad_accum=2), s, 2)):
+        make(tc, state)
+    rng = np.random.default_rng(6)
+    b1, b2 = batch(rng, tc), batch(rng, tc)
+    draws = jax_step_draws(jax.random.PRNGKey(6), tc, b1[0].shape)
+    out = tstep.make_train_step(tc, state)(state, (t(b1[0]), t(b1[1])), (t(b2[0]), t(b2[1])), draws, 12)
+    assert all(np.isfinite(float(v)) for v in out.metrics.values())
+    assert calls.counts == {}
 
 
 def test_prep_images_rescales_uint8_only():

@@ -166,23 +166,36 @@ def test_trainer_raises_without_a_card(tiny_cfg, tmp_path):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(use_gp=True, use_pallas=True), ValueError, "use_gp needs use_pallas=False"),
-    (dict(use_gp=True, use_pallas_boundary=True), ValueError, "use_gp needs use_pallas=False"),
     (dict(mesh_shape=[2]), ValueError, r"mesh shape \[2\] != 1 devices"),
     (dict(mesh_axes=["model", "data"]), ValueError, r"the mesh is \['data'\] or \['data', 'model'\]"),
     (dict(shard_opt_state=True), ValueError, "needs a device mesh"),
     (dict(shard_dense=True, mesh_axes=["data", "model"]), ValueError, r"needs a \('data','model'\) mesh"),
 ])
 def test_trainer_refuses_unported_options(tiny_cfg, tmp_path, kw, exc, match):
-    """What the trainer refuses in one process, as the JAX trainer does: the
-    gradient penalty with a kernel flag, a data mesh's shape other than
-    [1] (``make_mesh``'s error), axes other than ['data'] or ['data',
+    """What the trainer refuses in one process, as the JAX trainer does: a
+    data mesh's shape other than [1] (``make_mesh``'s error), axes other than ['data'] or ['data',
     'model'], ZeRO-1 without ranks to shard over, and shard_dense without a
     mesh (JAX builds no mesh over one device, so not even a ('data',
     'model') config has one). Meshes over several ranks:
     tests/test_torch_spatial_ops.py and tests/test_torch_shard_dense.py."""
     with pytest.raises(exc, match=match):
         Trainer(tcfg_of(_cfg(tiny_cfg, tmp_path, **kw)), None, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [dict(use_pallas_boundary=True), dict(use_pallas=True, use_pallas_boundary=True)],
+                         ids=["use_pallas_boundary", "both"])
+def test_trainer_trains_gp_with_kernel_flags_on_the_plain_route(tiny_cfg, tmp_path, flags, monkeypatch):
+    """The gradient penalty with the JAX package's kernel flags set: the
+    trainer is built and trains an epoch, its step on the plain route (no
+    kernel Function is called), the flags left as they were."""
+    from test_torch_same_border import KERNEL_FUNCTIONS, _Calls
+
+    calls = _Calls(monkeypatch, KERNEL_FUNCTIONS)
+    tcfg = tcfg_of(_cfg(tiny_cfg, tmp_path, use_gp=True, **flags))
+    trainer = Trainer(tcfg, SyntheticDataset(tcfg, num_items=16), device="cpu")
+    trainer.train()
+    assert trainer.global_step == 2 and calls.counts == {}
+    assert all(getattr(trainer.cfg, k) == v for k, v in flags.items())
 
 
 def test_trainer_spatial_config_trains_unsharded_in_one_process(tiny_cfg, tmp_path):
