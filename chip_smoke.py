@@ -189,18 +189,23 @@ Phases, each of which fails the run on any error:
       ``ENTRY_K3_REL`` of phase (b)'s time at (32, 64, 64, 12) bf16). Each
       tool's wall is printed;
   (o) StarGAN v2's kernels (``csrc/channel_norm_lrelu.cu``,
-      ``csrc/resample.cu``) as its main path runs them: one eager iteration
+      ``csrc/resample.cu``, ``csrc/conv_epilogue.cu``) as its main path
+      runs them: one eager iteration
       of the benchmark's configuration (``SG_CONFIG``: AFHQ 256², batch 8,
       bf16) under the profiler, the ``stargan_v2.*`` kernel counters set to
       0 just before it, must count ``SG_EXPECTED_CALLS`` and launch
       ``SG_KERNELS`` per call; at every (C, H) the iteration ran, batch 8,
       bf16 channels-last, the norm's forward and backward (IN's shared and
-      AdaIN's per-sample affine) and the pool and upsample (at both scales)
-      against their plain versions to one rounding (``SG_ROUNDING``,
-      ``SG_SUMS_REL``), each timed beside its bytes' bound, its plain
-      version and PyTorch's ops (``instance_norm``, the affine and
-      ``leaky_relu`` over NCHW;
-      ``avg_pool2d`` and ``interpolate`` over NHWC and NCHW), and summed
+      AdaIN's per-sample affine), the pool and upsample (at both scales)
+      and the conv epilogue's forms (bias; bias, shortcut and 1/sqrt(2);
+      the double backward's scale; the backward's column sum with and
+      without the scaled gradient) against their plain versions to one
+      rounding (``SG_ROUNDING``, ``SG_SUMS_REL``; the column sum to
+      ``SG_COLSUM_REL`` of float64's and the same bits twice), each timed
+      beside its bytes' bound, its plain version and PyTorch's ops
+      (``instance_norm``, the affine and ``leaky_relu`` over NCHW;
+      ``avg_pool2d`` and ``interpolate`` over NHWC and NCHW; the parent's
+      bias ``add_``, residual add and division, ``aten::sum``), and summed
       over the iteration's calls. Each phase's wall after (o).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
@@ -3932,22 +3937,32 @@ SG_CONFIG = os.path.join("benchmark", "configs", "stargan-v2-afhq-256.json")
 SG_NORM_SHAPES = [(64, 256), (64, 128), (128, 128), (128, 64), (256, 64), (256, 32), (512, 32), (512, 16)]
 # calls an iteration: 25 norms in each of the 8 generator passes, 4 of them
 # differentiated; the pools and upsamples of the four networks' passes,
-# their backwards (each the other) and R1's double backward through D
+# their backwards (each the other) and R1's double backward through D; the
+# conv epilogue of the 26 / 14 / 15 biased convs of each G / E / D pass
+# (396) and the 1/sqrt(2) of R1's double backward through D's 12 residual
+# blocks, its backward in the 4 G, 3 E and 8 D passes gradients run through
 SG_EXPECTED_CALLS = {"stargan_v2.channel_norm": 200, "stargan_v2.channel_norm_bwd": 100,
-                     "stargan_v2.down2": 276, "stargan_v2.up2": 228}
+                     "stargan_v2.down2": 276, "stargan_v2.up2": 228,
+                     "stargan_v2.conv_epilogue": 408, "stargan_v2.conv_epilogue_bwd": 266}
 # the kernels each call launches (csrc/channel_norm_lrelu.cu: a partial-sums
-# launch, then the apply; csrc/resample.cu: one)
+# launch, then the apply; csrc/resample.cu: one; csrc/conv_epilogue.cu: one
+# forward, the column sum's first launch backward, the second launch,
+# epilogue_colsum_total_kernel, only where the plan splits the rows)
 SG_KERNELS = {"stargan_v2.channel_norm": ("channel_instance_norm_lrelu_stats_kernel",
                                           "channel_instance_norm_lrelu_fwd_kernel"),
               "stargan_v2.channel_norm_bwd": ("channel_instance_norm_lrelu_bwd_stats_kernel",
                                               "channel_instance_norm_lrelu_bwd_kernel"),
-              "stargan_v2.down2": ("resample_down2_kernel",), "stargan_v2.up2": ("resample_up2_kernel",)}
+              "stargan_v2.down2": ("resample_down2_kernel",), "stargan_v2.up2": ("resample_up2_kernel",),
+              "stargan_v2.conv_epilogue": ("epilogue_kernel",),
+              "stargan_v2.conv_epilogue_bwd": ("epilogue_colsum_kernel",)}
 # |kernel - plain| <= SG_ROUNDING * max|plain|: one rounding of bf16 at the
 # output (both round an f32 value once; the f32 values differ in the sums'
 # order); the f32 moments and the (B, C) gradients of the affine to
-# SG_SUMS_REL of their largest value
+# SG_SUMS_REL of their largest value; the epilogue's f32 bias gradient to
+# SG_COLSUM_REL of float64's column sum
 SG_ROUNDING = 2.0 ** -7
 SG_SUMS_REL = 1e-4
+SG_COLSUM_REL = 1e-5
 SG_ALPHA = 0.2
 
 
@@ -3972,6 +3987,7 @@ def _stargan_iteration_calls():
     from littlegan_tpu_torch.data.domains import BalancedSampler
     from littlegan_tpu_torch.ops.cuda import _build
     from littlegan_tpu_torch.ops.cuda import channel_norm_lrelu as cn
+    from littlegan_tpu_torch.ops.cuda import conv_epilogue as ce
     from littlegan_tpu_torch.ops.cuda import resample as rs
     from littlegan_tpu_torch.training import stargan_v2 as ts
     from littlegan_tpu_torch.training.state import create_stargan_state
@@ -3999,15 +4015,21 @@ def _stargan_iteration_calls():
     one(0)
     torch.cuda.synchronize()
     calls = collections.Counter()
-    spies = {(cn, "channel_norm_lrelu_fwd"): "norm", (cn, "channel_norm_lrelu_bwd"): "norm_bwd",
-             (rs, "resample2"): None}
+    # the kind of a call by its arguments after x: the epilogue's by its
+    # form (bias, bias and shortcut, the double backward's scale alone) and
+    # the backward's by whether it scales
+    spies = {(cn, "channel_norm_lrelu_fwd"): lambda a: "norm", (cn, "channel_norm_lrelu_bwd"): lambda a: "norm_bwd",
+             (rs, "resample2"): lambda a: "up2" if a[1] else "down2",
+             (ce, "conv_epilogue_fwd"): lambda a: "epilogue_" + ("res" if a[1] is not None else
+                                                                 "bias" if a[0] is not None else "scale"),
+             (ce, "conv_epilogue_bwd"): lambda a: "epilogue_bwd_" + ("res" if a[0] != 1.0 else "bias")}
     kept = {key: getattr(*key) for key in spies}
 
     def spy(key, kind):
         fn = kept[key]
 
         def call(x, *args):
-            calls[(kind or ("up2" if args[1] else "down2"), x.shape[1], x.shape[2])] += 1
+            calls[(kind(args), x.shape[1], x.shape[2])] += 1
             return fn(x, *args)
         return call
 
@@ -4041,14 +4063,16 @@ def check_stargan_v2():
     profiler saw launched at ``SG_KERNELS`` per call (none of it on the
     plain versions), the calls' shapes recorded; then at each shape the
     iteration ran, batch 8, bf16 in channels-last memory, each kernel
-    against its plain version (``SG_ROUNDING``, ``SG_SUMS_REL``), timed
-    beside the plain version, PyTorch's ops and its bytes at 3.35 TB/s.
+    against its plain version (``SG_ROUNDING``, ``SG_SUMS_REL``,
+    ``SG_COLSUM_REL``), timed beside the plain version, PyTorch's ops and
+    its bytes at 3.35 TB/s.
     Returns (calls by counter, the record: per-shape rows and the sums over
     one iteration's calls) and raises on a miss."""
     import torch
     import torch.nn.functional as F
 
     from littlegan_tpu_torch.ops.cuda import channel_norm_lrelu as cn
+    from littlegan_tpu_torch.ops.cuda import conv_epilogue as ce
     from littlegan_tpu_torch.ops.cuda import resample as rs
 
     def adain(x, gamma, beta):  # PyTorch's ops: F.instance_norm, then AdaIN's per-sample affine
@@ -4171,6 +4195,70 @@ def check_stargan_v2():
             f"bound {row['bound_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, PyTorch NHWC "
             f"{row['torch_nhwc_ms']:.4f} / NCHW {row['torch_nchw_ms']:.4f} ms; max rel err {err:.2e}")
 
+    # the conv epilogue at each (C, H) and form the iteration ran it: its
+    # forward (bias; bias and shortcut at 1/sqrt(2); R1's double backward's
+    # scale alone) against the plain version and PyTorch's ops of the parent
+    # (the bias added to the conv's output in place, (sc + r) / sqrt(2));
+    # its backward (db, and s g at 1/sqrt(2)) against the plain version,
+    # float64's column sum and aten::sum of the parent's bf16 gradient
+    sq = 1.0 / math.sqrt(2.0)
+    fwd_forms = {"epilogue_bias": (True, False, 1.0), "epilogue_res": (True, True, sq),
+                 "epilogue_scale": (False, False, sq)}
+    bwd_forms = {"epilogue_bwd_bias": 1.0, "epilogue_bwd_res": sq}
+    epilogue_rows = []
+    for c, h in sorted({(c, h) for kind, c, h in calls if kind.startswith("epilogue")}, key=lambda s: (-s[1], s[0])):
+        y, sc, g = (randn(8, c, h, h).to(bf).contiguous(memory_format=cl) for _ in range(3))
+        b = randn(c)
+        bb = b.to(bf).view(1, c, 1, 1)
+        n_el = y.numel()
+        row = {"c": c, "h": h}
+        for kind, (has_b, has_sc, s) in fwd_forms.items():
+            if not calls[(kind, c, h)]:
+                continue
+            bk, sck = (b if has_b else None), (sc if has_sc else None)
+            out, want = ce.conv_epilogue_fwd(y, bk, sck, s), ce.conv_epilogue_plain(y, bk, sck, s)
+            torch.cuda.synchronize()
+            err = _rel_to_max(out, want)
+            if not out.is_contiguous(memory_format=cl) or err > SG_ROUNDING:
+                failures.append(f"{kind} ({c}, {h}): max rel err {err:.3g} or layout")
+            yl = y.clone()
+
+            def library(yl=yl, has_b=has_b, has_sc=has_sc, s=s):
+                r = yl.add_(bb) if has_b else yl
+                return (sc + r) / math.sqrt(2.0) if has_sc else (r / math.sqrt(2.0) if s != 1.0 else r)
+
+            row[kind] = {"calls": calls[(kind, c, h)], "max_rel_err": err, "equal": bool(torch.equal(out, want)),
+                         "ms": time_ms(lambda: ce.conv_epilogue_fwd(y, bk, sck, s)),
+                         "bound_ms": bound((2 + has_sc) * n_el * 2, 0, "bfloat16")[0],
+                         "plain_ms": time_ms(lambda: ce.conv_epilogue_plain(y, bk, sck, s)),
+                         "library_ms": time_ms(library)}
+        for kind, s in bwd_forms.items():
+            if not calls[(kind, c, h)]:
+                continue
+            (gs, db), (_, db2) = ce.conv_epilogue_bwd(g, s), ce.conv_epilogue_bwd(g, s)
+            gsp, _ = ce.conv_epilogue_bwd_plain(g, s)
+            db64 = g.double().sum((0, 2, 3)) * s
+            torch.cuda.synchronize()
+            err = _rel_to_max(db, db64)
+            if not torch.equal(gs, gsp) or err > SG_COLSUM_REL or not torch.equal(db, db2):
+                failures.append(f"{kind} ({c}, {h}): s g equal {torch.equal(gs, gsp)}, db max rel err {err:.3g}, "
+                                f"db the same bits twice {torch.equal(db, db2)}")
+            row[kind] = {"calls": calls[(kind, c, h)], "db_max_rel_err": err,
+                         "splits": ce.plan(8 * h * h, c, 8 if c % 8 == 0 else 1, ce._sms(dev)),
+                         "ms": time_ms(lambda: ce.conv_epilogue_bwd(g, s)),
+                         "bound_ms": bound((1 + (s != 1.0)) * n_el * 2, 0, "bfloat16")[0],
+                         "plain_ms": time_ms(lambda: ce.conv_epilogue_bwd_plain(g, s)),
+                         "library_ms": time_ms(lambda: (g if s == 1.0 else g / math.sqrt(2.0)).sum((0, 2, 3)).float())}
+        epilogue_rows.append(row)
+        log(f"  conv_epilogue bf16 (8, {c}, {h}, {h}): " + "; ".join(
+            f"{k[9:]} x{v['calls']} kernel {v['ms']:.4f} bound {v['bound_ms']:.4f} plain {v['plain_ms']:.4f} "
+            f"PyTorch {v['library_ms']:.4f} ms" for k, v in row.items() if k.startswith("epilogue")))
+
+    def epilogue_sum(key, part):
+        # part "": every form; "_fwd": the forward's; "_bwd": the backward's
+        return sum(v["calls"] * v[key] for r in epilogue_rows for k, v in r.items()
+                   if k.startswith("epilogue") and part != ("_fwd" if k.startswith("epilogue_bwd") else "_bwd"))
+
     def norm_sum(fwd, bwd, fb=None):
         # a differentiated call runs the forward and the backward (or fb, both)
         return sum((r["calls"] - r["bwd_calls"]) * r[fwd] + r["bwd_calls"] * (r[fb] if fb else r[fwd] + r[bwd])
@@ -4182,11 +4270,13 @@ def check_stargan_v2():
                                "library_ms": norm_sum("library_ms", None, "library_fb_ms")},
         "resample2": {k: sum(r["calls"] * r[k] for r in resample_rows)
                       for k in ("ms", "bound_ms", "plain_ms", "torch_nhwc_ms", "torch_nchw_ms")},
+        "conv_epilogue": {f"{k}{part}": epilogue_sum(k, part) for k in ("ms", "bound_ms", "plain_ms", "library_ms")
+                          for part in ("", "_fwd", "_bwd")},
     }
     log("StarGAN v2 kernels, ms an iteration (their calls at the shapes above): " + json.dumps(per_iteration))
     require(not failures, "StarGAN v2 kernels:\n  " + "\n  ".join(failures))
     return counters, {"launched": launched, "norm": norm_rows, "resample": resample_rows,
-                      "per_iteration": per_iteration}
+                      "epilogue": epilogue_rows, "per_iteration": per_iteration}
 
 
 def summarize_stargan(counters, record):
@@ -4209,7 +4299,16 @@ def summarize_stargan(counters, record):
                 "plain_ms": it["resample2"]["plain_ms"], "library_ms": it["resample2"]["torch_nhwc_ms"],
                 "library_nchw_ms": it["resample2"]["torch_nchw_ms"], "bound_by": "bytes",
                 "per": "StarGAN v2 iteration", "shapes": record["resample"]}
-    return [norm, resample]
+    epilogue = {"name": "conv_epilogue", "route": "cuda", "source": "littlegan_tpu_torch/csrc/conv_epilogue.cu",
+                "replaces": None,
+                "launches": counters["stargan_v2.conv_epilogue"] + counters["stargan_v2.conv_epilogue_bwd"],
+                "launches_by_path": {"stargan_v2_iteration": {k: counters[k] for k in (
+                    "stargan_v2.conv_epilogue", "stargan_v2.conv_epilogue_bwd")}},
+                "max_rel_err": max(v.get("max_rel_err", 0.0) for r in record["epilogue"] for k, v in r.items()
+                                   if k.startswith("epilogue")),
+                **it["conv_epilogue"], "bound_by": "bytes", "per": "StarGAN v2 iteration",
+                "shapes": record["epilogue"]}
+    return [norm, resample, epilogue]
 
 
 def _free_port() -> int:

@@ -20,9 +20,13 @@ network (``generator.encode.0.conv1.weight``):
 Every per-domain head is computed, and each sample's row gathered by its
 label on the card (:func:`pick`), as the published code does: every head
 then takes part in every Adam step of its network, with a zero gradient
-where no sample chose it. Residual blocks divide shortcut + residual by
-sqrt(2). Every norm is followed by a LeakyReLU, and the two run as one
-call of ``ops/cuda/channel_norm_lrelu.py``'s per-(sample, channel)
+where no sample chose it. Every biased convolution ends in one call of
+``ops/cuda/conv_epilogue.py``'s epilogue (a CUDA kernel on the card, its
+plain version on the CPU): its float32 bias added to the output, and in a
+residual block's second conv the shortcut added and the sum divided by
+sqrt(2) in the same pass; its backward forms the bias gradient as a
+float32 column sum. Every norm is followed by a LeakyReLU, and the two run
+as one call of ``ops/cuda/channel_norm_lrelu.py``'s per-(sample, channel)
 instance norm (eps 1e-5) + LeakyReLU: a CUDA kernel on the card, its plain
 version on the CPU. Resampling is ``ops/resample.py``'s (a CUDA kernel on
 the card too). The discriminator's convs and LeakyReLUs are :class:`R1Conv` and :func:`r1_leaky_relu`: the same
@@ -59,6 +63,7 @@ from torch import nn
 from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.ops.cuda._build import LaunchCounter
 from littlegan_tpu_torch.ops.cuda.channel_norm_lrelu import channel_norm_lrelu
+from littlegan_tpu_torch.ops.cuda.conv_epilogue import conv_epilogue
 from littlegan_tpu_torch.ops.resample import downsample, upsample
 
 CALLS = {name: LaunchCounter(f"stargan_v2.{name}")
@@ -95,52 +100,55 @@ def pick(out: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 class Conv(nn.Conv2d):
     """``nn.Conv2d`` computing in its input's dtype (float32 parameters),
-    its weight held in :data:`LAYOUT`."""
+    its weight held in :data:`LAYOUT`. ``forward(x, sc, s)``: the
+    convolution without its bias, then :func:`conv_epilogue`: ``s * (conv(x)
+    + bias + sc)`` (a residual block's second conv: its shortcut and 1/sqrt(2))."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.weight = nn.Parameter(self.weight.detach().contiguous(memory_format=LAYOUT))
 
-    def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
+    def conv(self, x):
+        return F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding)
+
+    def forward(self, x, sc=None, s: float = 1.0):
+        y = self.conv(x)
+        return y if self.bias is None else conv_epilogue(y, self.bias, sc, s)
 
 
 class _R1Conv(torch.autograd.Function):
-    """A stride-1 ``conv2d`` whose backward is written in differentiable
-    ops: the input's gradient as ``conv_transpose2d(g, w)``, a function of
-    the gradient and the weight alone. R1's double backward then runs as
-    that transposed conv's first-order backward (cuDNN's data and filter
-    gradients); PyTorch's own double backward of a conv takes the weight's
-    part as a convolution with a filter the size of the image, and sends a
-    gradient of zeros back through the forward's graph."""
+    """A stride-1 ``conv2d`` without bias whose backward is written in
+    differentiable ops: the input's gradient as ``conv_transpose2d(g, w)``,
+    a function of the gradient and the weight alone. R1's double backward
+    then runs as that transposed conv's first-order backward (cuDNN's data
+    and filter gradients); PyTorch's own double backward of a conv takes the
+    weight's part as a convolution with a filter the size of the image, and
+    sends a gradient of zeros back through the forward's graph."""
 
     @staticmethod
-    def forward(ctx, x, w, b, padding: int):
+    def forward(ctx, x, w, padding: int):
         ctx.save_for_backward(x, w)
-        ctx.padding, ctx.has_bias = padding, b is not None
-        return F.conv2d(x, w, b, padding=padding)
+        ctx.padding = padding
+        return F.conv2d(x, w, padding=padding)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         p = ctx.padding
         gx = F.conv_transpose2d(g, w, padding=p) if ctx.needs_input_grad[0] else None
-        gw = gb = None
+        gw = None
         if ctx.needs_input_grad[1]:
             gw = torch.ops.aten.convolution_backward(g, x, w, None, [1, 1], [p, p], [1, 1], False, [0, 0], 1,
                                                      [False, True, False])[1]
-        if ctx.has_bias and ctx.needs_input_grad[2]:
-            gb = g.sum((0, 2, 3))
-        return gx, gw, gb, None
+        return gx, gw, None
 
 
 class R1Conv(Conv):
-    """The discriminator's convs (stride 1): :class:`_R1Conv`."""
+    """The discriminator's convs (stride 1): :class:`_R1Conv`, then the
+    epilogue (whose backward, and its backward, are kernels too)."""
 
-    def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return _R1Conv.apply(x, self.weight.to(x.dtype), b, self.padding[0])
+    def conv(self, x):
+        return _R1Conv.apply(x, self.weight.to(x.dtype), self.padding[0])
 
 
 class _R1LeakyReLU(torch.autograd.Function):
@@ -214,8 +222,7 @@ class ResBlk(nn.Module):
         r = self.conv1(self.norm1(x) if self.normalize else self.act(x, self.alpha))
         if self.down:
             r = downsample(r)
-        r = self.conv2(self.norm2(r) if self.normalize else self.act(r, self.alpha))
-        return (sc + r) / SQRT2
+        return self.conv2(self.norm2(r) if self.normalize else self.act(r, self.alpha), sc, 1.0 / SQRT2)
 
 
 class AdaIN(nn.Module):
@@ -245,11 +252,11 @@ class AdainResBlk(nn.Module):
         r = self.norm1(x, s)
         if self.up:
             r = upsample(r)
-        r = self.conv2(self.norm2(self.conv1(r), s))
+        r = self.norm2(self.conv1(r), s)
         sc = upsample(x) if self.up else x
         if self.conv1x1 is not None:
             sc = self.conv1x1(sc)
-        return (r + sc) / SQRT2
+        return self.conv2(r, sc, 1.0 / SQRT2)
 
 
 def widths(cfg: Config, repeat: int) -> List[Tuple[int, int]]:

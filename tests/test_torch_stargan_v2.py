@@ -431,8 +431,10 @@ def test_config_fields_are_the_published_defaults():
 
 
 def test_discriminator_ops_differentiate_twice():
-    """R1Conv, the R1 LeakyReLU and the downsample against finite
-    differences, first and second order, in float64."""
+    """R1Conv (the bias-free conv, then the epilogue adding the bias), the
+    R1 LeakyReLU and the downsample against finite differences, first and
+    second order, in float64."""
+    from littlegan_tpu_torch.ops.cuda.conv_epilogue import conv_epilogue
     from littlegan_tpu_torch.ops.resample import downsample
 
     gen = torch.Generator().manual_seed(1)
@@ -441,7 +443,7 @@ def test_discriminator_ops_differentiate_twice():
     b = torch.randn(4, generator=gen, dtype=torch.float64, requires_grad=True)
 
     def f(x, w, b):
-        return downsample(sm.r1_leaky_relu(sm._R1Conv.apply(x, w, b, 1), 0.2))
+        return downsample(sm.r1_leaky_relu(conv_epilogue(sm._R1Conv.apply(x, w, 1), b), 0.2))
 
     assert torch.autograd.gradcheck(f, (x, w, b)) and torch.autograd.gradgradcheck(f, (x, w, b))
     torch.testing.assert_close(f(x, w, b), F.avg_pool2d(F.leaky_relu(F.conv2d(x, w, b, padding=1), 0.2), 2))

@@ -1,8 +1,9 @@
 """StarGAN v2 held channels-last (``models/stargan_v2.py``): its
 per-(sample, channel) instance norm + LeakyReLU
-(``ops/cuda/channel_norm_lrelu.py``, ``csrc/channel_norm_lrelu.cu``) and
-its 2x2 resampling (``ops/cuda/resample.py``, ``csrc/resample.cu``) over
-NHWC maps. Imports no JAX.
+(``ops/cuda/channel_norm_lrelu.py``, ``csrc/channel_norm_lrelu.cu``), its
+2x2 resampling (``ops/cuda/resample.py``, ``csrc/resample.cu``) and its
+convolution epilogue (``ops/cuda/conv_epilogue.py``,
+``csrc/conv_epilogue.cu``) over NHWC maps. Imports no JAX.
 
 On the CPU: the plain norm and its backward against ``ops/norm.py``'s
 ``batch_norm`` composition (IN and AdaIN, then ``F.leaky_relu``), values
@@ -14,14 +15,23 @@ order; a tiny StarGAN v2 against today's NCHW path (the composition,
 contiguous weights and activations: ``LAYOUT`` and ``channel_norm_lrelu``
 patched) for the four networks and R1, outputs and parameter gradients;
 every conv's activations and weight gradients channels-last; the counters,
-25 norms a generator pass at 256², and the norm's, pool's and upsample's
-calls in one iteration at 256² depth (200 / 100 / 276 / 228).
+25 norms a generator pass at 256², and the norm's, pool's, upsample's and
+epilogue's calls in one iteration at 256² depth (200 / 100 / 276 / 228 /
+408 / 266). The epilogue: the model's plain route against the parent's
+arithmetic (the bias inside ``F.conv2d``, then ``(sc + r) / sqrt(2)``) in
+float32, outputs and every parameter gradient; its Functions against
+finite differences to the second order in float64; its calls per network
+pass; the shapes it runs at full width (on the meta device); the backward's
+split of the rows.
 
 On a card (marked ``card``; skips without one): the norm kernels against
 the plain version at the 8 (C, H) shapes of StarGAN v2's generator at AFHQ
 256², batch 8, bf16 and f32, scale shared and per sample; a mean 100
 times the spread; CUDA-graph replays equal to eager bit for bit; the
-resampling kernel against its plain version; one eager iteration of the
+resampling kernel against its plain version; the epilogue's kernels
+against the plain version at every (C, H) the cell's iteration runs them,
+both forms, bf16 and f32, the column sum bit for bit across calls, and its
+refusal of a map that is not channels-last; one eager iteration of the
 benchmark's configuration under the profiler: no cuDNN layout transpose
 but around the 3-channel and 4x4 convs (listed), the norm counters at 200
 / 100, Adam's updates in ``multi_tensor_apply`` kernels. On the card's
@@ -33,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 
@@ -45,6 +56,7 @@ from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.models import stargan_v2 as sm
 from littlegan_tpu_torch.ops.cuda import _build
 from littlegan_tpu_torch.ops.cuda import channel_norm_lrelu as cn
+from littlegan_tpu_torch.ops.cuda import conv_epilogue as ce
 from littlegan_tpu_torch.ops.cuda import resample as rs
 from littlegan_tpu_torch.training import stargan_v2 as ts
 from littlegan_tpu_torch.training.state import create_stargan_state
@@ -58,6 +70,9 @@ TINY = dict(model="stargan_v2", image_dim=32, base_dim=8, max_conv_dim=32, mappi
             device_data=True)
 # (C, H) of the generator's norms at AFHQ 256² (base width 64, widths up to 512)
 SHAPES = [(64, 256), (64, 128), (128, 128), (128, 64), (256, 64), (256, 32), (512, 32), (512, 16)]
+# (C, H) of the biased convs' outputs of G, E and D at AFHQ 256²: to_rgb's and D's logits are 3 wide
+EPILOGUE_SHAPES = [(3, 256), (64, 256), (128, 128), (256, 64), (512, 32), (512, 16), (512, 8), (512, 4),
+                   (512, 1), (3, 1)]
 
 
 def _affine(kind: str, b: int, c: int, gen, device="cpu"):
@@ -302,7 +317,12 @@ def test_kernel_counters_per_iteration_at_256():
     smoke requires of the full-width iteration (``chip_smoke.py``'s
     ``SG_EXPECTED_CALLS``). 25 norms in each of the 8 generator passes, 4
     of them differentiated; the pools and upsamples of every pass, their
-    backwards and R1's double backward through D."""
+    backwards and R1's double backward through D. The epilogue: 26 / 14 /
+    15 biased convs a G / E / D pass, so 8 * 26 + 7 * 14 + 6 * 15 = 396 in
+    the passes, and 12 more in R1's double backward (the 1/sqrt(2) of D's
+    six residual blocks, each D phase); its backward in the 4 G, 3 E and 8
+    D passes gradients run through (R1's first backward among them): 4 * 26
+    + 3 * 14 + 8 * 15 = 266."""
     from littlegan_tpu_torch.data.domains import BalancedSampler
 
     cfg = _tiny_cfg(image_dim=256, base_dim=4, mapping_dim=16, style_dim=8, latent_dim=4, batch_size=2)
@@ -318,7 +338,8 @@ def test_kernel_counters_per_iteration_at_256():
         heights.add(x.shape[2])
         return plain(x, *args)
 
-    keys = ("stargan_v2.channel_norm", "stargan_v2.channel_norm_bwd", "stargan_v2.down2", "stargan_v2.up2")
+    keys = ("stargan_v2.channel_norm", "stargan_v2.channel_norm_bwd", "stargan_v2.down2", "stargan_v2.up2",
+            "stargan_v2.conv_epilogue", "stargan_v2.conv_epilogue_bwd")
     before = _build.launch_counts()
     with pytest.MonkeyPatch.context() as m:
         m.setattr(cn, "channel_norm_lrelu_plain", spy)
@@ -326,7 +347,7 @@ def test_kernel_counters_per_iteration_at_256():
                                      ts.stack_draws([ts.draw_iteration(gen, cfg, "cpu")]), 0)
     after = _build.launch_counts()
     assert bool(torch.isfinite(losses).all())
-    assert [after[k] - before.get(k, 0) for k in keys] == [200, 100, 276, 228]
+    assert [after[k] - before.get(k, 0) for k in keys] == [200, 100, 276, 228, 408, 266]
     assert heights == {256, 128, 64, 32, 16}
 
 
@@ -346,6 +367,220 @@ def test_state_dict_keys_keep_the_published_names():
                 assert adam.mu[k].stride() == p.stride() == adam.nu[k].stride(), k
     for k, e in state.ema.items():
         assert e.stride() == dict(model.named_parameters())[k].stride(), k
+
+
+class _ParentR1Conv(torch.autograd.Function):
+    """The parent's ``_R1Conv``: the bias inside ``F.conv2d``, its gradient
+    ``g.sum((0, 2, 3))``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, padding):
+        ctx.save_for_backward(x, w)
+        ctx.padding, ctx.has_bias = padding, b is not None
+        return F.conv2d(x, w, b, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        p = ctx.padding
+        gw = torch.ops.aten.convolution_backward(g, x, w, None, [1, 1], [p, p], [1, 1], False, [0, 0], 1,
+                                                 [False, True, False])[1]
+        return F.conv_transpose2d(g, w, padding=p), gw, g.sum((0, 2, 3)) if ctx.has_bias else None, None
+
+
+def _parent_path(monkeypatch):
+    """The parent's arithmetic: each conv's bias inside the convolution (in
+    the input's dtype), a residual block's ``(sc + r) / sqrt(2)`` after it."""
+
+    def out(r, sc, s):
+        if sc is None:
+            return r
+        assert s == 1.0 / sm.SQRT2
+        return (sc + r) / sm.SQRT2
+
+    def conv(self, x, sc=None, s=1.0):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return out(F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding), sc, s)
+
+    def r1_conv(self, x, sc=None, s=1.0):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return out(_ParentR1Conv.apply(x, self.weight.to(x.dtype), b, self.padding[0]), sc, s)
+
+    monkeypatch.setattr(sm.Conv, "forward", conv)
+    monkeypatch.setattr(sm.R1Conv, "forward", r1_conv)
+
+
+@pytest.mark.parametrize("net", ["generator", "style_encoder", "discriminator", "r1"])
+def test_epilogue_route_equals_the_parent_arithmetic(net, monkeypatch):
+    """The same weights (biases drawn N(0, 0.1), so that each is added) and
+    inputs through the model's plain route and through the parent's
+    arithmetic, float32: the outputs within 1e-6 of their norm, every
+    parameter gradient within 1e-6 of its norm, or of the network's median
+    gradient norm where that is larger (a bias ahead of an instance norm
+    has a gradient of rounding noise in both). The two differ by a rounding
+    per conv (1/sqrt(2) multiplied in place of a division, the bias added
+    after the convolution's sum in place of inside it, a bias gradient
+    summed before the 1/sqrt(2) in place of after it). Measured over six
+    seeds, one thread: D's and R1's gradients under 4.7e-7; E's bias
+    gradients, sums of a thousand terms that cancel, up to 2.1e-6; G's
+    thirteen instance norms carry the roundings into its gradients at up to
+    4.9e-6. So E's are held to 5e-6 and G's to 1e-5."""
+    cfg = _tiny_cfg()
+    gen = torch.Generator().manual_seed(9)
+    model = sm.init_params(sm.StarGANv2(cfg), 4)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.normal_(0.0, 0.1, generator=gen)
+    x = torch.rand((4, 3, 32, 32), generator=gen) * 2 - 1
+    s, z = torch.randn((4, 16), generator=gen), torch.randn((4, 8), generator=gen)
+    y = torch.tensor([0, 2, 1, 2])
+    with monkeypatch.context() as m:
+        _parent_path(m)
+        want, want_net = _network_case(net, model, x, s, z, y)
+        w_grads = torch.autograd.grad(want, list(want_net.parameters()), torch.ones_like(want), allow_unused=True)
+    before = _build.launch_counts()["stargan_v2.conv_epilogue"]
+    got, got_net = _network_case(net, model, x, s, z, y)
+    assert _build.launch_counts()["stargan_v2.conv_epilogue"] > before
+    g_grads = torch.autograd.grad(got, list(got_net.parameters()), torch.ones_like(got), allow_unused=True)
+    assert float((got - want).detach().norm()) <= 1e-6 * float(want.detach().norm())
+    med = float(np.median([float(b.norm()) for b in w_grads if b is not None]))
+    tol = {"generator": 1e-5, "style_encoder": 5e-6}.get(net, 1e-6)
+    for (name, _), a, b in zip(got_net.named_parameters(), g_grads, w_grads):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert float((a - b).norm()) <= tol * max(float(b.norm()), med), name
+
+
+_EPILOGUE_FORMS = {"bias": (True, False, 1.0), "residual": (True, True, 1.0 / math.sqrt(2.0)),
+                   "scale": (False, False, 1.0 / math.sqrt(2.0))}
+
+
+@pytest.mark.parametrize("c", [3, 8])
+@pytest.mark.parametrize("form", list(_EPILOGUE_FORMS))
+def test_epilogue_functions_differentiate_to_any_order(form, c):
+    """The epilogue (``s * (y + b + sc)``: bias only, the residual form at
+    1/sqrt(2), the scale alone that a double backward calls) and its
+    backward Function, first and second derivatives against finite
+    differences in float64; the backward's own backward is the epilogue."""
+    has_b, has_sc, s = _EPILOGUE_FORMS[form]
+    gen = torch.Generator().manual_seed(c)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64).requires_grad_(True)
+
+    y, g = rand(2, c, 3, 4), rand(2, c, 3, 4)
+    b, sc = (rand(c) if has_b else None), (rand(2, c, 3, 4) if has_sc else None)
+    inputs = tuple(t for t in (y, b, sc) if t is not None)
+
+    def fwd(*ts):
+        it = iter(ts)
+        return ce.conv_epilogue(next(it), next(it) if has_b else None, next(it) if has_sc else None, s)
+
+    assert torch.autograd.gradcheck(fwd, inputs) and torch.autograd.gradgradcheck(fwd, inputs)
+    bwd = lambda t: ce.EpilogueBwd.apply(t, s)  # noqa: E731
+    assert torch.autograd.gradcheck(bwd, (g,)) and torch.autograd.gradgradcheck(bwd, (g,))
+    want = (y + (b[:, None, None] if has_b else 0) + (sc if has_sc else 0)) * s
+    torch.testing.assert_close(fwd(*inputs), want, rtol=1e-12, atol=1e-12)
+    gs, db = bwd(g)
+    torch.testing.assert_close(gs, g * s, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(db, g.sum((0, 2, 3)) * s, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("net,calls,residual", [("generator", 14, 6), ("style_encoder", 8, 3), ("discriminator", 9, 3),
+                                                ("r1", 9, 3)])
+def test_epilogue_calls_per_network_pass(net, calls, residual):
+    """At 32² (1 downsampling and 2 bottleneck blocks in G, 3 downsampling
+    blocks in E and D): every biased conv of a pass calls the epilogue once,
+    a residual block's second conv with its shortcut; its backward once
+    each. R1 (D's first backward with a graph, then its double backward)
+    adds one forward call per residual block, the 1/sqrt(2) of the
+    adjoint."""
+    cfg = _tiny_cfg()
+    model = sm.init_params(sm.StarGANv2(cfg), 3)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.rand((4, 3, 32, 32), generator=gen) * 2 - 1
+    s, z, y = torch.randn((4, 16), generator=gen), torch.randn((4, 8), generator=gen), torch.tensor([0, 2, 1, 2])
+    seen = []
+    plain = ce.conv_epilogue_plain
+
+    def spy(y_, b, sc, s_):
+        seen.append(sc is not None)
+        return plain(y_, b, sc, s_)
+
+    keys = ("stargan_v2.conv_epilogue", "stargan_v2.conv_epilogue_bwd")
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(ce, "conv_epilogue_plain", spy)
+        before = _build.launch_counts()
+        out, net_ = _network_case(net, model, x, s, z, y)
+        mid = _build.launch_counts()
+        assert (len(seen), sum(seen)) == (calls, residual)
+        torch.autograd.grad(out, list(net_.parameters()), torch.ones_like(out), allow_unused=True)
+        after = _build.launch_counts()
+    r1 = net == "r1"
+    assert [mid[k] - before[k] for k in keys] == [calls, calls if r1 else 0]
+    assert [after[k] - mid[k] for k in keys] == [residual if r1 else 0, 0 if r1 else calls]
+
+
+def test_epilogue_shapes_at_full_width():
+    """The (C, H) of every biased conv's output in G, E and D at the
+    benchmark's configuration (run on the meta device, plain versions):
+    ``EPILOGUE_SHAPES``, which the card tests run the kernels at; a residual
+    form at each map of 4² to 256² but for the 3 channels of to_rgb and the
+    512 of the 4x4 conv's output."""
+    cfg = _cell_cfg()
+    with torch.device("meta"):
+        model = sm.StarGANv2(cfg)
+    seen = set()
+    plain = ce.conv_epilogue_plain
+
+    def spy(y, b, sc, s):
+        seen.add((y.shape[1], y.shape[2], sc is not None))
+        return plain(y, b, sc, s)
+
+    x = torch.empty((2, 3, 256, 256), device="meta")
+    y = torch.zeros(2, dtype=torch.long, device="meta")
+    with pytest.MonkeyPatch.context() as m, _build.plain_versions():
+        m.setattr(ce, "conv_epilogue_plain", spy)
+        model.generator(x, torch.empty((2, cfg.style_dim), device="meta"))
+        model.style_encoder(x, y)
+        model.discriminator(x, y)
+    assert {(c, h) for c, h, _ in seen} == set(EPILOGUE_SHAPES)
+    assert {(c, h) for c, h, res in seen if res} == {(64, 256), (128, 128), (256, 64), (512, 32), (512, 16),
+                                                     (512, 8), (512, 4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,h", EPILOGUE_SHAPES)
+def test_epilogue_plan_covers_every_row(c, h, dtype):
+    """The backward's column sum at batch 8 on the H100's 132 SMs: each
+    split takes ``chunk`` rows, the last the rest; a launch has at most 4
+    blocks an SM, each thread adding 4 rows or more, so that a map of 4
+    rows a thread or fewer (bf16 at 4² and below) takes one split, one
+    launch."""
+    vec = 16 // torch.tensor([], dtype=dtype).element_size() if c % 8 == 0 else 1
+    rows = 8 * h * h
+    splits, chunk = ce.plan(rows, c, vec, 132)
+    assert (splits - 1) * chunk < rows <= splits * chunk
+    per_pass = 256 // -(-min(64, c) // vec)
+    assert splits * -(-c // 64) <= 4 * 132 + -(-c // 64)
+    assert splits == 1 or chunk >= 4 * per_pass
+    if rows <= 4 * per_pass:
+        assert splits == 1
+    if dtype == torch.bfloat16 and h <= 4:
+        assert splits == 1
+
+
+def test_epilogue_wrappers_refuse_what_the_kernels_do_not_take():
+    y = torch.randn((2, 8, 4, 4)).contiguous(memory_format=CL)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ce.conv_epilogue_fwd(y.to("meta"), None, None, 1.0)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ce.conv_epilogue_bwd(y.to("meta"), 1.0)
+    assert ce._vec(y) and ce._vec(y.to(torch.bfloat16))
+    assert not ce._vec(torch.randn((2, 12, 4, 4)).to(torch.bfloat16).contiguous(memory_format=CL))
+    assert not ce._vec(torch.randn((2, 3, 4, 4)).contiguous(memory_format=CL))
+    assert not ce._vec(y, torch.randn(9)[1:])  # a pointer off 16 bytes
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +723,84 @@ def test_graph_replays_equal_eager_bit_for_bit(card):
         assert all(torch.equal(a, b) for a, b in zip(captured, eager))
 
 
+def _epilogue_case(c, h, dtype, card, seed, residual):
+    """(y, b, sc, g, s) at batch 8: the residual form (sc, 1/sqrt(2)) or the bias alone."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand():
+        return torch.randn((8, c, h, h), generator=gen).to(card, dtype).contiguous(memory_format=CL)
+
+    y, g = rand(), rand()
+    sc = rand() if residual else None
+    b = torch.randn(c, generator=gen).to(card)
+    return y, b, sc, g, (1.0 / math.sqrt(2.0) if residual else 1.0)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("form", ["bias", "residual"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,h", EPILOGUE_SHAPES)
+def test_epilogue_kernels_equal_the_plain_version(card, c, h, dtype, form):
+    """The forward and the backward at the (C, H) of every biased conv of
+    the cell's iteration (16-byte vectors, and one element a thread at 3
+    channels), batch 8: the output within one rounding of x's dtype of the
+    plain version's (both round one f32 value; printed whether equal), s g
+    equal to it; db within 1e-5 of float64's column sum, the same bits in
+    two calls."""
+    y, b, sc, g, s = _epilogue_case(c, h, dtype, card, c + h, form == "residual")
+    out, want = ce.conv_epilogue_fwd(y, b, sc, s), ce.conv_epilogue_plain(y, b, sc, s)
+    (gs, db), (gs2, db2) = ce.conv_epilogue_bwd(g, s), ce.conv_epilogue_bwd(g, s)
+    gsp, _ = ce.conv_epilogue_bwd_plain(g, s)
+    db64 = g.double().sum((0, 2, 3)) * s
+    torch.cuda.synchronize(card)
+    assert out.is_contiguous(memory_format=CL) and gs.is_contiguous(memory_format=CL)
+    assert (gs is g) == (s == 1.0) and torch.equal(gs, gsp)
+    errs = {"out": _max_rel(out, want), "db": _max_rel(db, db64)}
+    print(f"(C, H) = ({c}, {h}) {dtype} {form}: out {errs['out']:.2e} (equal {torch.equal(out, want)}), "
+          f"db {errs['db']:.2e}, splits {ce.plan(8 * h * h, c, 16 // y.element_size() if c % 8 == 0 else 1, 132)}")
+    assert errs["out"] <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-6)
+    assert db.dtype == torch.float32 and errs["db"] <= 1e-5 and torch.equal(db, db2)
+
+
+@pytest.mark.card
+def test_epilogue_refuses_a_map_that_is_not_channels_last(card):
+    """On the card the epilogue reads NHWC y and sc or raises: no copy, no fallback."""
+    y, b, sc, g, s = _epilogue_case(64, 16, torch.bfloat16, card, 3, True)
+    with pytest.raises(ValueError, match="channels-last"):
+        ce.conv_epilogue(y.contiguous(), b)
+    with pytest.raises(ValueError, match="channels-last"):
+        ce.conv_epilogue(y, b, sc.contiguous(), s)
+
+
+@pytest.mark.card
+def test_epilogue_graph_replays_equal_eager_bit_for_bit(card):
+    """The residual epilogue, its backward and its double backward (as R1
+    runs it) captured in a CUDA graph: each replay equals the eager call bit
+    for bit (fixed-order column sums)."""
+    y, b, sc, g, s = _epilogue_case(128, 64, torch.bfloat16, card, 5, True)
+
+    def run():
+        yi, bi, si, gi = (t.detach().requires_grad_(True) for t in (y, b, sc, g))
+        out = ce.conv_epilogue(yi, bi, si, s)
+        gy, gb = torch.autograd.grad(out, (yi, bi), gi, create_graph=True)
+        (ggi,) = torch.autograd.grad(gy.float().square().sum() + gb.square().sum(), gi)
+        return out, gy, gb, ggi
+
+    eager = run()
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream(card).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize(card)
+        assert all(torch.equal(a, e) for a, e in zip(captured, eager))
+
+
 def _cell_cfg() -> Config:
     with open(os.path.join(ROOT, "benchmark", "configs", "stargan-v2-afhq-256.json")) as f:
         d = json.load(f)
@@ -511,8 +824,10 @@ def test_stargan_iteration_is_channels_last_on_the_card(card, tmp_path):
     """One eager iteration of the benchmark's configuration (AFHQ 256²,
     batch 8, bf16) under the profiler, after one that meets every first use:
     cuDNN's layout transposes only around the 3-channel and 4x4 convs,
-    listed with their ms; the norm counters at 200 forward and 100 backward;
-    Adam's updates in ``multi_tensor_apply`` kernels."""
+    listed with their ms; the norm counters at 200 forward and 100 backward,
+    the epilogue's at 408 and 266, and no ``aten::sum`` over a 4-D map (the
+    bias gradients are the epilogue's); Adam's updates in
+    ``multi_tensor_apply`` kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from littlegan_tpu_torch.data.domains import BalancedSampler
@@ -538,8 +853,10 @@ def test_stargan_iteration_is_channels_last_on_the_card(card, tmp_path):
         torch.cuda.synchronize(card)
     after = _build.launch_counts()
     assert bool(torch.isfinite(losses).all())
-    counts = {k: after[k] - before.get(k, 0) for k in ("stargan_v2.channel_norm", "stargan_v2.channel_norm_bwd")}
-    assert counts == {"stargan_v2.channel_norm": 200, "stargan_v2.channel_norm_bwd": 100}, counts
+    want = {"stargan_v2.channel_norm": 200, "stargan_v2.channel_norm_bwd": 100, "stargan_v2.conv_epilogue": 408,
+            "stargan_v2.conv_epilogue_bwd": 266}
+    counts = {k: after[k] - before.get(k, 0) for k in want}
+    assert counts == want, counts
 
     path = str(tmp_path / "trace.json")
     prof.export_chrome_trace(path)
@@ -574,6 +891,10 @@ def test_stargan_iteration_is_channels_last_on_the_card(card, tmp_path):
     print(f"norm kernels {norm_ms:.3f} ms; multi_tensor_apply {len(adam)} kernels "
           f"{sum(k['dur'] for k in adam) / 1e3:.3f} ms; all kernels {sum(k['dur'] for k in kernels) / 1e3:.3f} ms")
     assert norm_ms > 0 and len(adam) >= 6
+    # every conv bias gradient is the epilogue's column sum: no aten::sum over a map
+    map_sums = [e for e in events if e.get("cat") == "cpu_op" and e["name"] == "aten::sum"
+                and len((e.get("args", {}).get("Input Dims") or [[]])[0]) == 4]
+    assert not map_sums, [e["args"]["Input Dims"] for e in map_sums[:5]]
     for opt in state.OPTS:
         adam_state = getattr(state, opt)
         for name, p in state.model.named_parameters():
