@@ -206,7 +206,13 @@ Phases, each of which fails the run on any error:
       (``instance_norm``, the affine and ``leaky_relu`` over NCHW;
       ``avg_pool2d`` and ``interpolate`` over NHWC and NCHW; the parent's
       bias ``add_``, residual add and division, ``aten::sum``), and summed
-      over the iteration's calls. Each phase's wall after (o).
+      over the iteration's calls;
+  (p) StyleGAN2's FIR resampling (``csrc/upfirdn2d.cu``, S4) at every
+      shape of the ``stylegan2-ffhq-256`` cell's iteration (``SG2_FIR``,
+      batch 64, channels-last), forward form and adjoint, against its plain
+      version (``SG2_ROUNDING`` in bf16, ``SG2_F32_REL`` in float32), timed
+      beside its bytes' bound, its plain version and a depthwise
+      ``F.conv2d`` over the same padded map. Each phase's wall after (p).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -4311,6 +4317,78 @@ def summarize_stargan(counters, record):
     return [norm, resample, epilogue]
 
 
+
+# StyleGAN2's FIR resampling (S4) at the shapes of the stylegan2-ffhq-256 cell: (what, (up, down, p0, gain),
+# channels, side of the input, dtype) at batch SG2_BATCH, each in the forward form and its adjoint
+SG2_BATCH = 64
+SG2_CH = {r: min(16384 // r, 512) for r in (4, 8, 16, 32, 64, 128, 256)}
+SG2_FIR = ([("G conv0", (1, 1, 1, 1, 4.0), SG2_CH[r], 2 * r + 1, "bfloat16") for r in (8, 16, 32, 64, 128, 256)]
+           + [("G image", (2, 1, 2, 1, 4.0), 3, r // 2, "float32") for r in (8, 16, 32, 64, 128, 256)]
+           + [("D conv1", (1, 1, 2, 2, 1.0), SG2_CH[r], r, "bfloat16") for r in (256, 128, 64, 32, 16, 8)]
+           + [("D skip", (1, 2, 1, 1, 1.0), SG2_CH[r], r, "bfloat16") for r in (256, 128, 64, 32, 16, 8)])
+SG2_ROUNDING = 2.0 ** -8  # bf16: one rounding of the f32 sum, relative to the largest output
+SG2_F32_REL = 1e-5  # f32: sums of 16 terms in another order
+
+
+def check_stylegan2():
+    """Phase (p): S4 (``ops/cuda/upfirdn2d.py``) against its plain version
+    at every shape of the StyleGAN2 cell's iteration (batch 64, channels-last;
+    the image in float32, the maps in bf16), forward form and adjoint, with
+    its time (graph replays), its bound (input and output bytes at 3.35
+    TB/s), the plain version's and a ``F.conv2d`` depthwise conv's over the
+    same padded map (the library yardstick). Returns the rows; raises on a
+    miss."""
+    import torch
+    import torch.nn.functional as F
+
+    from littlegan_tpu_torch.ops.cuda import upfirdn2d as fir
+
+    dev = torch.device("cuda", 0)
+    rows, failures = [], []
+    for what, (up, down, p0, p1, gain), c, h, dtype in SG2_FIR:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device=dev).manual_seed(c * 1000 + h)
+        x = torch.randn((SG2_BATCH, c, h, h), generator=gen, device=dev).to(dt).contiguous(
+            memory_format=torch.channels_last)
+        oh = fir.out_size(h, up, down, p0, p1)
+        for form, (u, d, q, n_in, n_out) in (("fwd", (up, down, p0, h, oh)), ("adj", (down, up, 3 - p0, oh, h))):
+            xi = x if form == "fwd" else torch.randn((SG2_BATCH, c, n_in, n_in), generator=gen, device=dev).to(
+                dt).contiguous(memory_format=torch.channels_last)
+            got = fir.upfirdn2d_kernel(xi, u, d, q, n_out, n_out, gain)
+            want = fir.upfirdn2d_plain(xi, u, d, q, n_out, n_out, gain)
+            torch.cuda.synchronize(dev)
+            scale = float(want.float().abs().max())
+            err = _max_err(got, want) / max(scale, 1e-30)
+            tol = SG2_ROUNDING if dt == torch.bfloat16 else SG2_F32_REL
+            if not err <= tol:
+                failures.append(f"{what} {form} C {c} H {h} {dtype}: error {err:.3g} > {tol:.3g}")
+            nbytes = (xi.numel() + got.numel()) * xi.element_size()
+            taps = 4 if u == 2 else 16
+            b_ms, _ = bound(nbytes, 2.0 * taps * got.numel(), "bfloat16")
+            k_ms = time_ms(lambda: fir.upfirdn2d_kernel(xi, u, d, q, n_out, n_out, gain))
+            p_ms = time_ms(lambda: fir.upfirdn2d_plain(xi, u, d, q, n_out, n_out, gain), reps=5)
+            xz = xi
+            if u == 2:
+                xz = torch.zeros((SG2_BATCH, c, 2 * n_in, 2 * n_in), dtype=dt, device=dev).contiguous(
+                    memory_format=torch.channels_last)
+                xz[:, :, ::2, ::2] = xi
+            pad = (n_out - 1) * d + 4 - xz.shape[2] - q
+            xp = F.pad(xz, [q, pad, q, pad]).contiguous(memory_format=torch.channels_last)
+            f = torch.tensor([1.0, 3.0, 3.0, 1.0], device=dev) / 8
+            wf = (f[:, None] * f[None, :] * gain).to(dt).expand(c, 1, 4, 4).contiguous()
+            l_ms = time_ms(lambda: F.conv2d(xp, wf, stride=d, groups=c), reps=5)
+            rows.append({"what": what, "form": form, "C": c, "H_in": n_in, "H_out": n_out, "dtype": dtype,
+                         "kernel_ms": k_ms, "bound_ms": b_ms, "share": b_ms / k_ms, "plain_ms": p_ms,
+                         "conv2d_ms": l_ms, "max_rel_err": err})
+            log(f"  S4 {what} {form} C {c} H {n_in}->{n_out} {dtype}: {k_ms:.4f} ms, bound {b_ms:.4f} "
+                f"({100 * b_ms / k_ms:.0f}%), plain {p_ms:.4f}, F.conv2d {l_ms:.4f}, error {err:.2g}")
+            del xi, got, want, xz, xp
+        del x
+        torch.cuda.empty_cache()
+    require(not failures, "; ".join(failures))
+    return rows
+
+
 def _free_port() -> int:
     import socket
 
@@ -4469,13 +4547,17 @@ def main() -> int:
     log("entry points record: " + json.dumps(entry))
     walls["n"], t0 = time.time() - t0, time.time()
     stargan_calls, stargan = check_stargan_v2()
-    walls["o"] = time.time() - t0
+    walls["o"], t0 = time.time() - t0, time.time()
+    stylegan2 = check_stylegan2()
+    walls["p"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
                                          eval_launches, remat_launches, s2d_launches, dp_launches,
                                          compat_launches, spatial_launches, parity_launches, coverage,
                                          tools_launches, entry_launches)
-                                 + summarize_stargan(stargan_calls, stargan)}))
+                                 + summarize_stargan(stargan_calls, stargan)
+                                 + [{"kernel": "upfirdn2d", "per": "S4 launch at the StyleGAN2 cell's shapes",
+                                     "shapes": stylegan2}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -95,7 +95,14 @@ def parse_config(argv: Optional[Sequence[str]] = None) -> Config:
 
 def make_dataset(cfg: Config):
     """Synthetic data only on request; else CelebA from ``image_path``, or
-    for StarGAN v2 its domain folders (``data/domains.py``)."""
+    for StarGAN v2 its domain folders (``data/domains.py``), for StyleGAN2
+    every image under it (``data/image_folder.py``)."""
+    if cfg.model == "stylegan2":
+        from littlegan_tpu_torch.data.image_folder import ImageFolder, SyntheticImages
+
+        if cfg.extra.get("synthetic_data"):
+            return SyntheticImages(cfg, max(4 * cfg.batch_size, 64))
+        return ImageFolder(cfg)
     if cfg.model == "stargan_v2":
         from littlegan_tpu_torch.data.domains import DomainFolder, SyntheticDomains
 
@@ -289,8 +296,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"--devices {devices}: this host has {torch.cuda.device_count()} visible CUDA card(s)",
                   file=sys.stderr)
             return 2
-    if cfg.model == "stargan_v2" and cfg.mode != "train":
-        print(f"{cfg.mode}: model stargan_v2 runs only in train mode (its sampling, evaluation, export and "
+    if cfg.model in ("stargan_v2", "stylegan2") and cfg.mode != "train":
+        print(f"{cfg.mode}: model {cfg.model} runs only in train mode (its sampling, evaluation, export and "
               "serving are not built)", file=sys.stderr)
         return 2
     print("Application Params:", json.dumps(cfg.to_json_dict(), default=str)[:500])

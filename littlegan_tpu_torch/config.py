@@ -140,10 +140,13 @@ class Config:
     eval_data_parallel: bool = True
     tb_images: bool = True
 
-    # --- the port's own: which model, and StarGAN v2's settings (defaults:
-    # the published main.py's); the JAX package has none of them ---
-    # "littlegan" (the reference's model) or "stargan_v2" (StarGAN v2,
-    # models/stargan_v2.py, trained by training/stargan_v2_trainer.py)
+    # --- the port's own: which model, and StarGAN v2's and StyleGAN2's
+    # settings (defaults: the published ones); the JAX package has none of
+    # them ---
+    # "littlegan" (the reference's model), "stargan_v2" (StarGAN v2,
+    # models/stargan_v2.py, trained by training/stargan_v2_trainer.py) or
+    # "stylegan2" (StyleGAN2, models/stylegan2.py, trained by
+    # training/stylegan2_trainer.py)
     model: str = "littlegan"
     num_domains: int = 2
     latent_dim: int = 16
@@ -159,6 +162,17 @@ class Config:
     f_lr: float = 1e-6  # the mapping network's learning rate
     weight_decay: float = 1e-4  # torch.optim.Adam's L2 form
     randcrop_prob: float = 0.5
+    # StyleGAN2 (NVlabs/stylegan2-ada-pytorch, train.py's paper256 spec and
+    # training/networks.py, loss.py, training_loop.py); lr, beta_1, beta_2
+    # and batch_size are the shared fields (paper256: 0.0025, 0, 0.99, 64)
+    channel_base: int = 16384  # a resolution's width: min(channel_base // res, channel_max)
+    channel_max: int = 512
+    z_dim: int = 512
+    w_dim: int = 512
+    mapping_layers: int = 8
+    mbstd_group: int = 8
+    g_reg_interval: int = 4
+    d_reg_interval: int = 16
 
     # unknown keys from user env files are preserved here for provenance
     extra: Dict[str, Any] = field(default_factory=dict)
@@ -201,7 +215,8 @@ _FIELD_NAMES = {f.name for f in dataclasses.fields(Config)}
 # the fields the JAX package's Config lacks
 PORT_ONLY_FIELDS = ("model", "num_domains", "latent_dim", "style_dim", "mapping_dim", "max_conv_dim", "base_dim",
                     "lambda_reg", "lambda_sty", "lambda_ds", "lambda_cyc", "ds_iter", "f_lr", "weight_decay",
-                    "randcrop_prob")
+                    "randcrop_prob", "channel_base", "channel_max", "z_dim", "w_dim", "mapping_layers",
+                    "mbstd_group", "g_reg_interval", "d_reg_interval")
 _DERIVED = {"cond_dim", "result_dir", "prefetch"}
 
 

@@ -52,17 +52,23 @@ class DomainFolder:
 
     def load(self) -> Tuple[np.ndarray, np.ndarray]:
         """(images (N, H, W, 3) uint8, labels (N,) int64), every image decoded once."""
-        from PIL import Image
+        return decode([path for path, _ in self.files], self.cfg.image_dim), np.array([y for _, y in self.files],
+                                                                                      np.int64)
 
-        d = self.cfg.image_dim
-        images = np.empty((len(self.files), d, d, 3), np.uint8)
-        for i, (path, _) in enumerate(self.files):
-            with Image.open(path) as im:
-                im = im.convert("RGB")
-                if im.size != (d, d):
-                    im = im.resize((d, d), Image.BILINEAR)
-                images[i] = np.asarray(im)
-        return images, np.array([y for _, y in self.files], np.int64)
+
+def decode(paths: List[str], d: int) -> np.ndarray:
+    """(N, d, d, 3) uint8: each image decoded once as RGB, resized to d square
+    with PIL's bilinear filter where it is not."""
+    from PIL import Image
+
+    images = np.empty((len(paths), d, d, 3), np.uint8)
+    for i, path in enumerate(paths):
+        with Image.open(path) as im:
+            im = im.convert("RGB")
+            if im.size != (d, d):
+                im = im.resize((d, d), Image.BILINEAR)
+            images[i] = np.asarray(im)
+    return images
 
 
 class SyntheticDomains:

@@ -29,10 +29,10 @@ float32 column sum. Every norm is followed by a LeakyReLU, and the two run
 as one call of ``ops/cuda/channel_norm_lrelu.py``'s per-(sample, channel)
 instance norm (eps 1e-5) + LeakyReLU: a CUDA kernel on the card, its plain
 version on the CPU. Resampling is ``ops/resample.py``'s (a CUDA kernel on
-the card too). The discriminator's convs and LeakyReLUs are :class:`R1Conv` and :func:`r1_leaky_relu`: the same
-arithmetic, with backwards that R1's double backward differentiates in
-cuDNN's first-order kernels and that send nothing back into the forward's
-graph.
+the card too). The discriminator's convs and LeakyReLUs are :class:`R1Conv` and
+``ops/gradfix.py``'s :func:`r1_leaky_relu`: the same arithmetic, with
+backwards that R1's double backward differentiates in cuDNN's first-order
+kernels and that send nothing back into the forward's graph.
 
 Parameters are float32; every network takes (B, 3, H, W) images, casts
 them to ``cfg.compute_dtype`` in channels-last memory (:data:`LAYOUT`) and
@@ -64,6 +64,8 @@ from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.ops.cuda._build import LaunchCounter
 from littlegan_tpu_torch.ops.cuda.channel_norm_lrelu import channel_norm_lrelu
 from littlegan_tpu_torch.ops.cuda.conv_epilogue import conv_epilogue
+from littlegan_tpu_torch.ops.gradfix import R1Conv as _R1Conv
+from littlegan_tpu_torch.ops.gradfix import r1_leaky_relu
 from littlegan_tpu_torch.ops.resample import downsample, upsample
 
 CALLS = {name: LaunchCounter(f"stargan_v2.{name}")
@@ -116,62 +118,12 @@ class Conv(nn.Conv2d):
         return y if self.bias is None else conv_epilogue(y, self.bias, sc, s)
 
 
-class _R1Conv(torch.autograd.Function):
-    """A stride-1 ``conv2d`` without bias whose backward is written in
-    differentiable ops: the input's gradient as ``conv_transpose2d(g, w)``,
-    a function of the gradient and the weight alone. R1's double backward
-    then runs as that transposed conv's first-order backward (cuDNN's data
-    and filter gradients); PyTorch's own double backward of a conv takes the
-    weight's part as a convolution with a filter the size of the image, and
-    sends a gradient of zeros back through the forward's graph."""
-
-    @staticmethod
-    def forward(ctx, x, w, padding: int):
-        ctx.save_for_backward(x, w)
-        ctx.padding = padding
-        return F.conv2d(x, w, padding=padding)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        p = ctx.padding
-        gx = F.conv_transpose2d(g, w, padding=p) if ctx.needs_input_grad[0] else None
-        gw = None
-        if ctx.needs_input_grad[1]:
-            gw = torch.ops.aten.convolution_backward(g, x, w, None, [1, 1], [p, p], [1, 1], False, [0, 0], 1,
-                                                     [False, True, False])[1]
-        return gx, gw, None
-
-
 class R1Conv(Conv):
-    """The discriminator's convs (stride 1): :class:`_R1Conv`, then the
+    """The discriminator's convs (stride 1): ``ops/gradfix.py``'s :class:`R1Conv`, then the
     epilogue (whose backward, and its backward, are kernels too)."""
 
     def conv(self, x):
         return _R1Conv.apply(x, self.weight.to(x.dtype), self.padding[0])
-
-
-class _R1LeakyReLU(torch.autograd.Function):
-    """LeakyReLU whose backward, ``where(y > 0, g, alpha g)``, is a function
-    of the gradient alone (the sign is a constant): its double backward
-    sends nothing back into the forward's graph, where PyTorch's sends a
-    gradient of zeros."""
-
-    @staticmethod
-    def forward(ctx, x, alpha: float):
-        y = F.leaky_relu(x, alpha)
-        ctx.save_for_backward(y)
-        ctx.alpha = alpha
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        (y,) = ctx.saved_tensors
-        return torch.where(y > 0, g, g * ctx.alpha), None
-
-
-def r1_leaky_relu(x, alpha: float):
-    return _R1LeakyReLU.apply(x, alpha)
 
 
 class R1LeakyReLU(nn.LeakyReLU):

@@ -36,7 +36,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("norm_lrelu.cu", "norm_lrelu_bwd.cu", "boundary_conv.cu", "boundary_conv_bwd.cu", "channel_norm_lrelu.cu",
-           "resample.cu", "conv_epilogue.cu")
+           "resample.cu", "conv_epilogue.cu", "upfirdn2d.cu")
 HEADERS = ("norm_map.cuh", "vec_io.cuh")  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -69,6 +69,7 @@ _SIGNATURES = {
     "lg_resample2": (_I, _I, _I, _P, _P, _I64, _I, _I, _I, _F, _P),
     "lg_conv_epilogue": (_I, _I, _P, _P, _P, _P, _I64, _I, _F, _P),
     "lg_conv_epilogue_bwd": (_I, _I, _P, _P, _P, _P, _I64, _I, _I, _I64, _F, _P),
+    "lg_upfirdn2d": (_I, _I, _I, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -15,6 +15,11 @@ G and D use Adam(lr, beta_1, beta_2); the adjuster's Adam the default betas
 its four networks, one ``torch.optim.Adam``-form state per network
 (``opt_g``, ``opt_f``, ``opt_e``, ``opt_d``) and the EMA of G, F and E.
 Each state's ``OPTS`` names its Adams, in the order checkpoints store them.
+
+:class:`StyleGAN2State` is StyleGAN2's (``Config.model = "stylegan2"``):
+G and D, one ``torch.optim.Adam``-form state each (``opt_g``, ``opt_d``),
+the EMA of G's parameters and of its ``w_avg`` buffer, and ``pl_mean``,
+the path-length penalty's running mean.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 
 from littlegan_tpu_torch.config import Config
-from littlegan_tpu_torch.models import stargan_v2
+from littlegan_tpu_torch.models import stargan_v2, stylegan2
 from littlegan_tpu_torch.models.littlegan import LittleGAN, init_params
 from littlegan_tpu_torch.training.optimizer import AdamState, adam_init
 
@@ -117,3 +122,28 @@ def create_stargan_state(cfg: Config, device=None, model: Optional[stargan_v2.St
     if cfg.ema_decay > 0:
         ema = {k: p.detach().clone() for k, p in subtree(model, ("generator", "mapping_network", "style_encoder")).items()}
     return StarGANState(model=model, ema=ema, **opts)
+
+
+class StyleGAN2State(NamedTuple):
+    OPTS = ("opt_g", "opt_d")
+    model: stylegan2.StyleGAN2
+    opt_g: AdamState
+    opt_d: AdamState
+    pl_mean: torch.Tensor  # () float32
+    ema: Dict[str, torch.Tensor]  # G's parameters and w_avg
+
+
+def create_stylegan2_state(cfg: Config, device=None, model: Optional[stylegan2.StyleGAN2] = None) -> StyleGAN2State:
+    """A fresh StyleGAN2 state on ``device``: ``model`` if given, else the
+    published init from ``cfg.seed``; zero float32 moments and counts,
+    ``pl_mean`` 0; the EMA a copy of G's weights and ``w_avg``."""
+    check_state_config(cfg)
+    if cfg.moment_dtype != "float32":
+        raise ValueError("stylegan2 keeps float32 moments (moment_dtype float32), as torch.optim.Adam does")
+    if model is None:
+        model = stylegan2.init_params(stylegan2.StyleGAN2(cfg), cfg.seed)
+    model = model.to(device)
+    ema = {k: p.detach().clone() for k, p in subtree(model, ("G",)).items()}
+    ema["G.mapping.w_avg"] = model.G.mapping.w_avg.detach().clone()
+    return StyleGAN2State(model=model, opt_g=adam_init(subtree(model, ("G",))), opt_d=adam_init(subtree(model, ("D",))),
+                          pl_mean=torch.zeros((), device=model.G.mapping.w_avg.device), ema=ema)
