@@ -212,7 +212,19 @@ Phases, each of which fails the run on any error:
       batch 64, channels-last), forward form and adjoint, against its plain
       version (``SG2_ROUNDING`` in bf16, ``SG2_F32_REL`` in float32), timed
       beside its bytes' bound, its plain version and a depthwise
-      ``F.conv2d`` over the same padded map. Each phase's wall after (p).
+      ``F.conv2d`` over the same padded map;
+  (q) StyleGAN2's layer epilogue (``csrc/bias_act.cu``, S5) as the
+      ``stylegan2-ffhq-256`` cell's iteration runs it: one lazy period (16
+      eager iterations at batch 64, path length on 4, R1 on 1) with S5's
+      calls recorded by kind and shape and its three launch counters read
+      (``SG2_S5_LAUNCHES`` per period), one profiled iteration that must
+      launch S5's kernels, as many as its counters count, and no S3 kernel;
+      then at every recorded shape the kernel against its
+      plain version (``SG2_ROUNDING`` of each element in bf16, one float32
+      rounding in float32; the sums to ``SG2_S5_SUM_REL`` of their
+      magnitudes), timed beside its bytes' bound, its plain version and the
+      PyTorch ops the model ran before S5 (forward and backward), and the
+      sums over an iteration. Each phase's wall after (q).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -4389,6 +4401,278 @@ def check_stylegan2():
     return rows
 
 
+# S5's launches in one lazy period of the stylegan2-ffhq-256 cell (16 iterations; a G pass runs 20 epilogues,
+# 13 modulated layers and 7 ToRGBs, a D pass 14): every iteration 2 G and 3 D passes forward, 1 G and 3 D
+# backward; path length (4 of 16) one G pass and its backward, 13 backwards more and 13 second orders (ToRGB's
+# 7 have no output and launch nothing) in its double backward; R1 (1 of 16) one D pass and its backward, 13
+# backwards more and 14 second orders (tests/test_torch_stylegan2_bias_act.py counts the calls on the CPU)
+SG2_S5_LAUNCHES = {"stylegan2.bias_act": 16 * 82 + 4 * 20 + 14, "stylegan2.bias_act_bwd": 16 * 62 + 4 * 33 + 27,
+                   "stylegan2.bias_act_bwd2": 4 * 13 + 14}
+SG2_S5_KERNEL_OF = {"stylegan2.bias_act": "bias_act_kernel", "stylegan2.bias_act_bwd": "bias_act_bwd_kernel",
+                    "stylegan2.bias_act_bwd2": "bias_act_bwd2_kernel"}
+SG2_S5_SUM_REL = 1e-5  # f32 sums in another order, relative to the sum of the terms' magnitudes
+SG2_S3_KERNELS = {"epilogue_kernel", "epilogue_colsum_kernel", "epilogue_colsum_total_kernel"}
+
+
+def _sg2_period_calls():
+    """One lazy period of the benchmark's StyleGAN2 configuration (16 eager
+    iterations after one that meets every first use), with S5's three
+    kernel wrappers recording each call's (kind, dtype, C, H, d, noise,
+    slopes, wanted outputs) and the ``stylegan2.bias_act*`` launch counters
+    reset just before; then one profiled iteration with both penalties.
+    Returns (counters over the period, calls, the kernels the profile saw
+    launched by name, the counters over the profiled iteration)."""
+    import collections
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from littlegan_tpu_torch.config import Config
+    from littlegan_tpu_torch.models import stylegan2 as sm
+    from littlegan_tpu_torch.ops.cuda import _build
+    from littlegan_tpu_torch.ops.cuda import bias_act as ba
+    from littlegan_tpu_torch.training import stylegan2 as ts
+    from littlegan_tpu_torch.training.state import create_stylegan2_state
+
+    dev = torch.device("cuda")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
+                           "stylegan2-ffhq-256.json")) as f:
+        published = json.load(f)
+    fields = {f.name for f in dataclasses.fields(Config)}
+    cfg = Config(**{k: v for k, v in published.items() if k in fields}).replace(device_data=True)
+    state = create_stylegan2_state(cfg, dev, sm.init_params(sm.StyleGAN2(cfg), 0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n_store = 2 * cfg.batch_size
+    images = torch.randint(0, 256, (n_store, cfg.image_dim, cfg.image_dim, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+
+    def period(it0, n):
+        draws = ts.stack_draws([ts.draw_iteration(gen, cfg, dev, i, n_store) for i in range(it0, it0 + n)])
+        return ts.eager_iterations(state, cfg, images, draws, it0)
+
+    period(0, 1)
+    torch.cuda.synchronize()
+    calls = collections.Counter()
+    kept = {name: getattr(ba, name) for name in ("bias_act_kernel", "bias_act_bwd_kernel", "bias_act_bwd2_kernel")}
+
+    def spy(name):
+        fn = kept[name]
+
+        def call(*a):
+            if name == "bias_act_kernel":
+                y, d, noise, _, _, k = a
+                wants = ()
+            elif name == "bias_act_bwd_kernel":
+                _, y, d, noise, _, _, k, *wants = a
+            else:
+                _, y, d, noise, _, _, k, ggy, ggd, ggb, ggns, *wants = a
+                wants = (ggy is not None, ggd is not None, ggb is not None, ggns is not None, *wants)
+            calls[(name, str(y.dtype).split(".")[-1], y.shape[1], y.shape[2], d is not None, noise is not None,
+                   tuple(k), tuple(bool(w) for w in wants))] += 1
+            return fn(*a)
+        return call
+
+    for name in kept:
+        setattr(ba, name, spy(name))
+    try:
+        for name in SG2_S5_LAUNCHES:
+            _build.COUNTERS[name].reset()
+        s3 = {n: _build.COUNTERS[n].value for n in ("stargan_v2.conv_epilogue", "stargan_v2.conv_epilogue_bwd")}
+        terms = period(16, 16)
+        torch.cuda.synchronize()
+        counters = {name: _build.COUNTERS[name].value for name in SG2_S5_LAUNCHES}
+        counters.update({n: _build.COUNTERS[n].value - v for n, v in s3.items()})
+    finally:
+        for name, fn in kept.items():
+            setattr(ba, name, fn)
+    require(bool(torch.isfinite(terms).all()), "S5 period: a loss term is not finite")
+    for name in SG2_S5_LAUNCHES:
+        _build.COUNTERS[name].reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        period(32, 1)
+        torch.cuda.synchronize()
+    profiled = {name: _build.COUNTERS[name].value for name in SG2_S5_LAUNCHES}
+    launched = collections.Counter()
+    for e in device_events(prof):
+        m = re.search(r"::(\w+)[<(]", e.key)
+        if m is not None:
+            launched[m.group(1)] += e.count
+    del state, images
+    torch.cuda.empty_cache()
+    return counters, calls, dict(launched), profiled
+
+
+def _s5_composite(y, d, noise, ns, b, k, act):
+    """The model's epilogue before S5, forward and backward, as the ops it
+    ran (``y * d``, the noise's add, S3's bias, ``leaky_relu``, the gain,
+    ``clamp``; their backwards as autograd ran them): (forward, backward)
+    callables of g for the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from littlegan_tpu_torch.ops.cuda import conv_epilogue as ce
+
+    dt = y.dtype
+    cl = torch.channels_last
+    x = y
+    if d is not None:
+        x = (y * d.to(dt)[:, :, None, None] + (noise.float() * ns).to(dt)).contiguous(memory_format=cl)
+    pre = ce.conv_epilogue_fwd(x, b, None, 1.0)
+    a = F.leaky_relu(pre, 0.2) if act else pre
+    v = a * k.gain
+    c = k.bound
+
+    def fwd():
+        x = y
+        if d is not None:
+            x = (y * d.to(dt)[:, :, None, None] + (noise.float() * ns).to(dt)).contiguous(memory_format=cl)
+        z = ce.conv_epilogue_fwd(x, b, None, 1.0)
+        z = (F.leaky_relu(z, 0.2) if act else z) * k.gain
+        return z.clamp(-c, c)
+
+    def bwd(g):
+        g = torch.where((v >= -c) & (v <= c), g, 0)
+        g = g * k.gain
+        if act:
+            g = torch.where(a > 0, g, g * 0.2)
+        g, db = ce.conv_epilogue_bwd(g, 1.0)
+        if d is None:
+            return g, db
+        gns = (g.float() * noise.float()).sum()
+        return g * d.to(dt)[:, :, None, None], (g * y).sum((2, 3), dtype=torch.float32), db, gns
+
+    return fwd, bwd
+
+
+def _s5_magnitudes(name, args):
+    """Per output of an S5 kernel call: None for a map, else the sum of its
+    terms' magnitudes (the scale of a sum's rounding)."""
+    from littlegan_tpu_torch.ops.cuda import bias_act as ba
+
+    if name == "bias_act_kernel":
+        return [None]
+    g, y, d, noise, ns, b, k = args[:7]
+    gp = (g.float() * ba._slope_kept(y, d, noise, ns, b, k)[1]).abs()
+    if name == "bias_act_bwd_kernel":
+        return [None, None if d is None else (gp * y.float().abs()).sum((2, 3)), gp.sum((0, 2, 3)),
+                None if noise is None else (gp * noise.float().abs()).sum()]
+    ggy = args[7]
+    return [None, None, None if ggy is None or d is None else (gp * ggy.float().abs()).sum((2, 3))]
+
+
+def check_stylegan2_bias_act():
+    """Phase (q): S5 as the StyleGAN2 cell's iteration runs it. Returns
+    (counters per period, kernels launched in one iteration, the per-shape
+    rows, the sums over an iteration); raises on a miss."""
+    import torch
+
+    from littlegan_tpu_torch.ops.cuda import bias_act as ba
+
+    counters, calls, launched, profiled = _sg2_period_calls()
+    log("S5 launch counters over one 16-iteration period: " + json.dumps(counters))
+    log("kernels launched in one iteration with both penalties: " + json.dumps(
+        {k: v for k, v in launched.items() if "bias_act" in k or "epilogue" in k}) + "; S5's counters there: "
+        + json.dumps(profiled))
+    require(all(counters[n] == SG2_S5_LAUNCHES[n] for n in SG2_S5_LAUNCHES),
+            f"S5 launches a period {counters}, want {SG2_S5_LAUNCHES}")
+    require(all(profiled[n] == launched.get(kern, 0) for n, kern in SG2_S5_KERNEL_OF.items()),
+            f"S5's counters {profiled} against the kernels the profile saw launched {launched}")
+    require(counters["stargan_v2.conv_epilogue"] == counters["stargan_v2.conv_epilogue_bwd"] == 0,
+            "StyleGAN2's iteration called S3")
+    require(all(launched.get(n, 0) > 0 for n in ("bias_act_kernel", "bias_act_bwd_kernel", "bias_act_bwd2_kernel",
+                                                  "bias_act_total_kernel"))
+            and not set(launched) & SG2_S3_KERNELS, f"kernels launched: {launched}")
+    dev = torch.device("cuda", 0)
+    rows, failures = [], []
+    total = dict.fromkeys(("kernel_ms", "bound_ms", "plain_ms", "pytorch_ms"), 0.0)
+    for (name, dtype, c, h, has_d, has_noise, kk, wants), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
+        dt = getattr(torch, dtype)
+        k = ba.Slopes(*kk)
+        act = k.gain != k.again
+        gen = torch.Generator(device=dev).manual_seed(c * 1000 + h)
+        rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+        y = (rnd(SG2_BATCH, c, h, h) * 60).to(dt).contiguous(memory_format=torch.channels_last)
+        g = rnd(SG2_BATCH, c, h, h).to(dt).contiguous(memory_format=torch.channels_last)
+        d = rnd(SG2_BATCH, c).abs() + 0.5 if has_d else None
+        noise = rnd(SG2_BATCH, 1, h, h).to(dt) if has_noise else None
+        ns = rnd().abs() if has_noise else None
+        b = rnd(c) * 0.3
+        esize = y.element_size()
+        if name == "bias_act_kernel":
+            args = (y, d, noise, ns, b, k)
+            kern, plain = (lambda: ba.bias_act_kernel(*args)), (lambda: ba.bias_act_plain(*args))
+            maps_read, maps_written = 1, 1
+            lib_fwd, _ = _s5_composite(y, d, noise, ns, b, k, act)
+            lib = lib_fwd
+        elif name == "bias_act_bwd_kernel":
+            args = (g, y, d, noise, ns, b, k, *wants)
+            kern, plain = (lambda: ba.bias_act_bwd_kernel(*args)), (lambda: ba.bias_act_bwd_plain(*args))
+            maps_read, maps_written = 2, 1
+            _, lib_bwd = _s5_composite(y, d, noise, ns, b, k, act)
+            lib = lambda: lib_bwd(g)  # noqa: E731
+        else:
+            has_ggy, has_ggd, has_ggb, has_ggns, *want = wants
+            ggy = rnd(SG2_BATCH, c, h, h).to(dt).contiguous(memory_format=torch.channels_last) if has_ggy else None
+            ggd = rnd(SG2_BATCH, c) if has_ggd else None
+            ggb = rnd(c) if has_ggb else None
+            ggns = rnd() if has_ggns else None
+            args = (g, y, d, noise, ns, b, k, ggy, ggd, ggb, ggns, *want)
+            kern, plain = (lambda: ba.bias_act_bwd2_kernel(*args)), (lambda: ba.bias_act_bwd2_plain(*args))
+            outs = kern()
+            if all(o is None for o in outs):  # nothing reaches g, y or d (ToRGB's in path length): no launch
+                log(f"  S5 bias_act_bwd2 C {c} H {h} {dtype} x{count / 16.0:g}/it: no output wanted, no launch")
+                rows.append({"what": "bias_act_bwd2", "dtype": dtype, "C": c, "H": h, "wants": list(wants),
+                             "per_iteration": count / 16.0, "launched": False})
+                continue
+            maps_read, maps_written = 2 + int(has_ggy), sum(o is not None for o in outs[:2])
+            lib = None
+        got, want = kern(), plain()
+        torch.cuda.synchronize(dev)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        mags = _s5_magnitudes(name, args)
+        err = 0.0
+        for i, (a, r, m) in enumerate(zip(got, want, mags)):
+            if (a is None) != (r is None):
+                failures.append(f"{name} C {c} H {h}: output {i} present in one version only")
+                continue
+            if a is None:
+                continue
+            if a.dim() == 4:  # a map: one rounding of each element
+                tol = SG2_ROUNDING if dt == torch.bfloat16 else 2.0 ** -23
+                e = float(((a.float() - r.float()).abs() / r.float().abs().clamp_min(1e-30)).max())
+                bad = bool(((a.float() - r.float()).abs() > tol * r.float().abs()).any())
+            else:  # a sum: against the sum of its terms' magnitudes
+                e = float(((a - r).abs() / m.clamp_min(1e-30)).max())
+                bad = bool(((a - r).abs() > SG2_S5_SUM_REL * m).any())
+            err = max(err, e)
+            if bad:
+                failures.append(f"{name} C {c} H {h} {dtype} output {i}: error {e:.3g}")
+        per = count / 16.0
+        nbytes = (maps_read + maps_written) * y.numel() * esize + (noise.numel() * esize if has_noise else 0)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        k_ms = time_ms(kern)
+        p_ms = time_ms(plain, reps=5)
+        l_ms = time_ms(lib, reps=5) if lib is not None else None
+        row = {"what": name.replace("_kernel", ""), "dtype": dtype, "C": c, "H": h, "d": has_d, "noise": has_noise,
+               "act": act, "wants": list(wants), "per_iteration": per, "kernel_ms": k_ms, "bound_ms": b_ms,
+               "share": b_ms / k_ms, "plain_ms": p_ms, "pytorch_ms": l_ms, "max_rel_err": err}
+        rows.append(row)
+        total["kernel_ms"] += per * k_ms
+        total["bound_ms"] += per * b_ms
+        total["plain_ms"] += per * p_ms
+        total["pytorch_ms"] += per * (l_ms or 0.0)
+        log(f"  S5 {row['what']} C {c} H {h} {dtype} d {int(has_d)} act {int(act)} x{per:g}/it: {k_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ({100 * b_ms / k_ms:.0f}%), plain {p_ms:.4f}, "
+            f"PyTorch {'-' if l_ms is None else f'{l_ms:.4f}'}, error {err:.2g}")
+        del y, g, d, noise, args, got, want
+        torch.cuda.empty_cache()
+    log("S5 over an iteration (ms): " + json.dumps(total))
+    require(not failures, "; ".join(failures[:10]))
+    return counters, launched, rows, total
+
+
 def _free_port() -> int:
     import socket
 
@@ -4549,7 +4833,9 @@ def main() -> int:
     stargan_calls, stargan = check_stargan_v2()
     walls["o"], t0 = time.time() - t0, time.time()
     stylegan2 = check_stylegan2()
-    walls["p"] = time.time() - t0
+    walls["p"], t0 = time.time() - t0, time.time()
+    s5_counters, _, s5_rows, s5_total = check_stylegan2_bias_act()
+    walls["q"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
                                          eval_launches, remat_launches, s2d_launches, dp_launches,
@@ -4557,7 +4843,10 @@ def main() -> int:
                                          tools_launches, entry_launches)
                                  + summarize_stargan(stargan_calls, stargan)
                                  + [{"kernel": "upfirdn2d", "per": "S4 launch at the StyleGAN2 cell's shapes",
-                                     "shapes": stylegan2}]}))
+                                     "shapes": stylegan2},
+                                    {"kernel": "bias_act", "per": "S5 call at the StyleGAN2 cell's shapes",
+                                     "counters_per_period": s5_counters, "iteration_ms": s5_total,
+                                     "shapes": s5_rows}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -19,10 +19,11 @@ the published ``state_dict`` key (``G.mapping.fc0.weight``,
   ``torgb`` (a modulated 1x1 without demodulation, style gain
   ``1/sqrt(cin)``); the image is ``upsample2d(img) + torgb(x)`` in
   float32. A modulated layer runs the published non-fused form: ``x *
-  s[n, i]``, the shared-weight conv, ``* d[n, o]`` with ``d = rsqrt(sum_{i,
+  s[n, i]``, the shared-weight conv, then one epilogue pass
+  (``ops/cuda/bias_act.py``, S5): ``* d[n, o]`` with ``d = rsqrt(sum_{i,
   k} (W[o, i, k] s[n, i])^2 + 1e-8)`` (formed as ``s^2 @ sum_k W^2``), plus
-  ``noise * noise_strength``, then the bias (``ops/cuda/conv_epilogue.py``,
-  S3) and ``clamp(lrelu(.) * sqrt(2), +-CONV_CLAMP)``.
+  ``noise * noise_strength``, plus the bias, and ``clamp(lrelu(.) *
+  sqrt(2), +-256)``.
 - :class:`Discriminator`: ``fromrgb`` (1x1) at the top resolution, then per
   resolution ``conv0`` (3x3), ``conv1`` (the FIR filter over the map padded
   by 2, then a 3x3 stride-2 conv; activation gain ``sqrt(0.5)``) and
@@ -34,11 +35,16 @@ the published ``state_dict`` key (``G.mapping.fc0.weight``,
 
 Every weight uses equalized lr (its runtime gain ``lr_mul / sqrt(fan_in)``,
 the bias's ``lr_mul``), except the modulated convs' weights, which the
-demodulation normalises. The FIR resampling is ``ops/cuda/upfirdn2d.py``'s
-(S4: a CUDA kernel on the card, its plain version on the CPU). Every conv
-of G and D, and every LeakyReLU of D, is ``ops/gradfix.py``'s first-order
-form, so the path-length penalty's and R1's double backwards run as
-first-order convs and send nothing back into the forward's graph.
+demodulation normalises. Every biased conv layer of G and D (the modulated
+layers, ToRGB, ``fromrgb``, D's ``conv0``, ``conv1`` and its 4x4 conv) ends
+in S5's one pass, its bias, activation, gain and clamp (``bias_act``,
+NVlabs' op of that name); D's skips keep their plain ``* sqrt(0.5)``. The
+FIR resampling is ``ops/cuda/upfirdn2d.py``'s (S4). S4 and S5 are CUDA
+kernels on the card and their plain versions on the CPU. Every conv of G
+and D, and the FCs' LeakyReLU, is ``ops/gradfix.py``'s first-order
+form, and S5's backward holds the sign and the clamp's range constant, so
+the path-length penalty's and R1's double backwards run as first-order
+convs and S5's second-order kernel and differentiate no activation again.
 
 Parameters are float32. Convolutions run in ``cfg.compute_dtype`` over
 channels-last maps (every conv weight lies channels-last, as its Adam
@@ -66,7 +72,7 @@ from torch import nn
 
 from littlegan_tpu_torch.config import Config
 from littlegan_tpu_torch.ops.cuda._build import LaunchCounter
-from littlegan_tpu_torch.ops.cuda.conv_epilogue import conv_epilogue
+from littlegan_tpu_torch.ops.cuda.bias_act import bias_act
 from littlegan_tpu_torch.ops.cuda.upfirdn2d import downsample2d, upfirdn2d, upsample2d
 from littlegan_tpu_torch.ops.gradfix import R1Conv, R1ConvTranspose, r1_leaky_relu
 
@@ -76,7 +82,6 @@ SQRT2 = math.sqrt(2.0)
 ALPHA = 0.2
 W_AVG_BETA = 0.995
 MAPPING_LR_MUL = 0.01
-CONV_CLAMP = 256.0  # bias_act's clamp of every conv layer but D's skips
 PL_BATCH_SHRINK = 2  # the path-length penalty's batch: B / 2
 
 
@@ -124,18 +129,6 @@ def noise_sizes(image_dim: int) -> List[int]:
     for res in resolutions(image_dim)[1:]:
         out += [res, res]
     return out
-
-
-def bias_act(x: torch.Tensor, bias: Optional[torch.Tensor], act: bool, gain: float, clamp: Optional[float]):
-    """``bias_act``: the bias (S3), then ``lrelu(0.2) * sqrt(2) * gain`` (or
-    ``* gain``), clamped at ``+-clamp * gain``."""
-    if bias is not None:
-        x = conv_epilogue(x.contiguous(memory_format=LAYOUT), bias)
-    if act:
-        x = r1_leaky_relu(x, ALPHA) * (SQRT2 * gain)
-    elif gain != 1.0:
-        x = x * gain
-    return x if clamp is None else x.clamp(-clamp * gain, clamp * gain)
 
 
 class FC(nn.Module):
@@ -203,8 +196,7 @@ class SynthesisLayer(nn.Module):
             y = upfirdn2d(y, 1, 1, 1, 1, 4.0)
         else:
             y = R1Conv.apply(x, wt.to(x.dtype), 1)
-        y = y * d.to(y.dtype)[:, :, None, None] + (noise.float() * self.noise_strength).to(y.dtype)
-        return bias_act(y, self.bias, True, 1.0, CONV_CLAMP)
+        return bias_act(y, self.bias, d, noise, self.noise_strength)
 
 
 class ToRGB(nn.Module):
@@ -217,7 +209,7 @@ class ToRGB(nn.Module):
 
     def forward(self, x, w):
         y = R1Conv.apply(modulate(x, self.affine(w) * self.weight_gain), self.weight.to(x.dtype), 0)
-        return bias_act(y, self.bias, False, 1.0, CONV_CLAMP)
+        return bias_act(y, self.bias, act=False)
 
 
 class SynthesisBlock(nn.Module):
@@ -282,15 +274,15 @@ class Generator(nn.Module):
 
 class DConv(nn.Module):
     """``Conv2dLayer``: an equalized-lr conv (``down`` 2: the FIR filter,
-    then stride 2), the bias (or none), ``lrelu`` or linear, clamped."""
+    then stride 2), then S5: the bias, ``lrelu``, the gain, clamped.
+    Without a bias (D's skips: linear, unclamped) a plain ``* gain``."""
 
-    def __init__(self, cin: int, cout: int, k: int, bias: bool = True, act: bool = True, down: int = 1,
-                 clamp: Optional[float] = CONV_CLAMP):
+    def __init__(self, cin: int, cout: int, k: int, bias: bool = True, down: int = 1):
         super().__init__()
         self.weight = nn.Parameter(torch.randn(cout, cin, k, k).contiguous(memory_format=LAYOUT))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.weight_gain = 1.0 / math.sqrt(cin * k * k)
-        self.k, self.act, self.down, self.clamp = k, act, down, clamp
+        self.k, self.down = k, down
 
     def forward(self, x, gain: float = 1.0):
         w = (self.weight * self.weight_gain).to(x.dtype)
@@ -300,7 +292,9 @@ class DConv(nn.Module):
             y = R1Conv.apply(upfirdn2d(x, 1, 1, 2, 2), w, 0, 2)
         else:
             y = R1Conv.apply(x, w, self.k // 2)
-        return bias_act(y, self.bias, self.act, gain, self.clamp)
+        if self.bias is None:
+            return y * gain
+        return bias_act(y, self.bias, gain=gain)
 
 
 class DiscriminatorBlock(nn.Module):
@@ -310,7 +304,7 @@ class DiscriminatorBlock(nn.Module):
             self.fromrgb = DConv(channels, cin, 1)
         self.conv0 = DConv(cin, cin, 3)
         self.conv1 = DConv(cin, cout, 3, down=2)
-        self.skip = DConv(cin, cout, 1, bias=False, act=False, down=2, clamp=None)
+        self.skip = DConv(cin, cout, 1, bias=False, down=2)
 
     def forward(self, x):
         if hasattr(self, "fromrgb"):
