@@ -224,7 +224,21 @@ Phases, each of which fails the run on any error:
       rounding in float32; the sums to ``SG2_S5_SUM_REL`` of their
       magnitudes), timed beside its bytes' bound, its plain version and the
       PyTorch ops the model ran before S5 (forward and backward), and the
-      sums over an iteration. Each phase's wall after (q).
+      sums over an iteration;
+  (r) StyleGAN3's launches over one lazy period of the
+      ``stylegan3-t-afhqv2-512`` cell's training (16 eager iterations at
+      batch 32, 512²: ``SG3_LAUNCHES``, S6's 28 forwards and 14 backwards
+      an iteration), then its filtered LeakyReLU (``csrc/filtered_lrelu.cu``,
+      S6) at every filtered layer of the cell (batch 32, bf16,
+      channels-last, every tenth channel large enough to clamp), forward
+      and backward against its plain version on two of the samples (the
+      output and gy within ``SG3_ROUNDING`` of each value plus its channel
+      group's RMS, the clamped tenth and the rest apart; the column sums to
+      ``SG3_SUM_REL`` of the largest; both backwards read the kernel's mask, whose
+      bits may differ from the plain version's at ``SG3_MASK_DIFFER`` of
+      them), each timed beside its bound
+      (``benchmark/roofline/stylegan3.py``), and the sums over an
+      iteration. Each phase's wall after (r).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before them
@@ -4673,6 +4687,164 @@ def check_stylegan2_bias_act():
     return counters, launched, rows, total
 
 
+# phase (r): StyleGAN3's filtered LeakyReLU (S6) at every filtered layer of
+# the stylegan3-t-afhqv2-512 cell (batch 32, bf16, channels-last); the plain
+# version recomputes SG3_CHECKED samples of the batch
+SG3_BATCH = 32
+SG3_CHECKED = (0, 31)
+SG3_ROUNDING = 2.0 ** -7  # bf16 outputs: a rounding of f32 sums in another order (see _rounding_err)
+SG3_SUM_REL = 1e-3  # the f32 column sums, in another order, relative to the largest
+SG3_LAUNCHES = {  # a 16-iteration period: 14 filtered layers in Gmain's and Dmain's G passes, Gmain's backward
+    "stylegan3.filtered_lrelu": 16 * 2 * 14, "stylegan3.filtered_lrelu_bwd": 16 * 14,
+    "stylegan3.mapping": 16 * 2, "stylegan3.synthesis": 16 * 2, "stylegan3.discriminator": 16 * 3 + 1,
+    "stylegan3.r1": 1,
+}
+SG3_MASK_DIFFER = 1e-4  # the share of mask bits the two versions may set apart (a sum within rounding of 0 or the clamp)
+
+
+def _rounding_err(got, want, groups) -> float:
+    """The largest ``|got - want| / (|want| + rms(want))`` over each group
+    of channels (dim 1) on its own: a bf16 rounding of either reads at
+    most ``2 ** -7``, and a group of small values is not measured against
+    a group that clamps at 256."""
+    worst = 0.0
+    for idx in groups:
+        g, w = got[:, idx].float(), want[:, idx].float()
+        rms = float(w.square().mean().sqrt())
+        worst = max(worst, float(((g - w).abs() / (w.abs() + max(rms, 1e-30))).max()))
+    return worst
+
+
+def _sg3_period_counters():
+    """One lazy period of the benchmark's StyleGAN3 configuration (16 eager
+    iterations after one that meets every first use) over a 64-image
+    store: the ``stylegan3.*`` launch counters' moves over the period."""
+    import dataclasses
+
+    import torch
+
+    from littlegan_tpu_torch.config import Config
+    from littlegan_tpu_torch.models import stylegan3 as m3
+    from littlegan_tpu_torch.ops.cuda import _build
+    from littlegan_tpu_torch.training import stylegan2 as ts
+    from littlegan_tpu_torch.training.state import create_stylegan2_state
+
+    dev = torch.device("cuda")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
+                           "stylegan3-t-afhqv2-512.json")) as f:
+        published = json.load(f)
+    fields = {f.name for f in dataclasses.fields(Config)}
+    cfg = Config(**{k: v for k, v in published.items() if k in fields}).replace(device_data=True)
+    state = create_stylegan2_state(cfg, dev, m3.init_params(m3.StyleGAN3(cfg), 0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n_store = 2 * cfg.batch_size
+    images = torch.randint(0, 256, (n_store, cfg.image_dim, cfg.image_dim, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+
+    def period(it0, n):
+        draws = ts.stack_draws([ts.draw_iteration(gen, cfg, dev, i, n_store) for i in range(it0, it0 + n)])
+        return ts.eager_iterations(state, cfg, images, draws, it0)
+
+    period(0, 1)
+    torch.cuda.synchronize()
+    before = _build.launch_counts()
+    terms = period(cfg.d_reg_interval, cfg.d_reg_interval)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    require(bool(torch.isfinite(terms).all()), f"StyleGAN3's period gave terms {terms}")
+    del state, images
+    torch.cuda.empty_cache()
+    return {n: after[n] - before.get(n, 0) for n in after if n.startswith("stylegan3.")}
+
+
+def check_stylegan3():
+    """Phase (r): S6's launches over one lazy period of the StyleGAN3
+    cell's training (``SG3_LAUNCHES``), then S6 (``ops/cuda/filtered_lrelu.py``)
+    against its plain version at every filtered layer of the cell's
+    synthesis (batch 32, bf16, channels-last; a tenth of the channels
+    large enough for the clamp to cut, held to the plain version apart
+    from the rest: ``_rounding_err``), forward and backward (gy, d's and
+    b's gradients), with its times (graph replays) beside its bound
+    (``benchmark/roofline/stylegan3.py``) and the sums over an iteration
+    (two forwards and a backward a layer). Returns (counters over the
+    period, rows, sums); raises on a miss."""
+    import torch
+
+    from benchmark.roofline import stylegan3 as roof
+    from littlegan_tpu_torch.models.stylegan3 import schedule
+    from littlegan_tpu_torch.ops.cuda import filtered_lrelu as fl
+
+    counters = _sg3_period_counters()
+    log("StyleGAN3 launch counters over one 16-iteration period: " + json.dumps(counters))
+    require(all(counters.get(n, 0) == want for n, want in SG3_LAUNCHES.items()),
+            f"StyleGAN3's launches a period {counters}, want {SG3_LAUNCHES}")
+    dev = torch.device("cuda", 0)
+    cl = torch.channels_last
+    cells = {x["name"]: x for x in roof.layers({"image_dim": 512, "channel_base": 32768, "channel_max": 512})}
+    rows, failures = [], []
+    total = dict.fromkeys(("fwd_ms", "bwd_ms", "fwd_bound_ms", "bwd_bound_ms"), 0.0)
+    sub = list(SG3_CHECKED)
+    for layer in schedule(512, 32768, 512)[1][:-1]:
+        hc, c = layer.in_size + 2, layer.cout
+        lo, hi = layer.padding
+        spec = fl.make_spec(hc, hc, layer.up_filter, layer.down_filter, layer.up, layer.down, (lo, hi, lo, hi),
+                            math.sqrt(2.0), 0.2, 256.0)
+        gen = torch.Generator(device=dev).manual_seed(c * 1000 + hc)
+        scale = torch.ones(c, device=dev)
+        scale[::10] = 100.0  # every tenth channel meets the clamp
+        groups = ((torch.arange(c) % 10 != 0).nonzero().squeeze(1), torch.arange(0, c, 10))
+        y = (torch.randn((SG3_BATCH, c, hc, hc), generator=gen, device=dev) * 3 * scale[:, None, None]).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        b = torch.randn((c,), generator=gen, device=dev) * 0.2
+        d = torch.rand((SG3_BATCH, c), generator=gen, device=dev) + 0.5
+        fu = torch.tensor(layer.up_filter, device=dev)
+        fd = torch.tensor(layer.down_filter, device=dev)
+        out, mask = fl.forward_kernel(y, b, d, spec)
+        g = torch.randn(out.shape, generator=gen, device=dev).to(torch.bfloat16).contiguous(memory_format=cl)
+        ys, ds, gs = y[sub].contiguous(memory_format=cl), d[sub].contiguous(), g[sub].contiguous(memory_format=cl)
+        want, masks = fl.forward_plain(ys, b, ds, fu, fd, spec)
+        kmask = fl.unpack_mask(mask[sub], c)  # the backwards both read the kernel's decisions
+        differ = float(((kmask[0] != masks[0]) | (kmask[1] != masks[1])).float().mean())
+        got_b = fl.backward_kernel(gs, mask[sub].contiguous(), ys, ds, spec, (ys.shape, ys.dtype))
+        want_b = fl.backward_plain(gs, kmask, ys, ds, fu, fd, spec, True)
+        torch.cuda.synchronize(dev)
+        errs = {"out": _rounding_err(out[sub], want, groups), "gy": _rounding_err(got_b[0], want_b[0], groups)}
+        for name, a, r in zip(("gd", "gb"), got_b[1:], want_b[1:]):
+            errs[name] = _max_err(a, r) / max(float(r.float().abs().max()), 1e-30)
+        cut = float(masks[1].float().mean())
+        if differ > SG3_MASK_DIFFER:
+            failures.append(f"{layer.name}: the kernel's mask differs from the plain version's at {differ:.3g}")
+        for name, e in errs.items():
+            tol = SG3_ROUNDING if name in ("out", "gy") else SG3_SUM_REL
+            if not e <= tol:
+                failures.append(f"{layer.name} {name}: error {e:.3g} > {tol:g}")
+        del want, masks, got_b, want_b
+        shape = (y.shape, y.dtype)
+        f_ms = time_ms(lambda: fl.forward_kernel(y, b, d, spec), reps=5)
+        b_ms = time_ms(lambda: fl.backward_kernel(g, mask, y, d, spec, shape), reps=5)
+        cost = cells[layer.name]
+        f_bound = roof.launch_bound_s(cost, SG3_BATCH, "bfloat16", False) * 1e3
+        b_bound = roof.launch_bound_s(cost, SG3_BATCH, "bfloat16", True) * 1e3
+        row = {"layer": layer.name, "C": c, "Hc": hc, "T": cost["T"], "O": layer.out_size, "up": layer.up,
+               "fwd_ms": f_ms, "fwd_bound_ms": f_bound, "bwd_ms": b_ms, "bwd_bound_ms": b_bound,
+               "clamped_share": cut, "mask_differs": differ, "max_rel_err": errs}
+        rows.append(row)
+        total["fwd_ms"] += 2 * f_ms
+        total["bwd_ms"] += b_ms
+        total["fwd_bound_ms"] += 2 * f_bound
+        total["bwd_bound_ms"] += b_bound
+        log(f"  S6 {layer.name} C {c} {hc}->{cost['T']}->{layer.out_size} up {layer.up}: fwd {f_ms:.3f} ms "
+            f"(bound {f_bound:.3f}, {100 * f_bound / f_ms:.0f}%), bwd {b_ms:.3f} ms (bound {b_bound:.3f}, "
+            f"{100 * b_bound / b_ms:.0f}%), mask bits apart {differ:.2g}, errors "
+            + ", ".join(f"{k} {v:.2g}" for k, v in errs.items()))
+        del y, out, mask, g, ys, gs
+        torch.cuda.empty_cache()
+    total["share"] = (total["fwd_bound_ms"] + total["bwd_bound_ms"]) / (total["fwd_ms"] + total["bwd_ms"])
+    log("S6 over an iteration (ms): " + json.dumps(total))
+    require(not failures, "; ".join(failures[:10]))
+    return counters, rows, total
+
+
 def _free_port() -> int:
     import socket
 
@@ -4835,7 +5007,9 @@ def main() -> int:
     stylegan2 = check_stylegan2()
     walls["p"], t0 = time.time() - t0, time.time()
     s5_counters, _, s5_rows, s5_total = check_stylegan2_bias_act()
-    walls["q"] = time.time() - t0
+    walls["q"], t0 = time.time() - t0, time.time()
+    s6_counters, s6_rows, s6_total = check_stylegan3()
+    walls["r"] = time.time() - t0
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(json.dumps({"kernels": summarize(records, serve_launches, train_launches, dispatch_launches,
                                          eval_launches, remat_launches, s2d_launches, dp_launches,
@@ -4846,7 +5020,10 @@ def main() -> int:
                                      "shapes": stylegan2},
                                     {"kernel": "bias_act", "per": "S5 call at the StyleGAN2 cell's shapes",
                                      "counters_per_period": s5_counters, "iteration_ms": s5_total,
-                                     "shapes": s5_rows}]}))
+                                     "shapes": s5_rows},
+                                    {"kernel": "filtered_lrelu", "per": "S6 launch at the StyleGAN3 cell's layers",
+                                     "counters_per_period": s6_counters, "iteration_ms": s6_total,
+                                     "shapes": s6_rows}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

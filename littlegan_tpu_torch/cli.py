@@ -96,8 +96,8 @@ def parse_config(argv: Optional[Sequence[str]] = None) -> Config:
 def make_dataset(cfg: Config):
     """Synthetic data only on request; else CelebA from ``image_path``, or
     for StarGAN v2 its domain folders (``data/domains.py``), for StyleGAN2
-    every image under it (``data/image_folder.py``)."""
-    if cfg.model == "stylegan2":
+    every image under it (``data/image_folder.py``), as for StyleGAN3."""
+    if cfg.model in ("stylegan2", "stylegan3"):
         from littlegan_tpu_torch.data.image_folder import ImageFolder, SyntheticImages
 
         if cfg.extra.get("synthetic_data"):
@@ -296,7 +296,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"--devices {devices}: this host has {torch.cuda.device_count()} visible CUDA card(s)",
                   file=sys.stderr)
             return 2
-    if cfg.model in ("stargan_v2", "stylegan2") and cfg.mode != "train":
+    if cfg.model in ("stargan_v2", "stylegan2", "stylegan3") and cfg.mode != "train":
         print(f"{cfg.mode}: model {cfg.model} runs only in train mode (its sampling, evaluation, export and "
               "serving are not built)", file=sys.stderr)
         return 2

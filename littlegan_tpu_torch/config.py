@@ -144,9 +144,10 @@ class Config:
     # settings (defaults: the published ones); the JAX package has none of
     # them ---
     # "littlegan" (the reference's model), "stargan_v2" (StarGAN v2,
-    # models/stargan_v2.py, trained by training/stargan_v2_trainer.py) or
-    # "stylegan2" (StyleGAN2, models/stylegan2.py, trained by
-    # training/stylegan2_trainer.py)
+    # models/stargan_v2.py, trained by training/stargan_v2_trainer.py),
+    # "stylegan2" (StyleGAN2, models/stylegan2.py) or "stylegan3"
+    # (StyleGAN3-T, models/stylegan3.py), both trained by
+    # training/stylegan2_trainer.py
     model: str = "littlegan"
     num_domains: int = 2
     latent_dim: int = 16
@@ -163,16 +164,24 @@ class Config:
     weight_decay: float = 1e-4  # torch.optim.Adam's L2 form
     randcrop_prob: float = 0.5
     # StyleGAN2 (NVlabs/stylegan2-ada-pytorch, train.py's paper256 spec and
-    # training/networks.py, loss.py, training_loop.py); lr, beta_1, beta_2
-    # and batch_size are the shared fields (paper256: 0.0025, 0, 0.99, 64)
+    # training/networks.py, loss.py, training_loop.py) and StyleGAN3
+    # (NVlabs/stylegan3, the same files); lr, beta_1, beta_2 and batch_size
+    # are the shared fields (paper256: 0.0025, 0, 0.99, 64); the defaults
+    # below are paper256's
     channel_base: int = 16384  # a resolution's width: min(channel_base // res, channel_max)
     channel_max: int = 512
     z_dim: int = 512
     w_dim: int = 512
     mapping_layers: int = 8
     mbstd_group: int = 8
-    g_reg_interval: int = 4
+    g_reg_interval: int = 4  # 0: no Greg phase (StyleGAN3: G's one phase is Gmain)
     d_reg_interval: int = 16
+    r1_gamma: float = 1.0
+    pl_weight: float = 2.0  # 0: no path-length penalty
+    style_mixing: float = 0.9  # the probability of a mixing cutoff in a G pass
+    ema_kimg: float = 20.0  # the G EMA's half-life in thousands of images
+    ema_rampup: float = 0.0  # > 0: the half-life at most this share of the images seen (StyleGAN3: 0.05)
+    d_lr: float = 0.0  # D's Adam learning rate; 0: lr
 
     # unknown keys from user env files are preserved here for provenance
     extra: Dict[str, Any] = field(default_factory=dict)
@@ -216,7 +225,8 @@ _FIELD_NAMES = {f.name for f in dataclasses.fields(Config)}
 PORT_ONLY_FIELDS = ("model", "num_domains", "latent_dim", "style_dim", "mapping_dim", "max_conv_dim", "base_dim",
                     "lambda_reg", "lambda_sty", "lambda_ds", "lambda_cyc", "ds_iter", "f_lr", "weight_decay",
                     "randcrop_prob", "channel_base", "channel_max", "z_dim", "w_dim", "mapping_layers",
-                    "mbstd_group", "g_reg_interval", "d_reg_interval")
+                    "mbstd_group", "g_reg_interval", "d_reg_interval", "r1_gamma", "pl_weight", "style_mixing",
+                    "ema_kimg", "ema_rampup", "d_lr")
 _DERIVED = {"cond_dim", "result_dir", "prefetch"}
 
 

@@ -64,7 +64,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -100,13 +100,14 @@ def check_supported(cfg: Config) -> None:
     ]
     bad = [why for on, why in refused if on]
     if bad:
-        raise ValueError("model stylegan2 does not support " + "; ".join(bad))
+        raise ValueError(f"model {cfg.model} does not support " + "; ".join(bad))
     if cfg.image_dim < 8 or cfg.image_dim & (cfg.image_dim - 1):
-        raise ValueError(f"stylegan2 needs a power-of-two image_dim >= 8, got {cfg.image_dim}")
+        raise ValueError(f"{cfg.model} needs a power-of-two image_dim >= 8, got {cfg.image_dim}")
     if cfg.batch_size % min(cfg.mbstd_group, cfg.batch_size):
-        raise ValueError(f"stylegan2: batch_size {cfg.batch_size} is not a multiple of mbstd_group {cfg.mbstd_group}")
+        raise ValueError(f"{cfg.model}: batch_size {cfg.batch_size} is not a multiple of mbstd_group "
+                         f"{cfg.mbstd_group}")
     if cfg.batch_size < PL_BATCH_SHRINK:
-        raise ValueError(f"stylegan2: batch_size {cfg.batch_size} leaves no path-length batch")
+        raise ValueError(f"{cfg.model}: batch_size {cfg.batch_size} leaves no path-length batch")
 
 
 def resolutions(image_dim: int) -> List[int]:
@@ -131,6 +132,11 @@ def noise_sizes(image_dim: int) -> List[int]:
     return out
 
 
+def layout(cfg: Config) -> Tuple[int, int]:
+    """(style vectors, noise samples per image) a G pass reads."""
+    return num_ws(cfg.image_dim), sum(r * r for r in noise_sizes(cfg.image_dim))
+
+
 class FC(nn.Module):
     """``FullyConnectedLayer``: ``weight`` drawn N(0, 1 / lr_mul^2), applied
     times ``lr_mul / sqrt(in)``; ``bias`` times ``lr_mul``; computes in its
@@ -148,9 +154,12 @@ class FC(nn.Module):
 
 
 class MappingNetwork(nn.Module):
-    def __init__(self, cfg: Config):
+    """``w_avg_beta``: ``w_avg``'s decay (StyleGAN3's is 0.998); ``calls``:
+    the counters its calls add to (StyleGAN3 passes its own)."""
+
+    def __init__(self, cfg: Config, w_avg_beta: float = W_AVG_BETA, calls=CALLS):
         super().__init__()
-        self.n = cfg.mapping_layers
+        self.n, self.w_avg_beta, self.calls = cfg.mapping_layers, w_avg_beta, calls
         for i in range(self.n):
             setattr(self, f"fc{i}", FC(cfg.z_dim if i == 0 else cfg.w_dim, cfg.w_dim, lr_mul=MAPPING_LR_MUL,
                                        act=True))
@@ -158,15 +167,15 @@ class MappingNetwork(nn.Module):
 
     def forward(self, z: torch.Tensor, update_w_avg: bool = False) -> torch.Tensor:
         """(N, w_dim) float32 w of (N, z_dim) z; with ``update_w_avg``, the
-        batch's mean w moved into ``w_avg`` (``lerp(mean, w_avg, 0.995)``)."""
-        CALLS["mapping"].add()
+        batch's mean w moved into ``w_avg`` (``lerp(mean, w_avg, beta)``)."""
+        self.calls["mapping"].add()
         x = z.float()
         x = x * (x.square().mean(1, keepdim=True) + 1e-8).rsqrt()
         for i in range(self.n):
             x = getattr(self, f"fc{i}")(x)
         if update_w_avg:
             with torch.no_grad():
-                self.w_avg.copy_(x.detach().mean(0).lerp(self.w_avg, W_AVG_BETA))
+                self.w_avg.copy_(x.detach().mean(0).lerp(self.w_avg, self.w_avg_beta))
         return x
 
 
@@ -244,10 +253,11 @@ class SynthesisNetwork(nn.Module):
             cin = 0 if res == 4 else channels(cfg, res // 2)
             setattr(self, f"b{res}", SynthesisBlock(cin, channels(cfg, res), cfg.w_dim, res))
 
-    def forward(self, ws: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    def forward(self, ws: torch.Tensor, noise: torch.Tensor, update_emas: bool = False) -> torch.Tensor:
         """(N, 3, H, W) float32 images (channels-last) of (N, num_ws, w_dim)
         styles and (N, sum of the layers' res^2) noise, the layers' maps
-        one after the other."""
+        one after the other; ``update_emas`` moves nothing here (the
+        mapping's ``w_avg`` is StyleGAN2's one EMA buffer)."""
         CALLS["synthesis"].add()
         n = ws.shape[0]
         maps, off = [], 0
@@ -266,6 +276,8 @@ class SynthesisNetwork(nn.Module):
 
 
 class Generator(nn.Module):
+    EMA_PHASES = ("g_main", "g_reg", "d_main")  # the G passes that move the EMA buffers: every one
+
     def __init__(self, cfg: Config):
         super().__init__()
         self.mapping = MappingNetwork(cfg)
@@ -338,9 +350,9 @@ class DiscriminatorEpilogue(nn.Module):
 
 
 class Discriminator(nn.Module):
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, calls=CALLS):
         super().__init__()
-        self.dtype = getattr(torch, cfg.compute_dtype)
+        self.dtype, self.calls = getattr(torch, cfg.compute_dtype), calls
         self.res = resolutions(cfg.image_dim)[:0:-1]  # the blocks' resolutions, the top one first
         for res in self.res:
             setattr(self, f"b{res}", DiscriminatorBlock(channels(cfg, res), channels(cfg, res // 2),
@@ -349,7 +361,7 @@ class Discriminator(nn.Module):
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         """(N,) float32 logits of (N, 3, H, W) images."""
-        CALLS["discriminator"].add()
+        self.calls["discriminator"].add()
         x = img.to(self.dtype, memory_format=LAYOUT)
         for res in self.res:
             x = getattr(self, f"b{res}")(x)

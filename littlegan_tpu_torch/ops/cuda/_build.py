@@ -36,7 +36,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("norm_lrelu.cu", "norm_lrelu_bwd.cu", "boundary_conv.cu", "boundary_conv_bwd.cu", "channel_norm_lrelu.cu",
-           "resample.cu", "conv_epilogue.cu", "upfirdn2d.cu", "bias_act.cu")
+           "resample.cu", "conv_epilogue.cu", "upfirdn2d.cu", "bias_act.cu", "filtered_lrelu.cu")
 HEADERS = ("norm_map.cuh", "vec_io.cuh")  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +47,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
+_FP = ctypes.POINTER(ctypes.c_float)
 _L = ctypes.POINTER(ctypes.c_int64)  # a norm kernel's layout: None, or int64 maps (csrc/norm_map.cuh)
 _SIGNATURES = {
     "lg_norm_lrelu": (_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _F, _F, _L, _P),
@@ -77,6 +78,7 @@ _SIGNATURES = {
     "lg_bias_act_bwd2": (
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _F, _F, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
     ),
+    "lg_filtered_lrelu": (_I,) * 6 + (_P,) * 8 + (_I,) * 16 + (_FP, _FP, _F, _F, _F, _F, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -83,6 +83,7 @@ class GraphedUpdates:
         torch.cuda.current_stream(dev).wait_stream(stream)
         del saved
         torch.cuda.synchronize(dev)  # the warm-up's work (collectives included) has finished before the capture
+        torch.cuda.empty_cache()  # the warm-up's freed blocks back to the card: the capture takes a pool of its own
         before = _build.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream):

@@ -16,10 +16,11 @@ its four networks, one ``torch.optim.Adam``-form state per network
 (``opt_g``, ``opt_f``, ``opt_e``, ``opt_d``) and the EMA of G, F and E.
 Each state's ``OPTS`` names its Adams, in the order checkpoints store them.
 
-:class:`StyleGAN2State` is StyleGAN2's (``Config.model = "stylegan2"``):
-G and D, one ``torch.optim.Adam``-form state each (``opt_g``, ``opt_d``),
-the EMA of G's parameters and of its ``w_avg`` buffer, and ``pl_mean``,
-the path-length penalty's running mean.
+:class:`StyleGAN2State` is StyleGAN2's and StyleGAN3's (``Config.model =
+"stylegan2"`` or ``"stylegan3"``): G and D, one ``torch.optim.Adam``-form
+state each (``opt_g``, ``opt_d``), the EMA of G's parameters and of its
+trained buffers (``w_avg``, StyleGAN3's ``magnitude_ema``), and
+``pl_mean``, the path-length penalty's running mean.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 
 from littlegan_tpu_torch.config import Config
-from littlegan_tpu_torch.models import stargan_v2, stylegan2
+from littlegan_tpu_torch.models import stargan_v2, stylegan2, stylegan3
 from littlegan_tpu_torch.models.littlegan import LittleGAN, init_params
 from littlegan_tpu_torch.training.optimizer import AdamState, adam_init
 
@@ -124,6 +125,18 @@ def create_stargan_state(cfg: Config, device=None, model: Optional[stargan_v2.St
     return StarGANState(model=model, ema=ema, **opts)
 
 
+TRAINED_BUFFERS = ("w_avg", "magnitude_ema")  # the buffers an iteration moves, which the EMA copies
+
+
+def trained_buffers(model) -> Dict[str, torch.Tensor]:
+    """G's buffers that an iteration moves, by name: ``w_avg`` (and StyleGAN3's ``magnitude_ema``)."""
+    return {n: b for n, b in model.named_buffers()
+            if n.startswith("G.") and n.rsplit(".", 1)[-1] in TRAINED_BUFFERS}
+
+
+STYLE_GANS = {"stylegan2": (stylegan2, stylegan2.StyleGAN2), "stylegan3": (stylegan3, stylegan3.StyleGAN3)}
+
+
 class StyleGAN2State(NamedTuple):
     OPTS = ("opt_g", "opt_d")
     model: stylegan2.StyleGAN2
@@ -134,16 +147,17 @@ class StyleGAN2State(NamedTuple):
 
 
 def create_stylegan2_state(cfg: Config, device=None, model: Optional[stylegan2.StyleGAN2] = None) -> StyleGAN2State:
-    """A fresh StyleGAN2 state on ``device``: ``model`` if given, else the
-    published init from ``cfg.seed``; zero float32 moments and counts,
+    """A fresh StyleGAN2 (or StyleGAN3) state on ``device``: ``model`` if
+    given, else the published init from ``cfg.seed``; zero float32 moments and counts,
     ``pl_mean`` 0; the EMA a copy of G's weights and ``w_avg``."""
     check_state_config(cfg)
     if cfg.moment_dtype != "float32":
-        raise ValueError("stylegan2 keeps float32 moments (moment_dtype float32), as torch.optim.Adam does")
+        raise ValueError(f"{cfg.model} keeps float32 moments (moment_dtype float32), as torch.optim.Adam does")
     if model is None:
-        model = stylegan2.init_params(stylegan2.StyleGAN2(cfg), cfg.seed)
+        arch, build = STYLE_GANS[cfg.model]
+        model = arch.init_params(build(cfg), cfg.seed)
     model = model.to(device)
     ema = {k: p.detach().clone() for k, p in subtree(model, ("G",)).items()}
-    ema["G.mapping.w_avg"] = model.G.mapping.w_avg.detach().clone()
+    ema.update({k: b.detach().clone() for k, b in trained_buffers(model).items()})
     return StyleGAN2State(model=model, opt_g=adam_init(subtree(model, ("G",))), opt_d=adam_init(subtree(model, ("D",))),
                           pl_mean=torch.zeros((), device=model.G.mapping.w_avg.device), ema=ema)

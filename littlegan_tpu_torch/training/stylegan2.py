@@ -1,5 +1,6 @@
-"""StyleGAN2's training iteration (``training/loss.py::StyleGAN2Loss`` and
-``training/training_loop.py`` of NVlabs/stylegan2-ada-pytorch, lazy
+"""StyleGAN2's and StyleGAN3's training iteration
+(``training/loss.py::StyleGAN2Loss`` and ``training/training_loop.py`` of
+NVlabs/stylegan2-ada-pytorch and of NVlabs/stylegan3, lazy
 regularisation), and K iterations per CUDA-graph replay.
 
 One iteration (:func:`iteration`), from a card-resident uint8 image store,
@@ -7,34 +8,43 @@ runs its phases in order, each that runs taking an Adam step of its
 network:
 
 1. Gmain: ``softplus(-D(G(z)))``, stepping G;
-2. Greg, on iterations ``it % g_reg_interval == 0``, at batch ``B / 2``:
+2. Greg, on iterations ``it % g_reg_interval == 0`` (none where
+   ``g_reg_interval`` or ``pl_weight`` is 0), at batch ``B / 2``:
    ``g = d sum(G(w) * n) / dw`` (n the path-length noise over ``sqrt(H
    W)``, with ``create_graph``), ``len = sqrt(mean_ws sum g^2)``,
    ``pl_mean <- lerp(pl_mean, mean(len), 0.01)`` (with its gradient),
-   loss ``(len - pl_mean)^2 * PL_WEIGHT * g_reg_interval``, stepping G;
+   loss ``(len - pl_mean)^2 * pl_weight * g_reg_interval``, stepping G;
 3. Dmain: ``softplus(D(G(z))) + softplus(-D(x))``, G run without gradient,
    stepping D;
 4. Dreg, on iterations ``it % d_reg_interval == 0``: ``sum (d sum D(x) /
-   dx)^2 * R1_GAMMA / 2 * d_reg_interval``, stepping D;
-5. the EMA of G (``lerp(param, ema, 0.5 ** (B / (EMA_KIMG * 1000)))``),
-   its buffer ``w_avg`` copied.
+   dx)^2 * r1_gamma / 2 * d_reg_interval``, stepping D;
+5. the EMA of G (``lerp(param, ema, 0.5 ** (B / ema_nimg))``, ``ema_nimg``
+   ``ema_kimg * 1000``, with ``ema_rampup`` at most that share of the
+   images seen before the iteration), its trained buffers copied
+   (``w_avg``, and StyleGAN3's ``magnitude_ema``).
 
-Each G pass maps z to w (updating ``w_avg``), broadcasts it to the
-``num_ws`` layers and, with probability ``STYLE_MIXING``, takes the layers
-from a cutoff drawn uniform over ``1 .. num_ws - 1`` from a second z's w:
-a mask by layer index, so that the graph stays static. Each G pass draws
-its own noise maps.
+Each G pass maps z to w, broadcasts it to the ``num_ws`` layers and, with
+probability ``style_mixing``, takes the layers from a cutoff drawn uniform
+over ``1 .. num_ws - 1`` from a second z's w: a mask by layer index, so
+that the graph stays static. StyleGAN2's passes each update ``w_avg`` and
+draw their own noise maps; StyleGAN3's Dmain pass alone updates ``w_avg``
+and the layers' ``magnitude_ema`` (its ``update_emas``), and it draws no
+noise. The configuration's fields carry the settings (paper256's by
+default; StyleGAN3-T's ``g_reg_interval`` 0, ``pl_weight`` 0,
+``style_mixing`` 0, ``r1_gamma`` 8.2, ``ema_kimg`` 10, ``ema_rampup``
+0.05 and D's own ``d_lr``).
 
 The Adams are ``torch.optim.Adam``'s arithmetic
 (``training/optimizer.py::adam_l2_update_rows``, weight decay 0, eps 1e-8)
-with the lazy ratio ``c = interval / (interval + 1)``: lr times c, betas to
-the power c; one Adam a network, its main and regularisation phases
-stepping it alike. A penalty's gradient reaches no ToRGB bias of G (path
+with the lazy ratio ``c = interval / (interval + 1)`` (1 where the interval
+is 0): lr (D's ``d_lr`` where set) times c, betas to the power c; one Adam
+a network, its main and regularisation phases stepping it alike. A penalty's gradient reaches no ToRGB bias of G (path
 length) and no bias of D's 4x4 epilogue (R1): the published losses add
 ``img * 0`` and ``logits * 0`` to the penalty, so those leaves get a zero
 gradient and their Adam steps them (count and second moment) as every
 other leaf. A step's row carries its (step size, sqrt of bias correction
-2) pair (:func:`schedule_rows`); the host advances the counts.
+2) pair and, last, the iteration's EMA beta (:func:`schedule_rows`); the host
+advances the counts.
 
 :func:`make_stylegan2_scan_step` runs K iterations per call through
 ``training/dispatch.py::GraphedUpdates``: one CUDA graph replay on the
@@ -44,15 +54,16 @@ phase pattern: a K of ``d_reg_interval`` = 16 from an iteration that is a
 multiple of 16 replays one graph for every call. An iteration's draws
 (the real ids and x-flips, each pass's z, mixing z, cutoff and noise maps,
 the path-length noise) are made outside the graph (:func:`draw_iteration`)
-and copied in; the schedule rows travel as the graph's (K, 8) float32
+and copied in; the schedule rows travel as the graph's (K, 9) float32
 input.
 
-Spans (``utils/spans.py``, under a profiler only): ``stylegan2.g_main``,
-``.g_reg``, ``.d_main``, ``.d_reg``, each holding ``.<phase>.grad`` (the
-phase's ``autograd.grad``: in a reg phase the penalty's double backward),
-``.pl`` and ``.r1`` (the penalties' first backwards, inside Greg and Dreg)
-and ``.ema``. Counters: the networks' calls (``models/stylegan2.py``) and
-``stylegan2.pl`` / ``stylegan2.r1``.
+Spans (``utils/spans.py``, under a profiler only), under the model's name
+(``stylegan2.`` or ``stylegan3.``): ``.g_main``, ``.g_reg``, ``.d_main``,
+``.d_reg``, each holding ``.<phase>.grad`` (the phase's ``autograd.grad``:
+in a reg phase the penalty's double backward), ``.pl`` and ``.r1`` (the
+penalties' first backwards, inside Greg and Dreg) and ``.ema``. Counters:
+the networks' calls (``models/stylegan2.py``, ``models/stylegan3.py``),
+``stylegan2.pl`` and ``<model>.r1``.
 """
 
 from __future__ import annotations
@@ -65,27 +76,41 @@ import torch
 import torch.nn.functional as F
 
 from littlegan_tpu_torch.config import Config
-from littlegan_tpu_torch.models.stylegan2 import PL_BATCH_SHRINK, check_supported, noise_sizes, num_ws
+from littlegan_tpu_torch.models import stylegan2 as sg2
+from littlegan_tpu_torch.models import stylegan3 as sg3
+from littlegan_tpu_torch.models.stylegan2 import PL_BATCH_SHRINK
 from littlegan_tpu_torch.ops.cuda._build import LaunchCounter
 from littlegan_tpu_torch.ops.gradfix import no_weight_gradients
 from littlegan_tpu_torch.training.dispatch import GraphedUpdates
 from littlegan_tpu_torch.training.optimizer import adam_l2_update_rows, torch_adam_step
-from littlegan_tpu_torch.training.state import StyleGAN2State, subtree
+from littlegan_tpu_torch.training.state import StyleGAN2State, subtree, trained_buffers
 from littlegan_tpu_torch.training.step import state_tensors
 from littlegan_tpu_torch.utils.spans import span
 
+ARCHS = {"stylegan2": sg2, "stylegan3": sg3}  # each module's check_supported, layout and Generator
+MODELS = tuple(ARCHS)
 PL_CALLS = LaunchCounter("stylegan2.pl")
-R1_CALLS = LaunchCounter("stylegan2.r1")
+R1_CALLS = {m: LaunchCounter(f"{m}.r1") for m in MODELS}
 LOSS_KEYS = ("g_main", "pl_penalty", "d_fake", "d_real", "r1_penalty", "pl_mean")
-# paper256's loss and EMA settings (loss.py, train.py), fixed here
-R1_GAMMA = 1.0
-PL_WEIGHT = 2.0
 PL_DECAY = 0.01  # pl_mean's lerp weight
-STYLE_MIXING = 0.9  # the probability of a mixing cutoff in a G pass
-EMA_KIMG = 20.0  # the EMA's half-life in thousands of images
 W_AVG = "G.mapping.w_avg"  # the EMA's key of the mapping's w_avg buffer
 STEPS = (("g_main", "G"), ("g_reg", "G"), ("d_main", "D"), ("d_reg", "D"))  # an iteration's Adam steps in order
-ROW_WIDTH = 2 * len(STEPS)
+ROW_WIDTH = 2 * len(STEPS) + 1  # and the EMA's beta
+
+
+def check_supported(cfg: Config) -> None:
+    if cfg.model not in MODELS:
+        raise ValueError(f"training/stylegan2.py trains {MODELS}, got model {cfg.model!r}")
+    ARCHS[cfg.model].check_supported(cfg)
+
+
+def num_ws(cfg: Config) -> int:
+    return ARCHS[cfg.model].layout(cfg)[0]
+
+
+def noise_size(cfg: Config) -> int:
+    """Noise samples a G pass draws per image (StyleGAN3: none)."""
+    return ARCHS[cfg.model].layout(cfg)[1]
 
 
 class GDraws(NamedTuple):
@@ -106,7 +131,8 @@ class StyleGAN2Draws(NamedTuple):
 
 def runs(cfg: Config, it: int) -> Tuple[bool, bool]:
     """(Greg, Dreg) of iteration ``it`` (from 0)."""
-    return it % cfg.g_reg_interval == 0, it % cfg.d_reg_interval == 0
+    return (cfg.g_reg_interval > 0 and cfg.pl_weight != 0 and it % cfg.g_reg_interval == 0,
+            cfg.r1_gamma != 0 and it % cfg.d_reg_interval == 0)
 
 
 def pattern(cfg: Config, it0: int, n: int) -> Tuple[Tuple[bool, bool], ...]:
@@ -118,14 +144,13 @@ def pl_batch(cfg: Config) -> int:
 
 
 def draw_g(gen: torch.Generator, cfg: Config, n: int, device) -> GDraws:
-    nws = num_ws(cfg.image_dim)
+    nws = num_ws(cfg)
     z = torch.randn((n, cfg.z_dim), generator=gen, device=device)
     z2 = torch.randn((n, cfg.z_dim), generator=gen, device=device)
     cut = torch.randint(1, nws, (), generator=gen, device=device)
-    mix = torch.rand((), generator=gen, device=device) < STYLE_MIXING
+    mix = torch.rand((), generator=gen, device=device) < cfg.style_mixing
     cutoff = torch.where(mix, cut, torch.full_like(cut, nws))
-    size = sum(r * r for r in noise_sizes(cfg.image_dim))
-    noise = torch.randn((n, size), generator=gen, device=device, dtype=getattr(torch, cfg.compute_dtype))
+    noise = torch.randn((n, noise_size(cfg)), generator=gen, device=device, dtype=getattr(torch, cfg.compute_dtype))
     return GDraws(z, z2, cutoff, noise)
 
 
@@ -174,13 +199,14 @@ def lazy(cfg: Config, net: str) -> Tuple[float, float, float]:
     """(lr, beta_1, beta_2) of a network's Adam with the lazy ratio."""
     interval = cfg.g_reg_interval if net == "G" else cfg.d_reg_interval
     c = interval / (interval + 1) if interval > 0 else 1.0
-    return cfg.lr * c, cfg.beta_1 ** c, cfg.beta_2 ** c
+    lr = cfg.d_lr if net == "D" and cfg.d_lr > 0 else cfg.lr
+    return lr * c, cfg.beta_1 ** c, cfg.beta_2 ** c
 
 
 def schedule_rows(state: StyleGAN2State, cfg: Config, iterations: Sequence[int], advance: bool = True) -> np.ndarray:
     """(K, ROW_WIDTH) float32: each iteration's :data:`STEPS` pairs (zeros
-    for a phase that does not run), advancing the host counts (unless
-    ``advance`` is False)."""
+    for a phase that does not run) and its EMA beta, advancing the host
+    counts (unless ``advance`` is False)."""
     saved = None if advance else {opt: dict(getattr(state, opt).count) for opt in state.OPTS}
     rows = []
     for it in iterations:
@@ -190,7 +216,7 @@ def schedule_rows(state: StyleGAN2State, cfg: Config, iterations: Sequence[int],
             on = {"g_reg": g_reg, "d_reg": d_reg}.get(phase, True)
             adam = state.opt_g if net == "G" else state.opt_d
             row += torch_adam_step(adam, *lazy(cfg, net)) if on else [0.0, 0.0]
-        rows.append(row)
+        rows.append(row + [ema_beta(cfg, it)])
     if saved is not None:
         for opt, counts in saved.items():
             getattr(state, opt).count.update(counts)
@@ -200,12 +226,15 @@ def schedule_rows(state: StyleGAN2State, cfg: Config, iterations: Sequence[int],
 # ----------------------------------------------------------------- iteration --
 
 
-def make_ws(model, cfg: Config, d: GDraws) -> torch.Tensor:
-    """(n, num_ws, w_dim) styles of a G pass: w of z (``w_avg`` updated),
-    the layers from the cutoff on from the mixing z's w."""
+def make_ws(model, cfg: Config, d: GDraws, update: bool = True) -> torch.Tensor:
+    """(n, num_ws, w_dim) styles of a G pass: w of z (``w_avg`` updated
+    where ``update``), the layers from the cutoff on from the mixing z's w
+    (no mixing where ``style_mixing`` is 0)."""
     mapping = model.G.mapping
-    w = mapping(d.z, update_w_avg=True)
-    nws = num_ws(cfg.image_dim)
+    w = mapping(d.z, update_w_avg=update)
+    nws = num_ws(cfg)
+    if cfg.style_mixing <= 0:
+        return w[:, None].expand(-1, nws, -1)
     w2 = mapping(d.z2)
     mix = (torch.arange(nws, device=w.device) >= d.cutoff)[None, :, None]
     return torch.where(mix, w2[:, None], w[:, None])
@@ -223,7 +252,7 @@ def _step(state: StyleGAN2State, cfg: Config, loss: torch.Tensor, col: int, row:
     update from ``row``."""
     phase, net = STEPS[col]
     params = subtree(state.model, (net,))
-    with span(f"stylegan2.{phase}.grad"):
+    with span(f"{cfg.model}.{phase}.grad"):
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True, materialize_grads=True)
     _, b1, b2 = lazy(cfg, net)
     adam_l2_update_rows(dict(zip(params, grads)), state.opt_g if net == "G" else state.opt_d, params,
@@ -232,15 +261,17 @@ def _step(state: StyleGAN2State, cfg: Config, loss: torch.Tensor, col: int, row:
 
 def g_main(state: StyleGAN2State, cfg: Config, d: GDraws) -> torch.Tensor:
     model = state.model
-    img = model.G.synthesis(make_ws(model, cfg, d), d.noise)
+    update = "g_main" in model.G.EMA_PHASES
+    img = model.G.synthesis(make_ws(model, cfg, d, update), d.noise, update)
     return F.softplus(-model.D(img)).mean()
 
 
 def path_length(state: StyleGAN2State, cfg: Config, d: GDraws, pl_noise: torch.Tensor):
     """(loss, mean penalty) of Greg; ``state.pl_mean`` moved on."""
     model = state.model
-    ws = make_ws(model, cfg, d)
-    img = model.G.synthesis(ws, d.noise)
+    update = "g_reg" in model.G.EMA_PHASES
+    ws = make_ws(model, cfg, d, update)
+    img = model.G.synthesis(ws, d.noise, update)
     n = pl_noise / math.sqrt(img.shape[2] * img.shape[3])
     PL_CALLS.add()
     with span("stylegan2.pl"), no_weight_gradients():
@@ -250,13 +281,14 @@ def path_length(state: StyleGAN2State, cfg: Config, d: GDraws, pl_noise: torch.T
     penalty = (lengths - pl_mean).square()
     with torch.no_grad():
         state.pl_mean.copy_(pl_mean)
-    return (penalty * PL_WEIGHT).mean() * cfg.g_reg_interval, penalty.mean()
+    return (penalty * cfg.pl_weight).mean() * cfg.g_reg_interval, penalty.mean()
 
 
 def d_main(state: StyleGAN2State, cfg: Config, d: GDraws, x_real: torch.Tensor):
     model = state.model
+    update = "d_main" in model.G.EMA_PHASES
     with torch.no_grad():
-        img = model.G.synthesis(make_ws(model, cfg, d), d.noise)
+        img = model.G.synthesis(make_ws(model, cfg, d, update), d.noise, update)
     fake = F.softplus(model.D(img)).mean()
     real = F.softplus(-model.D(x_real)).mean()
     return fake, real
@@ -266,26 +298,37 @@ def r1(state: StyleGAN2State, cfg: Config, x_real: torch.Tensor):
     """(loss, mean penalty) of Dreg."""
     x = x_real.detach().requires_grad_(True)
     logits = state.model.D(x)
-    R1_CALLS.add()
-    with span("stylegan2.r1"), no_weight_gradients():
+    R1_CALLS[cfg.model].add()
+    with span(f"{cfg.model}.r1"), no_weight_gradients():
         (g,) = torch.autograd.grad(logits.sum(), x, create_graph=True)
     penalty = g.square().sum((1, 2, 3))
-    return (penalty * (R1_GAMMA / 2)).mean() * cfg.d_reg_interval, penalty.mean()
+    return (penalty * (cfg.r1_gamma / 2)).mean() * cfg.d_reg_interval, penalty.mean()
 
 
 @torch.no_grad()
-def update_ema(state: StyleGAN2State, cfg: Config) -> None:
-    with span("stylegan2.ema"):
-        beta = ema_beta(cfg)
+def update_ema(state: StyleGAN2State, cfg: Config, beta_row: torch.Tensor) -> None:
+    """The EMA step: with ``ema_rampup`` the beta of the iteration's row
+    (``beta_row``, on the card), else the constant one; the trained buffers
+    copied."""
+    with span(f"{cfg.model}.ema"):
         params = subtree(state.model, ("G",))
         names = [k for k in state.ema if k in params]
         ema = [state.ema[k] for k in names]
-        torch._foreach_copy_(ema, torch._foreach_lerp([params[k] for k in names], ema, beta))
-        state.ema[W_AVG].copy_(state.model.G.mapping.w_avg)
+        live = [params[k] for k in names]
+        beta = [beta_row] * len(live) if cfg.ema_rampup > 0 else ema_beta(cfg)  # the ramp's beta read on the card
+        torch._foreach_copy_(ema, torch._foreach_lerp(live, ema, beta))
+        for k, b in trained_buffers(state.model).items():
+            state.ema[k].copy_(b)
 
 
-def ema_beta(cfg: Config) -> float:
-    return 0.5 ** (cfg.batch_size / (EMA_KIMG * 1000))
+def ema_beta(cfg: Config, it: Optional[int] = None) -> float:
+    """``0.5 ** (B / ema_nimg)``, ``ema_nimg`` ``ema_kimg * 1000`` and, with
+    ``ema_rampup``, at most that share of the ``it * B`` images seen before
+    iteration ``it``."""
+    nimg = cfg.ema_kimg * 1000
+    if cfg.ema_rampup > 0 and it is not None:
+        nimg = min(nimg, it * cfg.batch_size * cfg.ema_rampup)
+    return 0.5 ** (cfg.batch_size / max(nimg, 1e-8))
 
 
 def iteration(state: StyleGAN2State, images: torch.Tensor, draws: StyleGAN2Draws, row: torch.Tensor,
@@ -296,32 +339,33 @@ def iteration(state: StyleGAN2State, images: torch.Tensor, draws: StyleGAN2Draws
     float32 terms (:data:`LOSS_KEYS`; 0 for a phase that did not run)."""
     zero = torch.zeros((), device=images.device)
     x_real = real_images(images, draws.ids, draws.flips)
-    with span("stylegan2.g_main"):
+    name = cfg.model
+    with span(f"{name}.g_main"):
         loss = g_main(state, cfg, draws.g_main)
         _step(state, cfg, loss, 0, row)
         terms = [loss]
-    with span("stylegan2.g_reg"):
+    with span(f"{name}.g_reg"):
         if reg[0]:
             loss, pen = path_length(state, cfg, draws.g_reg, draws.pl_noise)
             _step(state, cfg, loss, 1, row)
         terms.append(pen if reg[0] else zero)
-    with span("stylegan2.d_main"):
+    with span(f"{name}.d_main"):
         fake, real = d_main(state, cfg, draws.d_main, x_real)
         _step(state, cfg, fake + real, 2, row)
         terms += [fake, real]
-    with span("stylegan2.d_reg"):
+    with span(f"{name}.d_reg"):
         if reg[1]:
             loss, pen = r1(state, cfg, x_real)
             _step(state, cfg, loss, 3, row)
         terms.append(pen if reg[1] else zero)
-    update_ema(state, cfg)
+    update_ema(state, cfg, row[ROW_WIDTH - 1])
     terms.append(state.pl_mean.clone())
     return torch.stack([t.detach().float() for t in terms])
 
 
 def stylegan2_state_tensors(state: StyleGAN2State) -> List[torch.Tensor]:
-    """Every tensor an iteration writes: :func:`state_tensors`' and ``w_avg``, ``pl_mean``."""
-    return state_tensors(state) + [state.model.G.mapping.w_avg, state.pl_mean]
+    """Every tensor an iteration writes: :func:`state_tensors`', the trained buffers and ``pl_mean``."""
+    return state_tensors(state) + list(trained_buffers(state.model).values()) + [state.pl_mean]
 
 
 def make_stylegan2_scan_step(cfg: Config, state: StyleGAN2State, n_steps: int):
@@ -376,7 +420,7 @@ def eager_iterations(state: StyleGAN2State, cfg: Config, images, draws: StyleGAN
 @torch.no_grad()
 def generate(state: StyleGAN2State, cfg: Config, z: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     """(N, 3, H, W) float32 images of the EMA generator from z, without
-    mixing or ``w_avg`` updates (the sample grids)."""
+    mixing or EMA updates (the sample grids); ``noise`` StyleGAN2's maps."""
     model = state.model
     live = {}
     params = dict(model.G.named_parameters())
@@ -385,8 +429,8 @@ def generate(state: StyleGAN2State, cfg: Config, z: torch.Tensor, noise: torch.T
             live[k] = params[k[2:]].detach().clone()
             params[k[2:]].copy_(e)
     try:
-        w = model.G.mapping(z)
-        return model.G.synthesis(w[:, None].expand(-1, num_ws(cfg.image_dim), -1), noise).float()
+        w = model.G.mapping(z)[:, None].expand(-1, num_ws(cfg), -1)
+        return model.G.synthesis(w, noise).float()
     finally:
         for k, v in live.items():
             params[k[2:]].copy_(v)

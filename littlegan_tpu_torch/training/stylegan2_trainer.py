@@ -1,4 +1,5 @@
-"""The host loop that trains StyleGAN2 (``Config.model = "stylegan2"``).
+"""The host loop that trains StyleGAN2 and StyleGAN3 (``Config.model =
+"stylegan2"`` or ``"stylegan3"``).
 
 - result tree and provenance (``config.json``, ``code.tar``), as
   :class:`~littlegan_tpu_torch.training.trainer.Trainer` writes them;
@@ -15,13 +16,13 @@
   a grid of the EMA generator's images of fixed z,
   ``train/gen/<epoch>-<iteration>.jpg``;
 - a checkpoint per epoch (``training/checkpoint.py``, npz: the state's
-  parameters, both Adams and the EMA, with ``pl_mean`` and ``w_avg`` under
-  ``.pl_mean`` and ``.buffers/G/mapping/w_avg``), restored at start with
-  ``restore``.
+  parameters, both Adams and the EMA, with ``pl_mean`` and the trained
+  buffers under ``.pl_mean`` and ``.buffers/<name with / for .>``, e.g.
+  ``.buffers/G/mapping/w_avg``), restored at start with ``restore``.
 
 It runs on the card unless ``device="cpu"`` is given. Refused: what
-``models/stylegan2.py::check_supported`` refuses, and a set-up without
-``device_data``. No mid-epoch interrupt checkpoint: a run resumes at its
+``training/stylegan2.py::check_supported`` refuses (the model's own
+check), and a set-up without ``device_data``. No mid-epoch interrupt checkpoint: a run resumes at its
 last epoch.
 """
 
@@ -35,11 +36,10 @@ import numpy as np
 import torch
 
 from littlegan_tpu_torch.config import Config
-from littlegan_tpu_torch.models.stylegan2 import check_supported, noise_sizes
 from littlegan_tpu_torch.training.checkpoint import Checkpointer, flatten_state
-from littlegan_tpu_torch.training.state import StyleGAN2State, create_stylegan2_state
+from littlegan_tpu_torch.training.state import StyleGAN2State, create_stylegan2_state, trained_buffers
 from littlegan_tpu_torch.training.stylegan2 import (
-    LOSS_KEYS, draw_iteration, generate, make_stylegan2_scan_step, stack_draws,
+    LOSS_KEYS, check_supported, draw_iteration, generate, make_stylegan2_scan_step, noise_size, stack_draws,
 )
 from littlegan_tpu_torch.utils.device import resolve_device
 from littlegan_tpu_torch.utils.image import save_image
@@ -48,14 +48,13 @@ from littlegan_tpu_torch.utils.tensorboard import SummaryWriter
 
 FLUSH_EVERY = 16
 GRID = 16
-EXTRA = (".pl_mean", ".buffers/G/mapping/w_avg")
 
 
 class StyleGAN2Trainer:
     def __init__(self, cfg: Config, dataset, device=None):
         check_supported(cfg)
         if not cfg.device_data:
-            raise ValueError("model stylegan2 trains from the card-resident store: set device_data true")
+            raise ValueError(f"model {cfg.model} trains from the card-resident store: set device_data true")
         self.cfg, self.dataset = cfg, dataset
         self.device = resolve_device(device)
         init_result_dirs(cfg)
@@ -68,7 +67,7 @@ class StyleGAN2Trainer:
             if restored is not None:
                 flat = self.checkpointer.restore_flat(self.checkpointer.latest_tag())
                 with torch.no_grad():
-                    for key, t in zip(EXTRA, self._extra()):
+                    for key, t in self._extra().items():
                         t.copy_(torch.as_tensor(flat[key]))
                 print("Restored checkpoint", self.checkpointer.latest_tag())
         self.global_epoch = int(status.get("epoch", 1))
@@ -78,8 +77,11 @@ class StyleGAN2Trainer:
         self._writer = SummaryWriter(os.path.join(cfg.result_dir, "log"))
         self._buffer: List = []  # (first iteration, (K, 6) terms on the card) per call
 
-    def _extra(self):
-        return self.state.pl_mean, self.state.model.G.mapping.w_avg
+    def _extra(self) -> Dict[str, torch.Tensor]:
+        """The checkpoint's keys of ``pl_mean`` and the trained buffers."""
+        out = {".pl_mean": self.state.pl_mean}
+        out.update({".buffers/" + k.replace(".", "/"): b for k, b in trained_buffers(self.state.model).items()})
+        return out
 
     def _step(self, k: int):
         if k not in self._steps:
@@ -101,8 +103,7 @@ class StyleGAN2Trainer:
             raise ValueError(f"the set has {len(images_np)} images, fewer than batch_size {cfg.batch_size}")
         gen = torch.Generator().manual_seed(cfg.seed)
         fixture_z = torch.randn((GRID, cfg.z_dim), generator=gen).to(self.device)
-        fixture_noise = torch.randn((GRID, sum(r * r for r in noise_sizes(cfg.image_dim))), generator=gen).to(
-            self.device)
+        fixture_noise = torch.randn((GRID, noise_size(cfg)), generator=gen).to(self.device)
         k = max(1, cfg.steps_per_dispatch)
         for epoch in range(self.global_epoch, cfg.epoch + 1):
             print(f"Experiment: {cfg.exp_name} Epoch: {epoch} starting...")
@@ -122,7 +123,7 @@ class StyleGAN2Trainer:
             print(f"Time usage: {elapsed:.1f}s  ({2 * cfg.batch_size * done / max(elapsed, 1e-9):.1f} images/s)")
             if cfg.ckpt_every <= 1 or epoch % cfg.ckpt_every == 0 or epoch == cfg.epoch:
                 flat = flatten_state(self.state)
-                flat.update({key: t.detach().cpu().numpy() for key, t in zip(EXTRA, self._extra())})
+                flat.update({key: t.detach().cpu().numpy() for key, t in self._extra().items()})
                 self.checkpointer.save_flat(str(epoch), flat, {"epoch": epoch + 1, "step": self.iteration})
         self._writer.flush()
 

@@ -56,8 +56,8 @@ or the prefetcher's next batches, one-update path), ``draws``, ``flush``
 It runs on the card unless ``device="cpu"`` is given; without a card and
 without that argument it raises. It trains LittleGAN: :func:`make_trainer`
 gives StarGAN v2's configs (``model = "stargan_v2"``) their own trainer,
-``training/stargan_v2_trainer.py``, and StyleGAN2's (``"stylegan2"``)
-``training/stylegan2_trainer.py``. Refused (``ValueError``): the meshes,
+``training/stargan_v2_trainer.py``, and StyleGAN2's and StyleGAN3's
+(``"stylegan2"``, ``"stylegan3"``) ``training/stylegan2_trainer.py``. Refused (``ValueError``): the meshes,
 ``shard_opt_state`` and ``shard_dense`` settings the JAX trainer refuses
 (:func:`check_trainer_supported`).
 
@@ -155,7 +155,7 @@ def check_trainer_supported(cfg: Config, dp: Optional[DataGroup] = None) -> None
     split ``batch_size`` and the model ranks ``image_dim``."""
     if cfg.model != "littlegan":
         raise ValueError(f"Trainer trains LittleGAN; model {cfg.model!r} trains with make_trainer's choice "
-                         "(stargan_v2: training/stargan_v2_trainer.py, stylegan2: "
+                         "(stargan_v2: training/stargan_v2_trainer.py, stylegan2 and stylegan3: "
                          "training/stylegan2_trainer.py)")
     world = 1 if dp is None else dp.world
     check_mesh(cfg.mesh_axes, cfg.mesh_shape, world)
@@ -353,14 +353,14 @@ def step_seed(seed: int, global_step: int, micro: Optional[int] = None) -> int:
     return int(np.random.SeedSequence(entropy).generate_state(1)[0])
 
 
-MODELS = ("littlegan", "stargan_v2", "stylegan2")
+MODELS = ("littlegan", "stargan_v2", "stylegan2", "stylegan3")
 
 
 def make_trainer(cfg: Config, dataset, device=None, group: Optional[DataGroup] = None):
     """The trainer of ``cfg.model``: :class:`Trainer` for LittleGAN,
     ``StarGANTrainer`` (``training/stargan_v2_trainer.py``, one process,
     no group) for StarGAN v2, ``StyleGAN2Trainer``
-    (``training/stylegan2_trainer.py``, the same) for StyleGAN2."""
+    (``training/stylegan2_trainer.py``, the same) for StyleGAN2 and StyleGAN3."""
     if cfg.model not in MODELS:
         raise ValueError(f"model must be one of {MODELS}, got {cfg.model!r}")
     if cfg.model == "stargan_v2":
@@ -369,9 +369,9 @@ def make_trainer(cfg: Config, dataset, device=None, group: Optional[DataGroup] =
         from littlegan_tpu_torch.training.stargan_v2_trainer import StarGANTrainer
 
         return StarGANTrainer(cfg, dataset, device=device)
-    if cfg.model == "stylegan2":
+    if cfg.model in ("stylegan2", "stylegan3"):
         if group is not None:
-            raise ValueError("model stylegan2 trains on one card: start it without torchrun")
+            raise ValueError(f"model {cfg.model} trains on one card: start it without torchrun")
         from littlegan_tpu_torch.training.stylegan2_trainer import StyleGAN2Trainer
 
         return StyleGAN2Trainer(cfg, dataset, device=device)

@@ -46,17 +46,13 @@ if ROOT not in sys.path:
 from benchmark.reference import stylegan2 as ref  # noqa: E402
 from benchmark.roofline import stylegan2 as roof  # noqa: E402
 
-TINY = dict(image_dim=16, batch_size=4, channel_base=64, channel_max=16, z_dim=8, w_dim=8, mapping_layers=2,
-            mbstd_group=2, lr=0.0025, beta_1=0.0, beta_2=0.99, g_reg_interval=4, d_reg_interval=16)
 TINY_EMA_KIMG = 0.01  # an EMA that moves visibly over 16 iterations at batch 4
-HYPER = {**TINY, "ema_kimg": TINY_EMA_KIMG}  # the reference's
+TINY = dict(image_dim=16, batch_size=4, channel_base=64, channel_max=16, z_dim=8, w_dim=8, mapping_layers=2,
+            mbstd_group=2, lr=0.0025, beta_1=0.0, beta_2=0.99, g_reg_interval=4, d_reg_interval=16,
+            ema_kimg=TINY_EMA_KIMG)
+HYPER = TINY  # the reference's
 N_STORE = 12
 CL = torch.channels_last
-
-
-@pytest.fixture(autouse=True)
-def tiny_ema(monkeypatch):
-    monkeypatch.setattr(ts, "EMA_KIMG", TINY_EMA_KIMG)
 
 
 def tiny_cfg(**kw) -> Config:
